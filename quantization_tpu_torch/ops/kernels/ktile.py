@@ -1,0 +1,82 @@
+"""Top-k selection constants and the candidate merges that run outside the
+search kernels.
+
+Twin of ``quantization_tpu/ops/pallas/ktile.py``. The fused search kernels
+(``sq_kernel.py``) never write the [Q, N] score matrix: they reduce it to
+per-block candidates, and the merges here select the final top-k from those
+candidates with ``torch.topk`` — outside the kernel, as the JAX package
+merges with ``lax.top_k`` outside Pallas.
+
+Exact mode needs no spill bound and no fallback: each kernel block returns
+the exact top-min(k, rows) of its corpus split, so the union of the blocks'
+candidates holds the exact top-k by construction.
+
+Approx mode keeps the JAX candidate geometry (one max per 128-wide stride
+class over SPAN consecutive tiles). Its final merge is exact here, where the
+JAX package uses ``approx_max_k``, so the port's recall is never lower.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+# Score of a masked (padding) row and of an empty candidate slot.
+NEG = -3.4e38
+
+# Stride-class count of the approx extraction (one candidate slot per class).
+SLOT = 128
+
+# Exact fused search cap: the JAX contract (models/sq.py:362-365).
+FUSED_K_MAX = 1024
+
+# Approx fused search cap: bounded by the merge width, not the tile.
+APPROX_K_MAX = 4096
+
+# Corpus tiles max-merged into one [Q, SLOT] approx candidate block.
+SPAN = 4
+
+
+def merge_candidates(
+    vals: torch.Tensor, ids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over candidate pools vals/ids [Q, W]; slots beyond the
+    pool width hold NEG / -1 (ktile.py:272-274 of the JAX package)."""
+    kk = min(k, vals.shape[1])
+    s, pos = torch.topk(vals, kk, dim=1)
+    gi = torch.gather(ids, 1, pos)
+    if kk < k:
+        q = vals.shape[0]
+        s = torch.cat([s, s.new_full((q, k - kk), NEG)], dim=1)
+        gi = torch.cat([gi, gi.new_full((q, k - kk), -1)], dim=1)
+    return s, gi
+
+
+def approx_candidates(
+    scores: torch.Tensor, tile_n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the approx extraction (``extract_approx_tile`` +
+    ``combine_slots`` of the JAX package, ktile.py:392-435).
+
+    scores f32[Q, Npad], rows >= n_valid already NEG, Npad % tile_n == 0.
+    Returns (vals f32, ids i32), each [Q, ceil(nt/SPAN) * SLOT]: slot l of
+    block b holds the max over rows {b*SPAN*tile_n + m*SLOT + l} of the
+    block, the smallest row winning ties — the order in which the Pallas
+    kernel's strict ``>`` compares meet them."""
+    q, npad = scores.shape
+    block = SPAN * tile_n
+    nb = -(-npad // block)
+    pad = nb * block - npad
+    if pad:
+        # Padding loses every comparison against a real (or NEG) score.
+        scores = torch.cat(
+            [scores, scores.new_full((q, pad), float("-inf"))], dim=1
+        )
+    members = scores.reshape(q, nb, block // SLOT, SLOT)
+    win = torch.argmax(members, dim=2)  # first maximum: smallest row
+    vals = torch.gather(members, 2, win[:, :, None]).squeeze(2)
+    base = torch.arange(nb, device=scores.device)[None, :, None] * block
+    lane = torch.arange(SLOT, device=scores.device)[None, None, :]
+    ids = base + win * SLOT + lane
+    return vals.reshape(q, nb * SLOT), ids.reshape(q, nb * SLOT).to(torch.int32)
