@@ -51,6 +51,13 @@ def iter_batches(
             yield arr[start : start + batch_size]
 
 
+def as_ids(ids, device, dtype=torch.int64) -> torch.Tensor:
+    """Point ids (a tensor, array or list) as a ``dtype`` tensor on ``device``."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(ids), dtype=dtype).to(device)
+
+
 def validate_vector_parameters(data: DataLike, params: VectorParameters) -> None:
     """Check every batch's dim and the total count
     (reference validate_vector_parameters, encoded_vectors.rs:47-70).

@@ -8,7 +8,8 @@
 //                              _make_dot_topk_kernel (sq_kernel.py:353, :139)
 //
 // All three compute, for query q and corpus row n,
-//     score = (mult[q] * dot(qcodes[q], codes[n]) + qoff[q]) + voff[n]
+//     score = (mult[q * mstride] * dot(qcodes[q], codes[n]) + qoff[q]) + voff[n]
+// (mstride 0: one multiplier for every query; 1: one each)
 // with an exact int32 dot of int8 codes in [0, 127] (127*127*D < 2^31 for any
 // D below 133,000). The epilogue rounds each step on its own (__fmul_rn /
 // __fadd_rn, and the library is built with -fmad=false), so kernel scores
@@ -30,12 +31,17 @@
 //     shared-memory loads;
 //   * the fused searches never write the [Q, N] score matrix: K1 selects the
 //     exact top-k of each 512-row split inside the block (radix select in
-//     shared memory), K2 keeps one running maximum per stride class in
-//     registers, and only candidates reach device memory.
+//     shared memory, ktile.cuh), K2 keeps one running maximum per stride
+//     class in registers, and only candidates reach device memory.
 // The tensor cores (wgmma int8, ~2 POPS) and TMA pipelining are later work.
+//
+// The C functions below are the K1-K3 entry points. qtt_error_string, shared
+// by every kernel source of the library, is defined here too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ktile.cuh"
 
 namespace {
 
@@ -45,22 +51,9 @@ constexpr int kSeg = 128;                 // corpus rows per segment: 4 per lane
 constexpr int kDK = 128;                  // bytes of D per staged chunk
 constexpr int kDKP = kDK + 16;            // padded shared-memory row stride
 constexpr int kStageBytes = (kSeg + kTQ) * kDKP;
-constexpr int kSlot = 128;                // K2 stride classes per block
-constexpr float kNeg = -3.4e38f;          // ktile.NEG
 
 __device__ __forceinline__ float epilogue(float m, int acc, float qo, float vo) {
   return __fadd_rn(__fadd_rn(__fmul_rn(m, __int2float_rn(acc)), qo), vo);
-}
-
-// Order-preserving map f32 -> u32: a > b as floats iff key(a) > key(b).
-__device__ __forceinline__ unsigned float_to_key(float f) {
-  unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_to_float(unsigned k) {
-  unsigned u = (k & 0x80000000u) ? (k ^ 0x80000000u) : ~k;
-  return __uint_as_float(u);
 }
 
 __device__ __forceinline__ int dot4(const int4& a, const int4& b, int c) {
@@ -122,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) sq_scores_kernel(
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const int8_t* __restrict__ codes,
     const float* __restrict__ voff, float* __restrict__ out, int Q,
-    int n_valid, int D) {
+    int n_valid, int D, int mstride) {
   __shared__ __align__(16) int8_t stage[kStageBytes];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.y * kTQ;
@@ -133,7 +126,7 @@ __global__ void __launch_bounds__(kThreads) sq_scores_kernel(
   for (int j = 0; j < 4; ++j) {
     const int q = q0 + warp * 4 + j;
     if (q >= Q) continue;
-    const float m = mult[q], qo = qoff[q];
+    const float m = mult[q * mstride], qo = qoff[q];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const long long row = row0 + lane + 32 * i;
@@ -155,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
     const float* __restrict__ mult, const int8_t* __restrict__ codes,
     const float* __restrict__ voff, float* __restrict__ cand_v,
     int* __restrict__ cand_i, int Q, int npad, int n_valid, int D, int split,
-    int kk) {
+    int kk, int mstride) {
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* cs = smem;
   int8_t* qs = smem + kSeg * kDKP;
@@ -171,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = min(q0 + warp * 4 + j, Q - 1);  // rows >= Q are never read
-      const float m = mult[q], qo = qoff[q];
+      const float m = mult[q * mstride], qo = qoff[q];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int e = off + lane + 32 * i;
@@ -185,96 +178,13 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
 
   const long long valid = (long long)n_valid - start;
   const int cnt = (int)(valid < 0 ? 0 : (valid < split ? valid : split));
-  const int take = min(kk, cnt);
   const long long width = (long long)gridDim.x * kk;
-  unsigned* hist = hist_all + warp * 256;
-  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
-
   for (int j = 0; j < 4; ++j) {
     const int q = q0 + warp * 4 + j;
     if (q >= Q) break;
-    const unsigned* kq = keys + (warp * 4 + j) * split;
-    float* ov = cand_v + (long long)q * width + (long long)blockIdx.x * kk;
-    int* oi = cand_i + (long long)q * width + (long long)blockIdx.x * kk;
-    for (int s = take + lane; s < kk; s += 32) {
-      ov[s] = kNeg;
-      oi[s] = -1;
-    }
-    if (take == 0) continue;
-
-    // Radix select, most significant byte first: thr = the take-th largest
-    // key; remaining = how many elements equal to thr belong to the top-take.
-    unsigned prefix = 0, mask = 0;
-    int remaining = take;
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int b = lane; b < 256; b += 32) hist[b] = 0;
-      __syncwarp();
-      for (int e = lane; e < cnt; e += 32) {
-        const unsigned key = kq[e];
-        if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
-      }
-      __syncwarp();
-      // Lane l owns bins 255-8l .. 248-8l, scanned from the top down.
-      int local[8], sum = 0;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        local[t] = (int)hist[255 - 8 * lane - t];
-        sum += local[t];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(full, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const int excl = incl - sum;
-      const bool mine = excl < remaining && remaining <= incl;
-      const int src = __ffs(__ballot_sync(full, mine)) - 1;
-      int digit = 0, rem = 0;
-      if (mine) {
-        int cum = excl;
-        bool found = false;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          if (!found && cum + local[t] >= remaining) {
-            digit = 255 - 8 * lane - t;
-            rem = remaining - cum;
-            found = true;
-          }
-          cum += local[t];
-        }
-      }
-      digit = __shfl_sync(full, digit, src);
-      rem = __shfl_sync(full, rem, src);
-      prefix |= (unsigned)digit << shift;
-      mask |= 255u << shift;
-      remaining = rem;
-      __syncwarp();
-    }
-    const unsigned thr = prefix;
-    const int n_gt = take - remaining;
-
-    // Compaction in row order: every key > thr, then the first `remaining`
-    // keys == thr.
-    int gt_pos = 0, eq_pos = 0;
-    for (int base = 0; base < cnt; base += 32) {
-      const int e = base + lane;
-      const unsigned key = e < cnt ? kq[e] : 0u;
-      const bool gt = e < cnt && key > thr, eq = e < cnt && key == thr;
-      const unsigned bg = __ballot_sync(full, gt), be = __ballot_sync(full, eq);
-      int slot = -1;
-      if (gt) slot = gt_pos + __popc(bg & lt);
-      if (eq) {
-        const int r = eq_pos + __popc(be & lt);
-        if (r < remaining) slot = n_gt + r;
-      }
-      if (slot >= 0) {
-        ov[slot] = key_to_float(key);
-        oi[slot] = (int)(start + e);
-      }
-      gt_pos += __popc(bg);
-      eq_pos += __popc(be);
-    }
+    const long long o = (long long)q * width + (long long)blockIdx.x * kk;
+    warp_select_topk(keys + (warp * 4 + j) * split, cnt, kk, start, cand_v + o,
+                     cand_i + o, hist_all + warp * 256);
   }
 }
 
@@ -288,7 +198,8 @@ __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const int8_t* __restrict__ codes,
     const float* __restrict__ voff, float* __restrict__ part_v,
-    int* __restrict__ part_i, int Q, int npad, int n_valid, int D, int part) {
+    int* __restrict__ part_i, int Q, int npad, int n_valid, int D, int part,
+    int mstride) {
   __shared__ __align__(16) int8_t stage[kStageBytes];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.y * kTQ;
@@ -308,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = min(q0 + warp * 4 + j, Q - 1);
-      const float m = mult[q], qo = qoff[q];
+      const float m = mult[q * mstride], qo = qoff[q];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const long long row = start + off + lane + 32 * i;
@@ -334,33 +245,6 @@ __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
   }
 }
 
-// Pass 2, one thread per output slot: slot (q, b, l) = first maximum over the
-// parts of span block b (parts b*ppb .. b*ppb+ppb-1, in row order).
-// out_v / out_i: [Q, nblocks*128].
-__global__ void sq_approx_combine_kernel(
-    const float* __restrict__ part_v, const int* __restrict__ part_i,
-    float* __restrict__ out_v, int* __restrict__ out_i, int Q, int nparts,
-    int ppb, int nblocks) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per_q = (long long)nblocks * kSlot;
-  if (t >= (long long)Q * per_q) return;
-  const int q = (int)(t / per_q), c = (int)(t % per_q);
-  const int b = c / kSlot, l = c % kSlot;
-  const int p_end = min((b + 1) * ppb, nparts);
-  const long long row = (long long)q * nparts * kSlot;
-  float best = part_v[row + (long long)b * ppb * kSlot + l];
-  int arg = part_i[row + (long long)b * ppb * kSlot + l];
-  for (int p = b * ppb + 1; p < p_end; ++p) {
-    const float v = part_v[row + (long long)p * kSlot + l];
-    if (v > best) {
-      best = v;
-      arg = part_i[row + (long long)p * kSlot + l];
-    }
-  }
-  out_v[t] = best;
-  out_i[t] = arg;
-}
-
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -377,19 +261,20 @@ const char* qtt_error_string(int err) {
 
 int qtt_sq_scores(const void* qcodes, const void* qoff, const void* mult,
                   const void* codes, const void* voff, void* out, int Q,
-                  int n_valid, int D, void* stream) {
+                  int n_valid, int D, int mstride, void* stream) {
   const dim3 grid((n_valid + kSeg - 1) / kSeg, (Q + kTQ - 1) / kTQ);
   sq_scores_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(voff), static_cast<float*>(out), Q, n_valid, D);
+      static_cast<const float*>(voff), static_cast<float*>(out), Q, n_valid, D,
+      mstride);
   return static_cast<int>(cudaGetLastError());
 }
 
 int qtt_sq_search_exact(const void* qcodes, const void* qoff, const void* mult,
                         const void* codes, const void* voff, void* cand_v,
                         void* cand_i, int Q, int npad, int n_valid, int D,
-                        int split, int kk, void* stream) {
+                        int split, int kk, int mstride, void* stream) {
   const size_t smem = kStageBytes + sizeof(unsigned) * ((size_t)kTQ * split + 8 * 256);
   cudaError_t err = cudaFuncSetAttribute(
       sq_search_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -399,14 +284,15 @@ int qtt_sq_search_exact(const void* qcodes, const void* qoff, const void* mult,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const int8_t*>(codes),
       static_cast<const float*>(voff), static_cast<float*>(cand_v),
-      static_cast<int*>(cand_i), Q, npad, n_valid, D, split, kk);
+      static_cast<int*>(cand_i), Q, npad, n_valid, D, split, kk, mstride);
   return static_cast<int>(cudaGetLastError());
 }
 
 int qtt_sq_search_approx(const void* qcodes, const void* qoff, const void* mult,
                          const void* codes, const void* voff, void* part_v,
                          void* part_i, void* out_v, void* out_i, int Q, int npad,
-                         int n_valid, int D, int part, int span_rows, void* stream) {
+                         int n_valid, int D, int part, int span_rows, int mstride,
+                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nparts = (npad + part - 1) / part;
   const dim3 grid(nparts, (Q + kTQ - 1) / kTQ);
@@ -414,16 +300,13 @@ int qtt_sq_search_approx(const void* qcodes, const void* qoff, const void* mult,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const int8_t*>(codes),
       static_cast<const float*>(voff), static_cast<float*>(part_v),
-      static_cast<int*>(part_i), Q, npad, n_valid, D, part);
+      static_cast<int*>(part_i), Q, npad, n_valid, D, part, mstride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ppb = span_rows / part;
-  const int nblocks = (nparts + ppb - 1) / ppb;
-  const long long total = (long long)Q * nblocks * kSlot;
-  sq_approx_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  return static_cast<int>(launch_approx_combine(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), Q, nparts, ppb, nblocks);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(out_v), static_cast<int*>(out_i), Q, nparts,
+      span_rows / part, s));
 }
 
 }  // extern "C"

@@ -17,7 +17,10 @@ Scoring math (parity with encoded_vectors_u8.rs:145-158,386-453):
 
 DOT and L2 scores and searches go through the hand-written kernels on a CUDA
 device (``ops/kernels/sq_kernel.py``); L1, which has no kernel yet, takes the
-plain path on every device, as its JAX twin routes L1 to XLA.
+plain path on every device, as its JAX twin routes L1 to XLA. Candidate
+rescoring (``score_candidates``, the fine stage of two-stage retrieval) goes
+through the K4 kernel (``ops/kernels/gather.py``) for every metric. Data is
+placed on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..core.interface import (
     DataLike,
     EncodedVectors,
+    as_ids,
     iter_batches,
     validate_vector_parameters,
 )
@@ -45,7 +49,8 @@ from ..core.types import (
     check_stop,
 )
 from ..ops import sq as sq_ops
-from ..ops.kernels import sq_kernel
+from ..ops.dispatch import resolve_device
+from ..ops.kernels import gather, sq_kernel
 from ..ops.kernels.ktile import APPROX_K_MAX, FUSED_K_MAX
 from ..ops.quantile import (
     QUANTILE_SAMPLE_SIZE,
@@ -103,10 +108,6 @@ class EncodedQueryU8:
 
 def _lane_pad(n: int) -> int:
     return n + (-n) % sq_ops.LANE
-
-
-def _as_ids(ids, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(device)
 
 
 def calibrate_sq(
@@ -167,9 +168,9 @@ class ScalarQuantizerU8(EncodedVectors):
 
         Two passes over ``data`` (which may be a re-iterable batch stream):
         pass 1 scans min/max (+ optional quantile sample) on the host, pass 2
-        quantizes batch by batch on ``device`` (default CPU) with a
-        cancellation check between batches."""
-        device = torch.device("cpu") if device is None else torch.device(device)
+        quantizes batch by batch on ``device`` (default: the CUDA card) with
+        a cancellation check between batches."""
+        device = resolve_device(device)
         if not callable(data):
             validate_vector_parameters(data, params)
         actual = sq_ops.actual_dim(params.dim)
@@ -304,7 +305,7 @@ class ScalarQuantizerU8(EncodedVectors):
         return super().top_k_device(equery, k, method=method)
 
     def score_points(self, equery: EncodedQueryU8, ids) -> torch.Tensor:
-        ids = _as_ids(ids, self.device)
+        ids = as_ids(ids, self.device)
         return sq_ops.score_batch(
             equery.codes,
             equery.offsets,
@@ -315,16 +316,19 @@ class ScalarQuantizerU8(EncodedVectors):
         )
 
     def score_candidates(self, equery: EncodedQueryU8, cand) -> torch.Tensor:
-        """[Q, R] scores of per-query candidate ids (plain gather; the
-        gather kernel is not ported yet)."""
-        return sq_ops.score_candidates(
+        """[Q, R] scores of per-query candidate ids, the fine stage of
+        two-stage retrieval: the K4 rescoring kernel on a CUDA device (no
+        [Q, R, D] gather is written), the plain gather on the CPU. An id
+        outside [0, count) (a coarse stage's padding) scores -inf on both."""
+        return gather.sq_score_candidates(
             equery.codes,
             equery.offsets,
             self.codes,
             self.voffsets,
-            _as_ids(cand, self.device),
+            as_ids(cand, self.device, torch.int32),
             self._mult,
             distance_type=self.params.distance_type,
+            n_valid=self.count,
         )
 
     def _internal_diff(self) -> float:
@@ -333,8 +337,8 @@ class ScalarQuantizerU8(EncodedVectors):
         return -diff if self.params.invert else diff
 
     def score_internal_batch(self, ids_a, ids_b) -> torch.Tensor:
-        ids_a = _as_ids(ids_a, self.device)
-        ids_b = _as_ids(ids_b, self.device)
+        ids_a = as_ids(ids_a, self.device)
+        ids_b = as_ids(ids_b, self.device)
         return sq_ops.score_internal_batch(
             self.codes[ids_a],
             self.voffsets[ids_a],
@@ -374,8 +378,9 @@ class ScalarQuantizerU8(EncodedVectors):
     def load(
         cls, data_path, meta_path, params: VectorParameters, device=None
     ) -> "ScalarQuantizerU8":
-        """Load onto ``device`` (default CPU); metadata is authoritative for
-        semantics, ``params`` for sizing (the reference's asymmetry)."""
+        """Load onto ``device`` (default: the CUDA card); metadata is
+        authoritative for semantics, ``params`` for sizing (the reference's
+        asymmetry)."""
         try:
             with open(meta_path) as f:
                 meta = SQMetadata.from_json(json.load(f))
@@ -394,7 +399,7 @@ class ScalarQuantizerU8(EncodedVectors):
         lane = _lane_pad(meta.actual_dim)
         if lane > meta.actual_dim:
             codes = np.pad(codes, ((0, 0), (0, lane - meta.actual_dim)))
-        device = torch.device("cpu") if device is None else torch.device(device)
+        device = resolve_device(device)
         return cls(
             torch.from_numpy(np.ascontiguousarray(codes)).to(device),
             torch.from_numpy(np.ascontiguousarray(voff)).to(device),

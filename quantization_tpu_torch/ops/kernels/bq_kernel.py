@@ -1,0 +1,217 @@
+"""BQ scoring and fused search: wrappers of the hand-written CUDA kernels,
+each beside its plain PyTorch version.
+
+Twin of ``quantization_tpu/ops/pallas/bq_kernel.py``. The kernels live in
+``quantization_tpu_torch/csrc/bq_kernels.cu``:
+
+  * K6  ``bq_scores``          — the [Q, n_valid] f32 score matrix (the JAX
+    package's ``bq_scores_mxu`` and ``bq_scores_pallas`` compute the same
+    function for two TPU units; one kernel here stands for both);
+  * K5c ``bq_search`` exact    — scores fused with an exact per-split top-k;
+  * K5a ``bq_search`` approx   — scores fused with the stride-class maxima
+    of the JAX approx kernel, over spans of ``SPAN * mxu_tile_n`` rows.
+
+Operands: query words int32 [Q, W8] and corpus planes int32 [W8, Npad]
+holding uint32 bits (``ops/bq.py``), Npad a multiple of ``TILE_N``, W8 of
+``W_ALIGN``. Scores are exact integers, so the kernels equal the plain
+versions to the bit and exact top-k values compare with ``==``.
+
+Each wrapper takes the plain version for a CPU tensor. For a CUDA tensor it
+checks device, dtype, shape and contiguity, allocates its outputs, launches
+on the current stream without synchronising, counts the launch in
+``LAUNCHES``, and raises on any error — it never falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.types import ArgumentsError, DistanceType
+from .. import bq as bq_ops
+from ..dispatch import use_kernels
+from .build import check, load_library
+from .ktile import (
+    NEG,
+    SPAN,
+    approx_candidates,
+    check_search,
+    check_tensors,
+    merge_candidates,
+    merge_exact,
+)
+
+# Corpus rows are padded to a multiple of this by the quantizer (the JAX
+# package's TILE_N, bq_kernel.py:50).
+TILE_N = 2048
+# Plane words are padded to a multiple of this (the 8-sublane tile).
+W_ALIGN = 8
+# Corpus rows per K5c block (csrc: one split of shared-memory keys).
+EXACT_SPLIT = 512
+# Corpus rows per K5a pass-1 block; divides every approx span.
+APPROX_PART = 2048
+# True words per query the kernels hold in shared memory (dim <= 32768).
+MAX_WORDS = 1024
+# Narrowest approx tile of the JAX package (its MXU_TILE_N); see mxu_tile_n.
+MXU_TILE_N = 512
+
+#: Kernel launches per wrapper since the last reset (plain runs not counted).
+LAUNCHES = {"bq_scores": 0, "bq_search_exact": 0, "bq_search_approx": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def mxu_tile_n(dp: int, n: int) -> int:
+    """The JAX approx tile width (``_mxu_tile_n``, bq_kernel.py:80-88): 512
+    widened to 2048 while it divides the padded corpus and the TPU unpack
+    temporaries (5 * dp * tile bytes) stay within 8 MB. At dim 1536 it is
+    1024, so an approx span is 4096 rows."""
+    tn = MXU_TILE_N
+    while tn * 2 <= 2048 and n % (tn * 2) == 0 and 5 * dp * tn * 2 <= 8 * 2**20:
+        tn *= 2
+    return tn
+
+
+def metric_sign(distance_type: DistanceType, invert: bool) -> int:
+    """score = sign * (dim - 2 * xor): +1 for DOT or inverted L1/L2."""
+    return 1 if (distance_type == DistanceType.DOT) != invert else -1
+
+
+def true_words(dim: int) -> int:
+    return -(-dim // 32)
+
+
+def _check_operands(qwords, planes, dim, n_valid):
+    q, w8 = qwords.shape
+    npad = planes.shape[1]
+    check_tensors(planes.device, (
+        ("qwords", qwords, torch.int32, (q, w8)),
+        ("planes", planes, torch.int32, (w8, npad)),
+    ))
+    if npad % TILE_N or w8 % W_ALIGN:
+        raise ArgumentsError(
+            f"planes [{w8}, {npad}] must be padded to [{W_ALIGN}k, {TILE_N}k]"
+        )
+    if not 1 <= true_words(dim) <= min(w8, MAX_WORDS):
+        raise ArgumentsError(f"dim={dim} needs 1..{min(w8, MAX_WORDS)} words")
+    if not 0 <= n_valid <= npad:
+        raise ArgumentsError(f"n_valid={n_valid} outside [0, {npad}]")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------------------------------------------------ K6
+
+
+def bq_scores_plain(qwords, planes, *, distance_type, invert, dim, n_valid):
+    """Plain version of K6: [Q, n_valid] f32 scores by XOR + popcount."""
+    return bq_ops.score_batch(
+        qwords, planes[:, :n_valid],
+        distance_type=distance_type, invert=invert, dim=dim,
+    )
+
+
+def bq_scores(qwords, planes, *, distance_type, invert, dim, n_valid):
+    """[Q, n_valid] f32 binary scores."""
+    if not use_kernels(planes):
+        return bq_scores_plain(
+            qwords, planes, distance_type=distance_type, invert=invert, dim=dim,
+            n_valid=n_valid,
+        )
+    _check_operands(qwords, planes, dim, n_valid)
+    q, w8 = qwords.shape
+    out = torch.empty((q, n_valid), dtype=torch.float32, device=planes.device)
+    if q == 0 or n_valid == 0:
+        return out
+    lib = load_library()
+    err = lib.qtt_bq_scores(
+        qwords.data_ptr(), planes.data_ptr(), out.data_ptr(), q, w8, true_words(dim),
+        planes.shape[1], n_valid, dim, metric_sign(distance_type, invert),
+        _stream(planes),
+    )
+    check(lib, err, "bq_scores")
+    LAUNCHES["bq_scores"] += 1
+    return out
+
+
+# ------------------------------------------------------------ K5c / K5a
+
+
+def bq_search_plain(
+    qwords, planes, *, distance_type, invert, dim, n_valid, k, mode="exact"
+):
+    """Plain version of K5c (exact) and K5a (approx): (f32 [Q, k],
+    i32 [Q, k]).
+
+    Exact: top-k of the valid scores, -inf / -1 past n_valid. Approx: the
+    stride-class candidates of the JAX approx kernel over SPAN tiles of
+    ``mxu_tile_n`` rows (rows >= n_valid score NEG), then an exact merge."""
+    scores = bq_ops.score_batch(
+        qwords, planes, distance_type=distance_type, invert=invert, dim=dim
+    )
+    q, npad = scores.shape
+    if mode == "exact":
+        ids = torch.arange(n_valid, dtype=torch.int32, device=scores.device)
+        return merge_exact(scores[:, :n_valid], ids.expand(q, n_valid), k)
+    scores[:, n_valid:] = NEG
+    vals, ids = approx_candidates(scores, mxu_tile_n(planes.shape[0] * 32, npad))
+    return merge_candidates(vals, ids, k)
+
+
+def bq_search(
+    qwords, planes, *, distance_type, invert, dim, n_valid, k, mode="exact"
+):
+    """Fused BQ search, never materializing the [Q, N] score matrix.
+    Returns (scores f32[Q, k], indices i32[Q, k]).
+
+    ``mode="exact"`` (K5c): value-exact for any k <= FUSED_K_MAX — each
+    512-row split returns its exact top-min(k, 512), so no spill bound and
+    no fallback are needed; ids may differ from torch.topk's only among tied
+    scores (BQ scores are small integers and tie constantly); slots beyond
+    n_valid hold -inf / -1. ``mode="approx"`` (K5a): one max per stride
+    class of SPAN tiles, exact merge, k <= APPROX_K_MAX."""
+    check_search(mode, k)
+    kw = dict(distance_type=distance_type, invert=invert, dim=dim, n_valid=n_valid)
+    if not use_kernels(planes):
+        return bq_search_plain(qwords, planes, k=k, mode=mode, **kw)
+    _check_operands(qwords, planes, dim, n_valid)
+    q, w8 = qwords.shape
+    npad = planes.shape[1]
+    dev = planes.device
+    args = (q, w8, true_words(dim), npad, n_valid, dim,
+            metric_sign(distance_type, invert))
+    lib = load_library()
+    if mode == "exact":
+        kk = min(k, EXACT_SPLIT)
+        width = (npad // EXACT_SPLIT) * kk
+        vals = torch.empty((q, width), dtype=torch.float32, device=dev)
+        ids = torch.empty((q, width), dtype=torch.int32, device=dev)
+        if q:
+            err = lib.qtt_bq_search_exact(
+                qwords.data_ptr(), planes.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+                *args, EXACT_SPLIT, kk, _stream(planes),
+            )
+            check(lib, err, "bq_search_exact")
+            LAUNCHES["bq_search_exact"] += 1
+        return merge_exact(vals, ids, k)
+
+    span_rows = SPAN * mxu_tile_n(w8 * 32, npad)
+    nparts = npad // APPROX_PART
+    nblocks = -(-npad // span_rows)
+    part_v = torch.empty((q, nparts * 128), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q, nparts * 128), dtype=torch.int32, device=dev)
+    vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
+    if q:
+        err = lib.qtt_bq_search_approx(
+            qwords.data_ptr(), planes.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+            vals.data_ptr(), ids.data_ptr(), *args, APPROX_PART, span_rows,
+            _stream(planes),
+        )
+        check(lib, err, "bq_search_approx")
+        LAUNCHES["bq_search_approx"] += 1
+    return merge_candidates(vals, ids, k)

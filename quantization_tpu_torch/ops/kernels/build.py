@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels (``quantization_tpu_torch/csrc``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, at first use, and loaded with ``ctypes``.
-The library's file name carries a hash of the sources and flags, so an edit
-rebuilds it and an unchanged tree reuses it. As in
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process
+per ``.cu`` file, all started together, and linked into a shared library
+with a plain C interface, at first use, and loaded with ``ctypes``. The
+library's file name carries a hash of the sources, the shared headers
+(``*.cuh``) and the flags, so an edit rebuilds it and an unchanged tree
+reuses it. As in
 ``quantization_tpu/native/loader.py``, the compiler writes a temporary file
 that ``os.replace`` moves into place, so concurrent first uses never load a
 half-written library.
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -32,7 +35,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # No FMA contraction: the kernels' epilogue must round like the plain
     # PyTorch version, which multiplies and adds in separate steps.
     "-fmad=false",
@@ -56,6 +59,10 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def find_nvcc() -> str:
     """nvcc from $CUDA_HOME, then $PATH, then DEFAULT_CUDA_HOME."""
     candidates = []
@@ -76,10 +83,40 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libqtpu_torch_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all. [(cmd, CompletedProcess)]."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True))
+        for cmd in cmds
+    ]
+    done = []
+    for cmd, p in procs:
+        try:
+            out, err = p.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        done.append((cmd, subprocess.CompletedProcess(cmd, p.returncode, out, err)))
+    return done
+
+
+def _check_done(done: list) -> str:
+    log = ""
+    for cmd, proc in done:
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        log += proc.stdout + proc.stderr
+    return log
 
 
 def _build(path: str) -> None:
@@ -89,33 +126,55 @@ def _build(path: str) -> None:
         raise KernelBuildError(f"no CUDA sources under {CSRC}")
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    # Objects go to a private directory that is removed whatever happens, so
+    # a failed build leaves nothing behind in BUILD_DIR.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [
+            os.path.join(objdir, os.path.basename(src) + ".o") for src in srcs
+        ]
+        log = _check_done(_run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)
+        ]))
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            log += _check_done(_run_all([
+                [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-o", tmp, *objs]
+            ]))
+        except KernelBuildError:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
     os.replace(tmp, path)
     BUILD_INFO = {
         "seconds": time.perf_counter() - t0,
-        "log": proc.stdout + proc.stderr,
+        "log": log,
         "path": path,
     }
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # (qcodes, qoff, mult, codes, voff, ..., stream): pointers as c_void_p,
-    # never the default int, which would cut a 64-bit address.
-    lib.qtt_sq_scores.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.qtt_sq_search_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.qtt_sq_search_approx.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.qtt_sq_scores, lib.qtt_sq_search_exact, lib.qtt_sq_search_approx):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # Pointers as c_void_p, never the default int, which would cut a 64-bit
+    # address; npad of the BQ planes as a 64-bit int.
+    sigs = {
+        # (qcodes, qoff, mult, codes, voff, ..., mstride, stream)
+        "qtt_sq_scores": [p, p, p, p, p, p, i, i, i, i, p],
+        "qtt_sq_search_exact": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
+        "qtt_sq_search_approx": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
+        # (qcodes, qoff, mult, codes, voff, cand, out, Q, R, n_valid, D, l1,
+        #  mstride, stream)
+        "qtt_sq_rescore": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        # (qwords, planes, ..., Q, W8, wt, npad, n_valid, dim, sign, ..., stream)
+        "qtt_bq_scores": [p, p, p, i, i, i, ll, i, i, i, p],
+        "qtt_bq_search_exact": [p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
+        "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.qtt_error_string.argtypes = [i]
     lib.qtt_error_string.restype = ctypes.c_char_p

@@ -9,11 +9,15 @@ merges with ``lax.top_k`` outside Pallas.
 
 Exact mode needs no spill bound and no fallback: each kernel block returns
 the exact top-min(k, rows) of its corpus split, so the union of the blocks'
-candidates holds the exact top-k by construction.
+candidates holds the exact top-k by construction. An empty slot
+(k > n_valid) comes back as -inf / -1, as in the JAX package
+(``merge_exact``).
 
 Approx mode keeps the JAX candidate geometry (one max per 128-wide stride
 class over SPAN consecutive tiles). Its final merge is exact here, where the
 JAX package uses ``approx_max_k``, so the port's recall is never lower.
+
+The kernels share the same selection code on the card: ``csrc/ktile.cuh``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from typing import Tuple
 
 import torch
 
-# Score of a masked (padding) row and of an empty candidate slot.
+from ...core.types import ArgumentsError
+
+# Score of a masked (padding) row and of an empty kernel candidate slot.
 NEG = -3.4e38
 
 # Stride-class count of the approx extraction (one candidate slot per class).
@@ -38,6 +44,30 @@ APPROX_K_MAX = 4096
 SPAN = 4
 
 
+def check_search(mode: str, k: int) -> None:
+    """Reject a fused-search mode or k outside the caps above."""
+    if mode not in ("exact", "approx"):
+        raise ArgumentsError(f"unknown search mode {mode!r}")
+    cap = FUSED_K_MAX if mode == "exact" else APPROX_K_MAX
+    if not 1 <= k <= cap:
+        raise ArgumentsError(f"{mode} fused search takes 1 <= k <= {cap}, got {k}")
+
+
+def check_tensors(device, specs, align: int = 1) -> None:
+    """Reject a kernel operand: each (name, tensor, dtype, shape) of
+    ``specs`` must lie on ``device`` with that dtype and shape, contiguous,
+    its data ``align``-byte aligned."""
+    for name, t, dtype, shape in specs:
+        if t.device != device:
+            raise ArgumentsError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ArgumentsError(
+                f"{name} must be {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ArgumentsError(f"{name} must be contiguous and {align}-byte aligned")
+
+
 def merge_candidates(
     vals: torch.Tensor, ids: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,6 +81,18 @@ def merge_candidates(
         s = torch.cat([s, s.new_full((q, k - kk), NEG)], dim=1)
         gi = torch.cat([gi, gi.new_full((q, k - kk), -1)], dim=1)
     return s, gi
+
+
+def merge_exact(
+    vals: torch.Tensor, ids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``merge_candidates`` for the exact searches: every slot whose id is
+    < 0 after the merge — an empty kernel slot or the padding beyond the
+    pool — scores -inf, the JAX package's sentinel when k > n_valid
+    (ops/topk.py:49-57). The mask reads the id, never the value, so a real
+    row is never taken for an empty one."""
+    s, gi = merge_candidates(vals, ids, k)
+    return torch.where(gi >= 0, s, s.new_full((), float("-inf"))), gi
 
 
 def approx_candidates(

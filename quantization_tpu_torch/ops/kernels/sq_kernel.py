@@ -23,12 +23,13 @@ from .. import sq as sq_ops
 from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
-    APPROX_K_MAX,
-    FUSED_K_MAX,
     NEG,
     SPAN,
     approx_candidates,
+    check_search,
+    check_tensors,
     merge_candidates,
+    merge_exact,
 )
 
 # Corpus rows are padded to a multiple of this by the quantizer.
@@ -58,10 +59,17 @@ def approx_tile_n(npad: int) -> int:
     return tile_n
 
 
-def _mult_vec(multiplier, q: int, device) -> torch.Tensor:
-    """A scalar or per-query [Q] / [Q, 1] multiplier as a contiguous f32 [q]."""
+def mult_arg(multiplier, q: int, device):
+    """The multiplier as the SQ kernels read it, (f32 tensor, stride), query
+    q's value at q * stride: one value for all (stride 0) or one per query
+    ([Q] or [Q, 1]). A model's multiplier tensor on the card passes without
+    a copy."""
     m = torch.as_tensor(multiplier, dtype=torch.float32, device=device).reshape(-1)
-    return m.expand(q).contiguous()
+    if m.numel() == 1:
+        return m, 0
+    if m.numel() != q:
+        raise ArgumentsError(f"multiplier has {m.numel()} values for {q} queries")
+    return m.contiguous(), 1
 
 
 def _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid):
@@ -69,21 +77,12 @@ def _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid):
         raise ArgumentsError("the SQ kernels score DOT and L2; L1 takes the plain path")
     q, d = qcodes.shape
     npad = codes.shape[0]
-    dev = codes.device
-    for name, t, dtype, shape in (
+    check_tensors(codes.device, (
         ("qcodes", qcodes, torch.int8, (q, d)),
         ("qoff", qoff, torch.float32, (q,)),
         ("codes", codes, torch.int8, (npad, d)),
         ("voff", voff, torch.float32, (npad,)),
-    ):
-        if t.device != dev:
-            raise ArgumentsError(f"{name} is on {t.device}, codes on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ArgumentsError(
-                f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ArgumentsError(f"{name} must be contiguous and 16-byte aligned")
+    ), align=16)
     if d % D_ALIGN:
         raise ArgumentsError(f"D={d} must be a multiple of {D_ALIGN}")
     if npad % TILE_N:
@@ -115,11 +114,11 @@ def sq_scores(qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid):
     out = torch.empty((q, n_valid), dtype=torch.float32, device=codes.device)
     if q == 0 or n_valid == 0:
         return out
-    mult = _mult_vec(multiplier, q, codes.device)
+    mult, mstride = mult_arg(multiplier, q, codes.device)
     lib = load_library()
     err = lib.qtt_sq_scores(
         qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
-        voff.data_ptr(), out.data_ptr(), q, n_valid, d,
+        voff.data_ptr(), out.data_ptr(), q, n_valid, d, mstride,
         torch.cuda.current_stream(codes.device).cuda_stream,
     )
     check(lib, err, "sq_scores")
@@ -135,7 +134,7 @@ def sq_search_plain(
 ):
     """Plain version of K1 (exact) and K2 (approx): (f32 [Q, k], i32 [Q, k]).
 
-    Exact: top-k of the valid scores, padded with NEG / -1 when k > n_valid.
+    Exact: top-k of the valid scores, padded with -inf / -1 when k > n_valid.
     Approx: the same stride-class candidates as the kernel (``ktile``), then
     an exact merge."""
     scores = sq_ops.score_batch(
@@ -144,18 +143,10 @@ def sq_search_plain(
     q, npad = scores.shape
     if mode == "exact":
         ids = torch.arange(n_valid, dtype=torch.int32, device=scores.device)
-        return merge_candidates(scores[:, :n_valid], ids.expand(q, n_valid), k)
+        return merge_exact(scores[:, :n_valid], ids.expand(q, n_valid), k)
     scores[:, n_valid:] = NEG
     vals, ids = approx_candidates(scores, approx_tile_n(npad))
     return merge_candidates(vals, ids, k)
-
-
-def _check_search(mode, k):
-    if mode not in ("exact", "approx"):
-        raise ArgumentsError(f"unknown search mode {mode!r}")
-    cap = FUSED_K_MAX if mode == "exact" else APPROX_K_MAX
-    if not 1 <= k <= cap:
-        raise ArgumentsError(f"{mode} fused search takes 1 <= k <= {cap}, got {k}")
 
 
 def sq_search(
@@ -165,9 +156,10 @@ def sq_search(
     Returns (scores f32[Q, k], indices i32[Q, k]). DOT/L2 only.
 
     ``mode="exact"`` (K1): value-exact for any k <= FUSED_K_MAX; ids may
-    differ from torch.topk's only among tied scores. ``mode="approx"`` (K2):
+    differ from torch.topk's only among tied scores; slots beyond n_valid
+    hold -inf / -1. ``mode="approx"`` (K2):
     one max per stride class of SPAN tiles, exact merge, k <= APPROX_K_MAX."""
-    _check_search(mode, k)
+    check_search(mode, k)
     if not use_kernels(codes):
         return sq_search_plain(
             qcodes, qoff, codes, voff, multiplier,
@@ -177,7 +169,7 @@ def sq_search(
     q, d = qcodes.shape
     npad = codes.shape[0]
     dev = codes.device
-    mult = _mult_vec(multiplier, q, dev)
+    mult, mstride = mult_arg(multiplier, q, dev)
     lib = load_library()
     if mode == "exact":
         kk = min(k, EXACT_SPLIT)
@@ -188,12 +180,12 @@ def sq_search(
             err = lib.qtt_sq_search_exact(
                 qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(),
                 codes.data_ptr(), voff.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                q, npad, n_valid, d, EXACT_SPLIT, kk,
+                q, npad, n_valid, d, EXACT_SPLIT, kk, mstride,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, err, "sq_search_exact")
             LAUNCHES["sq_search_exact"] += 1
-        return merge_candidates(vals, ids, k)
+        return merge_exact(vals, ids, k)
 
     span_rows = SPAN * approx_tile_n(npad)
     nparts = -(-npad // APPROX_PART)
@@ -206,7 +198,7 @@ def sq_search(
         err = lib.qtt_sq_search_approx(
             qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
             voff.data_ptr(), part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), q, npad, n_valid, d, APPROX_PART, span_rows,
+            ids.data_ptr(), q, npad, n_valid, d, APPROX_PART, span_rows, mstride,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         check(lib, err, "sq_search_approx")

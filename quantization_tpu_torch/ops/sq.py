@@ -19,7 +19,8 @@ sum-of-absolute-differences kernel.
 
 Everything here is plain tensor code on whatever device its inputs lie on;
 ``score_batch`` is the plain version of the K3 kernel
-(``ops/kernels/sq_kernel.py``).
+(``ops/kernels/sq_kernel.py``), ``score_candidates`` that of the K4
+rescoring kernel (``ops/kernels/gather.py``).
 """
 
 from __future__ import annotations
@@ -247,17 +248,28 @@ def score_candidates(
     multiplier,
     *,
     distance_type: DistanceType,
+    n_valid: int,
 ) -> torch.Tensor:
-    """[Q, R] scores against per-query candidate lists (two-stage rescore)."""
+    """[Q, R] scores against per-query candidate lists (two-stage rescore);
+    the plain version of the K4 kernel (``ops/kernels/gather.py``).
+
+    An id outside [0, n_valid) — the padding (-1) of a coarse stage, a
+    padding row, a row past the matrix — scores -inf, so it can never
+    outrank a real candidate. The JAX package's gather reads some row for
+    -1 instead (``jnp.take`` wraps it to the last row; its DMA gather starts
+    at row -8: ROADMAP F4/F5)."""
     cand = cand.to(torch.int64)
-    return _score_gathered(
+    live = (cand >= 0) & (cand < n_valid)
+    safe = torch.where(live, cand, 0)
+    s = _score_gathered(
         qcodes,
         qoff,
-        codes[cand],  # [Q, R, D]
-        voff[cand],  # [Q, R]
+        codes[safe],  # [Q, R, D]
+        voff[safe],  # [Q, R]
         multiplier,
         distance_type=distance_type,
     )
+    return torch.where(live, s, s.new_full((), float("-inf")))
 
 
 def score_internal_batch(

@@ -12,8 +12,8 @@ from typing import Tuple
 import torch
 
 # Sentinel contract: when fewer than k candidates exist, missing slots hold
-# score -inf and index -1 — never a valid corpus id. (The fused search pads
-# with ktile.NEG instead, as its JAX twin does.)
+# score -inf and index -1 — never a valid corpus id. The fused exact
+# searches keep it too (ktile.merge_exact).
 NEG_INF = float("-inf")
 
 METHODS = ("exact", "approx")

@@ -1,9 +1,11 @@
 """The port imports without JAX, Triton or nvcc, and its kernel build never
-falls back: a missing or failing nvcc raises."""
+falls back: a missing or failing nvcc raises. Its entry points run on the
+CUDA card unless the caller names a device, and raise without one."""
 
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 
@@ -100,9 +102,77 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch, rng):
     data = rng.random((700, 40), dtype=np.float32)
     params = quantization_tpu_torch.VectorParameters(
         40, 700, quantization_tpu_torch.DistanceType.L2, True)
-    enc = quantization_tpu_torch.ScalarQuantizerU8.encode(data, params)
+    enc = quantization_tpu_torch.ScalarQuantizerU8.encode(data, params, device="cpu")
     eq = enc.encode_query(data[:3])
     enc.score_batch(eq)
     for method in ("exact", "approx"):
         s, i = enc.top_k(eq, 4, method=method)
         assert (i[:, 0] == np.arange(3)).all()
+
+
+def test_library_path_tracks_headers(tmp_path, monkeypatch):
+    """An edit to a shared csrc header rebuilds the library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    assert [pathlib.Path(h).name for h in build.headers()] == ["ktile.cuh"]
+    path = build.library_path()
+    header = csrc / "ktile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_path() != path
+
+
+def test_build_compiles_each_source_in_its_own_nvcc(fresh_build, monkeypatch):
+    """One nvcc per .cu file, then one link; the objects never land in the
+    build directory."""
+    log = fresh_build / "nvcc.log"
+    nvcc = fresh_build / "bin" / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {log}\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && : > \"$2\"; shift; done\n"
+    )
+    nvcc.chmod(0o755)
+    started = []
+    real_popen = build.subprocess.Popen
+
+    def popen(cmd, **kw):
+        started.append(cmd)
+        return real_popen(cmd, **kw)
+
+    monkeypatch.setattr(build.subprocess, "Popen", popen)
+    with pytest.raises(build.KernelBuildError, match="cannot load"):
+        build.load_library()  # the fake library is empty
+    lines = log.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in f" {ln} "]
+    assert sorted(ln.split()[-1] for ln in compiles) == build.sources()
+    assert len(lines) == len(compiles) + 1 and "-shared" in lines[-1]
+    assert len(started) == len(build.sources()) + 1
+    assert [p.suffix for p in (fresh_build / "build").iterdir()] == [".so"]
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
+    """Without a card, a call that names no device raises; it never runs on
+    the CPU quietly."""
+    qt = quantization_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = rng.random((50, 16), dtype=np.float32)
+    params = qt.VectorParameters(16, 50, qt.DistanceType.DOT, False)
+    sq = qt.ScalarQuantizerU8.encode(data, params, device="cpu")
+    bq = qt.BinaryQuantizer.encode(data, params, device="cpu")
+    sq.save(tmp_path / "sq.bin", tmp_path / "sq.json")
+    bq.save(tmp_path / "bq.bin", tmp_path / "bq.json")
+    calls = [
+        lambda: qt.ScalarQuantizerU8.encode(data, params),
+        lambda: qt.ScalarQuantizerU8.load(tmp_path / "sq.bin", tmp_path / "sq.json", params),
+        lambda: qt.sq_from_numpy(*qt.sq_to_numpy(sq)),
+        lambda: qt.BinaryQuantizer.encode(data, params),
+        lambda: qt.BinaryQuantizer.load(tmp_path / "bq.bin", tmp_path / "bq.json", params),
+        lambda: qt.bq_from_numpy(*qt.bq_to_numpy(bq)),
+        lambda: qt.ExactRescorer(data, qt.DistanceType.DOT, False),
+    ]
+    for call in calls:
+        with pytest.raises(qt.NoDeviceError, match="device='cpu'"):
+            call()
+    assert qt.BinaryQuantizer.load(tmp_path / "bq.bin", tmp_path / "bq.json", params,
+                                   device="cpu").device == torch.device("cpu")

@@ -84,7 +84,7 @@ def test_calibration_and_encode_match_jax(rng, quantile, stream):
     src = (lambda: (data[i : i + 300] for i in range(0, n, 300))) if stream else data
     jenc = j_model.ScalarQuantizerU8.encode(src, jparams, quantile=quantile, seed=3)
     tenc = t_model.ScalarQuantizerU8.encode(src, tparams, quantile=quantile, seed=3,
-                                            batch_size=256)
+                                            batch_size=256, device="cpu")
     assert tenc.metadata.to_json() == jenc.metadata.to_json()
     if quantile is not None:
         full = t_sq.alpha_offset_from_min_max(float(data.min()), float(data.max()))
@@ -98,7 +98,8 @@ def test_encode_count_zero_matches_jax():
     jparams = j_types.VectorParameters(20, 0, j_types.DistanceType.DOT, False)
     tparams = t_types.VectorParameters.from_json(jparams.to_json())
     jenc = j_model.ScalarQuantizerU8.encode(np.zeros((0, 20), np.float32), jparams)
-    tenc = t_model.ScalarQuantizerU8.encode(np.zeros((0, 20), np.float32), tparams)
+    tenc = t_model.ScalarQuantizerU8.encode(np.zeros((0, 20), np.float32), tparams,
+                                            device="cpu")
     assert tenc.metadata.to_json() == jenc.metadata.to_json()
     assert tuple(tenc.codes.shape) == tuple(jenc.codes.shape)
     assert tuple(tenc.voffsets.shape) == tuple(jenc.voffsets.shape)
@@ -111,10 +112,12 @@ def test_encode_count_zero_matches_jax():
 def test_encode_rejects_bad_input(rng):
     params = t_types.VectorParameters(8, 10, t_types.DistanceType.DOT, False)
     with pytest.raises(t_types.ArgumentsError):
-        t_model.ScalarQuantizerU8.encode(rng.random((9, 8), dtype=np.float32), params)
+        t_model.ScalarQuantizerU8.encode(rng.random((9, 8), dtype=np.float32), params,
+                                         device="cpu")
     with pytest.raises(t_types.ArgumentsError):
         t_model.ScalarQuantizerU8.encode(
-            lambda: iter([rng.random((11, 8), dtype=np.float32)]), params)
+            lambda: iter([rng.random((11, 8), dtype=np.float32)]), params, device="cpu")
     with pytest.raises(t_types.StoppedError):
         t_model.ScalarQuantizerU8.encode(
-            rng.random((10, 8), dtype=np.float32), params, stop_condition=lambda: True)
+            rng.random((10, 8), dtype=np.float32), params, stop_condition=lambda: True,
+            device="cpu")

@@ -165,7 +165,8 @@ def test_l1_score_then_select(rng, invert):
     queries = rng.random((4, dim), dtype=np.float32)
     jparams = j_types.VectorParameters(dim, n, j_types.DistanceType.L1, invert)
     jenc = j_model.ScalarQuantizerU8.encode(data, jparams)
-    tenc = qt.ScalarQuantizerU8.encode(data, qt.VectorParameters.from_json(jparams.to_json()))
+    tenc = qt.ScalarQuantizerU8.encode(data, qt.VectorParameters.from_json(jparams.to_json()),
+                                       device="cpu")
     jq, tq = jenc.encode_query(queries), tenc.encode_query(queries)
     scores = tenc.score_batch(tq).numpy()
     _close(scores, jenc.score_batch(jq))
@@ -188,7 +189,7 @@ def test_blocked_select_beyond_block_rows(rng, monkeypatch):
     data = rng.random((n, dim), dtype=np.float32)
     queries = rng.random((3, dim), dtype=np.float32)
     params = qt.VectorParameters(dim, n, qt.DistanceType.DOT, False)
-    tenc = qt.ScalarQuantizerU8.encode(data, params)
+    tenc = qt.ScalarQuantizerU8.encode(data, params, device="cpu")
     tq = tenc.encode_query(queries)
     flat_s, flat_i = tenc.top_k(tq, k)
     monkeypatch.setattr(t_model, "L1_BLOCK_ROWS", 700)
