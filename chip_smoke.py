@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 2 minutes
+    python3 chip_smoke.py             # the checks and times, about 2.5 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
+    python3 chip_smoke.py --rehearse  # path 3's recall on the CPU at 30k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
-nvcc (one process per source, all at once), and drives the port's two main
+nvcc (one process per source, all at once), and drives the port's three main
 paths through the public API, each with the kernel launch counts set to 0
 just before it and read just after:
 
@@ -21,6 +22,14 @@ The two-stage indexes then run again on a second synthetic corpus of the
 same shape whose sign bits rank neighbours (small neighbourhoods), where
 recall@10 is held to a floor; the BQ searches and the batches are timed on
 both corpora, since the clustered one ties far more.
+
+  3. PQ at the repo's PQ target, DOT over 1,000,000 x 768 rows of such a
+     neighbourhood corpus, Q = 256, k = 10: 8-bit (96 subquantizers x 256
+     centroids) and 4-bit (192 x 16) trained and encoded on the card, exact
+     (K7b) and approx (K7a) top-10 and score_batch (K8), counted per bit
+     width; codes against the CPU encoder, save/load, then OPQ and an OPQ ->
+     f32 two-stage index (R = 40), whose recall@10 is held to the floor of
+     the CPU rehearsal (``--rehearse``).
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -65,6 +74,17 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "bq_scores": ("bq_kernels.cu",
                   "quantization_tpu/ops/pallas/bq_kernel.py:671 and :716"),
 }
+for _sfx in ("", "_4bit"):  # one kernel per name; the 4-bit rows time KC = 16
+    KERNELS.update({
+        "pq_scores" + _sfx: ("pq_kernels.cu",
+                             "quantization_tpu/ops/pallas/pq_kernel.py:943 and :962"),
+        "pq_search_exact" + _sfx: ("pq_kernels.cu",
+                                   "quantization_tpu/ops/pallas/pq_kernel.py:866"),
+        "pq_search_approx" + _sfx: ("pq_kernels.cu",
+                                    "quantization_tpu/ops/pallas/pq_kernel.py:791"),
+    })
+# K7a again, as the coarse stage of OPQ -> f32 two-stage (k = R).
+KERNELS["pq_search_approx_opq"] = KERNELS["pq_search_approx"]
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +97,25 @@ INT8_OPS_PER_S = 1979e12
 POPC_PER_CLOCK_PER_SM = 16
 # Recall@10 floor of the two-stage indexes on the neighbourhood corpus.
 TWO_STAGE_RECALL_MIN = 0.8
+# Path 3 (PQ): the repo's PQ target, 1M x 768 DOT, 96 subquantizers x 256
+# centroids (BASELINE.md:31,37; README.md:116), and 4-bit PQ at equal bytes
+# (192 x 16, BASELINE.md:67,115), on the neighbourhood corpus.
+PN, PD, PQ_CHUNK, PQ4_CHUNK = 1_000_000, 768, 8, 4
+PQ_CODE_CHECK_ROWS = 20_000
+# OPQ -> f32 recall@10 of the CPU rehearsal at 30k rows (--rehearse), and the
+# floor the card's run is held to: 0.05 below it, or 0.8 if that is lower.
+OPQ_F32_RECALL_REHEARSAL = 0.9371
+OPQ_F32_RECALL_MIN = min(OPQ_F32_RECALL_REHEARSAL - 0.05, 0.8)
+# int8-LUT exact recall may lose at most this much against the bf16 LUT.
+INT8_RECALL_SLACK = 0.02
+# Shared-memory bytes an SM serves per clock (32 banks of 4 bytes): a LUT
+# gather's peak is 128 / (entry bytes) lookups per clock per SM, since one
+# 32-bit load of a [chunk][code][query] table reads the same code for
+# 4 int8 (2 bf16) queries. The PQ kernels' own design makes one load per
+# lookup, 32 per clock per SM: its floor, printed beside the bound.
+SMEM_BYTES_PER_CLOCK_PER_SM = 128
+SMEM_WORDS_PER_CLOCK_PER_SM = 32
+LUT_ENTRY_BYTES = {"int8": 1, "bf16": 2, "bf16x2": 4}
 
 
 def say(phase, msg):
@@ -773,6 +812,362 @@ def bq_neighbour_path(dev, smi):
             "ties_at_r": tied}
 
 
+def codes_differ_only_at_near_ties(got, want, x_chunks, c_chunks, rel=1e-5):
+    """got/want u8 [B, m] on the host: equal, or the two centroids' squared
+    distances (f64) within ``rel`` of each other (the rule of
+    tests/test_torch_pq_codec.py). Returns the number of differing codes."""
+    bad = np.argwhere(got != want)
+    x = x_chunks.double()
+    c = c_chunks.double()
+    for b, ci in bad:
+        d1 = float(((x[ci, b] - c[ci, int(got[b, ci])]) ** 2).sum())
+        d2 = float(((x[ci, b] - c[ci, int(want[b, ci])]) ** 2).sum())
+        require(abs(d1 - d2) <= rel * max(d1, d2, 1e-30),
+                f"a code differs from the CPU encoder's only at a near-tie ({d1}, {d2})")
+    return len(bad)
+
+
+def lookup_ms(q, n, m, per_clock, props, clock_hz):
+    """Q*N*m LUT lookups at ``per_clock`` lookups per clock per SM."""
+    return q * n * m / (per_clock * props.multi_processor_count * clock_hz) * 1e3
+
+
+def pq_bound(kind, q, n, m, kc, k, precision, props, clock_hz):
+    """(bound_ms, bound_by) of one PQ kernel: the larger of its bytes (the
+    f32 LUT and the codes read once, the output written once) at the HBM rate
+    and its operations done the cheaper of two ways: Q*N*m LUT lookups at the
+    shared-memory rate for the entry type (128 B per clock per SM), or the
+    one-hot product, 2*Q*N*m*kc int8 operations on the tensor cores."""
+    out = q * n * 4 if kind == "scores" else q * k * 8
+    t_bytes = (q * m * kc * 4 + m * n + out) / HBM_BYTES_PER_S * 1e3
+    lookups = lookup_ms(q, n, m, SMEM_BYTES_PER_CLOCK_PER_SM // LUT_ENTRY_BYTES[precision],
+                        props, clock_hz)
+    onehot = 2 * q * n * m * kc / INT8_OPS_PER_S * 1e3
+    t_ops = min(lookups, onehot)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_lut(precision, fn):
+    """fn() with QTPU_PQ_LUT set to ``precision`` (the model reads it at each
+    call), restored after."""
+    old = os.environ.get("QTPU_PQ_LUT")
+    os.environ["QTPU_PQ_LUT"] = precision
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ["QTPU_PQ_LUT"]
+        else:
+            os.environ["QTPU_PQ_LUT"] = old
+
+
+def pq_recalls(dev, n, dim, seed):
+    """Path 3's indexes, trained and searched through the public API on
+    ``dev``, with their recall@10 against the f32 oracle on the neighbourhood
+    corpus: PQ 8-bit (int8 and bf16 LUT exact, approx), PQ 4-bit, OPQ, and
+    OPQ -> f32 two-stage (R = 40). Returns (recalls, state)."""
+    from quantization_tpu_torch import (
+        DistanceType, ExactRescorer, ProductQuantizer, TwoStageIndex, VectorParameters,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data_dev, queries_dev = neighbourhoods(n, Q, dim, gen, dev)
+    data = data_dev.cpu().numpy()
+    queries = queries_dev.cpu().numpy()
+    params = VectorParameters(dim, n, DistanceType.DOT, False)
+    _, oracle = torch.topk(queries_dev @ data_dev.T, K, dim=1)
+    oracle = oracle.cpu().numpy()
+    st = {"data": data, "queries": queries, "data_dev": data_dev, "params": params,
+          "queries_dev": queries_dev, "times": {}, "results": {}}
+    rec = {}
+    for label, chunk, bits in (("8bit", PQ_CHUNK, 8), ("4bit", PQ4_CHUNK, 4)):
+        t0 = time.perf_counter()
+        enc = ProductQuantizer.encode(data, params, chunk_size=chunk, bits=bits, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        st["times"][f"train_encode_{label}_s"] = time.perf_counter() - t0
+        eq = enc.encode_query(queries)
+        s_ex, i_ex = with_lut("int8", lambda: enc.top_k(eq, K))
+        s_ap, i_ap = with_lut("int8", lambda: enc.top_k(eq, K, method="approx"))
+        st[label] = enc
+        st["results"][label] = (s_ex, i_ex, s_ap, i_ap)
+        rec[f"pq_{label}_int8_exact"] = recall(i_ex, oracle, K)
+        rec[f"pq_{label}_int8_approx"] = recall(i_ap, oracle, K)
+        if label == "8bit":
+            _, i_bf = with_lut("bf16", lambda: enc.top_k(eq, K))
+            rec["pq_8bit_bf16_exact"] = recall(i_bf, oracle, K)
+    t0 = time.perf_counter()
+    opq = ProductQuantizer.encode(data, params, chunk_size=PQ_CHUNK, rotation="opq", device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    st["times"]["train_encode_opq_s"] = time.perf_counter() - t0
+    st["opq"] = opq
+    _, i_opq = with_lut("int8", lambda: opq.top_k(opq.encode_query(queries), K))
+    rec["opq_int8_exact"] = recall(i_opq, oracle, K)
+    two = TwoStageIndex(opq, ExactRescorer(data_dev, DistanceType.DOT, False, device=dev),
+                        oversampling=OVERSAMPLING)
+    st["two"] = two
+    s_two, i_two = with_lut("int8", lambda: two.top_k(two.encode_query(queries), K))
+    st["results"]["opq_f32"] = (s_two, i_two)
+    rec["opq_f32"] = recall(i_two, oracle, K)
+    return rec, st
+
+
+def pq_path(dev, smi, do_profile):
+    """Path 3: PQ encode -> LUT -> fused search at 1M x 768 on the card,
+    8-bit (m = 96) and 4-bit (m = 192), then OPQ -> f32 two-stage; every new
+    kernel against its plain version at the path's shapes."""
+    from quantization_tpu_torch import ProductQuantizer
+    from quantization_tpu_torch.ops import pq as pq_ops
+    from quantization_tpu_torch.ops.kernels import ktile, pq_kernel
+
+    # ------------------------------------------------ PQ main path, public API
+    t0 = time.perf_counter()
+    launches = {}
+    pq_kernel.reset_launches()
+    rec, st = pq_recalls(dev, PN, PD, SEED + 3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # pq_recalls trains, encodes and searches each index once. Then each bit
+    # width is its own counted main-path run on its trained index: the
+    # queries, exact and approx top-k and score_batch, with the counts reset
+    # just before it and read just after. The OPQ -> f32 two-stage search is
+    # a third counted run, below.
+    for label in ("8bit", "4bit"):
+        enc = st[label]
+        pq_kernel.reset_launches()
+        eq = enc.encode_query(st["queries"])
+        s_ex, i_ex = with_lut("int8", lambda: enc.top_k(eq, K))
+        with_lut("int8", lambda: enc.top_k(eq, K, method="approx"))
+        scores = with_lut("int8", lambda: enc.score_batch(eq))  # K8a
+        with_lut("bf16", lambda: enc.score_batch(eq))  # K8b: the same kernel, bf16 words
+        torch.cuda.synchronize()
+        sfx = "" if label == "8bit" else "_4bit"
+        launches.update({name + sfx: n for name, n in pq_kernel.LAUNCHES.items()})
+        say("pq-main", f"{label}: launches {dict(pq_kernel.LAUNCHES)}")
+        for name, n in pq_kernel.LAUNCHES.items():
+            require(n > 0, f"PQ {label} main path launched {name}")
+        require(enc.codes_t.is_cuda and tuple(enc.codes_t.shape)
+                == (enc.num_chunks + (-enc.num_chunks) % pq_kernel.M_BLK,
+                    PN + (-PN) % pq_kernel.TILE_N),
+                f"PQ {label}: codes_t [Mpad, Npad] on the card")
+        require(tuple(scores.shape) == (Q, PN) and bool(torch.isfinite(scores).all()),
+                f"PQ {label}: score_batch shape and values")
+        require(s_ex.shape == (Q, K) and bool(np.isfinite(s_ex).all())
+                and bool(((i_ex >= 0) & (i_ex < PN)).all()), f"PQ {label}: top_k")
+        np.testing.assert_array_equal(
+            s_ex, torch.topk(scores, K, dim=1).values.cpu().numpy(),
+            err_msg=f"PQ {label}: exact top-k values == top-k of score_batch")
+        del scores
+    two = st["two"]
+    pq_kernel.reset_launches()
+    s_two, i_two = with_lut("int8", lambda: two.top_k(two.encode_query(st["queries"]), K))
+    torch.cuda.synchronize()
+    launches["pq_search_approx_opq"] = pq_kernel.LAUNCHES["pq_search_approx"]
+    say("pq-main", f"OPQ -> f32 two-stage: launches {dict(pq_kernel.LAUNCHES)}")
+    require(launches["pq_search_approx_opq"] > 0,
+            "OPQ -> f32 two-stage launched pq_search_approx as its coarse stage")
+    require(np.array_equal(s_two, st["results"]["opq_f32"][0])
+            and np.array_equal(i_two, st["results"]["opq_f32"][1]),
+            "OPQ -> f32 two-stage: the counted run equals the first")
+    say("pq-main", f"{PN} x {PD} neighbourhood corpus: PQ 8-bit / 4-bit and OPQ trained, "
+        f"encoded and searched in {wall:.1f} s (train + encode 8-bit "
+        f"{st['times']['train_encode_8bit_s']:.2f} s, 4-bit "
+        f"{st['times']['train_encode_4bit_s']:.2f} s, OPQ "
+        f"{st['times']['train_encode_opq_s']:.2f} s); recall@{K} vs the f32 oracle: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()))
+    require(rec["opq_f32"] >= OPQ_F32_RECALL_MIN,
+            f"OPQ -> f32 recall@{K} >= {OPQ_F32_RECALL_MIN}")
+    require(rec["pq_8bit_int8_exact"] >= rec["pq_8bit_bf16_exact"] - INT8_RECALL_SLACK,
+            f"int8-LUT exact recall within {INT8_RECALL_SLACK} of the bf16 LUT's")
+    require(rec["opq_f32"] >= rec["opq_int8_exact"], "OPQ -> f32 recall >= OPQ alone")
+
+    # ------------------------------------------- codes: the card vs the CPU
+    enc8 = st["8bit"]
+    div = enc8.metadata.vector_division
+    rows = st["data"][:PQ_CODE_CHECK_ROWS]
+    x_chunks = torch.from_numpy(pq_ops.chunk_tensor(rows, div))
+    cpu_codes = pq_ops.encode_batch(x_chunks, enc8._c_chunks.cpu()).numpy()
+    card = enc8.codes[:PQ_CODE_CHECK_ROWS, : enc8.num_chunks].cpu().numpy()
+    flips = codes_differ_only_at_near_ties(card, cpu_codes, x_chunks, enc8._c_chunks.cpu())
+    say("pq-codes", f"{PQ_CODE_CHECK_ROWS} rows x {enc8.num_chunks} chunks encoded on the "
+        f"card equal the CPU encoder's but for {flips} near-ties")
+
+    # ------------------------------------------------------- save / load
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("8bit", "4bit"):
+            enc = st[label]
+            d, mpath = os.path.join(tmp, f"{label}.bin"), os.path.join(tmp, f"{label}.json")
+            enc.save(d, mpath)
+            back = ProductQuantizer.load(d, mpath, st["params"])
+            require(torch.equal(back.codes, enc.codes), f"PQ {label}: codes after save/load")
+            s2, i2 = with_lut("int8", lambda: back.top_k(back.encode_query(st["queries"]), K))
+            s1, i1 = st["results"][label][:2]
+            require(np.array_equal(s2, s1) and np.array_equal(i2, i1),
+                    f"PQ {label}: search after save/load equals search before")
+            say("pq-save", f"{label}: {os.path.getsize(d)} bytes of codes "
+                f"({enc.get_quantized_vector_size()} B/row); load equals")
+
+    # ----------------------------- the new kernels against plain, on the card
+    err, ms, pms, lib_ms, bounds, design_floor = {}, {}, {}, {}, {}, {}
+    props = torch.cuda.get_device_properties(0)
+    clock = max_sm_clock_hz()
+    for label in ("8bit", "4bit"):
+        enc = st[label]
+        sfx = "" if label == "8bit" else "_4bit"
+        lut = enc.encode_query(st["queries"]).lut
+        ct = enc.codes_t
+        m, kc = enc.num_chunks, lut.shape[2]
+        kw = dict(n_valid=PN)
+        plain = {p: pq_kernel.lut_scores_plain(lut, ct, precision=p, **kw)
+                 for p in ("int8", "bf16")}
+        for p in ("int8", "bf16"):
+            got = pq_kernel.pq_scores(lut, ct, precision=p, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(got, plain[p]), f"K8 {label} {p} equals plain to the bit")
+            del got
+        err["pq_scores" + sfx] = 0.0
+        say("K8", f"{label} pq_scores [{Q}, {PN}] x m={m}, int8 and bf16 LUT: equal to "
+            "plain to the bit")
+        ids_all = torch.arange(PN, device=dev, dtype=torch.int32).expand(Q, PN)
+        err["pq_search_exact" + sfx] = 0.0
+        for p in ("int8", "bf16", "bf16x2"):
+            sc = plain[p] if p in plain else pq_kernel.lut_scores_plain(lut, ct, precision=p,
+                                                                        **kw)
+            for k in (K, 1024):
+                want_v, _ = ktile.merge_exact(sc, ids_all, k)
+                v, i = pq_kernel.pq_search(lut, ct, k=k, precision=p, **kw)
+                e = check_topk(v, i, want_v, sc, PN, f"K7b {label} {p} k={k}")
+                err["pq_search_exact" + sfx] = max(err["pq_search_exact" + sfx], e)
+            del sc
+        say("K7b", f"{label} exact k={K} and 1024, int8 / bf16 / bf16x2 LUT: values equal "
+            "plain top-k, ids equal up to ties")
+        err["pq_search_approx" + sfx] = 0.0
+        for p in ("int8", "bf16"):
+            pv, pi = pq_kernel.pq_search_plain(lut, ct, k=R, mode="approx", precision=p, **kw)
+            v, i = pq_kernel.pq_search(lut, ct, k=R, mode="approx", precision=p, **kw)
+            e = check_topk(v, i, pv, plain[p], PN, f"K7a {label} {p}")
+            require(torch.equal(i, pi), f"K7a {label} {p}: ids equal plain approx")
+            err["pq_search_approx" + sfx] = max(err["pq_search_approx" + sfx], e)
+        say("K7a", f"{label} approx k={R}, int8 and bf16 LUT: values and ids equal the plain "
+            "approx")
+        del plain
+
+        # ------------------------------------------------------------ times
+        with ClockSampler() as clocks:
+            tk = {
+                "pq_scores": timed_ms(lambda: pq_kernel.pq_scores(lut, ct, precision="int8",
+                                                                  **kw)),
+                "pq_search_exact": timed_ms(lambda: pq_kernel.pq_search(
+                    lut, ct, k=K, precision="int8", **kw)),
+                "pq_search_approx": timed_ms(lambda: pq_kernel.pq_search(
+                    lut, ct, k=K, mode="approx", precision="int8", **kw)),
+            }
+            other = {
+                f"{name} {p}": timed_ms(lambda p=p, mode=mode: pq_kernel.pq_search(
+                    lut, ct, k=K, mode=mode, precision=p, **kw))
+                for name, mode in (("pq_search_exact", "exact"), ("pq_search_approx",
+                                                                   "approx"))
+                for p in ("bf16", "bf16x2")
+            }
+            other["pq_scores bf16"] = timed_ms(
+                lambda: pq_kernel.pq_scores(lut, ct, precision="bf16", **kw))
+        say("clocks", f"during the {label} PQ timings: {clocks.summary()}")
+        plain_bf16 = plain_ms(lambda: pq_kernel.pq_scores_plain(lut, ct, precision="bf16",
+                                                                 **kw))
+        say("time", f"pq_scores {label} bf16 LUT: plain {plain_bf16:.4f} ms on {smi}")
+        tp = {
+            "pq_scores": plain_ms(lambda: pq_kernel.pq_scores_plain(lut, ct, precision="int8",
+                                                                    **kw)),
+            "pq_search_exact": plain_ms(lambda: pq_kernel.pq_search_plain(
+                lut, ct, k=K, precision="int8", **kw)),
+            "pq_search_approx": plain_ms(lambda: pq_kernel.pq_search_plain(
+                lut, ct, k=K, mode="approx", precision="int8", **kw)),
+        }
+        # The library yardstick of K8: embedding_bag sums the gathered rows
+        # of a table, here the f32 LUT laid out [m * kc, Q], over each row's
+        # m codes (the f32-LUT function, K8's within its quantization step).
+        # K7a/K7b have none: no PyTorch call fuses the scores with a top-k.
+        table = lut.permute(1, 2, 0).reshape(m * kc, Q).contiguous()
+        bags = (ct[:m, :PN].T.long() & (kc - 1)) + torch.arange(m, device=dev) * kc
+
+        def embedding_bag():
+            return torch.nn.functional.embedding_bag(bags, table, mode="sum")
+
+        f32_scores = pq_kernel.lut_scores_plain(lut, ct, precision="int8", **kw)
+        gap = float((embedding_bag().T - f32_scores).abs().max())
+        lib_ms["pq_scores" + sfx] = timed_ms(embedding_bag, iters=3)
+        del bags, table, f32_scores
+        say("library", f"{label}: embedding_bag (f32 LUT) {lib_ms['pq_scores' + sfx]:.4f} ms; "
+            f"max |f32-LUT - int8-LUT score| {gap:.4f}")
+        lib_ms["pq_search_exact" + sfx] = lib_ms["pq_search_approx" + sfx] = None
+        for name in tk:
+            ms[name + sfx], pms[name + sfx] = tk[name], tp[name]
+            bounds[name + sfx] = pq_bound("scores" if name == "pq_scores" else "search",
+                                          Q, PN, m, kc, K, "int8", props, clock)
+            say("time", f"{name} {label} int8 LUT: kernel {tk[name]:.4f} ms, plain "
+                f"{tp[name]:.4f} ms per {Q}-query batch at N={PN} m={m} (k={K} for the "
+                f"searches) on {smi}")
+        for name, t in other.items():
+            kname, p = name.split()
+            b, by = pq_bound("scores" if kname == "pq_scores" else "search", Q, PN, m, kc, K,
+                             p, props, clock)
+            say("time", f"{kname} {label} {p} LUT: kernel {t:.4f} ms, bound {b:.4f} ms "
+                f"({by}) on {smi}")
+        floor_ms = lookup_ms(Q, PN, m, SMEM_WORDS_PER_CLOCK_PER_SM, props, clock)
+        design_floor["pq" + sfx] = floor_ms
+        say("bound", f"PQ {label}: the kernels' one load per lookup floor {floor_ms:.4f} ms "
+            f"({SMEM_WORDS_PER_CLOCK_PER_SM} lookups per clock per SM)")
+        if do_profile:
+            eqp = enc.encode_query(st["queries"])
+            profile(f"PQ {label} top_k exact", lambda: enc.top_k(eqp, K))
+            profile(f"PQ {label} top_k approx", lambda: enc.top_k(eqp, K, method="approx"))
+
+    # K7a as the OPQ coarse stage: k = R on the rotated LUT and OPQ codes.
+    opq = st["opq"]
+    name = "pq_search_approx_opq"
+    lut, ct = opq.encode_query(st["queries"]).lut, opq.codes_t
+    m, kc = opq.num_chunks, lut.shape[2]
+    kw = dict(n_valid=PN, k=R, mode="approx", precision="int8")
+    pv, pi = pq_kernel.pq_search_plain(lut, ct, **kw)
+    v, i = pq_kernel.pq_search(lut, ct, **kw)
+    err[name] = check_topk(v, i, pv, pq_kernel.lut_scores_plain(
+        lut, ct, n_valid=PN, precision="int8"), PN, "K7a OPQ")
+    require(torch.equal(i, pi), "K7a OPQ: ids equal plain approx")
+    ms[name] = timed_ms(lambda: pq_kernel.pq_search(lut, ct, **kw))
+    pms[name] = plain_ms(lambda: pq_kernel.pq_search_plain(lut, ct, **kw))
+    bounds[name] = pq_bound("search", Q, PN, m, kc, R, "int8", props, clock)
+    lib_ms[name] = None
+    say("K7a", f"OPQ coarse stage, approx k={R}, int8 LUT: values and ids equal the plain "
+        f"approx; kernel {ms[name]:.4f} ms, plain {pms[name]:.4f} ms on {smi}")
+    two_ms = wall_ms(lambda: two.top_k(two.encode_query(st["queries"]), K), reps=21)
+    if do_profile:
+        eqt = two.encode_query(st["queries"])
+        profile("two-stage OPQ -> f32 top_k_device", lambda: two.top_k_device(eqt, K))
+    f32_ms = timed_ms(lambda: torch.topk(st["queries_dev"] @ st["data_dev"].T, K, dim=1),
+                      iters=3)
+    say("time", f"two-stage OPQ -> f32 (R={R}): {two_ms:.4f} ms host wall per {Q}-query "
+        f"batch (encode_query + top_k + copy to host) at recall@{K} {rec['opq_f32']:.4f}; "
+        f"f32 matmul + topk baseline {f32_ms:.4f} ms at N={PN} D={PD}, on {smi}")
+    recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
+                 plain_ms=pms[n], bound=bounds[n], library_ms=lib_ms[n]) for n in ms]
+    return recs, {"recall_at_10": rec, "f32_ms": f32_ms, "opq_f32_batch_ms": two_ms,
+                  "train_encode_s": st["times"], "lookup_floor_ms": design_floor}
+
+
+def rehearse(n=30_000):
+    """Path 3's recall on the CPU at ``n`` rows, with the plain versions:
+    the predictions the card's run is held to (not device numbers)."""
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    rec, _ = pq_recalls(torch.device("cpu"), n, PD, SEED + 3)
+    say("rehearsal", f"CPU, {n} x {PD} neighbourhood corpus, {time.perf_counter() - t0:.0f} s "
+        f"(not a device number); recall@{K} vs the f32 oracle: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()))
+    return 0
+
+
 def max_sm_clock_hz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -783,6 +1178,8 @@ def max_sm_clock_hz():
 
 def main():
     t_start = time.perf_counter()
+    if "--rehearse" in sys.argv[1:]:
+        return rehearse()
     do_profile = "--profile" in sys.argv[1:]
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
@@ -819,9 +1216,11 @@ def main():
     bq_recs, bq_info = bq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
     neigh = bq_neighbour_path(dev, smi)
+    torch.cuda.empty_cache()
+    pq_recs, pq_info = pq_path(dev, smi, do_profile)
 
     kernels = []
-    for r in sq_recs + bq_recs:
+    for r in sq_recs + bq_recs + pq_recs:
         src, replaces = KERNELS[r["name"]]
         bound_ms, bound_by = r.pop("bound")
         kernels.append({
@@ -846,6 +1245,7 @@ def main():
         "k4_wrapper_ms": bq_info["k4_wrapper_ms"],
         "ties_at_r": bq_info["ties_at_r"],
         "neighbourhoods": neigh,
+        "pq": pq_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The JAX quantizers' state is, for SQ, ``np.asarray(enc.codes)``,
 ``np.asarray(enc.voffsets)`` and ``enc.metadata.to_json()``; for BQ,
 ``np.asarray(enc.planes)`` (uint32 [W8, Npad]), ``enc.metadata.to_json()``
-and ``enc.store_type``. Both packages keep the same in-memory layouts, so
-the arrays carry over whole. Nothing here imports JAX.
+and ``enc.store_type``; for PQ, ``np.asarray(enc.codes)`` (uint8 [Npad,
+Mpad]) and ``enc.metadata.to_json()``. Both packages keep the same
+in-memory layouts, so the arrays carry over whole. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.bq import BinaryQuantizer, BQMetadata
+from .models.pq import PQMetadata, ProductQuantizer
 from .models.sq import ScalarQuantizerU8, SQMetadata
 from .ops import bq as bq_ops
 from .ops.dispatch import resolve_device
@@ -57,3 +60,18 @@ def bq_from_numpy(
 def bq_to_numpy(enc: BinaryQuantizer) -> Tuple[np.ndarray, dict, str]:
     """(uint32 planes, metadata json, store_type) of the port's quantizer."""
     return bq_ops.tensor_to_words(enc.planes), enc.metadata.to_json(), enc.store_type
+
+
+def pq_from_numpy(codes: np.ndarray, metadata_json: dict, device=None) -> ProductQuantizer:
+    """The port's ProductQuantizer on ``device`` (default: the CUDA card)
+    from a quantizer's uint8 codes [N or Npad, m or Mpad]."""
+    device = resolve_device(device)
+    return ProductQuantizer(
+        torch.from_numpy(np.array(codes, dtype=np.uint8)).to(device),
+        PQMetadata.from_json(metadata_json),
+    )
+
+
+def pq_to_numpy(enc: ProductQuantizer) -> Tuple[np.ndarray, dict]:
+    """(uint8 codes [Npad, Mpad], metadata json) of the port's quantizer."""
+    return enc.codes.cpu().numpy(), enc.metadata.to_json()

@@ -171,6 +171,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         "qtt_bq_scores": [p, p, p, i, i, i, ll, i, i, i, p],
         "qtt_bq_search_exact": [p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
         "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
+        # (lut, scale, bias, codes_t, outputs..., Q, mpad, npad, n_valid, kc,
+        #  kind, [kk,] stream)
+        "qtt_pq_scores": [p, p, p, p, p, i, i, ll, i, i, i, p],
+        "qtt_pq_search_exact": [p, p, p, p, p, p, i, i, ll, i, i, i, i, p],
+        "qtt_pq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

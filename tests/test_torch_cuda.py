@@ -7,7 +7,9 @@ imports no JAX, so it runs where JAX is not installed:
 Tolerance: none. The kernels' epilogue rounds like the plain version (no
 fused multiply-add) and the int8 dot is exact, so scores are equal to the
 bit and exact top-k values are equal; ids may differ only among tied
-scores. BQ scores (K5a, K5c, K6) are exact integers, so the same holds."""
+scores. BQ scores (K5a, K5c, K6) are exact integers, so the same holds. The PQ kernels (K7a, K7b, K8) sum their
+LUT entries in their plain version's order, round each step alike, and
+compute the int8 epilogue in f64 rounded once, as the plain version does."""
 
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ import torch
 
 import quantization_tpu_torch as qt
 from quantization_tpu_torch.core.types import DistanceType
-from quantization_tpu_torch.ops.kernels import bq_kernel, gather, sq_kernel
+from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +282,120 @@ def test_two_stage_path_runs_through_the_kernels(dev):
     bq.score_batch(bq.encode_query(data[:4]))
     assert all(v > 0 for v in bq_kernel.LAUNCHES.values()), bq_kernel.LAUNCHES
     assert gather.LAUNCHES["sq_score_candidates"] > 0
+
+
+# ------------------------------------------------------- PQ (K7a, K7b, K8)
+
+
+def _pq_operands(dev, kc, m, n_valid, q, seed):
+    """A LUT f32 [Q, m, kc] and codes u8 [Mpad, Npad] (zero past m and
+    n_valid), in the ProductQuantizer's layout."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lut = torch.randn(q, m, kc, generator=g, device=dev) * 2 + torch.randn(
+        q, m, 1, generator=g, device=dev)
+    mpad = m + (-m) % pq_kernel.M_BLK
+    npad = n_valid + (-n_valid) % pq_kernel.TILE_N
+    codes_t = torch.zeros((mpad, npad), dtype=torch.uint8, device=dev)
+    codes_t[:m, :n_valid] = torch.randint(0, kc, (m, n_valid), generator=g, device=dev,
+                                          dtype=torch.uint8)
+    return lut, codes_t
+
+
+PQ_SHAPES = [(256, 96, 5000, 40), (16, 192, 3000, 33), (256, 7, 2049, 1), (16, 13, 1500, 70)]
+PQ_PRECISIONS = ["int8", "bf16", "bf16x2"]
+
+
+@pytest.mark.parametrize("precision", PQ_PRECISIONS)
+@pytest.mark.parametrize("kc,m,n_valid,q", PQ_SHAPES)
+def test_k8_pq_scores_equal_plain(dev, kc, m, n_valid, q, precision):
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, q, seed=m + q)
+    before = pq_kernel.LAUNCHES["pq_scores"]
+    got = pq_kernel.pq_scores(lut, codes_t, n_valid=n_valid, precision=precision)
+    assert pq_kernel.LAUNCHES["pq_scores"] == before + 1
+    want = pq_kernel.pq_scores_plain(lut, codes_t, n_valid=n_valid, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 10, 512, 513, 1024])
+@pytest.mark.parametrize("precision", PQ_PRECISIONS)
+@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48)])
+def test_k7b_pq_exact_equal_plain(dev, kc, m, precision, k):
+    n_valid = 6000
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=k + m)
+    kw = dict(n_valid=n_valid, precision=precision)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=n_valid, precision=precision)
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, k=k, **kw)
+    before = pq_kernel.LAUNCHES["pq_search_exact"]
+    v, i = pq_kernel.pq_search(lut, codes_t, k=k, **kw)
+    assert pq_kernel.LAUNCHES["pq_search_exact"] == before + 1
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+
+
+def test_k7b_pq_k_beyond_n_valid_and_all_ties(dev):
+    n_valid, k = 600, 1000
+    lut, codes_t = _pq_operands(dev, 256, 16, n_valid, 3, seed=3)
+    codes_t[:, :n_valid] = codes_t[:, :1]  # every valid row ties
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=n_valid, precision="int8")
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, n_valid=n_valid, k=k, precision="int8")
+    v, i = pq_kernel.pq_search(lut, codes_t, n_valid=n_valid, k=k, precision="int8")
+    _check_topk(v, i, pv, scores, n_valid)
+    assert bool((i[:, n_valid:] == -1).all())
+    assert bool(torch.isneginf(v[:, n_valid:]).all())
+
+
+@pytest.mark.parametrize("precision", PQ_PRECISIONS)
+@pytest.mark.parametrize("kc,m,n_valid", [(256, 96, 3000), (16, 192, 9000), (256, 16, 100_000)])
+def test_k7a_pq_approx_equal_plain(dev, kc, m, n_valid, precision):
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, 19, seed=n_valid)
+    kw = dict(n_valid=n_valid, k=40, mode="approx", precision=precision)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=n_valid, precision=precision)
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, **kw)
+    before = pq_kernel.LAUNCHES["pq_search_approx"]
+    v, i = pq_kernel.pq_search(lut, codes_t, **kw)
+    assert pq_kernel.LAUNCHES["pq_search_approx"] == before + 1
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+    assert torch.equal(i, pi)  # one tie rule: the first maximum in row order
+
+
+def test_pq_kernels_refuse_bad_layouts(dev):
+    lut, codes_t = _pq_operands(dev, 256, 16, 1000, 4, seed=1)
+    with pytest.raises(qt.ArgumentsError):
+        pq_kernel.pq_scores(lut, codes_t[:, :1000], n_valid=1000)
+    with pytest.raises(qt.ArgumentsError):
+        pq_kernel.pq_search(lut[:, :, :100].contiguous(), codes_t, n_valid=1000, k=5)
+    with pytest.raises(qt.ArgumentsError):
+        pq_kernel.pq_search(lut.cpu(), codes_t, n_valid=1000, k=5)
+
+
+def test_pq_model_path_runs_through_the_kernels(dev):
+    from quantization_tpu_torch.ops import pq as pq_ops
+
+    rng = np.random.default_rng(2)
+    n, dim = 6000, 64
+    data = rng.standard_normal((n, dim)).astype(np.float32)
+    params = qt.VectorParameters(dim, n, qt.DistanceType.DOT, False)
+    for bits, chunk in ((8, 8), (4, 4)):
+        enc = qt.ProductQuantizer.encode(data, params, chunk_size=chunk, bits=bits)
+        assert enc.codes.device.type == "cuda"
+        m = enc.num_chunks
+        # The CPU encoder with the card's centroids: equal but for near-ties.
+        cpu_codes = pq_ops.encode_batch(
+            torch.from_numpy(pq_ops.chunk_tensor(data, enc.metadata.vector_division)),
+            enc._c_chunks.cpu())
+        assert float((enc.codes[:n, :m].cpu() != cpu_codes).float().mean()) < 1e-3
+        pq_kernel.reset_launches()
+        eq = enc.encode_query(data[:16])
+        s, i = enc.top_k(eq, 10)
+        sa, ia = enc.top_k(eq, 10, method="approx")
+        scores = enc.score_batch(eq)
+        assert all(v > 0 for v in pq_kernel.LAUNCHES.values()), pq_kernel.LAUNCHES
+        np.testing.assert_array_equal(s, torch.topk(scores, 10, dim=1).values.cpu().numpy())
+        assert sa.shape == (16, 10) and ia.max() < n
+        # The same state on the CPU scores the same LUT to the bit.
+        cpu = qt.pq_from_numpy(*qt.pq_to_numpy(enc), device="cpu")
+        cq = qt.EncodedQueryPQ(eq.lut.cpu())
+        assert torch.equal(cpu.score_batch(cq), scores.cpu())

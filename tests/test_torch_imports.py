@@ -115,7 +115,7 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
-    assert [pathlib.Path(h).name for h in build.headers()] == ["ktile.cuh"]
+    assert [pathlib.Path(h).name for h in build.headers()] == ["ktile.cuh", "pq_kernels.cuh"]
     path = build.library_path()
     header = csrc / "ktile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -176,3 +176,43 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
             call()
     assert qt.BinaryQuantizer.load(tmp_path / "bq.bin", tmp_path / "bq.json", params,
                                    device="cpu").device == torch.device("cpu")
+
+
+def test_pq_cpu_tensors_never_touch_the_library(monkeypatch, rng):
+    from quantization_tpu_torch.ops.kernels import pq_kernel
+
+    def refuse():
+        raise AssertionError("CPU tensors must not build or load the kernels")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(pq_kernel, "load_library", refuse)
+    data = rng.standard_normal((700, 16)).astype(np.float32)
+    params = quantization_tpu_torch.VectorParameters(
+        16, 700, quantization_tpu_torch.DistanceType.L2, True)
+    for bits in (8, 4):
+        enc = quantization_tpu_torch.ProductQuantizer.encode(
+            data, params, chunk_size=4, bits=bits, device="cpu")
+        eq = enc.encode_query(data[:3])
+        enc.score_batch(eq)
+        for method in ("exact", "approx"):
+            _, i = enc.top_k(eq, 4, method=method)
+            assert (i[:, 0] == np.arange(3)).all()
+
+
+def test_pq_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
+    qt = quantization_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = rng.random((50, 16), dtype=np.float32)
+    params = qt.VectorParameters(16, 50, qt.DistanceType.DOT, False)
+    pq = qt.ProductQuantizer.encode(data, params, chunk_size=4, device="cpu")
+    pq.save(tmp_path / "pq.bin", tmp_path / "pq.json")
+    calls = [
+        lambda: qt.ProductQuantizer.encode(data, params, chunk_size=4),
+        lambda: qt.ProductQuantizer.load(tmp_path / "pq.bin", tmp_path / "pq.json", params),
+        lambda: qt.pq_from_numpy(*qt.pq_to_numpy(pq)),
+    ]
+    for call in calls:
+        with pytest.raises(qt.NoDeviceError, match="device='cpu'"):
+            call()
+    assert qt.ProductQuantizer.load(tmp_path / "pq.bin", tmp_path / "pq.json", params,
+                                    device="cpu").device == torch.device("cpu")
