@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 2.5 minutes
+    python3 chip_smoke.py             # the checks and times, about 5 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
-    python3 chip_smoke.py --rehearse  # path 3's recall on the CPU at 30k rows
+    python3 chip_smoke.py --rehearse [pq] [ivf]  # paths 3 / 4's recall on the CPU, 30k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
-nvcc (one process per source, all at once), and drives the port's three main
+nvcc (one process per source, all at once), and drives the port's four main
 paths through the public API, each with the kernel launch counts set to 0
 just before it and read just after:
 
@@ -30,6 +30,16 @@ both corpora, since the clustered one ties far more.
      width; codes against the CPU encoder, save/load, then OPQ and an OPQ ->
      f32 two-stage index (R = 40), whose recall@10 is held to the floor of
      the CPU rehearsal (``--rehearse``).
+
+  4. IVF on path 3's corpus (1,000,000 x 768, Q = 256, k = 10): IVF-SQ,
+     residual IVF-SQ, residual IVF-OPQ and IVF-BQ at the automatic geometry
+     (S = 1024), residual IVF-OPQ at the README geometry (nlist 2048,
+     S = 512), searched exact and approx at nprobe 32 over 256 and 512
+     buckets through the indexed scans (K9b, K9a, K10, K11) and the compact
+     ones (K1 / K2 with corr, K5c, K7b / K7a with rowadd and corr), and
+     IVF-SQ / IVF-OPQ -> f32 two-stage, whose recall@10 is held to the floor
+     of the CPU rehearsal (``--rehearse ivf``); indexed == compact, the
+     full probe == the full scan, chunked == unchunked, save/load.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -85,6 +95,18 @@ for _sfx in ("", "_4bit"):  # one kernel per name; the 4-bit rows time KC = 16
     })
 # K7a again, as the coarse stage of OPQ -> f32 two-stage (k = R).
 KERNELS["pq_search_approx_opq"] = KERNELS["pq_search_approx"]
+# Path 4 (IVF): the indexed scans, and the dense kernels again as the
+# compact scans of the probed buckets, with the residual additives.
+KERNELS.update({
+    "sq_search_indexed_exact": ("sq_kernels.cu", "quantization_tpu/ops/pallas/sq_kernel.py:664"),
+    "sq_search_indexed_approx": ("sq_kernels.cu",
+                                 "quantization_tpu/ops/pallas/sq_kernel.py:628"),
+    "bq_search_indexed": ("bq_kernels.cu", "quantization_tpu/ops/pallas/bq_kernel.py:328"),
+    "pq_search_indexed": ("pq_kernels.cu", "quantization_tpu/ops/pallas/pq_kernel.py:582"),
+})
+for _name in ("sq_search_exact", "sq_search_approx", "bq_search_exact", "pq_search_exact",
+              "pq_search_approx"):
+    KERNELS[_name + "_ivf"] = KERNELS[_name]
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -116,6 +138,17 @@ INT8_RECALL_SLACK = 0.02
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
 SMEM_WORDS_PER_CLOCK_PER_SM = 32
 LUT_ENTRY_BYTES = {"int8": 1, "bf16": 2, "bf16x2": 4}
+# Path 4 (IVF) on path 3's corpus: per-query probes and the batch-union
+# widths of the search ladder (in buckets), the README geometry's nlist and
+# bucket size for residual OPQ (README.md:134-136), and the floor of the
+# IVF-SQ -> f32 recall@10: the CPU rehearsal's value less 0.05 (--rehearse
+# ivf, 30k rows, the same fraction of buckets scanned), or 0.8 if lower.
+IVF_NPROBE, IVF_NSCANS = 32, (256, 512)
+IVF_README_NLIST, IVF_README_BUCKET = 2048, 512
+IVF_SQ_F32_RECALL_REHEARSAL = 0.3098
+IVF_SQ_F32_RECALL_MIN = min(IVF_SQ_F32_RECALL_REHEARSAL - 0.05, 0.8)
+# The chunked indexed scan is checked with chunks of this many tiles.
+IVF_CHECK_CHUNK_TILES = 64
 
 
 def say(phase, msg):
@@ -442,7 +475,8 @@ def sq_path(dev, smi, do_profile):
     s_re, i_re = enc2.top_k(enc2.encode_query(queries), K)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sq_kernel.LAUNCHES)
+    launches = {n: sq_kernel.LAUNCHES[n]
+                for n in ("sq_scores", "sq_search_exact", "sq_search_approx")}
     say("sq-main", f"encode + queries + exact/approx top-{K} + score_batch + save/load "
         f"+ search in {wall:.2f} s; launches {launches}")
     for kname, n in launches.items():
@@ -944,9 +978,11 @@ def pq_path(dev, smi, do_profile):
         with_lut("bf16", lambda: enc.score_batch(eq))  # K8b: the same kernel, bf16 words
         torch.cuda.synchronize()
         sfx = "" if label == "8bit" else "_4bit"
-        launches.update({name + sfx: n for name, n in pq_kernel.LAUNCHES.items()})
-        say("pq-main", f"{label}: launches {dict(pq_kernel.LAUNCHES)}")
-        for name, n in pq_kernel.LAUNCHES.items():
+        dense = {n: pq_kernel.LAUNCHES[n]
+                 for n in ("pq_scores", "pq_search_exact", "pq_search_approx")}
+        launches.update({name + sfx: n for name, n in dense.items()})
+        say("pq-main", f"{label}: launches {dense}")
+        for name, n in dense.items():
             require(n > 0, f"PQ {label} main path launched {name}")
         require(enc.codes_t.is_cuda and tuple(enc.codes_t.shape)
                 == (enc.num_chunks + (-enc.num_chunks) % pq_kernel.M_BLK,
@@ -1156,15 +1192,521 @@ def pq_path(dev, smi, do_profile):
                   "train_encode_s": st["times"], "lookup_floor_ms": design_floor}
 
 
-def rehearse(n=30_000):
-    """Path 3's recall on the CPU at ``n`` rows, with the plain versions:
-    the predictions the card's run is held to (not device numbers)."""
-    torch.set_num_threads(4)
+IVF_SPECS = {  # name -> IVFIndex.encode arguments beyond (data, params)
+    "sq": dict(quantizer="sq"),
+    "sq_res": dict(quantizer="sq", residual=True),
+    "opq_res": dict(quantizer="pq", chunk_size=PQ_CHUNK, rotation="opq", residual=True),
+    "bq": dict(quantizer="bq"),
+    "opq_res_512": dict(quantizer="pq", chunk_size=PQ_CHUNK, rotation="opq", residual=True,
+                        nlist=IVF_README_NLIST, bucket_size=IVF_README_BUCKET),
+}
+
+
+def serve_defaults(ivf):
+    """The two-stage searches' probe and union widths, set as the index's
+    defaults: 1/32 and 1/4 of its buckets (32 and ~256 at 1M rows), so the
+    CPU rehearsal at 30k rows scans the same fraction."""
+    nb = ivf.metadata.nbuckets
+    ivf.metadata.nprobe = max(1, round(nb / 32))
+    ivf.metadata.nscan = max(ivf.metadata.nprobe, round(nb / 4))
+
+
+def ivf_sq_recalls(dev, n, dim, seed):
+    """IVF-SQ coarse and IVF-SQ -> f32 two-stage (R = 40) recall@10 on the
+    neighbourhood corpus, with ``serve_defaults``: the numbers the card's
+    run is held to, rehearsed on the CPU."""
+    from quantization_tpu_torch import (
+        DistanceType, ExactRescorer, IVFIndex, TwoStageIndex, VectorParameters,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data_dev, queries_dev = neighbourhoods(n, Q, dim, gen, dev)
+    data, queries = data_dev.cpu().numpy(), queries_dev.cpu().numpy()
+    oracle = torch.topk(queries_dev @ data_dev.T, K, dim=1).indices.cpu().numpy()
+    ivf = IVFIndex.encode(data, VectorParameters(dim, n, DistanceType.DOT, False),
+                          quantizer="sq", device=dev)
+    serve_defaults(ivf)
+    two = TwoStageIndex(ivf, ExactRescorer(data_dev, DistanceType.DOT, False, device=dev),
+                        oversampling=OVERSAMPLING)
+    _, i_c = ivf.top_k(ivf.encode_query(queries), K)
+    _, i_t = two.top_k(two.encode_query(queries), K)
+    return {"ivf_sq": recall(i_c, oracle, K), "ivf_sq_f32": recall(i_t, oracle, K),
+            "nbuckets": ivf.metadata.nbuckets, "nprobe": ivf.metadata.nprobe,
+            "nscan": ivf.metadata.nscan}
+
+
+def ivf_union(ivf, q, nprobe, nscan):
+    """The batch union of a search (bucket ids in priority order), as
+    ``top_k_device`` computes it."""
+    from quantization_tpu_torch.models import ivf as ivf_mod
+
+    nb = ivf.metadata.nbuckets
+    p = min(nprobe, nb)
+    return ivf_mod._union(q, ivf._means_dev, ivf.params.distance_type, ivf.params.invert,
+                          p, max(min(nscan, nb), p))
+
+
+def ivf_corr(ivf, q, union):
+    """The residual bucket term [U, Q] of a union, as the model builds it."""
+    from quantization_tpu_torch.models import ivf as ivf_mod
+
+    rc = ivf_mod._residual_coeffs(ivf.params.distance_type, ivf.params.invert)[1]
+    return ivf_mod._bucket_term(q, ivf._means_dev, union, ivf._res_a,
+                                rc if ivf.metadata.kind == "pq" else 0.0)
+
+
+def tiles_of(union, s, itile):
+    tpb = s // itile
+    return (union[:, None] * tpb + torch.arange(tpb, device=union.device)).reshape(-1).to(
+        torch.int32)
+
+
+def check_exact_pairs(v, i, pv, scores, col, what):
+    """Exact-search rule: values equal the plain version's; every live id is
+    distinct and scores (plain, through ``col``: corpus row -> column of
+    ``scores``) the value of its slot."""
+    require(torch.equal(v, pv), f"{what}: values equal plain")
+    live = i >= 0
+    c = col[i.clamp(min=0).long()]
+    require(bool((c[live] >= 0).all()), f"{what}: ids are rows of the scan")
+    got = torch.gather(scores, 1, c.clamp(min=0))
+    require(torch.equal(got[live], v[live]), f"{what}: score[id] == value")
+    srt = torch.sort(i, dim=1).values
+    require(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()),
+            f"{what}: distinct ids")
+    return 0.0
+
+
+def column_map(rows, npad, dev):
+    col = torch.full((npad,), -1, dtype=torch.long, device=dev)
+    col[rows] = torch.arange(rows.shape[0], device=dev)
+    return col
+
+
+def ivf_path(dev, smi, do_profile, opq_f32_ms):
+    """Path 4: IVF at 1M x 768 on path 3's neighbourhood corpus — IVF-SQ,
+    residual IVF-SQ, residual IVF-OPQ and IVF-BQ at the automatic geometry,
+    residual IVF-OPQ at the README geometry — searched through the public
+    API, two-stage over IVF, then every kernel of the path against its plain
+    version at the path's shapes, and the times."""
+    from quantization_tpu_torch import (
+        ArgumentsError, DistanceType, ExactRescorer, IVFIndex, ScalarQuantizerU8,
+        TwoStageIndex, VectorParameters,
+    )
+    from quantization_tpu_torch.models import ivf as ivf_mod
+    from quantization_tpu_torch.ops.kernels import bq_kernel, ktile, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    data_dev, queries_dev = neighbourhoods(PN, Q, PD, gen, dev)
+    data, queries = data_dev.cpu().numpy(), queries_dev.cpu().numpy()
+    params = VectorParameters(PD, PN, DistanceType.DOT, False)
+    oracle = torch.topk(queries_dev @ data_dev.T, K, dim=1).indices.cpu().numpy()
+    try:
+        IVFIndex.encode(data, params, quantizer="bq", residual=True)
+        require(False, "residual IVF-BQ raises ArgumentsError")
+    except ArgumentsError as e:
+        say("ivf-build", f"residual IVF-BQ raises ArgumentsError: {e}")
+
+    # ------------------------------------------------------------- builds
+    idx, build_s = {}, {}
+    for name, kw in IVF_SPECS.items():
+        t0 = time.perf_counter()
+        idx[name] = IVFIndex.encode(data, params, **kw)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        m = idx[name].metadata
+        say("ivf-build", f"{name}: nlist {m.nlist}, bucket_size {m.bucket_size}, "
+            f"{m.nbuckets} buckets ({m.nbuckets * m.bucket_size} inner rows), built in "
+            f"{build_s[name]:.2f} s")
+        require(idx[name].device.type == "cuda", f"{name}: on the card by default")
+    for name in ("sq", "sq_res", "opq_res", "bq"):
+        require(idx[name].metadata.bucket_size == 1024, f"{name}: auto geometry S = 1024")
+    for ivf in idx.values():
+        serve_defaults(ivf)
+
+    # ----------------------------------------- the main path, counted
+    fine = ExactRescorer(data_dev, DistanceType.DOT, False)
+    twos = {"ivf_sq_f32": TwoStageIndex(idx["sq"], fine, oversampling=OVERSAMPLING),
+            "ivf_opq_res_f32": TwoStageIndex(idx["opq_res"], fine, oversampling=OVERSAMPLING),
+            "ivf_opq_res_f32_r160": TwoStageIndex(idx["opq_res"], fine, oversampling=16.0)}
+    reset_all(*mods)
     t0 = time.perf_counter()
-    rec, _ = pq_recalls(torch.device("cpu"), n, PD, SEED + 3)
-    say("rehearsal", f"CPU, {n} x {PD} neighbourhood corpus, {time.perf_counter() - t0:.0f} s "
-        f"(not a device number); recall@{K} vs the f32 oracle: "
+    res, nsearch = {}, 0
+    for name, ivf in idx.items():
+        eq = ivf.encode_query(queries)
+        for nscan in IVF_NSCANS:
+            for method in ("exact", "approx"):
+                res[name, method, nscan] = ivf.top_k(eq, K, method=method, nprobe=IVF_NPROBE,
+                                                     nscan=nscan)
+                nsearch += 1
+        if name == "sq_res":  # the compact scan too: K1 / K2 with corr
+            for method in ("exact", "approx"):
+                res[name, method, "compact"] = ivf.top_k(
+                    eq, K, method=method, nprobe=IVF_NPROBE, nscan=IVF_NSCANS[0],
+                    scan="compact")
+                nsearch += 1
+    for name, two in twos.items():
+        res[name] = two.top_k(two.encode_query(queries), K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(*mods)
+    say("ivf-main", f"{nsearch} IVF searches + 3 two-stage searches in {wall:.2f} s; "
+        f"launches {launches}")
+    path_kernels = {  # kernel -> the name of its row
+        "sq_search_indexed_exact": "sq_search_indexed_exact",
+        "sq_search_indexed_approx": "sq_search_indexed_approx",
+        "bq_search_indexed": "bq_search_indexed",
+        "pq_search_indexed": "pq_search_indexed",
+        "sq_search_exact": "sq_search_exact_ivf",
+        "sq_search_approx": "sq_search_approx_ivf",
+        "bq_search_exact": "bq_search_exact_ivf",
+        "pq_search_exact": "pq_search_exact_ivf",
+        "pq_search_approx": "pq_search_approx_ivf",
+    }
+    for kname in path_kernels:
+        require(launches[kname] > 0, f"IVF main path launched {kname}")
+    scans, searches = sum(launches[k] for k in path_kernels), nsearch + len(twos)
+    say("ivf-main", f"{scans} scan-kernel launches for {searches} searches: "
+        f"{scans / searches:.2f} per search (probe, union, corr and dedupe are torch ops)")
+    require(scans == searches, "one scan kernel per IVF search (no chunking at these shapes)")
+    rec = {}
+    for key, (s, i) in res.items():
+        require(s.shape == (Q, K) and bool(np.isfinite(s).all())
+                and bool(((i >= 0) & (i < PN)).all()), f"IVF {key}: finite scores, valid ids")
+        rec["/".join(map(str, key)) if isinstance(key, tuple) else key] = recall(i, oracle, K)
+    eq_sq = idx["sq"].encode_query(queries)
+    _, i_c = idx["sq"].top_k(eq_sq, K)
+    rec["ivf_sq_serve"] = recall(i_c, oracle, K)
+    say("ivf-main", f"recall@{K} vs the f32 oracle (nprobe {IVF_NPROBE}, nscan "
+        f"{'/'.join(map(str, IVF_NSCANS))}; two-stage and ivf_sq_serve at "
+        f"nprobe {idx['sq'].metadata.nprobe} nscan {idx['sq'].metadata.nscan}): "
         + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()))
+    require(rec["ivf_sq_f32"] >= IVF_SQ_F32_RECALL_MIN,
+            f"IVF-SQ -> f32 recall@{K} >= {IVF_SQ_F32_RECALL_MIN:.4f}")
+    # Rescoring cannot add what the probe missed; among the scanned rows it
+    # ranks at least as well as SQ (on this corpus the two tie closely).
+    require(rec["ivf_sq_f32"] >= rec["ivf_sq_serve"], "IVF-SQ -> f32 not below IVF-SQ alone")
+
+    # ---------------------------------------------- the path's invariants
+    for name in ("sq", "sq_res"):
+        ivf, nb = idx[name], idx[name].metadata.nbuckets
+        eq = ivf.encode_query(queries)
+        for nscan in (IVF_NSCANS[0], nb):
+            a = ivf.top_k(eq, K, method="exact", nprobe=IVF_NPROBE, nscan=nscan,
+                          scan="indexed")
+            b = ivf.top_k(eq, K, method="exact", nprobe=IVF_NPROBE, nscan=nscan,
+                          scan="compact")
+            require(np.array_equal(a[0], b[0]), f"{name} nscan {nscan}: indexed == compact "
+                    "exact values")
+    full_sq = ScalarQuantizerU8.encode(data, params)
+    eq_full = full_sq.encode_query(queries)
+    f_s, f_i = full_sq.top_k(eq_full, K)
+    rec["full_sq"] = recall(f_i, oracle, K)
+    p_s, _ = idx["sq"].top_k(eq_sq, K, nprobe=idx["sq"].metadata.nbuckets,
+                             nscan=idx["sq"].metadata.nbuckets)
+    require(np.array_equal(f_s, p_s), "IVF-SQ over every bucket == the full SQ scan")
+    old_chunk = ivf_mod._INDEXED_CHUNK_TILES
+    try:
+        for name in ("sq", "sq_res"):
+            ivf, nb = idx[name], idx[name].metadata.nbuckets
+            eq = ivf.encode_query(queries)
+            u = ivf.top_k(eq, K, method="exact", nprobe=IVF_NPROBE, nscan=nb)
+            ivf_mod._INDEXED_CHUNK_TILES = IVF_CHECK_CHUNK_TILES
+            c = ivf.top_k(eq, K, method="exact", nprobe=IVF_NPROBE, nscan=nb)
+            ivf_mod._INDEXED_CHUNK_TILES = old_chunk
+            require(np.array_equal(u[0], c[0]), f"{name}: chunked indexed scan == unchunked")
+    finally:
+        ivf_mod._INDEXED_CHUNK_TILES = old_chunk
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("sq_res", "opq_res_512", "bq"):
+            ivf = idx[name]
+            d, mpath = os.path.join(tmp, f"{name}.bin"), os.path.join(tmp, f"{name}.json")
+            ivf.save(d, mpath)
+            back = IVFIndex.load(d, mpath, params)
+            for method in ("exact", "approx"):
+                a = ivf.top_k(ivf.encode_query(queries), K, method=method)
+                b = back.top_k(back.encode_query(queries), K, method=method)
+                require(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+                        f"{name} {method}: search after save/load equals search before")
+    say("ivf-check", "indexed == compact (exact, nscan 256 and every bucket), full probe "
+        "== full scan, chunked == unchunked, save/load equals: all hold")
+
+    # ------------------------- every kernel against plain, at the path's shapes
+    props = torch.cuda.get_device_properties(0)
+    clock = max_sm_clock_hz()
+    q_dev = torch.from_numpy(queries).to(dev)
+    recs = []
+    kk2 = 2 * K
+
+    def record(name, err, fn, plain_fn, bnd, lib=None):
+        recs.append(dict(name=name, launches=launches[name.replace("_ivf", "")]
+                         if name.endswith("_ivf") else launches[name],
+                         max_abs_err=err, ms=timed_ms(fn), plain_ms=plain_ms(plain_fn),
+                         bound=bnd, library_ms=lib))
+        r = recs[-1]
+        say("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) per {Q}-query batch, k={kk2}, on {smi}")
+
+    def sq_bound(rows, d, corr_rows=0, sel=0):
+        b = rows * d + rows * 4 + Q * (d + 8) + corr_rows * Q * 4 + sel * 4 + Q * kk2 * 8
+        return bound(b, 2 * Q * rows * d, INT8_OPS_PER_S)
+
+    nscan = IVF_NSCANS[0]
+    for name, with_corr in (("sq", False), ("sq_res", True)):
+        ivf = idx[name]
+        s = ivf.metadata.bucket_size
+        union = ivf_union(ivf, q_dev, IVF_NPROBE, nscan)
+        tiles = tiles_of(union, s, s)
+        require(not bool((torch.diff(tiles) == 1).all()), "a non-contiguous tile list")
+        eq, inner = ivf._family_arrays(ivf.encode_query(queries)[1])
+        qcodes, qoff = eq
+        codes, voff, mult = inner
+        corr = (torch.repeat_interleave(ivf_corr(ivf, q_dev, union), s // 512, dim=0)
+                .contiguous() if with_corr else None)
+        rows = ktile.tile_rows(tiles, s)
+        scores = sq_kernel.sq_scores_plain(qcodes, qoff, codes[rows], voff[rows], mult,
+                                           distance_type=DistanceType.DOT,
+                                           n_valid=rows.shape[0])
+        if corr is not None:
+            scores = scores + ktile.expand_corr(corr, selection=True)
+        col = column_map(rows, codes.shape[0], dev)
+        for mode in ("exact", "approx"):
+            kname = "sq_search_indexed_" + mode
+            kw = dict(distance_type=DistanceType.DOT, k=kk2, mode=mode, tile_n=s)
+            args = (qcodes, qoff, codes, voff, mult, tiles, corr)
+            v, i = sq_kernel.sq_search_indexed(*args, **kw)
+            pv, pi = sq_kernel.sq_search_indexed_plain(*args, **kw)
+            torch.cuda.synchronize()
+            what = f"{'K9b' if mode == 'exact' else 'K9a'} {name}"
+            if mode == "exact":
+                check_exact_pairs(v, i, pv, scores, col, what)
+            else:
+                require(torch.equal(v, pv) and torch.equal(i, pi), f"{what}: equal plain")
+            if with_corr:  # the path's shape: the residual index's scan
+                record(kname, 0.0, lambda a=args, k=kw: sq_kernel.sq_search_indexed(*a, **k),
+                       lambda a=args, k=kw: sq_kernel.sq_search_indexed_plain(*a, **k),
+                       sq_bound(rows.shape[0], codes.shape[1], corr.shape[0], tiles.shape[0]))
+        say("K9", f"{name}: K9b / K9a over {tiles.shape[0]} permuted tiles of {s} rows"
+            f"{' with corr' if with_corr else ''}: equal to plain")
+        if with_corr:  # K1 / K2 with corr: the compact scan of the same union
+            nb = ivf.metadata.nbuckets
+            width = union.shape[0] * s
+            g = ivf_mod._gather_buckets(codes, union, nb, s, 0)
+            gv = ivf_mod._gather_buckets(voff, union, nb, s, 0)
+            corr_c = torch.repeat_interleave(ivf_corr(ivf, q_dev, union).T, s // 512, dim=1)
+            corr_c = corr_c.contiguous()
+            sc = sq_kernel.sq_scores_plain(qcodes, qoff, g, gv, mult,
+                                           distance_type=DistanceType.DOT, n_valid=width)
+            sc = sc + ktile.expand_corr(corr_c)
+            for mode in ("exact", "approx"):
+                kw = dict(distance_type=DistanceType.DOT, n_valid=width, k=kk2, mode=mode)
+                args = (qcodes, qoff, g, gv, mult, corr_c)
+                v, i = sq_kernel.sq_search(*args, **kw)
+                pv, pi = sq_kernel.sq_search_plain(*args, **kw)
+                torch.cuda.synchronize()
+                what = f"{'K1' if mode == 'exact' else 'K2'} corr"
+                if mode == "exact":
+                    check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), what)
+                else:
+                    require(torch.equal(v, pv) and torch.equal(i, pi), f"{what}: equal plain")
+                record(f"sq_search_{mode}_ivf", 0.0,
+                       lambda a=args, k=kw: sq_kernel.sq_search(*a, **k),
+                       lambda a=args, k=kw: sq_kernel.sq_search_plain(*a, **k),
+                       sq_bound(width, g.shape[1], width // 512))
+            say("K1/K2", f"corr forms over the compact {width}-row union: equal to plain")
+
+    # K10 and K5c (the compact exact scan) on IVF-BQ.
+    ivf = idx["bq"]
+    s, nb = ivf.metadata.bucket_size, ivf.metadata.nbuckets
+    planes = ivf.quantizer.planes
+    qw = ivf.encode_query(queries)[1].planes
+    union = ivf_union(ivf, q_dev, IVF_NPROBE, nscan)
+    itile = bq_kernel.indexed_tile_n(planes.shape[0] * 32, s)
+    tiles = tiles_of(union, s, itile)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=PD, k=kk2, tile_n=itile)
+    v, i = bq_kernel.bq_search_indexed(qw, planes, tiles, **kw)
+    pv, pi = bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi), "K10: equal to plain")
+    wt = bq_kernel.true_words(PD)
+    rows = tiles.shape[0] * itile
+    record("bq_search_indexed", 0.0,
+           lambda: bq_kernel.bq_search_indexed(qw, planes, tiles, **kw),
+           lambda: bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw),
+           bound(rows * wt * 4 + Q * wt * 4 + tiles.shape[0] * 4 + Q * kk2 * 8,
+                 2 * Q * rows * PD, INT8_OPS_PER_S))
+    g = ivf_mod._gather_buckets(planes, union, nb, s, 1)
+    g = torch.nn.functional.pad(g, (0, (-g.shape[1]) % bq_kernel.TILE_N)).contiguous()
+    width = union.shape[0] * s
+    bkw = dict(distance_type=DistanceType.DOT, invert=False, dim=PD, n_valid=width, k=kk2)
+    v, i = bq_kernel.bq_search(qw, g, **bkw)
+    pv, _ = bq_kernel.bq_search_plain(qw, g, **bkw)
+    sc = bq_kernel.bq_scores_plain(qw, g, distance_type=DistanceType.DOT, invert=False,
+                                   dim=PD, n_valid=width)
+    torch.cuda.synchronize()
+    check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K5c compact")
+    record("bq_search_exact_ivf", 0.0, lambda: bq_kernel.bq_search(qw, g, **bkw),
+           lambda: bq_kernel.bq_search_plain(qw, g, **bkw),
+           bound(width * wt * 4 + Q * wt * 4 + Q * kk2 * 8, 2 * Q * width * PD,
+                 INT8_OPS_PER_S))
+    say("K10/K5c", f"IVF-BQ: K10 over {tiles.shape[0]} permuted tiles of {itile} rows and "
+        f"K5c over the compact {width}-row union: equal to plain")
+
+    # K11 (residual OPQ at S = 1024), with and without the additives, three
+    # LUT words, and once at 4 bits; K7a / K7b with them at the README geometry.
+    ivf = idx["opq_res"]
+    s = ivf.metadata.bucket_size
+    lut = ivf.encode_query(queries)[1].lut
+    ct = ivf.quantizer.codes_t
+    m = ivf.quantizer.num_chunks
+    union = ivf_union(ivf, q_dev, IVF_NPROBE, nscan)
+    tiles = tiles_of(union, s, s)
+    corr = torch.repeat_interleave(ivf_corr(ivf, q_dev, union), s // 512, dim=0).contiguous()
+    rowadd = ivf._resid_pq
+    rows = tiles.shape[0] * s
+    for precision in ("int8", "bf16", "bf16x2"):
+        for add in ((rowadd, corr), (None, None)):
+            kw = dict(k=kk2, precision=precision, tile_n=s)
+            v, i = pq_kernel.pq_search_indexed(lut, ct, tiles, *add, **kw)
+            pv, pi = pq_kernel.pq_search_indexed_plain(lut, ct, tiles, *add, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(v, pv) and torch.equal(i, pi),
+                    f"K11 {precision}{' residual' if add[0] is not None else ''}: equal plain")
+    g4 = torch.Generator(device=dev)
+    g4.manual_seed(SEED + 4)
+    lut4 = torch.randn(Q, m, 16, generator=g4, device=dev)
+    ct4 = ct & 15
+    kw4 = dict(k=kk2, precision="int8", tile_n=s)
+    v, i = pq_kernel.pq_search_indexed(lut4, ct4, tiles, rowadd, corr, **kw4)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut4, ct4, tiles, rowadd, corr, **kw4)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi), "K11 4-bit: equal plain")
+    prec = pq_kernel.lut_precision(residual=True)
+    kw = dict(k=kk2, precision=prec, tile_n=s)
+    record("pq_search_indexed", 0.0,
+           lambda: pq_kernel.pq_search_indexed(lut, ct, tiles, rowadd, corr, **kw),
+           lambda: pq_kernel.pq_search_indexed_plain(lut, ct, tiles, rowadd, corr, **kw),
+           pq_bound("search", Q, rows, m, 256, kk2, prec, props, clock))
+    say("K11", f"residual OPQ: K11 over {tiles.shape[0]} permuted tiles of {s} rows, int8 / "
+        "bf16 / bf16x2 LUT with and without (rowadd, corr), and 4-bit once: equal to plain")
+
+    ivf = idx["opq_res_512"]
+    s, nb = ivf.metadata.bucket_size, ivf.metadata.nbuckets
+    lut = ivf.encode_query(queries)[1].lut
+    union = ivf_union(ivf, q_dev, IVF_NPROBE, nscan)
+    width = union.shape[0] * s
+    rows_u = (union[:, None] * s + torch.arange(s, device=dev)).reshape(-1)
+    qz = ivf.quantizer
+    ctu = qz._codes[rows_u].T if qz._codes is not None else qz._codes_t[:, rows_u]
+    npadc = width + (-width) % pq_kernel.TILE_N
+    ctu = torch.nn.functional.pad(ctu, (0, npadc - width)).contiguous()
+    ra = torch.nn.functional.pad(ivf_mod._gather_buckets(ivf._resid_pq, union, nb, s, 0),
+                                 (0, npadc - width))
+    corr_c = torch.repeat_interleave(ivf_corr(ivf, q_dev, union).T, s // 512, dim=1)
+    corr_c = torch.nn.functional.pad(corr_c, (0, (npadc - width) // 512)).contiguous()
+    for mode in ("exact", "approx"):
+        kname = f"pq_search_{mode}_ivf"
+        kw = dict(n_valid=width, k=kk2, mode=mode, precision=prec)
+        args = (lut, ctu, ra, corr_c)
+        v, i = pq_kernel.pq_search(*args, **kw)
+        pv, pi = pq_kernel.pq_search_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if mode == "exact":
+            sc = pq_kernel.lut_scores_plain(lut, ctu, n_valid=width, precision=prec)
+            sc = (sc + ra[None, :width]) + ktile.expand_corr(corr_c)[:, :width]
+            check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K7b residual")
+        else:
+            require(torch.equal(v, pv) and torch.equal(i, pi), "K7a residual: equal plain")
+        record(kname, 0.0, lambda a=args, k=kw: pq_kernel.pq_search(*a, **k),
+               lambda a=args, k=kw: pq_kernel.pq_search_plain(*a, **k),
+               pq_bound("search", Q, width, qz.num_chunks, 256, kk2, prec, props, clock))
+    say("K7", f"README geometry (S = {s}): K7b / K7a with (rowadd, corr) over the compact "
+        f"{width}-row union, {prec} LUT: equal to plain")
+
+    # --------------------------------------------------- batches and breakdown
+    batch = {}
+    for name, ivf in idx.items():
+        eq = ivf.encode_query(queries)
+        for method in ("exact", "approx"):
+            batch[f"{name}/{method}"] = wall_ms(
+                lambda ivf=ivf, eq=eq, method=method: ivf.top_k(
+                    eq, K, method=method, nprobe=IVF_NPROBE, nscan=nscan), reps=11)
+    for name, two in twos.items():
+        batch[name] = wall_ms(lambda two=two: two.top_k(two.encode_query(queries), K), reps=11)
+    batch["full_sq_exact"] = wall_ms(lambda: full_sq.top_k(eq_full, K), reps=11)
+    for key, t in batch.items():
+        say("time", f"{key}: {t:.4f} ms host wall per {Q}-query batch (nprobe {IVF_NPROBE}, "
+            f"nscan {nscan}; two-stage at the serving defaults) on {smi}")
+    say("time", f"beside them: the full SQ scan {batch['full_sq_exact']:.4f} ms (K1 over "
+        f"{PN} rows) at recall@{K} {rec['full_sq']:.4f}, and path 3's OPQ -> f32 full scan "
+        f"{opq_f32_ms:.4f} ms, on {smi}")
+    breakdown = {}
+    for name in ("sq", "opq_res"):
+        ivf = idx[name]
+        eqn = ivf.encode_query(queries)
+        eq, inner = ivf._family_arrays(eqn[1])
+        s = ivf.metadata.bucket_size
+        union = ivf_union(ivf, q_dev, IVF_NPROBE, nscan)
+        tiles = tiles_of(union, s, s)
+        parts = {"probe_union_ms": timed_ms(lambda ivf=ivf: ivf_union(ivf, q_dev, IVF_NPROBE,
+                                                                      nscan))}
+        if name == "sq":
+            def scan():
+                return sq_kernel.sq_search_indexed(*eq, *inner, tiles, distance_type=DistanceType.DOT,
+                                                   k=kk2, mode="approx", tile_n=s)
+        else:
+            parts["corr_ms"] = timed_ms(lambda ivf=ivf, union=union: ivf_corr(ivf, q_dev, union))
+            corr = torch.repeat_interleave(ivf_corr(ivf, q_dev, union), s // 512,
+                                           dim=0).contiguous()
+
+            def scan(ivf=ivf, corr=corr, eq=eq, tiles=tiles, s=s):
+                return pq_kernel.pq_search_indexed(eq[0], ivf.quantizer.codes_t, tiles,
+                                                   ivf._resid_pq, corr, k=kk2,
+                                                   precision=prec, tile_n=s)
+        parts["kernel_ms"] = timed_ms(scan)
+        sv, loc = scan()
+        ids = ivf._slot_ids_dev.reshape(-1)[loc.clamp(min=0).long()]
+        parts["dedupe_ms"] = timed_ms(lambda: ivf_mod._dedupe_select(sv, ids, Q, K, kk2))
+        parts["chunk_merge_ms"] = 0.0  # not reached: T tiles <= _INDEXED_CHUNK_TILES
+        parts["span_ms"] = timed_ms(lambda ivf=ivf, eqn=eqn: ivf.top_k_device(
+            eqn, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+        parts["wall_ms"] = wall_ms(lambda ivf=ivf, eqn=eqn: ivf.top_k(
+            eqn, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+        parts["host_ms"] = parts["wall_ms"] - parts["span_ms"]
+        breakdown[name] = parts
+        say("breakdown", f"{name} approx top_k, nscan {nscan} ({tiles.shape[0]} tiles): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f" (chunk merge not reached below {ivf_mod._INDEXED_CHUNK_TILES} tiles), on {smi}")
+        if do_profile:
+            profile(f"IVF {name} approx top_k_device", lambda ivf=ivf, eqn=eqn: ivf.top_k_device(
+                eqn, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+    return recs, {"recall_at_10": rec, "build_s": build_s, "batch_ms": batch,
+                  "breakdown_ms": breakdown,
+                  "nbuckets": {n: i.metadata.nbuckets for n, i in idx.items()}}
+
+
+def rehearse(which, n=30_000):
+    """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
+    recalls ("pq") and path 4's IVF-SQ -> f32 ("ivf"), the predictions the
+    card's run is held to (not device numbers)."""
+    torch.set_num_threads(4)
+    cpu = torch.device("cpu")
+    if "pq" in which:
+        t0 = time.perf_counter()
+        rec, _ = pq_recalls(cpu, n, PD, SEED + 3)
+        say("rehearsal", f"CPU, {n} x {PD} neighbourhood corpus, "
+            f"{time.perf_counter() - t0:.0f} s (not a device number); recall@{K} vs the f32 "
+            "oracle: " + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()))
+    if "ivf" in which:
+        t0 = time.perf_counter()
+        rec = ivf_sq_recalls(cpu, n, PD, SEED + 3)
+        say("rehearsal", f"CPU, {n} x {PD} neighbourhood corpus, IVF-SQ with "
+            f"{rec['nbuckets']} buckets, nprobe {rec['nprobe']}, nscan {rec['nscan']}, "
+            f"{time.perf_counter() - t0:.0f} s (not a device number); recall@{K}: IVF-SQ "
+            f"{rec['ivf_sq']:.4f}, IVF-SQ -> f32 {rec['ivf_sq_f32']:.4f}")
     return 0
 
 
@@ -1179,7 +1721,8 @@ def max_sm_clock_hz():
 def main():
     t_start = time.perf_counter()
     if "--rehearse" in sys.argv[1:]:
-        return rehearse()
+        which = sys.argv[sys.argv.index("--rehearse") + 1:] or ["pq", "ivf"]
+        return rehearse(which)
     do_profile = "--profile" in sys.argv[1:]
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
@@ -1218,9 +1761,11 @@ def main():
     neigh = bq_neighbour_path(dev, smi)
     torch.cuda.empty_cache()
     pq_recs, pq_info = pq_path(dev, smi, do_profile)
+    torch.cuda.empty_cache()
+    ivf_recs, ivf_info = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
 
     kernels = []
-    for r in sq_recs + bq_recs + pq_recs:
+    for r in sq_recs + bq_recs + pq_recs + ivf_recs:
         src, replaces = KERNELS[r["name"]]
         bound_ms, bound_by = r.pop("bound")
         kernels.append({
@@ -1246,6 +1791,7 @@ def main():
         "ties_at_r": bq_info["ties_at_r"],
         "neighbourhoods": neigh,
         "pq": pq_info,
+        "ivf": ivf_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """quantization_tpu_torch — the PyTorch + CUDA port of quantization_tpu.
 
-Three slices so far. SQ-u8: calibrate, encode corpus and queries into int8
+Four slices so far. SQ-u8: calibrate, encode corpus and queries into int8
 codes with per-row f32 corrections, and search them. BQ and two-stage
 retrieval: sign-bit planes scored by XOR + popcount, whose oversampled
 candidates are rescored by SQ-u8 or by the f32 vectors (``TwoStageIndex``).
 PQ: batched k-means per chunk (8-bit and 4-bit codes, optionally behind an
 OPQ rotation), queries as lookup tables, fused LUT scoring and search.
+IVF: an inverted-file index over any of them (``IVFIndex``), probing a
+batch union of buckets and scanning it in place or gathered, with residual
+SQ and PQ.
 Every kernel is hand-written for Hopper (``csrc/``); CPU tensors take their
 plain PyTorch versions. Entry points place data on the CUDA card unless the
 caller names another device. The JAX package ``quantization_tpu`` stays the
@@ -27,12 +30,15 @@ from .core.types import (
 from .interop import (
     bq_from_numpy,
     bq_to_numpy,
+    ivf_from_numpy,
+    ivf_to_numpy,
     pq_from_numpy,
     pq_to_numpy,
     sq_from_numpy,
     sq_to_numpy,
 )
 from .models.bq import BinaryQuantizer, EncodedQueryBin, EncodedVectorsBin
+from .models.ivf import IVFIndex, IVFMetadata
 from .models.pipeline import ExactRescorer, TwoStageIndex
 from .models.pq import EncodedQueryPQ, EncodedVectorsPQ, PQMetadata, ProductQuantizer
 from .models.sq import EncodedQueryU8, EncodedVectorsU8, ScalarQuantizerU8
@@ -53,6 +59,8 @@ __all__ = [
     "EncodedVectorsU8",
     "EncodingError",
     "ExactRescorer",
+    "IVFIndex",
+    "IVFMetadata",
     "NoDeviceError",
     "PQMetadata",
     "ProductQuantizer",
@@ -64,6 +72,8 @@ __all__ = [
     "VectorParameters",
     "bq_from_numpy",
     "bq_to_numpy",
+    "ivf_from_numpy",
+    "ivf_to_numpy",
     "distance",
     "pairwise",
     "pairwise_score",

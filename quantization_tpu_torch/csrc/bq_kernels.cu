@@ -8,6 +8,9 @@
 //                               _make_mxu_packed_kernel (bq_kernel.py:605)
 //   K5a qtt_bq_search_approx <- bq_search_mxu(mode="approx") /
 //                               _make_mxu_topk_kernel (bq_kernel.py:509)
+//   K10 qtt_bq_search_approx with a tile selection <- bq_search_indexed /
+//                               _make_mxu_topk_kernel_indexed (bq_kernel.py:328),
+//                               for packed sign queries
 //
 // Layout, as in the JAX package: corpus sign bits as bit planes, u32
 // [W8, npad] (word w of row n at planes[w * npad + n], LSB-first bit order),
@@ -151,16 +154,21 @@ __global__ void __launch_bounds__(kBThreads) bq_search_exact_kernel(
 }
 
 // ---------------------------------------------------------- K5a approx search
-// Pass 1, grid (npad / part, ceil(Q / 32)). Thread (l, h) owns stride class
-// l = tid % 128 for queries 16h .. 16h+15 of the tile and keeps, over rows
-// p*part + m*128 + l in row order, the running maximum and its row (strict
-// ">": the smallest row wins ties, as the Pallas kernel's compares do).
-// Rows >= n_valid score NEG (bq_kernel.py:149). part_v / part_i:
-// [Q, nparts*128]. Pass 2 is ktile.cuh's in-order combine per span block.
+// K10 is the same kernel over selected tiles (map.sel; bq_search_indexed,
+// bq_kernel.py:328 of the JAX package): the IVF probe's plane columns are
+// read in place, and the bound is the selected rows' popcounts.
+// Pass 1, grid (ceil(ncomp / part), ceil(Q / 32)). Thread (l, h) owns stride
+// class l = tid % 128 for queries 16h .. 16h+15 of the tile and keeps, over
+// compact rows p*part + m*128 + l in order, the running maximum and its
+// corpus row (strict ">": the first row wins ties, as the Pallas kernel's
+// compares do). Compact rows >= n_valid score NEG (bq_kernel.py:149).
+// part_v / part_i: [Q, nparts*128]. Pass 2 is ktile.cuh's in-order combine
+// per span block.
 __global__ void __launch_bounds__(kBThreads) bq_approx_parts_kernel(
     const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
     float* __restrict__ part_v, int* __restrict__ part_i, int Q, int W8, int wt,
-    long long npad, int n_valid, int dim, int sign, int part) {
+    long long npad, int n_valid, int dim, int sign, int part, long long ncomp,
+    ScanMap map) {
   constexpr int kHalf = kBTQ / 2;
   extern __shared__ __align__(16) uint32_t qs_a[];  // [wt][32]
   const int l = threadIdx.x & (kSlot - 1), h = threadIdx.x / kSlot;
@@ -175,9 +183,9 @@ __global__ void __launch_bounds__(kBThreads) bq_approx_parts_kernel(
     best[j] = -__int_as_float(0x7f800000);  // -inf: any score beats it
     arg[j] = -1;
   }
-  for (int off = 0; off < part && start + off < npad; off += kSlot) {
-    const long long row = start + off + l;
-    if (row < n_valid) {
+  for (int off = 0; off < part && start + off < ncomp; off += kSlot) {
+    const long long c = start + off + l, row = map.row(c);
+    if (c < n_valid) {
       int acc[kHalf];
       xor_counts<kHalf>(planes, qs_a, npad, row, wt, h * kHalf, acc);
 #pragma unroll
@@ -253,21 +261,25 @@ int qtt_bq_search_exact(const void* qwords, const void* planes, void* cand_v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// qtt_bq_search_approx scans ncomp compact rows: sel null for a dense scan
+// (ncomp = npad), else T selected tiles of tile_n rows, a multiple of 512
+// (K10; ncomp = T * tile_n).
 int qtt_bq_search_approx(const void* qwords, const void* planes, void* part_v,
                          void* part_i, void* out_v, void* out_i, int Q, int W8,
                          int wt, long long npad, int n_valid, int dim, int sign,
-                         int part, int span_rows, void* stream) {
+                         int part, int span_rows, const void* sel, int tile_n,
+                         long long ncomp, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = qs_bytes(wt);
   cudaError_t err = cudaFuncSetAttribute(
       bq_approx_parts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nparts = (int)((npad + part - 1) / part);
+  const int nparts = (int)((ncomp + part - 1) / part);
   const dim3 grid(nparts, (Q + kBTQ - 1) / kBTQ);
   bq_approx_parts_kernel<<<grid, kBThreads, smem, s>>>(
       static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
       static_cast<float*>(part_v), static_cast<int*>(part_i), Q, W8, wt, npad,
-      n_valid, dim, sign, part);
+      n_valid, dim, sign, part, ncomp, scan_map(sel, tile_n, nullptr, 0, 0));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_approx_combine(

@@ -9,6 +9,15 @@
 //   * approx_combine_kernel: pass 2 of the approx searches — the in-order
 //     max-merge of per-part stride-class maxima over each span block
 //     (ktile.combine_slots of the JAX package).
+//   * ScanMap: the scan's row map and its per-block additive. A search runs
+//     over "compact" rows c = 0 .. ncomp-1; a dense scan reads corpus row c,
+//     an indexed scan (the IVF probe, K9a / K9b / K10 / K11) reads row
+//     sel[c / tile_n] * tile_n + c % tile_n, so the j-th selected tile
+//     streams in place with no gather copy. corr, when given, adds one f32
+//     per (query, 512-row block of compact rows): the residual-IVF bucket
+//     term (sq_kernel.py:48-55 of the JAX package), after the epilogue and
+//     before selection. Null pointers mean a dense scan and no additive, so
+//     no kernel is instantiated twice for them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +27,31 @@ namespace {
 
 constexpr float kNeg = -3.4e38f;  // ktile.NEG
 constexpr int kSlot = 128;        // stride classes per approx block
+constexpr int kCorrShift = 9;     // log2 of CORR_BLK = 512 rows per corr value
+
+struct ScanMap {
+  const int* sel;        // [T] selected tile ids, or null: a dense scan
+  int tile_n;            // rows per selected tile (a multiple of 16)
+  const float* corr;     // additive, or null
+  long long corr_qs;     // corr of query q, block b: corr[q * corr_qs + b * corr_bs]
+  long long corr_bs;     //   ([Q, N/512]: qs = N/512, bs = 1; [T*tile_n/512, Q]: qs = 1, bs = Q)
+
+  // The corpus row of compact row c.
+  __device__ __forceinline__ long long row(long long c) const {
+    return sel ? (long long)sel[c / tile_n] * tile_n + c % tile_n : c;
+  }
+
+  // s + corr of query q at compact row c, rounded once (plain torch's add).
+  __device__ __forceinline__ float add_corr(float s, int q, long long c) const {
+    return corr ? __fadd_rn(s, corr[q * corr_qs + (c >> kCorrShift) * corr_bs]) : s;
+  }
+};
+
+inline ScanMap scan_map(const void* sel, int tile_n, const void* corr, long long corr_qs,
+                        long long corr_bs) {
+  return ScanMap{static_cast<const int*>(sel), tile_n, static_cast<const float*>(corr),
+                 corr_qs, corr_bs};
+}
 
 // Order-preserving map f32 -> u32: a > b as floats iff key(a) > key(b).
 __device__ __forceinline__ unsigned float_to_key(float f) {

@@ -10,25 +10,30 @@ extern "C" {
 int qtt_pq4_scores(const void* lut, const void* scale, const void* bias,
                    const void* codes_t, void* out, int Q, int mpad, long long npad,
                    int n_valid, int kind, void* stream) {
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, nullptr,
+                               nullptr, 0, 0, nullptr, 0, npad, kApproxPart);
   QTT_PQ_KIND_DISPATCH(launch_scores, 16, a, out, static_cast<cudaStream_t>(stream))
 }
 
 int qtt_pq4_search_exact(const void* lut, const void* scale, const void* bias,
                          const void* codes_t, void* cand_v, void* cand_i, int Q, int mpad,
-                         long long npad, int n_valid, int kind, int kk, void* stream) {
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+                         long long npad, int n_valid, int kind, int kk, const void* rowadd,
+                         const void* corr, long long corr_qs, long long corr_bs,
+                         void* stream) {
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, rowadd,
+                               corr, corr_qs, corr_bs, nullptr, 0, npad, kApproxPart);
   QTT_PQ_KIND_DISPATCH(launch_exact, 16, a, cand_v, cand_i, kk,
                        static_cast<cudaStream_t>(stream))
 }
 
 int qtt_pq4_search_approx(const void* lut, const void* scale, const void* bias,
                           const void* codes_t, void* out_v, void* out_i, int Q, int mpad,
-                          long long npad, int n_valid, int kind, void* stream) {
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+                          long long npad, int n_valid, int kind, const void* rowadd,
+                          const void* corr, long long corr_qs, long long corr_bs,
+                          const void* sel, int tile_n, long long ncomp, int part,
+                          void* stream) {
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, rowadd,
+                               corr, corr_qs, corr_bs, sel, tile_n, ncomp, part);
   QTT_PQ_KIND_DISPATCH(launch_approx, 16, a, out_v, out_i, static_cast<cudaStream_t>(stream))
 }
 

@@ -11,16 +11,21 @@
 // kind) pair it does not build. kc: 256 or 16; kind: 0 int8, 1 bf16, 2
 // bf16x2 (searches only). Shapes are checked by the Python wrappers
 // (ops/kernels/pq_kernel.py): contiguous, 16-byte-aligned tensors,
-// mpad % 16 == 0, npad % 1024 == 0.
+// mpad % 16 == 0, npad % 1024 == 0. The searches take the residual
+// additives rowadd [npad] and corr (corr_qs, corr_bs: ktile.cuh ScanMap),
+// null for none; the approx search also a tile selection sel [ncomp /
+// tile_n] (null: dense, ncomp = npad) and its span of compact rows, part.
 
 extern "C" {
 
 int qtt_pq4_scores(const void*, const void*, const void*, const void*, void*, int, int,
                    long long, int, int, void*);
 int qtt_pq4_search_exact(const void*, const void*, const void*, const void*, void*, void*,
-                         int, int, long long, int, int, int, void*);
+                         int, int, long long, int, int, int, const void*, const void*,
+                         long long, long long, void*);
 int qtt_pq4_search_approx(const void*, const void*, const void*, const void*, void*, void*,
-                          int, int, long long, int, int, void*);
+                          int, int, long long, int, int, const void*, const void*,
+                          long long, long long, const void*, int, long long, int, void*);
 
 int qtt_pq_scores(const void* lut, const void* scale, const void* bias,
                   const void* codes_t, void* out, int Q, int mpad, long long npad,
@@ -29,34 +34,39 @@ int qtt_pq_scores(const void* lut, const void* scale, const void* bias,
     return qtt_pq4_scores(lut, scale, bias, codes_t, out, Q, mpad, npad, n_valid, kind,
                           stream);
   if (kc != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, nullptr,
+                               nullptr, 0, 0, nullptr, 0, npad, kApproxPart);
   QTT_PQ_KIND_DISPATCH(launch_scores, 256, a, out, static_cast<cudaStream_t>(stream))
 }
 
 int qtt_pq_search_exact(const void* lut, const void* scale, const void* bias,
                         const void* codes_t, void* cand_v, void* cand_i, int Q, int mpad,
                         long long npad, int n_valid, int kc, int kind, int kk,
-                        void* stream) {
+                        const void* rowadd, const void* corr, long long corr_qs,
+                        long long corr_bs, void* stream) {
   if (kc == 16)
     return qtt_pq4_search_exact(lut, scale, bias, codes_t, cand_v, cand_i, Q, mpad, npad,
-                                n_valid, kind, kk, stream);
+                                n_valid, kind, kk, rowadd, corr, corr_qs, corr_bs, stream);
   if (kc != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, rowadd,
+                               corr, corr_qs, corr_bs, nullptr, 0, npad, kApproxPart);
   QTT_PQ_KIND_DISPATCH(launch_exact, 256, a, cand_v, cand_i, kk,
                        static_cast<cudaStream_t>(stream))
 }
 
 int qtt_pq_search_approx(const void* lut, const void* scale, const void* bias,
                          const void* codes_t, void* out_v, void* out_i, int Q, int mpad,
-                         long long npad, int n_valid, int kc, int kind, void* stream) {
+                         long long npad, int n_valid, int kc, int kind, const void* rowadd,
+                         const void* corr, long long corr_qs, long long corr_bs,
+                         const void* sel, int tile_n, long long ncomp, int part,
+                         void* stream) {
   if (kc == 16)
     return qtt_pq4_search_approx(lut, scale, bias, codes_t, out_v, out_i, Q, mpad, npad,
-                                 n_valid, kind, stream);
+                                 n_valid, kind, rowadd, corr, corr_qs, corr_bs, sel, tile_n,
+                                 ncomp, part, stream);
   if (kc != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const TileArgs a{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
-                   static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid};
+  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, rowadd,
+                               corr, corr_qs, corr_bs, sel, tile_n, ncomp, part);
   QTT_PQ_KIND_DISPATCH(launch_approx, 256, a, out_v, out_i,
                        static_cast<cudaStream_t>(stream))
 }

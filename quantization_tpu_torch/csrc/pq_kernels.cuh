@@ -11,8 +11,10 @@
 //                               _make_pq_class_kernel (pq_kernel.py:866)
 //   K7a qtt_pq_search_approx <- pq_search_pallas(mode="approx") /
 //                               _make_pq_topk_kernel (pq_kernel.py:791)
+//   K11 qtt_pq_search_approx with a tile selection <- pq_search_indexed /
+//                               _make_pq_topk_kernel_indexed (pq_kernel.py:582)
 //
-// All three compute, for query q and corpus row n,
+// All compute, for query q and corpus row n,
 //     acc = sum over chunks c in order 0 .. mpad-1 of lut[q][c][codes_t[c][n] & (KC-1)]
 // (for 4-bit codes in groups of 8 chunks, each group summed first, in pairs,
 // and then added, as the JAX kernel adds one block-diagonal matmul of 8
@@ -55,6 +57,13 @@
 // L2. A design that keeps the LUT resident for more rows, or a tensor-core
 // route for 4-bit codes (Quick ADC), is later work.
 //
+// The searches then add the residual-IVF terms, when given, in the JAX order
+// (score + rowadd[n]) + corr[q, block of n], each add rounded once: rowadd
+// carries the decoded |v^|^2 term and the pad mask, corr the bucket term
+// (ktile.cuh ScanMap). K11 walks the IVF probe's selected tiles in place:
+// only the probed buckets' codes are read, and its bound is the probed
+// fraction of K7a's.
+//
 // Selection, as in the SQ and BQ kernels: K7b writes each 512-row split's
 // scores as ordered keys in shared memory and selects their exact
 // top-min(k, 512) (ktile.cuh); K7a keeps, per query and stride class, the
@@ -82,7 +91,7 @@ constexpr int kStride = kPTR + 1;                // staging row stride in words
 constexpr int kStageBytes = kPTQ * kStride * 4;  // [32][513] f32 scores or keys
 constexpr int kRegionBytes = kStageBytes > kLutBytes ? kStageBytes : kLutBytes;
 constexpr int kCodesBytes = kMBlk * kPTR;        // [<=16 chunks][512 rows] codes
-constexpr int kApproxPart = 4096;                // SPAN * TILE_N of the JAX kernel
+constexpr int kApproxPart = 4096;                // dense K7a part: SPAN * TILE_N
 
 enum { kInt8 = 0, kBf16 = 1, kBf16x2 = 2 };
 
@@ -125,15 +134,16 @@ __device__ __forceinline__ void group_add(int cc, A& gs, A& pr, A x) {
   }
 }
 
-// The tile's sums for the lane's query over rows row0 + 64 * warp .. + 63.
-// lut points at this block's query tile, [mpad][KC][32] words. Every thread
-// of the block must call it (it synchronises).
+// The tile's sums for the lane's query over compact rows row0 + 64 * warp ..
+// + 63 (corpus rows through map: 16 consecutive compact rows lie in one
+// selected tile). lut points at this block's query tile, [mpad][KC][32]
+// words. Every thread of the block must call it (it synchronises).
 template <int KC, int KIND>
 __device__ __forceinline__ void score_tile(const LutWord<KIND>* __restrict__ lut,
                                            const uint8_t* __restrict__ codes_t,
                                            long long npad, int mpad, long long row0,
-                                           uint8_t* region, uint8_t* codes_s,
-                                           Accum<KIND>& acc) {
+                                           const ScanMap& map, uint8_t* region,
+                                           uint8_t* codes_s, Accum<KIND>& acc) {
   using T = LutWord<KIND>;
   constexpr int MB = Staging<KC, KIND>::kChunks;
   // Chunks summed on their own before they join acc: 8 for 4-bit codes, as
@@ -156,8 +166,8 @@ __device__ __forceinline__ void score_tile(const LutWord<KIND>* __restrict__ lut
       reinterpret_cast<uint4*>(region)[i] = __ldg(src + i);
     for (int i = tid; i < MB * kRowVec; i += kPThreads) {
       const int c = i / kRowVec, v = i % kRowVec;
-      reinterpret_cast<uint4*>(codes_s)[i] = __ldg(
-          reinterpret_cast<const uint4*>(codes_t + (long long)(c0 + c) * npad + row0) + v);
+      reinterpret_cast<uint4*>(codes_s)[i] = __ldg(reinterpret_cast<const uint4*>(
+          codes_t + (long long)(c0 + c) * npad + map.row(row0 + 16 * v)));
     }
     __syncthreads();
 #pragma unroll 1
@@ -231,8 +241,25 @@ struct TileArgs {
   int Q;
   int mpad;
   long long npad;
-  int n_valid;
+  int n_valid;          // compact rows >= n_valid are masked (approx) or skipped
+  long long ncomp;      // compact rows scanned: npad, or T * tile_n padded to 512
+  int part;             // approx: compact rows per block, SPAN * tile_n
+  const float* rowadd;  // per corpus row additive [npad], or null
+  ScanMap map;          // selected tiles and corr (ktile.cuh)
 };
+
+// Every PQ launch's arguments: sel null for a dense scan over npad rows,
+// rowadd and corr null for no additive.
+inline TileArgs tile_args(const void* lut, const void* scale, const void* bias,
+                          const void* codes_t, int Q, int mpad, long long npad, int n_valid,
+                          const void* rowadd, const void* corr, long long corr_qs,
+                          long long corr_bs, const void* sel, int tile_n, long long ncomp,
+                          int part) {
+  return TileArgs{lut, static_cast<const float*>(scale), static_cast<const float*>(bias),
+                  static_cast<const uint8_t*>(codes_t), Q, mpad, npad, n_valid, ncomp, part,
+                  static_cast<const float*>(rowadd),
+                  scan_map(sel, tile_n, corr, corr_qs, corr_bs)};
+}
 
 template <int KC, int KIND>
 __device__ __forceinline__ const LutWord<KIND>* tile_lut(const TileArgs& a) {
@@ -240,7 +267,8 @@ __device__ __forceinline__ const LutWord<KIND>* tile_lut(const TileArgs& a) {
          (long long)blockIdx.y * a.mpad * KC * kPTQ;
 }
 
-// Writes the lane's 64 scores of the tile to stage[lane][64 * warp + r].
+// Writes the lane's 64 scores of the tile to stage[lane][64 * warp + r];
+// with mask, compact rows >= n_valid score NEG instead.
 template <int KIND>
 __device__ __forceinline__ void stage_scores(const TileArgs& a, const Accum<KIND>& acc,
                                              float* stage, long long row0, bool mask) {
@@ -262,6 +290,26 @@ __device__ __forceinline__ void stage_scores(const TileArgs& a, const Accum<KIND
   }
 }
 
+// The residual terms of a staged tile, when the launch has them: stage[j][e]
+// (query q0 + j, compact row row0 + e) becomes (s + rowadd[corpus row]) +
+// corr, each add rounded once, in the JAX order (pq_kernel.py:397); rows
+// masked NEG stay NEG. A pass of its own, outside the unrolled staging loop,
+// so a launch without the additives runs the dense kernel's code. Called by
+// every thread between barriers; returns whether it changed the stage.
+__device__ __forceinline__ bool add_residual(const TileArgs& a, float* stage,
+                                             long long row0, bool mask) {
+  if (!a.rowadd) return false;  // the additives come as a pair
+  for (int i = threadIdx.x; i < kPTQ * kPTR; i += kPThreads) {
+    const int j = i / kPTR, e = i % kPTR;
+    const long long c = row0 + e;
+    if (mask && c >= a.n_valid) continue;
+    const int q = min((int)blockIdx.y * kPTQ + j, a.Q - 1);  // lanes past Q are never kept
+    const float s = __fadd_rn(stage[j * kStride + e], a.rowadd[a.map.row(c)]);
+    stage[j * kStride + e] = a.map.add_corr(s, q, c);
+  }
+  return true;
+}
+
 // ---------------------------------------------------------------- K8 scores
 // grid (ceil(n_valid / 512), ceil(Q / 32)); out f32 [Q, n_valid].
 template <int KC, int KIND>
@@ -271,8 +319,8 @@ __global__ void __launch_bounds__(kPThreads) pq_scores_kernel(TileArgs a, float*
   const long long row0 = (long long)blockIdx.x * kPTR;
   const int q0 = blockIdx.y * kPTQ;
   Accum<KIND> acc;
-  score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, row0, region,
-                       smem_p + kRegionBytes, acc);
+  score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, row0, a.map,
+                       region, smem_p + kRegionBytes, acc);
   __syncthreads();  // every warp is done with the staged LUT
   float* stage = reinterpret_cast<float*>(region);
   stage_scores<KIND>(a, acc, stage, row0, false);
@@ -306,11 +354,12 @@ __global__ void __launch_bounds__(kPThreads) pq_search_exact_kernel(TileArgs a,
   unsigned* keys = reinterpret_cast<unsigned*>(region);
   if (cnt > 0) {  // the same for every thread of the block
     Accum<KIND> acc;
-    score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, start, region,
-                         smem_p + kRegionBytes, acc);
+    score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, start, a.map,
+                         region, smem_p + kRegionBytes, acc);
     __syncthreads();
     stage_scores<KIND>(a, acc, reinterpret_cast<float*>(region), start, false);
     __syncthreads();
+    if (add_residual(a, reinterpret_cast<float*>(region), start, false)) __syncthreads();
     for (int i = threadIdx.x; i < kPTQ * kPTR; i += kPThreads) {
       const int j = i / kPTR, e = i % kPTR;
       keys[j * kStride + e] = float_to_key(reinterpret_cast<float*>(region)[j * kStride + e]);
@@ -328,11 +377,14 @@ __global__ void __launch_bounds__(kPThreads) pq_search_exact_kernel(TileArgs a,
 }
 
 // ---------------------------------------------------------- K7a approx search
-// grid (ceil(npad / 4096), ceil(Q / 32)). Block b walks the 512-row tiles of
-// rows [4096 b, 4096 b + 4096) in order; thread t keeps, for the 16 (query,
-// stride class) pairs t + 256 p, the running maximum over rows 4096 b +
-// 128 m + l and its row (strict ">": the smallest row wins ties, as the
-// Pallas kernel's compares do). out_v / out_i: [Q, nblocks*128].
+// K11 is the same kernel over selected tiles (a.map.sel; pq_search_indexed,
+// pq_kernel.py:582 of the JAX package), with part = SPAN * tile_n.
+// grid (ceil(ncomp / part), ceil(Q / 32)). Block b walks the 512-row tiles of
+// compact rows [part b, part b + part) in order; thread t keeps, for the 16
+// (query, stride class) pairs t + 256 p, the running maximum over compact
+// rows part b + 128 m + l and its corpus row (strict ">": the first row wins
+// ties, as the Pallas kernel's compares do). A 128-row class segment lies in
+// one selected tile. out_v / out_i: [Q, nblocks*128].
 template <int KC, int KIND>
 __global__ void __launch_bounds__(kPThreads) pq_search_approx_kernel(TileArgs a,
                                                                       float* out_v,
@@ -341,7 +393,7 @@ __global__ void __launch_bounds__(kPThreads) pq_search_approx_kernel(TileArgs a,
   extern __shared__ __align__(16) uint8_t smem_p[];
   uint8_t* region = smem_p;
   const float* stage = reinterpret_cast<const float*>(region);
-  const long long part0 = (long long)blockIdx.x * kApproxPart;
+  const long long part0 = (long long)blockIdx.x * a.part;
   const int q0 = blockIdx.y * kPTQ;
   float best[kPairs];
   int arg[kPairs];
@@ -350,14 +402,18 @@ __global__ void __launch_bounds__(kPThreads) pq_search_approx_kernel(TileArgs a,
     best[p] = -__int_as_float(0x7f800000);  // -inf: any score beats it
     arg[p] = -1;
   }
-  for (long long row0 = part0; row0 < part0 + kApproxPart && row0 < a.npad; row0 += kPTR) {
+  for (long long row0 = part0; row0 < part0 + a.part && row0 < a.ncomp; row0 += kPTR) {
     Accum<KIND> acc;
     // score_tile begins with a barrier: the previous tile's stage is read.
-    score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, row0, region,
-                         smem_p + kRegionBytes, acc);
+    score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, row0, a.map,
+                         region, smem_p + kRegionBytes, acc);
     __syncthreads();
     stage_scores<KIND>(a, acc, reinterpret_cast<float*>(region), row0, true);
     __syncthreads();
+    if (add_residual(a, reinterpret_cast<float*>(region), row0, true)) __syncthreads();
+    int seg[kPTR / kSlot];  // corpus row of each 128-row class segment
+#pragma unroll
+    for (int s = 0; s < kPTR / kSlot; ++s) seg[s] = (int)a.map.row(row0 + s * kSlot);
 #pragma unroll
     for (int p = 0; p < kPairs; ++p) {
       const int idx = threadIdx.x + p * kPThreads, ql = idx / kSlot, l = idx % kSlot;
@@ -366,7 +422,7 @@ __global__ void __launch_bounds__(kPThreads) pq_search_approx_kernel(TileArgs a,
         const float v = stage[ql * kStride + s * kSlot + l];
         if (v > best[p]) {
           best[p] = v;
-          arg[p] = (int)(row0 + s * kSlot + l);
+          arg[p] = seg[s] + l;
         }
       }
     }
@@ -407,7 +463,7 @@ int launch_exact(const TileArgs& a, void* cand_v, void* cand_i, int kk, cudaStre
   const size_t smem = kRegionBytes + kCodesBytes + sizeof(unsigned) * 8 * 256;
   cudaError_t err = prepare(pq_search_exact_kernel<KC, KIND>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)(a.npad / kPTR), query_tiles(a.Q));
+  const dim3 grid((unsigned)(a.ncomp / kPTR), query_tiles(a.Q));
   pq_search_exact_kernel<KC, KIND><<<grid, kPThreads, smem, s>>>(
       a, static_cast<float*>(cand_v), static_cast<int*>(cand_i), kk);
   return static_cast<int>(cudaGetLastError());
@@ -418,7 +474,7 @@ int launch_approx(const TileArgs& a, void* out_v, void* out_i, cudaStream_t s) {
   const size_t smem = kRegionBytes + kCodesBytes;
   cudaError_t err = prepare(pq_search_approx_kernel<KC, KIND>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((a.npad + kApproxPart - 1) / kApproxPart), query_tiles(a.Q));
+  const dim3 grid((unsigned)((a.ncomp + a.part - 1) / a.part), query_tiles(a.Q));
   pq_search_approx_kernel<KC, KIND><<<grid, kPThreads, smem, s>>>(
       a, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());

@@ -6,10 +6,19 @@
 //                              _make_dot_class_kernel (sq_kernel.py:433, :232)
 //   K2 qtt_sq_search_approx <- sq_search_pallas(mode="approx") /
 //                              _make_dot_topk_kernel (sq_kernel.py:353, :139)
+//   K9b qtt_sq_search_exact with a tile selection <- sq_search_indexed(mode=
+//                              "exact") / _make_dot_class_kernel_indexed (:664, :200)
+//   K9a qtt_sq_search_approx with a tile selection <- sq_search_indexed(mode=
+//                              "approx") / _make_dot_topk_kernel_indexed (:628, :169)
 //
-// All three compute, for query q and corpus row n,
+// All compute, for query q and corpus row n,
 //     score = (mult[q * mstride] * dot(qcodes[q], codes[n]) + qoff[q]) + voff[n]
-// (mstride 0: one multiplier for every query; 1: one each)
+// (mstride 0: one multiplier for every query; 1: one each), and the searches
+// then add the optional residual-IVF term corr of n's 512-row block, rounded
+// once more, before they select. K9a / K9b are the K2 / K1 bodies walking
+// the IVF probe's selected tiles in place (ktile.cuh ScanMap): the probed
+// buckets' rows stream from HBM with no gather copy, and the bound is the
+// selected rows' bytes and int8 work, the probed fraction of a full scan.
 // with an exact int32 dot of int8 codes in [0, 127] (127*127*D < 2^31 for any
 // D below 133,000). The epilogue rounds each step on its own (__fmul_rn /
 // __fadd_rn, and the library is built with -fmad=false), so kernel scores
@@ -137,18 +146,22 @@ __global__ void __launch_bounds__(kThreads) sq_scores_kernel(
 }
 
 // ----------------------------------------------------------- K1 exact search
-// grid (nsplit = ceil(npad / split), ceil(Q / 32)). Block (s, t) scores rows
-// [s*split, s*split + split) of its 32 queries into shared memory as ordered
-// keys, then each warp selects the exact top-kk of its 4 queries among the
-// split's valid rows (rows < n_valid) by a 4-pass radix select, and writes
-// them, unordered, to cand_v / cand_i [Q, nsplit*kk] at columns s*kk ..
-// s*kk+kk-1. Slots beyond the split's valid rows hold NEG / -1.
+// K9b is the same kernel over selected tiles (map.sel; sq_search_indexed,
+// sq_kernel.py:664 of the JAX package).
+// grid (nsplit = ceil(ncomp / split), ceil(Q / 32)). Block (s, t) scores
+// compact rows [s*split, s*split + split) of its 32 queries into shared
+// memory as ordered keys, then each warp selects the exact top-kk of its 4
+// queries among the split's valid rows (compact rows < n_valid) by a 4-pass
+// radix select, and writes them, unordered, with their corpus rows, to
+// cand_v / cand_i [Q, nsplit*kk] at columns s*kk .. s*kk+kk-1. Slots beyond
+// the split's valid rows hold NEG / -1. A split lies in one selected tile
+// (split divides tile_n), so its corpus rows are consecutive.
 __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const int8_t* __restrict__ codes,
     const float* __restrict__ voff, float* __restrict__ cand_v,
-    int* __restrict__ cand_i, int Q, int npad, int n_valid, int D, int split,
-    int kk, int mstride) {
+    int* __restrict__ cand_i, int Q, int ncomp, int n_valid, int D, int split,
+    int kk, int mstride, ScanMap map) {
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* cs = smem;
   int8_t* qs = smem + kSeg * kDKP;
@@ -157,10 +170,11 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.y * kTQ;
   const long long start = (long long)blockIdx.x * split;
+  const long long row0 = map.row(start);
 
-  for (int off = 0; off < split && start + off < npad; off += kSeg) {
+  for (int off = 0; off < split && start + off < ncomp; off += kSeg) {
     int acc[4][4];
-    segment_dot(qcodes, codes, q0, Q, start + off, D, cs, qs, acc);
+    segment_dot(qcodes, codes, q0, Q, row0 + off, D, cs, qs, acc);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = min(q0 + warp * 4 + j, Q - 1);  // rows >= Q are never read
@@ -168,8 +182,8 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int e = off + lane + 32 * i;
-        keys[(warp * 4 + j) * split + e] =
-            float_to_key(epilogue(m, acc[j][i], qo, voff[start + e]));
+        keys[(warp * 4 + j) * split + e] = float_to_key(
+            map.add_corr(epilogue(m, acc[j][i], qo, voff[row0 + e]), q, start + e));
       }
     }
   }
@@ -183,23 +197,26 @@ __global__ void __launch_bounds__(kThreads) sq_search_exact_kernel(
     const int q = q0 + warp * 4 + j;
     if (q >= Q) break;
     const long long o = (long long)q * width + (long long)blockIdx.x * kk;
-    warp_select_topk(keys + (warp * 4 + j) * split, cnt, kk, start, cand_v + o,
+    warp_select_topk(keys + (warp * 4 + j) * split, cnt, kk, row0, cand_v + o,
                      cand_i + o, hist_all + warp * 256);
   }
 }
 
 // ---------------------------------------------------------- K2 approx search
-// Pass 1, grid (ceil(npad / part), ceil(Q / 32)): block p keeps, for each of
-// its queries and each stride class l (rows p*part + m*128 + l), the running
-// maximum and its row — strict ">" in row order, so the smallest row wins
-// ties, as the Pallas kernel's compares do. Rows >= n_valid score NEG.
+// K9a is the same kernel over selected tiles (map.sel; sq_search_indexed,
+// sq_kernel.py:628 of the JAX package).
+// Pass 1, grid (ceil(ncomp / part), ceil(Q / 32)): block p keeps, for each
+// of its queries and each stride class l (compact rows p*part + m*128 + l),
+// the running maximum and its corpus row — strict ">" in compact order, so
+// the first row wins ties, as the Pallas kernel's compares do. Compact rows
+// >= n_valid score NEG. A 128-row segment lies in one selected tile.
 // part_v / part_i: [Q, nparts*128].
 __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const int8_t* __restrict__ codes,
     const float* __restrict__ voff, float* __restrict__ part_v,
-    int* __restrict__ part_i, int Q, int npad, int n_valid, int D, int part,
-    int mstride) {
+    int* __restrict__ part_i, int Q, int ncomp, int n_valid, int D, int part,
+    int mstride, ScanMap map) {
   __shared__ __align__(16) int8_t stage[kStageBytes];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.y * kTQ;
@@ -213,17 +230,19 @@ __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
       best[j][i] = -__int_as_float(0x7f800000);  // -inf: any score beats it
       arg[j][i] = -1;
     }
-  for (int off = 0; off < part && start + off < npad; off += kSeg) {
+  for (int off = 0; off < part && start + off < ncomp; off += kSeg) {
     int acc[4][4];
-    segment_dot(qcodes, codes, q0, Q, start + off, D, stage, stage + kSeg * kDKP, acc);
+    const long long seg0 = map.row(start + off);
+    segment_dot(qcodes, codes, q0, Q, seg0, D, stage, stage + kSeg * kDKP, acc);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = min(q0 + warp * 4 + j, Q - 1);
       const float m = mult[q * mstride], qo = qoff[q];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const long long row = start + off + lane + 32 * i;
-        const float s = row < n_valid ? epilogue(m, acc[j][i], qo, voff[row]) : kNeg;
+        const long long c = start + off + lane + 32 * i, row = seg0 + lane + 32 * i;
+        const float s =
+            c < n_valid ? map.add_corr(epilogue(m, acc[j][i], qo, voff[row]), q, c) : kNeg;
         if (s > best[j][i]) {
           best[j][i] = s;
           arg[j][i] = (int)row;
@@ -250,8 +269,11 @@ __global__ void __launch_bounds__(kThreads) sq_approx_parts_kernel(
 // ------------------------------------------------------------- C interface
 // Every function launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). Shapes are checked by the Python wrappers
-// (ops/kernels/sq_kernel.py): D % 128 == 0, npad % 128 == 0, 16-byte-aligned
-// code pointers, contiguous tensors.
+// (ops/kernels/sq_kernel.py): D % 128 == 0, npad % 512 == 0, 16-byte-aligned
+// code pointers, contiguous tensors. The searches scan ncomp compact rows
+// through the map (sel, tile_n, corr, corr_qs, corr_bs) of ktile.cuh: sel
+// null for a dense scan (ncomp = npad), else T selected tiles of tile_n rows
+// (a multiple of 512; ncomp = T * tile_n); corr null for no additive.
 
 extern "C" {
 
@@ -273,34 +295,39 @@ int qtt_sq_scores(const void* qcodes, const void* qoff, const void* mult,
 
 int qtt_sq_search_exact(const void* qcodes, const void* qoff, const void* mult,
                         const void* codes, const void* voff, void* cand_v,
-                        void* cand_i, int Q, int npad, int n_valid, int D,
-                        int split, int kk, int mstride, void* stream) {
+                        void* cand_i, int Q, int ncomp, int n_valid, int D,
+                        int split, int kk, int mstride, const void* sel, int tile_n,
+                        const void* corr, long long corr_qs, long long corr_bs,
+                        void* stream) {
   const size_t smem = kStageBytes + sizeof(unsigned) * ((size_t)kTQ * split + 8 * 256);
   cudaError_t err = cudaFuncSetAttribute(
       sq_search_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((npad + split - 1) / split, (Q + kTQ - 1) / kTQ);
+  const dim3 grid((ncomp + split - 1) / split, (Q + kTQ - 1) / kTQ);
   sq_search_exact_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const int8_t*>(codes),
       static_cast<const float*>(voff), static_cast<float*>(cand_v),
-      static_cast<int*>(cand_i), Q, npad, n_valid, D, split, kk, mstride);
+      static_cast<int*>(cand_i), Q, ncomp, n_valid, D, split, kk, mstride,
+      scan_map(sel, tile_n, corr, corr_qs, corr_bs));
   return static_cast<int>(cudaGetLastError());
 }
 
 int qtt_sq_search_approx(const void* qcodes, const void* qoff, const void* mult,
                          const void* codes, const void* voff, void* part_v,
-                         void* part_i, void* out_v, void* out_i, int Q, int npad,
+                         void* part_i, void* out_v, void* out_i, int Q, int ncomp,
                          int n_valid, int D, int part, int span_rows, int mstride,
-                         void* stream) {
+                         const void* sel, int tile_n, const void* corr, long long corr_qs,
+                         long long corr_bs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nparts = (npad + part - 1) / part;
+  const int nparts = (ncomp + part - 1) / part;
   const dim3 grid(nparts, (Q + kTQ - 1) / kTQ);
   sq_approx_parts_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const int8_t*>(codes),
       static_cast<const float*>(voff), static_cast<float*>(part_v),
-      static_cast<int*>(part_i), Q, npad, n_valid, D, part, mstride);
+      static_cast<int*>(part_i), Q, ncomp, n_valid, D, part, mstride,
+      scan_map(sel, tile_n, corr, corr_qs, corr_bs));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_approx_combine(

@@ -9,7 +9,11 @@ Twin of ``quantization_tpu/ops/pallas/bq_kernel.py``. The kernels live in
     function for two TPU units; one kernel here stands for both);
   * K5c ``bq_search`` exact    — scores fused with an exact per-split top-k;
   * K5a ``bq_search`` approx   — scores fused with the stride-class maxima
-    of the JAX approx kernel, over spans of ``SPAN * mxu_tile_n`` rows.
+    of the JAX approx kernel, over spans of ``SPAN * mxu_tile_n`` rows;
+  * K10 ``bq_search_indexed``  — the K5a body walking a selected list of
+    corpus tiles in place (the IVF probe scan), for packed sign queries.
+    The residual-BQ form (an int8 value query and a ``corr`` additive) is
+    not ported yet.
 
 Operands: query words int32 [Q, W8] and corpus planes int32 [W8, Npad]
 holding uint32 bits (``ops/bq.py``), Npad a multiple of ``TILE_N``, W8 of
@@ -38,6 +42,7 @@ from .ktile import (
     check_tensors,
     merge_candidates,
     merge_exact,
+    tile_rows,
 )
 
 # Corpus rows are padded to a multiple of this by the quantizer (the JAX
@@ -55,7 +60,8 @@ MAX_WORDS = 1024
 MXU_TILE_N = 512
 
 #: Kernel launches per wrapper since the last reset (plain runs not counted).
-LAUNCHES = {"bq_scores": 0, "bq_search_exact": 0, "bq_search_approx": 0}
+LAUNCHES = {"bq_scores": 0, "bq_search_exact": 0, "bq_search_approx": 0,
+            "bq_search_indexed": 0}
 
 
 def reset_launches() -> None:
@@ -72,6 +78,13 @@ def mxu_tile_n(dp: int, n: int) -> int:
     while tn * 2 <= 2048 and n % (tn * 2) == 0 and 5 * dp * tn * 2 <= 8 * 2**20:
         tn *= 2
     return tn
+
+
+def indexed_tile_n(dp: int, bucket_size: int) -> int:
+    """The JAX indexed tile width (``indexed_tile_n``, bq_kernel.py:220-223):
+    ``mxu_tile_n`` over one bucket, or 0 when the bucket is not a multiple
+    of MXU_TILE_N rows."""
+    return 0 if bucket_size % MXU_TILE_N else mxu_tile_n(dp, bucket_size)
 
 
 def metric_sign(distance_type: DistanceType, invert: bool) -> int:
@@ -199,19 +212,68 @@ def bq_search(
             LAUNCHES["bq_search_exact"] += 1
         return merge_exact(vals, ids, k)
 
-    span_rows = SPAN * mxu_tile_n(w8 * 32, npad)
-    nparts = npad // APPROX_PART
-    nblocks = -(-npad // span_rows)
+    return _launch_approx(qwords, planes, args, None, 0, npad,
+                          SPAN * mxu_tile_n(w8 * 32, npad), k, "bq_search_approx")
+
+
+def _launch_approx(qwords, planes, args, sel, tile_n, ncomp, span_rows, k, name):
+    """Launch K5a / K10 over ``ncomp`` compact rows (``sel`` None: dense)
+    and merge; counts the launch as ``name``."""
+    q, dev = qwords.shape[0], planes.device
+    nparts = -(-ncomp // APPROX_PART)
+    nblocks = -(-ncomp // span_rows)
     part_v = torch.empty((q, nparts * 128), dtype=torch.float32, device=dev)
     part_i = torch.empty((q, nparts * 128), dtype=torch.int32, device=dev)
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
-    if q:
+    if q and ncomp:
+        lib = load_library()
         err = lib.qtt_bq_search_approx(
             qwords.data_ptr(), planes.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
             vals.data_ptr(), ids.data_ptr(), *args, APPROX_PART, span_rows,
-            _stream(planes),
+            0 if sel is None else sel.data_ptr(), tile_n, ncomp, _stream(planes),
         )
-        check(lib, err, "bq_search_approx")
-        LAUNCHES["bq_search_approx"] += 1
+        check(lib, err, name)
+        LAUNCHES[name] += 1
     return merge_candidates(vals, ids, k)
+
+
+# ------------------------------------------------------------------ K10
+
+
+def bq_search_indexed_plain(qwords, planes, tile_sel, *, distance_type, invert, dim, k,
+                            tile_n):
+    """Plain version of K10: the selected tiles' plane columns gathered in
+    selection order, their stride-class candidates over spans of SPAN
+    tiles, an exact merge; ids are corpus rows."""
+    rows = tile_rows(tile_sel, tile_n)
+    scores = bq_ops.score_batch(
+        qwords, planes[:, rows], distance_type=distance_type, invert=invert, dim=dim
+    )
+    vals, loc = approx_candidates(scores, tile_n)
+    return merge_candidates(vals, rows.to(torch.int32)[loc.long()], k)
+
+
+def bq_search_indexed(qwords, planes, tile_sel, *, distance_type, invert, dim, k, tile_n):
+    """Fused approx BQ search (K10) over the selected tiles ``tile_sel``
+    i32 [T] of ``tile_n`` rows (tile t = corpus rows [t*tile_n, (t+1)*
+    tile_n), tile_n a multiple of 512 dividing Npad, as ``indexed_tile_n``
+    gives it): the IVF probe scan, reading the selected plane columns in
+    place. Every selected row is valid. Returns (scores f32[Q, k], ids
+    i32[Q, k]), ids corpus rows; k <= APPROX_K_MAX."""
+    check_search("approx", k)
+    kw = dict(distance_type=distance_type, invert=invert, dim=dim)
+    if not use_kernels(planes):
+        return bq_search_indexed_plain(qwords, planes, tile_sel, k=k, tile_n=tile_n, **kw)
+    npad = planes.shape[1]
+    _check_operands(qwords, planes, dim, npad)
+    if tile_n % MXU_TILE_N or npad % tile_n:
+        raise ArgumentsError(
+            f"tile_n={tile_n} must be a multiple of {MXU_TILE_N} dividing N={npad}")
+    nt = tile_sel.shape[0]
+    check_tensors(planes.device, (("tile_sel", tile_sel, torch.int32, (nt,)),))
+    ncomp = nt * tile_n
+    args = (qwords.shape[0], qwords.shape[1], true_words(dim), npad, ncomp, dim,
+            metric_sign(distance_type, invert))
+    return _launch_approx(qwords, planes, args, tile_sel, tile_n, ncomp, SPAN * tile_n, k,
+                          "bq_search_indexed")

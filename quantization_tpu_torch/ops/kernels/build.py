@@ -159,23 +159,29 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # Pointers as c_void_p, never the default int, which would cut a 64-bit
     # address; npad of the BQ planes as a 64-bit int.
+    # The scan map of the searches (ktile.cuh ScanMap): sel, tile_n, corr,
+    # corr_qs, corr_bs.
+    scan = [p, i, p, ll, ll]
     sigs = {
-        # (qcodes, qoff, mult, codes, voff, ..., mstride, stream)
+        # (qcodes, qoff, mult, codes, voff, ..., mstride, [scan,] stream)
         "qtt_sq_scores": [p, p, p, p, p, p, i, i, i, i, p],
-        "qtt_sq_search_exact": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
-        "qtt_sq_search_approx": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
+        "qtt_sq_search_exact": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, *scan, p],
+        "qtt_sq_search_approx": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, *scan, p],
         # (qcodes, qoff, mult, codes, voff, cand, out, Q, R, n_valid, D, l1,
         #  mstride, stream)
         "qtt_sq_rescore": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
-        # (qwords, planes, ..., Q, W8, wt, npad, n_valid, dim, sign, ..., stream)
+        # (qwords, planes, ..., Q, W8, wt, npad, n_valid, dim, sign, ...,
+        #  [sel, tile_n, ncomp,] stream)
         "qtt_bq_scores": [p, p, p, i, i, i, ll, i, i, i, p],
         "qtt_bq_search_exact": [p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
-        "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
+        "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, i, ll, i, i, i, i, i, p, i, ll, p],
         # (lut, scale, bias, codes_t, outputs..., Q, mpad, npad, n_valid, kc,
-        #  kind, [kk,] stream)
+        #  kind, [kk,] [rowadd, corr, corr_qs, corr_bs,] [sel, tile_n, ncomp,
+        #  part,] stream)
         "qtt_pq_scores": [p, p, p, p, p, i, i, ll, i, i, i, p],
-        "qtt_pq_search_exact": [p, p, p, p, p, p, i, i, ll, i, i, i, i, p],
-        "qtt_pq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, p],
+        "qtt_pq_search_exact": [p, p, p, p, p, p, i, i, ll, i, i, i, i, p, p, ll, ll, p],
+        "qtt_pq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, p, p, ll, ll,
+                                 p, i, ll, i, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

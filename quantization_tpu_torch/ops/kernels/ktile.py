@@ -43,6 +43,47 @@ APPROX_K_MAX = 4096
 # Corpus tiles max-merged into one [Q, SLOT] approx candidate block.
 SPAN = 4
 
+# Rows per value of a residual-IVF ``corr`` additive (the JAX package's
+# CORR_BLK, sq_kernel.py:55): IVF buckets are CORR_BLK-aligned, so one value
+# per query and 512-row block carries the bucket term exactly.
+CORR_BLK = 512
+
+
+def corr_strides(corr: torch.Tensor, q: int, selection: bool):
+    """(corr_qs, corr_bs) of ``corr`` as the kernels read it (ktile.cuh
+    ScanMap): the dense layout [Q, N/CORR_BLK], or the indexed scans'
+    selection order [T*tile_n/CORR_BLK, Q]."""
+    return (1, q) if selection else (corr.shape[1], 1)
+
+
+def expand_corr(corr: torch.Tensor, selection: bool = False) -> torch.Tensor:
+    """Plain version of the kernels' corr read: [Q, blocks*CORR_BLK], the
+    value of each row's 512-row block (dense [Q, blocks] or selection order
+    [blocks, Q])."""
+    c = corr.T if selection else corr
+    return torch.repeat_interleave(c, CORR_BLK, dim=1)
+
+
+def tile_rows(tile_sel: torch.Tensor, tile_n: int) -> torch.Tensor:
+    """int64 [T * tile_n]: the corpus rows of the selected tiles, in
+    selection order — the compact rows of an indexed scan."""
+    base = tile_sel.to(torch.int64)[:, None] * tile_n
+    return (base + torch.arange(tile_n, device=tile_sel.device)).reshape(-1)
+
+
+def merge_chunks(parts, kk: int, neg: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-kk over per-chunk results [(sv [Q, kk], loc [Q, kk]), ...]
+    of a scan split into chunks of tiles (models/ivf.py:598-603 of the JAX
+    package): empty slots (loc < 0) score ``neg``, and every merged slot not
+    above it comes back as ``neg`` / -1. Chunks cover disjoint tiles, so no
+    candidate appears twice."""
+    sv = torch.cat([s for s, _ in parts], dim=1)
+    loc = torch.cat([i for _, i in parts], dim=1)
+    sv = torch.where(loc >= 0, sv, sv.new_full((), neg))
+    s, pos = torch.topk(sv, kk, dim=1)
+    loc = torch.gather(loc, 1, pos)
+    return s, torch.where(s > neg, loc, loc.new_full((), -1))
+
 
 def check_search(mode: str, k: int) -> None:
     """Reject a fused-search mode or k outside the caps above."""

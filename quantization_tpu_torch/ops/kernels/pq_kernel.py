@@ -9,7 +9,15 @@ Twin of ``quantization_tpu/ops/pallas/pq_kernel.py``. The kernels live in
     kernel here, templated on the LUT word);
   * K7b ``pq_search`` exact    — scores fused with an exact per-split top-k;
   * K7a ``pq_search`` approx   — scores fused with the stride-class maxima of
-    the JAX approx kernel over spans of ``SPAN * TILE_N`` rows.
+    the JAX approx kernel over spans of ``SPAN * TILE_N`` rows;
+  * K11 ``pq_search_indexed``  — the K7a body walking a selected list of
+    corpus tiles in place (the IVF probe scan), over spans of SPAN tiles.
+
+The searches take the residual-IVF additives as a pair, ``rowadd`` f32
+[Npad] (one per corpus row: the decoded-norm term and the pad mask) and
+``corr`` (one per query and 512-row block: the bucket term, [Q, Npad/512]
+dense or [T*tile_n/512, Q] in selection order), added in the JAX order
+``(score + rowadd) + corr`` after the LUT score and before selection.
 
 Operands, in the JAX layouts: a LUT f32 [Q, m, kc] (kc = 256 for 8-bit
 codes, 16 for 4-bit) and the transposed codes u8 [Mpad, Npad], Mpad a
@@ -51,13 +59,17 @@ from ...utils.padding import pad_dim_to
 from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
+    CORR_BLK,
     NEG,
     SPAN,
     approx_candidates,
     check_search,
     check_tensors,
+    corr_strides,
+    expand_corr,
     merge_candidates,
     merge_exact,
+    tile_rows,
 )
 
 # Corpus rows are padded to a multiple of this, chunks to a multiple of
@@ -69,7 +81,8 @@ K4 = 16  # centroids per chunk, 4-bit codes
 GRP4 = 8  # 4-bit chunks the JAX kernel sums in one matmul (pq_kernel.py:87)
 # lo-word prescale of the bf16x2 split (a power of two: exact in bf16).
 LO_SCALE = 256.0
-# Queries per kernel block (one per lane) and corpus rows per K7b split.
+# Queries per kernel block (one per lane) and corpus rows per K7b split,
+# which are the rows of one kernel tile (csrc kPTR).
 TQ = 32
 EXACT_SPLIT = 512
 
@@ -80,7 +93,8 @@ _KIND = {"int8": 0, "bf16": 1, "bf16x2": 2}
 _BIAS_BLOCK = 32
 
 #: Kernel launches per wrapper since the last reset (plain runs not counted).
-LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0}
+LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0,
+            "pq_search_indexed": 0}
 
 
 def reset_launches() -> None:
@@ -230,12 +244,11 @@ def _kernel_lut(words, mpad: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).contiguous().view(torch.int32)
 
 
-def _launch(name, lut, codes_t, precision, n_valid, outs, *extra):
-    """Put the LUT in the kernels' layout and launch ``qtt_<name>`` on the
-    current stream: (lut, scale, bias, codes_t, *outs, Q, mpad, npad,
-    n_valid, kc, kind, *extra, stream). Counts the launch; raises on any
-    error."""
-    _check_operands(lut, codes_t, n_valid)
+def _launch(name, lut, codes_t, precision, n_valid, outs, *extra, fn=None):
+    """Put the LUT in the kernels' layout and launch ``qtt_<fn or name>`` on
+    the current stream: (lut, scale, bias, codes_t, *outs, Q, mpad, npad,
+    n_valid, kc, kind, *extra, stream). Counts the launch as ``name``;
+    raises on any error."""
     words, scale, bias = _operands(lut, precision)
     if scale is None:  # read only by the int8 kernels
         scale = bias = torch.zeros(1, dtype=torch.float32, device=codes_t.device)
@@ -243,7 +256,7 @@ def _launch(name, lut, codes_t, precision, n_valid, outs, *extra):
     lib = load_library()
     mpad, npad = codes_t.shape
     q, _, kc = lut.shape
-    err = getattr(lib, f"qtt_{name}")(
+    err = getattr(lib, f"qtt_{fn or name}")(
         klut.data_ptr(), scale.data_ptr(), bias.data_ptr(), codes_t.data_ptr(),
         *(o.data_ptr() for o in outs), q, mpad, npad, n_valid, kc, _KIND[precision],
         *extra, torch.cuda.current_stream(codes_t.device).cuda_stream,
@@ -283,6 +296,7 @@ def pq_scores(lut, codes_t, *, n_valid, precision=None):
     precision = scores_precision(precision or lut_precision())
     out = torch.empty((lut.shape[0], n_valid), dtype=torch.float32, device=codes_t.device)
     if lut.shape[0] and n_valid:
+        _check_operands(lut, codes_t, n_valid)
         _launch("pq_scores", lut, codes_t, precision, n_valid, (out,))
     return out
 
@@ -290,26 +304,56 @@ def pq_scores(lut, codes_t, *, n_valid, precision=None):
 # ------------------------------------------------------------ K7b / K7a
 
 
-def pq_search_plain(lut, codes_t, *, n_valid, k, mode="exact", precision=None):
+def _residual_pair(rowadd, corr):
+    if (rowadd is None) != (corr is None):
+        raise ArgumentsError("the residual additives come as a pair: rowadd and corr")
+
+
+def _add_residual(scores, rowadd, corr, selection=False):
+    """(scores + rowadd) + corr, each add rounded once, as the kernels add
+    them; ``rowadd`` already indexed by the scores' columns."""
+    if rowadd is None:
+        return scores
+    return (scores + rowadd[None, :]) + expand_corr(corr, selection)[:, : scores.shape[1]]
+
+
+def pq_search_plain(lut, codes_t, rowadd=None, corr=None, *, n_valid, k, mode="exact",
+                    precision=None):
     """Plain version of K7b (exact) and K7a (approx): (f32 [Q, k],
     i32 [Q, k]).
 
     Exact: top-k of the valid scores, -inf / -1 past n_valid. Approx: the
     stride-class candidates of the JAX approx kernel over SPAN tiles of
-    TILE_N rows (rows >= n_valid score NEG), then an exact merge."""
+    TILE_N rows (rows >= n_valid score NEG), then an exact merge. Both with
+    the residual additives when given."""
+    _residual_pair(rowadd, corr)
     words, scale, bias = _operands(lut, precision or lut_precision())
     q = lut.shape[0]
     if mode == "exact":
-        scores = _plain_scores(words, scale, bias, codes_t, n_valid)
+        scores = _add_residual(_plain_scores(words, scale, bias, codes_t, n_valid),
+                               None if rowadd is None else rowadd[:n_valid], corr)
         ids = torch.arange(n_valid, dtype=torch.int32, device=codes_t.device)
         return merge_exact(scores, ids.expand(q, n_valid), k)
-    scores = _plain_scores(words, scale, bias, codes_t, codes_t.shape[1])
+    scores = _add_residual(_plain_scores(words, scale, bias, codes_t, codes_t.shape[1]),
+                           rowadd, corr)
     scores[:, n_valid:] = NEG
     vals, ids = approx_candidates(scores, TILE_N)
     return merge_candidates(vals, ids, k)
 
 
-def pq_search(lut, codes_t, *, n_valid, k, mode="exact", precision=None):
+def _residual_args(rowadd, corr, q, npad, ncorr, selection, dev):
+    """(rowadd, corr, corr_qs, corr_bs) for the C interface, checked."""
+    if rowadd is None:
+        return 0, 0, 0, 0
+    check_tensors(dev, (
+        ("rowadd", rowadd, torch.float32, (npad,)),
+        ("corr", corr, torch.float32, (ncorr, q) if selection else (q, ncorr)),
+    ))
+    return (rowadd.data_ptr(), corr.data_ptr(), *corr_strides(corr, q, selection))
+
+
+def pq_search(lut, codes_t, rowadd=None, corr=None, *, n_valid, k, mode="exact",
+              precision=None):
     """Fused PQ search, never materializing the [Q, N] score matrix.
     Returns (scores f32[Q, k], indices i32[Q, k]).
 
@@ -318,24 +362,92 @@ def pq_search(lut, codes_t, *, n_valid, k, mode="exact", precision=None):
     top-min(k, 512), so no spill bound and no fallback are needed; ids may
     differ from torch.topk's only among tied scores; slots beyond n_valid
     hold -inf / -1. ``mode="approx"`` (K7a): one max per stride class of
-    SPAN tiles, exact merge, k <= APPROX_K_MAX."""
+    SPAN tiles, exact merge, k <= APPROX_K_MAX. ``rowadd`` [Npad] and
+    ``corr`` [Q, Npad/512]: the residual additives (see above)."""
     check_search(mode, k)
+    _residual_pair(rowadd, corr)
     if not use_kernels(codes_t):
-        return pq_search_plain(lut, codes_t, n_valid=n_valid, k=k, mode=mode,
+        return pq_search_plain(lut, codes_t, rowadd, corr, n_valid=n_valid, k=k, mode=mode,
                                precision=precision)
     precision = precision or lut_precision()
     q, npad, dev = lut.shape[0], codes_t.shape[1], codes_t.device
+    _check_operands(lut, codes_t, n_valid)
+    res = _residual_args(rowadd, corr, q, npad, npad // CORR_BLK, False, dev)
     if mode == "exact":
         kk = min(k, EXACT_SPLIT)
         width = (npad // EXACT_SPLIT) * kk
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q and npad:
-            _launch("pq_search_exact", lut, codes_t, precision, n_valid, (vals, ids), kk)
+            _launch("pq_search_exact", lut, codes_t, precision, n_valid, (vals, ids), kk,
+                    *res)
         return merge_exact(vals, ids, k)
     nblocks = -(-npad // (SPAN * TILE_N))
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
     if q and npad:
-        _launch("pq_search_approx", lut, codes_t, precision, n_valid, (vals, ids))
+        _launch("pq_search_approx", lut, codes_t, precision, n_valid, (vals, ids), *res,
+                0, 0, npad, SPAN * TILE_N)
+    return merge_candidates(vals, ids, k)
+
+
+# ------------------------------------------------------------------ K11
+
+
+def pq_search_indexed_plain(lut, codes_t, tile_sel, rowadd=None, corr=None, *, k,
+                            precision=None, tile_n=TILE_N):
+    """Plain version of K11: the selected tiles' code columns gathered in
+    selection order, LUT-scored as K7a scores them (with ``rowadd`` of each
+    corpus row and ``corr`` in selection order), their stride-class
+    candidates over spans of SPAN tiles, an exact merge; ids are corpus
+    rows."""
+    _residual_pair(rowadd, corr)
+    words, scale, bias = _operands(lut, precision or lut_precision())
+    rows = tile_rows(tile_sel, tile_n)
+    scores = _plain_scores(words, scale, bias, codes_t[:, rows], rows.shape[0])
+    scores = _add_residual(scores, None if rowadd is None else rowadd[rows], corr,
+                           selection=True)
+    vals, loc = approx_candidates(scores, tile_n)
+    return merge_candidates(vals, rows.to(torch.int32)[loc.long()], k)
+
+
+def pq_search_indexed(lut, codes_t, tile_sel, rowadd=None, corr=None, *, k,
+                      precision=None, tile_n=TILE_N):
+    """Fused approx PQ search (K11) over the selected tiles ``tile_sel`` i32
+    [T] of ``tile_n`` rows (tile t = corpus rows [t*tile_n, (t+1)*tile_n),
+    tile_n a multiple of 128 dividing Npad; with the additives a multiple
+    of 512): the IVF probe scan, reading the selected code columns in place.
+    Every selected row is valid. ``rowadd`` [Npad] (indexed by corpus row)
+    and ``corr`` [T*tile_n/512, Q] (selection order). Returns (scores
+    f32[Q, k], ids i32[Q, k]), ids corpus rows; k <= APPROX_K_MAX."""
+    check_search("approx", k)
+    _residual_pair(rowadd, corr)
+    if not use_kernels(codes_t):
+        return pq_search_indexed_plain(lut, codes_t, tile_sel, rowadd, corr, k=k,
+                                       precision=precision, tile_n=tile_n)
+    precision = precision or lut_precision()
+    q, npad, dev = lut.shape[0], codes_t.shape[1], codes_t.device
+    nt = tile_sel.shape[0]
+    if tile_n % 128 or npad % tile_n or (corr is not None and tile_n % CORR_BLK):
+        raise ArgumentsError(
+            f"tile_n={tile_n} must be a multiple of 128 (512 with the residual additives) "
+            f"dividing N={npad}")
+    _check_operands(lut, codes_t, npad)
+    check_tensors(dev, (("tile_sel", tile_sel, torch.int32, (nt,)),))
+    res = _residual_args(rowadd, corr, q, npad, nt * tile_n // CORR_BLK, True, dev)
+    n_valid = nt * tile_n
+    # The kernel scores EXACT_SPLIT-row tiles of compact rows: pad the list
+    # to whole tiles with its last entry, whose rows past n_valid score NEG.
+    per = max(1, EXACT_SPLIT // tile_n)
+    sel = tile_sel
+    if nt % per:
+        sel = torch.cat([tile_sel, tile_sel[-1:].expand(per - nt % per)])
+    ncomp = sel.shape[0] * tile_n
+    span = SPAN * tile_n
+    nblocks = -(-ncomp // span)
+    vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
+    if q and nt:
+        _launch("pq_search_indexed", lut, codes_t, precision, n_valid, (vals, ids), *res,
+                sel.data_ptr(), tile_n, ncomp, span, fn="pq_search_approx")
     return merge_candidates(vals, ids, k)

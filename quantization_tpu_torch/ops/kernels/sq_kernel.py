@@ -6,7 +6,15 @@ Twin of ``quantization_tpu/ops/pallas/sq_kernel.py``. The kernels live in
 
   * K3 ``sq_scores``            — the [Q, n_valid] f32 score matrix;
   * K1 ``sq_search`` exact      — scores fused with an exact per-split top-k;
-  * K2 ``sq_search`` approx     — scores fused with the stride-class maxima.
+  * K2 ``sq_search`` approx     — scores fused with the stride-class maxima;
+  * K9b / K9a ``sq_search_indexed`` exact / approx — the K1 / K2 bodies
+    walking a selected list of corpus tiles in place (the IVF probe scan).
+
+The searches take an optional residual-IVF ``corr``: one f32 per query and
+512-row block (``ktile.CORR_BLK``), added after the epilogue and before
+selection, in the dense layout [Q, Npad/512] or, for the indexed scans, in
+selection order [T*tile_n/512, Q] (the j-th selected tile's blocks at rows
+j*tile_n/512 ..), as the JAX kernels take it.
 
 Each wrapper takes the plain version for a CPU tensor. For a CUDA tensor it
 checks device, dtype, shape and contiguity, allocates its outputs, launches
@@ -23,13 +31,17 @@ from .. import sq as sq_ops
 from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
+    CORR_BLK,
     NEG,
     SPAN,
     approx_candidates,
     check_search,
     check_tensors,
+    corr_strides,
+    expand_corr,
     merge_candidates,
     merge_exact,
+    tile_rows,
 )
 
 # Corpus rows are padded to a multiple of this by the quantizer.
@@ -42,7 +54,8 @@ APPROX_PART = 2048
 D_ALIGN = 128
 
 #: Kernel launches per wrapper since the last reset (plain runs not counted).
-LAUNCHES = {"sq_scores": 0, "sq_search_exact": 0, "sq_search_approx": 0}
+LAUNCHES = {"sq_scores": 0, "sq_search_exact": 0, "sq_search_approx": 0,
+            "sq_search_indexed_exact": 0, "sq_search_indexed_approx": 0}
 
 
 def reset_launches() -> None:
@@ -130,16 +143,19 @@ def sq_scores(qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid):
 
 
 def sq_search_plain(
-    qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid, k, mode="exact"
+    qcodes, qoff, codes, voff, multiplier, corr=None, *, distance_type, n_valid, k,
+    mode="exact",
 ):
     """Plain version of K1 (exact) and K2 (approx): (f32 [Q, k], i32 [Q, k]).
 
-    Exact: top-k of the valid scores, padded with -inf / -1 when k > n_valid.
-    Approx: the same stride-class candidates as the kernel (``ktile``), then
-    an exact merge."""
+    Exact: top-k of the valid scores (plus ``corr``), padded with -inf / -1
+    when k > n_valid. Approx: the same stride-class candidates as the kernel
+    (``ktile``), then an exact merge."""
     scores = sq_ops.score_batch(
         qcodes, qoff, codes, voff, multiplier, distance_type=distance_type
     )
+    if corr is not None:
+        scores = scores + expand_corr(corr)
     q, npad = scores.shape
     if mode == "exact":
         ids = torch.arange(n_valid, dtype=torch.int32, device=scores.device)
@@ -150,7 +166,8 @@ def sq_search_plain(
 
 
 def sq_search(
-    qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid, k, mode="exact"
+    qcodes, qoff, codes, voff, multiplier, corr=None, *, distance_type, n_valid, k,
+    mode="exact",
 ):
     """Fused SQ search, never materializing the [Q, N] score matrix.
     Returns (scores f32[Q, k], indices i32[Q, k]). DOT/L2 only.
@@ -158,49 +175,129 @@ def sq_search(
     ``mode="exact"`` (K1): value-exact for any k <= FUSED_K_MAX; ids may
     differ from torch.topk's only among tied scores; slots beyond n_valid
     hold -inf / -1. ``mode="approx"`` (K2):
-    one max per stride class of SPAN tiles, exact merge, k <= APPROX_K_MAX."""
+    one max per stride class of SPAN tiles, exact merge, k <= APPROX_K_MAX.
+    ``corr`` f32 [Q, Npad/512]: the residual-IVF additive (see above)."""
     check_search(mode, k)
     if not use_kernels(codes):
         return sq_search_plain(
-            qcodes, qoff, codes, voff, multiplier,
+            qcodes, qoff, codes, voff, multiplier, corr,
             distance_type=distance_type, n_valid=n_valid, k=k, mode=mode,
         )
     _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid)
-    q, d = qcodes.shape
     npad = codes.shape[0]
+    if corr is not None:
+        check_tensors(codes.device, (
+            ("corr", corr, torch.float32, (qcodes.shape[0], npad // CORR_BLK)),))
+    return _launch_search(
+        qcodes, qoff, codes, voff, multiplier, None, TILE_N, corr, npad, n_valid, k, mode,
+        "sq_search_" + mode, span_rows=SPAN * approx_tile_n(npad),
+    )
+
+
+def _launch_search(qcodes, qoff, codes, voff, multiplier, sel, tile_n, corr, ncomp,
+                   n_valid, k, mode, name, span_rows):
+    """Launch K1 / K9b (exact) or K2 / K9a (approx) over ``ncomp`` compact
+    rows (``sel`` None: dense) and merge; counts the launch as ``name``."""
+    q, d = qcodes.shape
     dev = codes.device
     mult, mstride = mult_arg(multiplier, q, dev)
+    scan = (
+        0 if sel is None else sel.data_ptr(), tile_n,
+        0 if corr is None else corr.data_ptr(),
+        *(corr_strides(corr, q, sel is not None) if corr is not None else (0, 0)),
+    )
     lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if mode == "exact":
         kk = min(k, EXACT_SPLIT)
-        width = -(-npad // EXACT_SPLIT) * kk
+        width = -(-ncomp // EXACT_SPLIT) * kk
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
-        if q:
+        if q and ncomp:
             err = lib.qtt_sq_search_exact(
                 qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(),
                 codes.data_ptr(), voff.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                q, npad, n_valid, d, EXACT_SPLIT, kk, mstride,
-                torch.cuda.current_stream(dev).cuda_stream,
+                q, ncomp, n_valid, d, EXACT_SPLIT, kk, mstride, *scan, stream,
             )
-            check(lib, err, "sq_search_exact")
-            LAUNCHES["sq_search_exact"] += 1
+            check(lib, err, name)
+            LAUNCHES[name] += 1
         return merge_exact(vals, ids, k)
 
-    span_rows = SPAN * approx_tile_n(npad)
-    nparts = -(-npad // APPROX_PART)
-    nblocks = -(-npad // span_rows)
+    nparts = -(-ncomp // APPROX_PART)
+    nblocks = -(-ncomp // span_rows)
     part_v = torch.empty((q, nparts * 128), dtype=torch.float32, device=dev)
     part_i = torch.empty((q, nparts * 128), dtype=torch.int32, device=dev)
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
-    if q:
+    if q and ncomp:
         err = lib.qtt_sq_search_approx(
             qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
             voff.data_ptr(), part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), q, npad, n_valid, d, APPROX_PART, span_rows, mstride,
-            torch.cuda.current_stream(dev).cuda_stream,
+            ids.data_ptr(), q, ncomp, n_valid, d, APPROX_PART, span_rows, mstride,
+            *scan, stream,
         )
-        check(lib, err, "sq_search_approx")
-        LAUNCHES["sq_search_approx"] += 1
+        check(lib, err, name)
+        LAUNCHES[name] += 1
     return merge_candidates(vals, ids, k)
+
+
+# ------------------------------------------------------------ K9b / K9a
+
+
+def _check_indexed(tile_sel, tile_n, npad, corr, q, dev):
+    if tile_n % TILE_N or npad % tile_n:
+        raise ArgumentsError(
+            f"tile_n={tile_n} must be a multiple of {TILE_N} dividing N={npad}")
+    nt = tile_sel.shape[0]
+    check_tensors(dev, (("tile_sel", tile_sel, torch.int32, (nt,)),))
+    if corr is not None:
+        check_tensors(dev, (
+            ("corr", corr, torch.float32, (nt * tile_n // CORR_BLK, q)),))
+
+
+def sq_search_indexed_plain(
+    qcodes, qoff, codes, voff, multiplier, tile_sel, corr=None, *, distance_type, k,
+    mode="approx", tile_n=TILE_N,
+):
+    """Plain version of K9b (exact) and K9a (approx): the selected tiles'
+    rows gathered in selection order and searched as K1 / K2 search them,
+    with ``corr`` in selection order; ids are corpus rows."""
+    rows = tile_rows(tile_sel, tile_n)
+    scores = sq_ops.score_batch(
+        qcodes, qoff, codes[rows], voff[rows], multiplier, distance_type=distance_type
+    )
+    if corr is not None:
+        scores = scores + expand_corr(corr, selection=True)
+    q, n = scores.shape
+    gid = rows.to(torch.int32)
+    if mode == "exact":
+        return merge_exact(scores, gid.expand(q, n), k)
+    vals, loc = approx_candidates(scores, tile_n)
+    return merge_candidates(vals, gid[loc.long()], k)
+
+
+def sq_search_indexed(
+    qcodes, qoff, codes, voff, multiplier, tile_sel, corr=None, *, distance_type, k,
+    mode="approx", tile_n=TILE_N,
+):
+    """Fused SQ search over the selected tiles ``tile_sel`` i32 [T] of
+    ``tile_n`` rows (tile t = corpus rows [t*tile_n, (t+1)*tile_n), tile_n a
+    multiple of 512 dividing Npad): the IVF probe scan, K9b (exact) and K9a
+    (approx). The kernels read the selected tiles in place, so no [T*tile_n,
+    D] copy and no [Q, T*tile_n] score matrix is made. Every selected row is
+    valid. ``corr`` f32 [T*tile_n/512, Q] in selection order. Returns
+    (scores f32[Q, k], ids i32[Q, k]), ids corpus rows. DOT/L2 only."""
+    check_search(mode, k)
+    if not use_kernels(codes):
+        return sq_search_indexed_plain(
+            qcodes, qoff, codes, voff, multiplier, tile_sel, corr,
+            distance_type=distance_type, k=k, mode=mode, tile_n=tile_n,
+        )
+    npad = codes.shape[0]
+    _check_operands(qcodes, qoff, codes, voff, distance_type, npad)
+    _check_indexed(tile_sel, tile_n, npad, corr, qcodes.shape[0], codes.device)
+    ncomp = tile_sel.shape[0] * tile_n
+    return _launch_search(
+        qcodes, qoff, codes, voff, multiplier, tile_sel, tile_n, corr, ncomp, ncomp, k,
+        mode, "sq_search_indexed_" + mode, span_rows=SPAN * tile_n,
+    )

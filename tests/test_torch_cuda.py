@@ -130,7 +130,8 @@ def test_model_path_runs_through_the_kernels(dev):
     s, i = enc.top_k(eq, 10)
     sa, ia = enc.top_k(eq, 10, method="approx")
     scores = enc.score_batch(eq)
-    assert all(n > 0 for n in sq_kernel.LAUNCHES.values()), sq_kernel.LAUNCHES
+    dense = ("sq_scores", "sq_search_exact", "sq_search_approx")
+    assert all(sq_kernel.LAUNCHES[n] > 0 for n in dense), sq_kernel.LAUNCHES
     cs, ci = cpu.top_k(cpu.encode_query(data[:16]), 10)
     np.testing.assert_allclose(s, cs, rtol=1e-6, atol=1e-4)
     np.testing.assert_allclose(scores.cpu().numpy(), cpu.score_batch(cpu.encode_query(data[:16])).numpy(),
@@ -280,7 +281,8 @@ def test_two_stage_path_runs_through_the_kernels(dev):
     s, i = qt.TwoStageIndex(bq, fine).top_k(qt.TwoStageIndex(bq, fine).encode_query(data[:4]), 5)
     assert (i[:, 0] == np.arange(4)).all()
     bq.score_batch(bq.encode_query(data[:4]))
-    assert all(v > 0 for v in bq_kernel.LAUNCHES.values()), bq_kernel.LAUNCHES
+    dense = ("bq_scores", "bq_search_exact", "bq_search_approx")
+    assert all(bq_kernel.LAUNCHES[n] > 0 for n in dense), bq_kernel.LAUNCHES
     assert gather.LAUNCHES["sq_score_candidates"] > 0
 
 
@@ -392,10 +394,172 @@ def test_pq_model_path_runs_through_the_kernels(dev):
         s, i = enc.top_k(eq, 10)
         sa, ia = enc.top_k(eq, 10, method="approx")
         scores = enc.score_batch(eq)
-        assert all(v > 0 for v in pq_kernel.LAUNCHES.values()), pq_kernel.LAUNCHES
+        dense = ("pq_scores", "pq_search_exact", "pq_search_approx")
+        assert all(pq_kernel.LAUNCHES[n] > 0 for n in dense), pq_kernel.LAUNCHES
         np.testing.assert_array_equal(s, torch.topk(scores, 10, dim=1).values.cpu().numpy())
         assert sa.shape == (16, 10) and ia.max() < n
         # The same state on the CPU scores the same LUT to the bit.
         cpu = qt.pq_from_numpy(*qt.pq_to_numpy(enc), device="cpu")
         cq = qt.EncodedQueryPQ(eq.lut.cpu())
         assert torch.equal(cpu.score_batch(cq), scores.cpu())
+
+
+# ---------------------------------- IVF: K9a, K9b, K10, K11, corr / rowadd
+
+
+def _selection(dev, n_tiles, t, seed):
+    """A permuted, non-contiguous list of t tile ids out of n_tiles."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    return torch.randperm(n_tiles, generator=g)[:t].to(torch.int32).to(dev)
+
+
+def _corr(dev, q, blocks, selection, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (blocks, q) if selection else (q, blocks)
+    return torch.randn(shape, generator=g, device=dev) * 3
+
+
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("mode,k", [("exact", 10), ("exact", 600), ("approx", 20)])
+@pytest.mark.parametrize("tile_n", [512, 1024, 2048])
+def test_k9_sq_indexed_equal_plain(dev, tile_n, mode, k, with_corr):
+    n_valid = 20 * 2048
+    a = _operands(dev, n_valid, 256, 37, seed=tile_n + k)
+    sel = _selection(dev, n_valid // tile_n, 9, seed=tile_n)
+    corr = _corr(dev, 37, 9 * tile_n // 512, True, seed=k) if with_corr else None
+    kw = dict(distance_type=qt.DistanceType.DOT, k=k, mode=mode, tile_n=tile_n)
+    name = "sq_search_indexed_" + mode
+    before = sq_kernel.LAUNCHES[name]
+    v, i = sq_kernel.sq_search_indexed(*a, sel, corr, **kw)
+    assert sq_kernel.LAUNCHES[name] == before + 1
+    pv, pi = sq_kernel.sq_search_indexed_plain(*a, sel, corr, **kw)
+    torch.cuda.synchronize()
+    from quantization_tpu_torch.ops.kernels.ktile import tile_rows
+
+    rows = tile_rows(sel, tile_n)
+    scores = torch.full((37, n_valid), float("-inf"), device=dev)
+    scores[:, rows] = sq_kernel.sq_scores_plain(
+        a[0], a[1], a[2][rows], a[3][rows], a[4], distance_type=qt.DistanceType.DOT,
+        n_valid=rows.shape[0])
+    if with_corr:
+        scores[:, rows] += torch.repeat_interleave(corr.T, 512, dim=1)
+    _check_topk(v, i, pv, scores, n_valid)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+def test_k1_k2_corr_equal_plain(dev, mode):
+    n_valid = 9000
+    a = _operands(dev, n_valid, 128, 19, seed=3)
+    npad = a[2].shape[0]
+    corr = _corr(dev, 19, npad // 512, False, seed=4)
+    kw = dict(distance_type=qt.DistanceType.L2, n_valid=n_valid, k=30, mode=mode)
+    v, i = sq_kernel.sq_search(*a, corr, **kw)
+    pv, pi = sq_kernel.sq_search_plain(*a, corr, **kw)
+    scores = sq_kernel.sq_scores_plain(*a, distance_type=qt.DistanceType.L2, n_valid=npad)
+    scores = (scores + torch.repeat_interleave(corr, 512, dim=1))[:, :n_valid]
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+
+
+@pytest.mark.parametrize("tile_n", [512, 1024, 2048])
+@pytest.mark.parametrize("dim", [128, 1536])
+def test_k10_bq_indexed_equal_plain(dev, tile_n, dim):
+    n_valid = 16 * 2048
+    qw, planes = _bq_operands(dev, n_valid, dim, 19, seed=tile_n + dim)
+    sel = _selection(dev, n_valid // tile_n, 7, seed=dim)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=40, tile_n=tile_n)
+    before = bq_kernel.LAUNCHES["bq_search_indexed"]
+    v, i = bq_kernel.bq_search_indexed(qw, planes, sel, **kw)
+    assert bq_kernel.LAUNCHES["bq_search_indexed"] == before + 1
+    pv, pi = bq_kernel.bq_search_indexed_plain(qw, planes, sel, **kw)
+    torch.cuda.synchronize()
+    scores = bq_kernel.bq_scores_plain(qw, planes, distance_type=DistanceType.DOT,
+                                       invert=False, dim=dim, n_valid=n_valid)
+    _check_topk(v, i, pv, scores, n_valid)
+    assert torch.equal(i, pi)
+
+
+def _pq_residual(dev, q, npad, blocks, selection, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rowadd = torch.randn(npad, generator=g, device=dev) * 5
+    rowadd[::97] = -3.0e38  # the pad mask rides rowadd
+    return rowadd, _corr(dev, q, blocks, selection, seed + 1)
+
+
+@pytest.mark.parametrize("precision", PQ_PRECISIONS)
+@pytest.mark.parametrize("kc,m,tile_n,residual", [
+    (256, 96, 1024, False), (256, 96, 1024, True), (256, 32, 512, True),
+    (16, 48, 1024, False), (16, 48, 1024, True), (256, 16, 256, False)])
+def test_k11_pq_indexed_equal_plain(dev, kc, m, tile_n, residual, precision):
+    n_valid = 24 * 1024
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=m + tile_n)
+    t = 7
+    sel = _selection(dev, n_valid // tile_n, t, seed=m)
+    rowadd, corr = (_pq_residual(dev, 37, codes_t.shape[1], t * tile_n // 512, True, seed=m)
+                    if residual else (None, None))
+    kw = dict(k=40, precision=precision, tile_n=tile_n)
+    before = pq_kernel.LAUNCHES["pq_search_indexed"]
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, rowadd, corr, **kw)
+    assert pq_kernel.LAUNCHES["pq_search_indexed"] == before + 1
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("precision", PQ_PRECISIONS)
+@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48)])
+def test_k7_pq_residual_equal_plain(dev, kc, m, precision, mode):
+    n_valid = 6000
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=m + 1)
+    npad = codes_t.shape[1]
+    rowadd, corr = _pq_residual(dev, 37, npad, npad // 512, False, seed=m)
+    kw = dict(n_valid=n_valid, k=30, mode=mode, precision=precision)
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=npad, precision=precision)
+    scores = ((scores + rowadd[None]) + torch.repeat_interleave(corr, 512, dim=1))[:, :n_valid]
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("kind,residual", [("sq", False), ("sq", True), ("pq", True),
+                                           ("bq", False)])
+def test_ivf_path_runs_through_the_kernels(dev, kind, residual):
+    rng = np.random.default_rng(3)
+    n, dim = 12000, 64
+    centers = rng.standard_normal((24, dim)).astype(np.float32)
+    data = (centers[rng.integers(0, 24, n)]
+            + 0.2 * rng.standard_normal((n, dim))).astype(np.float32)
+    params = qt.VectorParameters(dim, n, qt.DistanceType.DOT, False)
+    kw = {"chunk_size": 8} if kind == "pq" else {}
+    ivf = qt.IVFIndex.encode(data, params, quantizer=kind, nlist=12, bucket_size=1024,
+                             nprobe=4, residual=residual, **kw)
+    cpu = qt.ivf_from_numpy(*qt.ivf_to_numpy(ivf), device="cpu")
+    mods = (sq_kernel, bq_kernel, pq_kernel)
+    for m_ in mods:
+        m_.reset_launches()
+    eq, ceq = ivf.encode_query(data[:16]), cpu.encode_query(data[:16])
+    for method in ("exact", "approx"):
+        for scan in ("indexed", "compact"):
+            if scan == "indexed" and kind != "sq" and method == "exact":
+                continue
+            s, i = ivf.top_k(eq, 10, method=method, scan=scan)
+            assert s.shape == (16, 10) and ((i >= 0) & (i < n)).all()
+            if method == "exact":
+                # The same index on the CPU: the probe and the bucket term are
+                # f32 products summed in another order, so values agree to
+                # rounding; ids where scores are untied.
+                cs, _ = cpu.top_k(ceq, 10, method=method, scan=scan)
+                np.testing.assert_allclose(s, cs, rtol=1e-5, atol=1e-4)
+    launched = {k: v for m_ in mods for k, v in m_.LAUNCHES.items() if v}
+    want = {"sq": "sq_search_indexed_approx", "bq": "bq_search_indexed",
+            "pq": "pq_search_indexed"}[kind]
+    assert launched.get(want, 0) > 0, launched

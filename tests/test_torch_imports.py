@@ -41,7 +41,8 @@ def test_import_leaves_jax_unloaded():
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|quantization_tpu)\b", re.M)
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"],
+                         ids=lambda p: p.name)
 def test_no_module_imports_jax(path):
     assert not IMPORTS_JAX.search(path.read_text())
 
@@ -216,3 +217,29 @@ def test_pq_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
             call()
     assert qt.ProductQuantizer.load(tmp_path / "pq.bin", tmp_path / "pq.json", params,
                                     device="cpu").device == torch.device("cpu")
+
+
+def test_ivf_modules_are_checked():
+    """The IVF slice's modules are among those imported without JAX above."""
+    for mod in ("quantization_tpu_torch.ops.ivf", "quantization_tpu_torch.models.ivf",
+                "quantization_tpu_torch.utils.fallback", "quantization_tpu_torch.interop"):
+        assert mod in MODULES
+
+
+def test_ivf_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
+    qt = quantization_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = rng.random((600, 16), dtype=np.float32)
+    params = qt.VectorParameters(16, 600, qt.DistanceType.DOT, False)
+    ivf = qt.IVFIndex.encode(data, params, nlist=2, bucket_size=64, device="cpu")
+    ivf.save(tmp_path / "ivf.bin", tmp_path / "ivf.json")
+    calls = [
+        lambda: qt.IVFIndex.encode(data, params, nlist=2, bucket_size=64),
+        lambda: qt.IVFIndex.load(tmp_path / "ivf.bin", tmp_path / "ivf.json", params),
+        lambda: qt.ivf_from_numpy(*qt.ivf_to_numpy(ivf)),
+    ]
+    for call in calls:
+        with pytest.raises(qt.NoDeviceError, match="device='cpu'"):
+            call()
+    back = qt.IVFIndex.load(tmp_path / "ivf.bin", tmp_path / "ivf.json", params, device="cpu")
+    assert back.device == torch.device("cpu") and back._means_dev.device.type == "cpu"
