@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py             # the checks and times, about 5 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
-    python3 chip_smoke.py --rehearse [pq] [ivf]  # paths 3 / 4's recall on the CPU, 30k rows
+    python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
-nvcc (one process per source, all at once), and drives the port's four main
+nvcc (one process per source, all at once), and drives the port's five main
 paths through the public API, each with the kernel launch counts set to 0
 just before it and read just after:
 
@@ -40,6 +40,21 @@ both corpora, since the clustered one ties far more.
      IVF-SQ / IVF-OPQ -> f32 two-stage, whose recall@10 is held to the floor
      of the CPU rehearsal (``--rehearse ivf``); indexed == compact, the
      full probe == the full scan, chunked == unchunked, save/load.
+
+  5. Residual IVF-BQ, SQ L1 and serving: residual and plain IVF-BQ at
+     1,000,000 x 768 on the JAX package's residual-regime corpus (6 centres
+     x 3, sigma 0.3, not normalized; built without a warning), every bucket
+     scanned exactly (K5b), whose recall lift is held to half the CPU
+     rehearsal's (``--rehearse rbq``), then nprobe 32 over 256 / 512
+     buckets through the indexed (K10, value query + corr) and compact
+     (K5a / K5b) scans; the full probe == a plain scan of every row,
+     chunked == unchunked, save/load and the numpy round trip. SQ-u8 L1 at
+     100,000 x 1024: score_batch, top_k and IVF-SQ L1 through K12. Then
+     ``recommend(target 0.9)`` -> ``plan.serve`` -> ``search_stream`` over
+     16 fresh 256-query batches (depth 8): each result equal to the
+     blocking search, the held-out recall, the per-batch walls, the device
+     idle share from the searches' CUDA-event spans in unprofiled windows,
+     and the host syncs per search in a profiler window.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -107,6 +122,15 @@ KERNELS.update({
 for _name in ("sq_search_exact", "sq_search_approx", "bq_search_exact", "pq_search_exact",
               "pq_search_approx"):
     KERNELS[_name + "_ivf"] = KERNELS[_name]
+# Path 5: residual IVF-BQ (value queries against the residual sign bits,
+# with the bucket term corr) and SQ L1.
+KERNELS.update({
+    "bq_search_exact_res": ("bq_kernels.cu", "quantization_tpu/ops/pallas/bq_kernel.py:576"),
+    "bq_search_approx_res": ("bq_kernels.cu", "quantization_tpu/ops/pallas/bq_kernel.py:509"),
+    "bq_search_indexed_res": ("bq_kernels.cu",
+                              "quantization_tpu/ops/pallas/bq_kernel.py:328"),
+    "sq_scores_l1": ("sq_kernels.cu", "quantization_tpu/ops/pallas/sq_kernel.py:748"),
+})
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -149,6 +173,18 @@ IVF_SQ_F32_RECALL_REHEARSAL = 0.3098
 IVF_SQ_F32_RECALL_MIN = min(IVF_SQ_F32_RECALL_REHEARSAL - 0.05, 0.8)
 # The chunked indexed scan is checked with chunks of this many tiles.
 IVF_CHECK_CHUNK_TILES = 64
+# Path 5: residual IVF-BQ at 1M x 768 on the JAX package's residual-regime
+# corpus (tests/test_ivf.py:307-318: 6 centres x 3, sigma 0.3, not
+# normalized), the repo's residual-IVF validation scale (BASELINE.md:372-390).
+# The recall lift of residual over plain IVF-BQ (all buckets scanned, exact)
+# in the CPU rehearsal (--rehearse rbq, 30k rows); the card's lift is held to
+# half of it.
+RBQ_LIFT_REHEARSAL = 0.1648  # plain 0.0457 -> residual 0.2105, 34 buckets
+# Serving: the calibration target, the fresh 256-query batches of the
+# pipelined loop and the pipeline depth; the held-out recall may sit this far
+# below the calibrated one.
+SERVE_TARGET, SERVE_BATCHES, SERVE_DEPTH, SERVE_RECALL_SLACK = 0.9, 16, 8, 0.05
+SERVE_IDLE_WINDOWS = 3  # unprofiled pipelined loops the idle share is read from
 
 
 def say(phase, msg):
@@ -1291,8 +1327,8 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     API, two-stage over IVF, then every kernel of the path against its plain
     version at the path's shapes, and the times."""
     from quantization_tpu_torch import (
-        ArgumentsError, DistanceType, ExactRescorer, IVFIndex, ScalarQuantizerU8,
-        TwoStageIndex, VectorParameters,
+        DistanceType, ExactRescorer, IVFIndex, ScalarQuantizerU8, TwoStageIndex,
+        VectorParameters,
     )
     from quantization_tpu_torch.models import ivf as ivf_mod
     from quantization_tpu_torch.ops.kernels import bq_kernel, ktile, pq_kernel, sq_kernel
@@ -1304,11 +1340,6 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     data, queries = data_dev.cpu().numpy(), queries_dev.cpu().numpy()
     params = VectorParameters(PD, PN, DistanceType.DOT, False)
     oracle = torch.topk(queries_dev @ data_dev.T, K, dim=1).indices.cpu().numpy()
-    try:
-        IVFIndex.encode(data, params, quantizer="bq", residual=True)
-        require(False, "residual IVF-BQ raises ArgumentsError")
-    except ArgumentsError as e:
-        say("ivf-build", f"residual IVF-BQ raises ArgumentsError: {e}")
 
     # ------------------------------------------------------------- builds
     idx, build_s = {}, {}
@@ -1688,10 +1719,459 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
                   "nbuckets": {n: i.metadata.nbuckets for n, i in idx.items()}}
 
 
+def res_corpus(n, q, dim, gen, dev, chunk=100_000):
+    """The JAX package's residual-regime corpus (tests/test_ivf.py:307-318),
+    made on the card: 6 gaussian centres x 3, each row a centre plus 0.3
+    noise, not normalized; queries are distinct corpus rows plus 0.05 noise.
+    Returns (data [n, dim], queries [q, dim])."""
+    centers = torch.randn(6, dim, generator=gen, device=dev) * 3
+    data = torch.empty((n, dim), device=dev)
+    for r0 in range(0, n, chunk):
+        r1 = min(r0 + chunk, n)
+        a = torch.randint(0, 6, (r1 - r0,), generator=gen, device=dev)
+        data[r0:r1] = centers[a] + 0.3 * torch.randn(r1 - r0, dim, generator=gen, device=dev)
+    pick = torch.randperm(n, generator=gen, device=dev)[:q]
+    return data, data[pick] + 0.05 * torch.randn(q, dim, generator=gen, device=dev)
+
+
+def rbq_recalls(dev, n, dim, seed):
+    """Plain and residual IVF-BQ recall@10 over every bucket (exact search)
+    on the residual-regime corpus at the automatic geometry: the lift the
+    card's run is held to, rehearsed on the CPU."""
+    from quantization_tpu_torch import DistanceType, IVFIndex, VectorParameters
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data_dev, q_dev = res_corpus(n, Q, dim, gen, dev)
+    data, queries = data_dev.cpu().numpy(), q_dev.cpu().numpy()
+    oracle = torch.topk(q_dev @ data_dev.T, K, dim=1).indices.cpu().numpy()
+    params = VectorParameters(dim, n, DistanceType.DOT, False)
+    out = {}
+    for residual in (False, True):
+        ivf = IVFIndex.encode(data, params, quantizer="bq", residual=residual, device=dev)
+        nb = ivf.metadata.nbuckets
+        _, ids = ivf.top_k(ivf.encode_query(queries), K, method="exact", nprobe=nb, nscan=nb)
+        out["residual" if residual else "plain"] = recall(ids, oracle, K)
+    out["nbuckets"] = nb
+    return out
+
+
+def ids_equal_where_untied(s, i, ws, wi, what):
+    for r in range(s.shape[0]):
+        vals, cnt = np.unique(ws[r], return_counts=True)
+        untied = np.isin(ws[r], vals[cnt == 1]) & (ws[r] != ws[r][-1])
+        require(np.array_equal(i[r][untied], wi[r][untied]), f"{what}: ids equal where untied")
+
+
+def sync_counts(prof):
+    """Host waits and copies in a profiler window, by name: the runtime's
+    synchronize calls and the device's memcpy kinds."""
+    out = {}
+    for e in prof.key_averages():
+        if "Synchronize" in e.key or "Memcpy" in e.key or "memcpy" in e.key.lower():
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def pinned_pool():
+    """PyTorch's pinned host pool: (blocks it has made, microseconds spent in
+    the CUDA allocations that made them)."""
+    st = torch.cuda.host_memory_stats()
+    return st.get("num_host_alloc") or 0, st.get("host_alloc_time.total") or 0
+
+
+class SearchSpans:
+    """A searchable whose ``top_k_device`` calls are each bracketed by two
+    timing events on the current stream. A span runs from the stream
+    reaching the search to its last kernel, so a gap inside one search
+    (the device waiting for the host's next launch) counts as busy: the
+    idle share read from the spans is a lower bound."""
+
+    def __init__(self, index):
+        self.index, self.events = index, []
+
+    def encode_query(self, queries):
+        return self.index.encode_query(queries)
+
+    def top_k_device(self, eq, k, **knobs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.index.top_k_device(eq, k, **knobs)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+
+def rbq_path(dev, smi, do_profile):
+    """Path 5: residual IVF-BQ at 1M x 768 on the residual-regime corpus (the
+    JAX package's measured regime), SQ L1 at 100k x 1024, and the serving
+    layer — recommend -> plan.serve -> search_stream — over the residual
+    index behind an f32 rescorer; every new kernel against its plain version
+    at the path's shapes, and the times."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from quantization_tpu_torch import (
+        DistanceType, IVFIndex, PipelinedSearcher, ScalarQuantizerU8, VectorParameters,
+        exact_topk, ivf_from_numpy, ivf_to_numpy, recall_at_k, recommend,
+    )
+    from quantization_tpu_torch.models import ivf as ivf_mod
+    from quantization_tpu_torch.ops import bq as bq_ops
+    from quantization_tpu_torch.ops.kernels import bq_kernel, ktile, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel)
+    dot = DistanceType.DOT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    data_dev, q_all = res_corpus(PN, (2 + SERVE_BATCHES) * Q, PD, gen, dev)
+    data = data_dev.cpu().numpy()
+    q_dev = q_all[:Q].contiguous()
+    queries, calib = q_dev.cpu().numpy(), q_all[Q:2 * Q].cpu().numpy()
+    serve = [q_all[(2 + j) * Q:(3 + j) * Q].cpu().numpy() for j in range(SERVE_BATCHES)]
+    params = VectorParameters(PD, PN, dot, False)
+    gt_s = q_dev @ data_dev.T  # [Q, PN] exact f32 scores, TF32 off
+    oracle = torch.topk(gt_s, K, dim=1).indices.cpu().numpy()
+    say("rbq-data", f"{PN} x {PD} residual-regime corpus (6 centres x 3, sigma 0.3, not "
+        f"normalized) and {(2 + SERVE_BATCHES) * Q} queries made on the card")
+
+    # ------------------------------------------------------------- builds
+    idx, build_s = {}, {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the unnormalized regime must not warn
+        for name, residual in (("bq", False), ("rbq", True)):
+            t0 = time.perf_counter()
+            idx[name] = IVFIndex.encode(data, params, quantizer="bq", residual=residual)
+            torch.cuda.synchronize()
+            build_s[name] = time.perf_counter() - t0
+            m = idx[name].metadata
+            say("rbq-build", f"{name}: nlist {m.nlist}, bucket_size {m.bucket_size}, "
+                f"{m.nbuckets} buckets, residual_scale {m.residual_scale:.6f}, built in "
+                f"{build_s[name]:.2f} s, no warning")
+            require((m.nlist, m.bucket_size) == ivf_mod.auto_geometry(PN, residual),
+                    f"{name}: auto geometry")
+    rbq = idx["rbq"]
+    require(rbq.metadata.residual_scale > 0, "residual_scale (beta) set by the build")
+
+    # ----------------------------------------- the main path, counted
+    reset_all(*mods)
+    t0 = time.perf_counter()
+    full = {}
+    for name, ivf in idx.items():  # every bucket, exact: K5b (K5c for plain BQ)
+        nb = ivf.metadata.nbuckets
+        full[name] = ivf.top_k(ivf.encode_query(queries), K, method="exact", nprobe=nb,
+                               nscan=nb)
+    eq = rbq.encode_query(queries)
+    res = {}
+    for nscan in IVF_NSCANS:
+        for method, scan in (("approx", "auto"), ("approx", "compact"), ("exact", "auto")):
+            res[method, scan, nscan] = rbq.top_k(eq, K, method=method, nprobe=IVF_NPROBE,
+                                                 nscan=nscan, scan=scan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(*mods)
+    say("rbq-main", f"2 full-probe + {len(res)} residual IVF-BQ searches in {wall:.2f} s; "
+        f"launches {launches}")
+    for kname in ("bq_search_exact_res", "bq_search_approx_res", "bq_search_indexed_res"):
+        require(launches[kname] > 0, f"residual IVF-BQ main path launched {kname}")
+    require(launches["bq_search_indexed_res"] == len(IVF_NSCANS)
+            and launches["bq_search_approx_res"] == len(IVF_NSCANS)
+            and launches["bq_search_exact_res"] == 1 + len(IVF_NSCANS),
+            "one residual scan kernel per residual search")
+
+    rec = {name: recall(i, oracle, K) for name, (_, i) in full.items()}
+    for key, (sv, i) in list(full.items()) + list(res.items()):
+        require(sv.shape == (Q, K) and bool(np.isfinite(sv).all())
+                and bool(((i >= 0) & (i < PN)).all())
+                and all(len(set(r.tolist())) == K for r in i), f"{key}: finite, valid, distinct")
+    for key, (_, i) in res.items():
+        rec["rbq/" + "/".join(map(str, key))] = recall(i, oracle, K)
+    sv, ids = full["rbq"]
+    exact_vals = torch.gather(gt_s, 1, torch.from_numpy(ids).to(dev).long()).cpu().numpy()
+    err = float(np.mean(np.abs(sv - exact_vals)))
+    spread = float((gt_s.amax(1) - gt_s.amin(1)).mean())
+    lift = rec["rbq"] - rec["bq"]
+    say("rbq-main", f"recall@{K} vs the f32 oracle: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec.items()) + f"; lift over every bucket {lift:.4f} "
+        f"(CPU rehearsal {RBQ_LIFT_REHEARSAL}); residual scores' mean |error| {err:.4f} "
+        f"against a mean per-query spread of {spread:.4f}")
+    require(lift >= 0.5 * RBQ_LIFT_REHEARSAL,
+            f"residual IVF-BQ recall >= plain + half the rehearsed lift ({RBQ_LIFT_REHEARSAL})")
+    require(err < 0.25 * spread, "residual scores in data units (tests/test_ivf.py:442-451)")
+
+    # ---------------------------------------------- the path's invariants
+    nb, s = rbq.metadata.nbuckets, rbq.metadata.bucket_size
+    planes = rbq.quantizer.planes
+    qaff = (eq[1].codes, eq[1].mult, eq[1].qb)
+    union_all = ivf_union(rbq, q_dev, nb, nb)
+    qc_all = ivf_corr(rbq, q_dev, union_all)  # [nb, Q], the model's bucket term
+    corr_rows = torch.empty((Q, nb), device=dev)
+    corr_rows[:, union_all] = qc_all.T
+    plain_full = bq_ops.score_affine(*qaff, planes[:, :nb * s]) + torch.repeat_interleave(
+        corr_rows, s, dim=1)
+    plain_full[:, rbq._slot_ids_dev.reshape(-1) < 0] = float("-inf")  # pad slots
+    fv = torch.topk(plain_full, K, dim=1).values.cpu().numpy()
+    require(np.array_equal(full["rbq"][0], fv), "the full probe == a plain scan of every row")
+    del plain_full
+    old_chunk = ivf_mod._INDEXED_CHUNK_TILES
+    try:
+        u = rbq.top_k(eq, K, method="approx", nprobe=IVF_NPROBE, nscan=IVF_NSCANS[1])
+        ivf_mod._INDEXED_CHUNK_TILES = IVF_CHECK_CHUNK_TILES
+        c = rbq.top_k(eq, K, method="approx", nprobe=IVF_NPROBE, nscan=IVF_NSCANS[1])
+    finally:
+        ivf_mod._INDEXED_CHUNK_TILES = old_chunk
+    require(np.array_equal(u[0], c[0]), "chunked indexed scan == unchunked (values)")
+    carried = ivf_from_numpy(*ivf_to_numpy(rbq))
+    with tempfile.TemporaryDirectory() as tmp:
+        d, mpath = os.path.join(tmp, "rbq.bin"), os.path.join(tmp, "rbq.json")
+        rbq.save(d, mpath)
+        back = IVFIndex.load(d, mpath, params)
+    for other, what in ((back, "save/load"), (carried, "ivf_to_numpy -> ivf_from_numpy")):
+        require(other.metadata.residual_scale == rbq.metadata.residual_scale, what)
+        for method in ("exact", "approx"):
+            a = rbq.top_k(eq, K, method=method)
+            b = other.top_k(other.encode_query(queries), K, method=method)
+            require(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+                    f"{what} {method}: search equals search before")
+    say("rbq-check", "full probe == plain scan of every row, chunked == unchunked, "
+        "save/load and the numpy round trip equal: all hold")
+
+    # ------------------------- every kernel against plain, at the path's shapes
+    kk2 = 2 * K
+    nscan = IVF_NSCANS[0]
+    union = ivf_union(rbq, q_dev, IVF_NPROBE, nscan)
+    qc_u = ivf_corr(rbq, q_dev, union)
+    itile = bq_kernel.indexed_tile_n(planes.shape[0] * 32, s)
+    tiles = tiles_of(union, s, itile)
+    require(not bool((torch.diff(tiles) == 1).all()), "a non-contiguous tile list")
+    corr_t = torch.repeat_interleave(qc_u, s // ktile.CORR_BLK, dim=0).contiguous()
+    kw_i = dict(distance_type=dot, invert=False, dim=PD, k=kk2, tile_n=itile, query_affine=qaff,
+                rowadd=rbq._resid_bq)
+    v, i = bq_kernel.bq_search_indexed(None, planes, tiles, corr_t, **kw_i)
+    pv, pi = bq_kernel.bq_search_indexed_plain(None, planes, tiles, corr_t, **kw_i)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi),
+            "K10 value query + rowadd + corr: equal plain")
+    width = union.shape[0] * s
+    g = ivf_mod._gather_buckets(planes, union, nb, s, 1)
+    npadc = width + (-width) % bq_kernel.TILE_N
+    g = torch.nn.functional.pad(g, (0, npadc - width)).contiguous()
+    corr_c = torch.repeat_interleave(qc_u.T, s // ktile.CORR_BLK, dim=1)
+    corr_c = torch.nn.functional.pad(corr_c, (0, (npadc - width) // ktile.CORR_BLK)).contiguous()
+    ra = torch.nn.functional.pad(ivf_mod._gather_buckets(rbq._resid_bq, union, nb, s, 0),
+                                 (0, npadc - width), value=ktile.NEG)
+    kw_c = dict(distance_type=dot, invert=False, dim=PD, n_valid=width, k=kk2, query_affine=qaff,
+                rowadd=ra)
+    v, i = bq_kernel.bq_search(None, g, corr_c, mode="approx", **kw_c)
+    pv, pi = bq_kernel.bq_search_plain(None, g, corr_c, mode="approx", **kw_c)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi),
+            "K5a value query + rowadd + corr: equal plain")
+    v, i = bq_kernel.bq_search(None, g, corr_c, mode="exact", **kw_c)
+    pv, _ = bq_kernel.bq_search_plain(None, g, corr_c, mode="exact", **kw_c)
+    sc = bq_kernel._plain_scores(None, g, corr_c, qaff, distance_type=dot, invert=False,
+                                 dim=PD, rowadd=ra)[:, :width]
+    torch.cuda.synchronize()
+    check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K5b compact")
+    del sc
+    say("K10/K5a/K5b", f"value query + rowadd + corr: K10 over {tiles.shape[0]} permuted "
+        f"tiles of {itile} rows, K5a and K5b over the compact {width}-row union: equal to plain")
+
+    recs = []
+    rows_b = planes.shape[0] * 4  # plane bytes per row
+    dp = planes.shape[0] * 32
+
+    def res_bound(rows, sel=0):
+        """Planes, rowadd, queries (values, mult, qb), corr and the tile list
+        read once, the candidates written once; 2 * Q * rows * dims int8
+        ops."""
+        b = rows * (rows_b + 4) + Q * (dp + 8) + Q * rows // ktile.CORR_BLK * 4 + sel * 4
+        return bound(b + Q * kk2 * 8, 2 * Q * rows * PD, INT8_OPS_PER_S)
+
+    for name, fn, plain_fn, bnd in (
+        ("bq_search_indexed_res",
+         lambda: bq_kernel.bq_search_indexed(None, planes, tiles, corr_t, **kw_i),
+         lambda: bq_kernel.bq_search_indexed_plain(None, planes, tiles, corr_t, **kw_i),
+         res_bound(width, tiles.shape[0])),
+        ("bq_search_approx_res",
+         lambda: bq_kernel.bq_search(None, g, corr_c, mode="approx", **kw_c),
+         lambda: bq_kernel.bq_search_plain(None, g, corr_c, mode="approx", **kw_c),
+         res_bound(width)),
+        ("bq_search_exact_res",
+         lambda: bq_kernel.bq_search(None, g, corr_c, mode="exact", **kw_c),
+         lambda: bq_kernel.bq_search_plain(None, g, corr_c, mode="exact", **kw_c),
+         res_bound(width)),
+    ):
+        recs.append(dict(name=name, launches=launches[name], max_abs_err=0.0, ms=timed_ms(fn),
+                         plain_ms=plain_ms(plain_fn), bound=bnd, library_ms=None))
+        r = recs[-1]
+        say("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) per {Q}-query batch over {width} rows "
+            f"x {PD} dims, k={kk2}, on {smi}")
+
+    # --------------------------------------------------- SQ L1 (K12), counted
+    rng = np.random.default_rng(SEED + 6)
+    l1_data = rng.random((N, D), dtype=np.float32) * 2.0 - 1.0
+    l1_queries = rng.random((Q, D), dtype=np.float32) * 2.0 - 1.0
+    l1_params = VectorParameters(D, N, DistanceType.L1, True)
+    ivf_l1 = IVFIndex.encode(l1_data, l1_params, quantizer="sq")
+    reset_all(*mods)
+    t0 = time.perf_counter()
+    enc = ScalarQuantizerU8.encode(l1_data, l1_params)
+    eq1 = enc.encode_query(l1_queries)
+    scores = enc.score_batch(eq1)
+    s_ex, i_ex = enc.top_k(eq1, K)
+    eqi = ivf_l1.encode_query(l1_queries)
+    s_iv, i_iv = ivf_l1.top_k(eqi, K, nprobe=IVF_NPROBE)
+    torch.cuda.synchronize()
+    l1_wall = time.perf_counter() - t0
+    l1_launches = counts(*mods)
+    say("l1-main", f"SQ-u8 L1 at {N} x {D}: encode + score_batch + top_k exact, and IVF-SQ "
+        f"L1 ({ivf_l1.metadata.nbuckets} buckets, compact scan) in {l1_wall:.2f} s; "
+        f"launches {l1_launches}")
+    require(l1_launches["sq_scores_l1"] == 3, "L1 score_batch, top_k and the IVF scan through "
+            "K12, one launch each")
+    require(sum(v for k_, v in l1_launches.items() if k_ != "sq_scores_l1") == 0,
+            "L1 launches no other kernel")
+    args = (eq1.codes, eq1.offsets, enc.codes, enc.voffsets, enc._mult)
+    l1_kw = dict(distance_type=DistanceType.L1, n_valid=N)
+    pscores = sq_kernel.sq_scores_plain(*args, **l1_kw)
+    torch.cuda.synchronize()
+    require(torch.equal(scores, pscores), "K12 equals plain to the bit")
+    require(np.array_equal(s_ex, torch.topk(pscores, K, dim=1).values.cpu().numpy()),
+            "L1 top_k exact values == plain top-k")
+    require(bool(np.isfinite(s_iv).all()) and bool(((i_iv >= 0) & (i_iv < N)).all()),
+            "IVF-SQ L1: finite, valid")
+    l1_dev = torch.from_numpy(l1_data).to(dev)
+    _, l1_oracle = exact_topk(l1_queries, l1_dev, DistanceType.L1, True, K)
+    rec["sq_l1_exact"] = recall_at_k(i_ex, l1_oracle)
+    rec["ivf_sq_l1"] = recall_at_k(i_iv, l1_oracle)
+    say("l1-main", f"K12 equals plain to the bit; recall@{K} vs the f32 L1 oracle: SQ L1 "
+        f"exact {rec['sq_l1_exact']:.4f}, IVF-SQ L1 (nprobe {IVF_NPROBE}) "
+        f"{rec['ivf_sq_l1']:.4f}")
+
+    def cdist_l1():  # the library yardstick; the port never calls it
+        d = torch.cdist(eq1.codes.float()[None], enc.codes[:N].float()[None], p=1)[0]
+        return enc._mult * d + eq1.offsets[:, None] + enc.voffsets[None, :N]
+
+    lib = timed_ms(cdist_l1, warmup=1, iters=3, reps=3)
+    recs.append(dict(name="sq_scores_l1", launches=l1_launches["sq_scores_l1"],
+                     max_abs_err=0.0,
+                     ms=timed_ms(lambda: sq_kernel.sq_scores(*args, **l1_kw)),
+                     plain_ms=plain_ms(lambda: sq_kernel.sq_scores_plain(*args, **l1_kw)),
+                     bound=bound(N * D + N * 4 + Q * D + Q * 8 + Q * N * 4, 2 * Q * N * D,
+                                 INT8_OPS_PER_S),
+                     library_ms=lib))
+    r = recs[-1]
+    say("time", f"sq_scores_l1: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"torch.cdist(p=1) + epilogue {lib:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}) per {Q}-query batch at N={N} D={D} on {smi}")
+    del scores, pscores, l1_dev
+
+    # ------------------------------------------------------------- serving
+    t0 = time.perf_counter()
+    plan = recommend(rbq, SERVE_TARGET, k=K, queries=calib, data=data_dev)
+    rec_s = time.perf_counter() - t0
+    say("serve", f"recommend(residual IVF-BQ, target {SERVE_TARGET}) in {rec_s:.2f} s: "
+        f"nscan {plan.nscan}, oversampling {plan.oversampling}, expected recall "
+        f"{plan.expected_recall:.4f}, calibrated {plan.calibrated}; {plan.notes}; history "
+        + "; ".join(f"{h[0]} -> {h[1]:.4f}" for h in plan.history))
+    searcher = plan.serve(rbq, data_dev, k=K, depth=SERVE_DEPTH)
+    direct = plan.build(rbq, data_dev, k=K)
+    searcher.warmup(serve[0])
+    reset_all(*mods)
+    pinned0 = pinned_pool()
+    t0 = time.perf_counter()
+    outs = list(searcher.search_stream(serve))
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / SERVE_BATCHES
+    pinned1 = pinned_pool()
+    serve_launches = {k_: v for k_, v in counts(*mods).items() if v}
+    t0 = time.perf_counter()  # the same searcher again, its pinned pool grown
+    list(searcher.search_stream(serve))
+    pipe2_ms = (time.perf_counter() - t0) * 1e3 / SERVE_BATCHES
+    pinned2 = pinned_pool()
+    grow = [(b[0] - a[0], (b[1] - a[1]) / 1e3) for a, b in ((pinned0, pinned1), (pinned1, pinned2))]
+    say("serve", f"pipelined per batch: first window {pipe_ms:.4f} ms (pinned host pool grew by "
+        f"{grow[0][0]} blocks, {grow[0][1]:.4f} ms in its CUDA allocations), second "
+        f"{pipe2_ms:.4f} ms ({grow[1][0]} blocks, {grow[1][1]:.4f} ms), on {smi}")
+    t0 = time.perf_counter()
+    blocking = [direct.top_k(direct.encode_query(b), K) for b in serve]
+    block_ms = (time.perf_counter() - t0) * 1e3 / SERVE_BATCHES
+    require(len(outs) == SERVE_BATCHES, "one result per batch")
+    held = []
+    for j, ((sv_, iv_), (bs, bi)) in enumerate(zip(outs, blocking)):
+        require(np.array_equal(sv_, bs), f"serving batch {j}: FIFO, values equal blocking")
+        ids_equal_where_untied(sv_, iv_, bs, bi, f"serving batch {j}")
+        held.append(recall_at_k(iv_, exact_topk(serve[j], data_dev, dot, False, K)[1]))
+    held_recall = float(np.mean(held))
+    rec["serve_held_out"] = held_recall
+    say("serve", f"{SERVE_BATCHES} batches of {Q} through search_stream (depth {SERVE_DEPTH}):"
+        f" {pipe_ms:.4f} ms per batch pipelined, {block_ms:.4f} ms blocking, on {smi}; "
+        f"launches {serve_launches}; held-out recall@{K} {held_recall:.4f} (calibrated "
+        f"{plan.expected_recall:.4f})")
+    require(held_recall >= plan.expected_recall - SERVE_RECALL_SLACK,
+            "held-out recall >= the calibrated recall - 0.05")
+    # The idle share, from unprofiled windows: 1 - (sum of the searches'
+    # CUDA-event spans) / host wall of the pipelined loop.
+    spans = SearchSpans(direct)
+    eq_s = direct.encode_query(serve[0])
+    search_ms = timed_ms(lambda: direct.top_k_device(eq_s, K), warmup=1, iters=5, reps=3)
+    idle_windows = []
+    for _ in range(SERVE_IDLE_WINDOWS):
+        spans.events.clear()
+        timed = PipelinedSearcher(spans, k=K, depth=SERVE_DEPTH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(timed.search_stream(serve))
+        w = (time.perf_counter() - t0) * 1e3
+        busy_ = sum(a.elapsed_time(b) for a, b in spans.events)
+        idle_windows.append({"wall_ms": w, "busy_ms": busy_, "idle_share": 1.0 - busy_ / w})
+    idle = statistics.median(x["idle_share"] for x in idle_windows)
+    say("serve", f"idle share of the pipelined loop, {SERVE_IDLE_WINDOWS} unprofiled windows "
+        f"of {SERVE_BATCHES} batches: " + "; ".join(
+            f"wall {x['wall_ms']:.4f} ms, searches' event spans {x['busy_ms']:.4f} ms, idle "
+            f"{100 * x['idle_share']:.1f} %" for x in idle_windows)
+        + f"; median {100 * idle:.1f} %; one search back to back {search_ms:.4f} ms of device "
+        f"time, on {smi}")
+    # Host syncs per search, from profiled windows (the profiler's own host
+    # work stretches their walls, so they are not read for the idle share;
+    # two windows, to see whether the first carries the profiler's start-up).
+    prof_windows = []
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            list(searcher.search_stream(serve))
+            w = (time.perf_counter() - t0) * 1e3
+        busy_ = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA") / 1e3
+        prof_windows.append({"wall_ms": w, "busy_ms": busy_})
+    syncs = sync_counts(prof)
+    say("serve", "profiled pipelined loops: " + "; ".join(
+        f"wall {x['wall_ms']:.4f} ms, profiler device busy {x['busy_ms']:.4f} ms"
+        for x in prof_windows) + "; per search (second window): " + ", ".join(
+            f"{k_} {v / SERVE_BATCHES:.2f}" for k_, v in sorted(syncs.items())) + f", on {smi}")
+    if do_profile:
+        profile("residual IVF-BQ approx top_k_device", lambda: rbq.top_k_device(
+            eq, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+    return recs, {"recall_at_10": rec, "build_s": build_s, "lift": lift,
+                  "score_err": err, "score_spread": spread,
+                  "plan": {"nscan": plan.nscan, "oversampling": plan.oversampling,
+                           "expected_recall": plan.expected_recall,
+                           "history": plan.history},
+                  "serve_ms": {"pipelined": pipe_ms, "pipelined_second": pipe2_ms,
+                               "blocking": block_ms, "search_device": search_ms},
+                  "pinned_growth": grow,
+                  "idle_windows": idle_windows, "idle_share": idle,
+                  "profiled_windows": prof_windows,
+                  "syncs_per_search": {k_: v / SERVE_BATCHES for k_, v in syncs.items()}}
+
+
 def rehearse(which, n=30_000):
     """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
-    recalls ("pq") and path 4's IVF-SQ -> f32 ("ivf"), the predictions the
-    card's run is held to (not device numbers)."""
+    recalls ("pq"), path 4's IVF-SQ -> f32 ("ivf") and path 5's residual
+    IVF-BQ lift ("rbq"), the predictions the card's run is held to (not
+    device numbers)."""
     torch.set_num_threads(4)
     cpu = torch.device("cpu")
     if "pq" in which:
@@ -1700,6 +2180,14 @@ def rehearse(which, n=30_000):
         say("rehearsal", f"CPU, {n} x {PD} neighbourhood corpus, "
             f"{time.perf_counter() - t0:.0f} s (not a device number); recall@{K} vs the f32 "
             "oracle: " + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()))
+    if "rbq" in which:
+        t0 = time.perf_counter()
+        rec = rbq_recalls(cpu, n, PD, SEED + 5)
+        say("rehearsal", f"CPU, {n} x {PD} residual-regime corpus, IVF-BQ with "
+            f"{rec['nbuckets']} buckets, every bucket scanned exactly, "
+            f"{time.perf_counter() - t0:.0f} s (not a device number); recall@{K}: plain "
+            f"{rec['plain']:.4f}, residual {rec['residual']:.4f}, lift "
+            f"{rec['residual'] - rec['plain']:.4f}")
     if "ivf" in which:
         t0 = time.perf_counter()
         rec = ivf_sq_recalls(cpu, n, PD, SEED + 3)
@@ -1721,7 +2209,7 @@ def max_sm_clock_hz():
 def main():
     t_start = time.perf_counter()
     if "--rehearse" in sys.argv[1:]:
-        which = sys.argv[sys.argv.index("--rehearse") + 1:] or ["pq", "ivf"]
+        which = sys.argv[sys.argv.index("--rehearse") + 1:] or ["pq", "ivf", "rbq"]
         return rehearse(which)
     do_profile = "--profile" in sys.argv[1:]
     # ---------------------------------------------------------- 1. device
@@ -1763,9 +2251,11 @@ def main():
     pq_recs, pq_info = pq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
     ivf_recs, ivf_info = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
+    torch.cuda.empty_cache()
+    rbq_recs, rbq_info = rbq_path(dev, smi, do_profile)
 
     kernels = []
-    for r in sq_recs + bq_recs + pq_recs + ivf_recs:
+    for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
         src, replaces = KERNELS[r["name"]]
         bound_ms, bound_by = r.pop("bound")
         kernels.append({
@@ -1792,6 +2282,7 @@ def main():
         "neighbourhoods": neigh,
         "pq": pq_info,
         "ivf": ivf_info,
+        "residual_bq_l1_serving": rbq_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

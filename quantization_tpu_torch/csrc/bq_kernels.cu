@@ -11,13 +11,34 @@
 //   K10 qtt_bq_search_approx with a tile selection <- bq_search_indexed /
 //                               _make_mxu_topk_kernel_indexed (bq_kernel.py:328),
 //                               for packed sign queries
+// and, for residual IVF-BQ (an int8 VALUE query against the sign bits,
+// query_affine, plus the bucket term corr):
+//   K5b qtt_bq_search_exact_res  <- bq_search_mxu(mode="exact", query_affine=) /
+//                               _make_mxu_class_ids_kernel (bq_kernel.py:576)
+//   K5a qtt_bq_search_approx_res <- bq_search_mxu(mode="approx", query_affine=) /
+//                               _make_mxu_topk_kernel with_corr (bq_kernel.py:509)
+//   K10 qtt_bq_search_approx_res with a tile selection <- bq_search_indexed(
+//                               query_affine=) (bq_kernel.py:328)
+//
+// The residual forms score mult[q] * (qs[q] . bits[n]) + qb[q] (+ rowadd[n])
+// (+ corr), qs
+// int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
+// dot_scan.cuh (K1 / K2 / K9a) over 0/1 bytes that a PlaneRows loader
+// expands from the planes, with the multiply-add rounded once (F24). They
+// keep the BQ approx geometry (spans of SPAN * mxu_tile_n dense, SPAN *
+// tile_n indexed), so their candidates are the BQ plain versions'. Bound on
+// the H100: 2 * Q * rows * dims int8 operations at 1,979 TOPS (0.05 ms for
+// 256 queries over 262,144 rows of 768 dims); like K1 they are __dp4a-issue-
+// bound, about 1.5 ms there, plus the bit expansion (16 integer operations
+// per plane word, one word per 32 dims of a row, done once per 32 queries).
 //
 // Layout, as in the JAX package: corpus sign bits as bit planes, u32
 // [W8, npad] (word w of row n at planes[w * npad + n], LSB-first bit order),
 // so neighbouring threads — neighbouring rows — read neighbouring words and
 // every load of a warp is one 128-byte line. Queries are u32 [Q, W8].
 //
-// All three compute, for query q and corpus row n, the XOR count over the
+// The sign-query kernels (K6, K5c, K5a, K10) compute, for query q and corpus
+// row n, the XOR count over the
 // true words wt = ceil(dim / 32) (bits past dim are zero on both sides)
 //     x = sum_w popc(qwords[q][w] ^ planes[w][n])
 // and the Hamming->metric map of ops/bq.py metric_from_xor:
@@ -26,7 +47,8 @@
 // equals the plain PyTorch version, and the JAX kernels' mult*(qs.bits) + qb,
 // to the bit.
 //
-// What bounds them on the H100: the main path's corpus is 1,000,000 x 1536
+// What bounds the sign-query kernels on the H100: the main path's corpus is
+// 1,000,000 x 1536
 // bits, 192 MB of planes (57 us at 3.35 TB/s), and K6 writes a 1.0 GB score
 // matrix (0.3 ms). The work is 256 x 1M x 48 = 1.2e10 popcounts per
 // 256-query batch; the SM issues 16 popc per clock (the CUDA throughput
@@ -46,7 +68,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ktile.cuh"
+#include "dot_scan.cuh"
 
 namespace {
 
@@ -286,6 +308,36 @@ int qtt_bq_search_approx(const void* qwords, const void* planes, void* part_v,
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), Q, nparts,
       span_rows / part, s));
+}
+
+// The residual forms (K5b, and K5a / K10 with a value query): qs int8
+// [Q, W8*32], qb f32 [Q], mult f32 [1] or [Q] (mstride 0 / 1), rowadd f32
+// [npad] by corpus row (residual IVF-BQ's NEG on pad slots, 0 elsewhere; in
+// the epilogue's voff place, never null); the scan map as the SQ searches
+// take it (sel null: dense, ncomp = npad; corr null: no additive).
+int qtt_bq_search_exact_res(const void* qs, const void* qb, const void* mult,
+                            const void* planes, const void* rowadd, void* cand_v,
+                            void* cand_i, int Q, int W8, long long npad, int ncomp,
+                            int n_valid, int split, int kk, int mstride, const void* sel,
+                            int tile_n, const void* corr, long long corr_qs,
+                            long long corr_bs, void* stream) {
+  return static_cast<int>(launch_search_exact<PlaneRows, true>(
+      planes, npad, qs, qb, mult, rowadd, cand_v, cand_i, Q, ncomp, n_valid, W8 * 32, split,
+      kk, mstride,
+      scan_map(sel, tile_n, corr, corr_qs, corr_bs), static_cast<cudaStream_t>(stream)));
+}
+
+int qtt_bq_search_approx_res(const void* qs, const void* qb, const void* mult,
+                             const void* planes, const void* rowadd, void* part_v,
+                             void* part_i, void* out_v, void* out_i, int Q, int W8,
+                             long long npad, int ncomp, int n_valid, int part,
+                             int span_rows, int mstride, const void* sel, int tile_n,
+                             const void* corr, long long corr_qs, long long corr_bs,
+                             void* stream) {
+  return static_cast<int>(launch_search_approx<PlaneRows, true>(
+      planes, npad, qs, qb, mult, rowadd, part_v, part_i, out_v, out_i, Q, ncomp, n_valid,
+      W8 * 32, part, span_rows, mstride,
+      scan_map(sel, tile_n, corr, corr_qs, corr_bs), static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

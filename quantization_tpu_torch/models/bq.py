@@ -44,7 +44,7 @@ from ..core.types import (
     check_stop,
 )
 from ..ops import bq as bq_ops
-from ..ops.dispatch import resolve_device
+from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import bq_kernel
 from ..ops.kernels.bq_kernel import TILE_N, W_ALIGN
 from ..ops.kernels.ktile import APPROX_K_MAX, FUSED_K_MAX
@@ -168,7 +168,7 @@ class BinaryQuantizer(EncodedVectors):
         w8 = self.planes.shape[0]
         if words.shape[1] < w8:  # match the stored planes' padded word count
             words = np.pad(words, ((0, 0), (0, w8 - words.shape[1])))
-        return EncodedQueryBin(bq_ops.words_to_tensor(words, self.device))
+        return EncodedQueryBin(upload(np.asarray(words, np.uint32).view(np.int32), self.device))
 
     # ------------------------------------------------------------------ score
     def _kw(self) -> dict:

@@ -20,20 +20,28 @@ the candidates are deduped by id. Two scans:
     K7b / K7a (PQ). PQ gathers from whichever code layout the quantizer
     holds, so no second full copy is made (ROADMAP Queue 3, F2).
 
-Residual indexes (``residual=True``, SQ and PQ, DOT and L2) encode
-v - bucket mean; the search restores the bucket term q . c_b as the
-kernels' ``corr`` additive (one value per query and 512-row block, built
-for the union only), and PQ's decoded-norm term and pad mask ride the
-per-row ``rowadd``. Residual BQ is not ported yet and raises.
+Residual indexes (``residual=True``: SQ and PQ with DOT or L2, BQ with
+DOT) encode v - bucket mean; the search restores the bucket term q . c_b as
+the kernels' ``corr`` additive (one value per query and 512-row block,
+built for the union only), and PQ's decoded-norm term and pad mask ride
+the per-row ``rowadd``. Residual BQ keeps the residuals' sign bits and
+scores them against the query's int8 VALUES (``_ResidualQueryBQ``; K5b and
+the value forms of K5a / K10), with beta = E|r_i| (``residual_scale``)
+bringing sign units back to data units; its pad slots score NEG through a
+per-slot ``rowadd`` (as SQ's voff and PQ's rowadd poison theirs) and are
+masked in the id map as in the JAX package (ROADMAP F25). It lifts recall
+on clustered, unnormalized corpora and loses on unit-normalized ones, where
+the build warns.
 
 Where the JAX package leaves the fused kernels — SQ with L1, kk2 above the
 fused cap, exact residual PQ with an int8 LUT — it scores with XLA and then
 selects. The port does the same on that branch with the score kernels
-where one exists (K3 for SQ DOT / L2, K6 for BQ), plain torch for SQ L1
-and the f32-LUT PQ scores (which have no kernel in either package), a torch
-add for the additives and ``torch.topk``: that branch is the JAX package's
-unfused search, not a fallback of a fused kernel. ``recall_target`` is not
-ported: the port's approx merges are exact (ROADMAP Queue 3, F9).
+where one exists (K3 for SQ DOT / L2, K12 for SQ L1, K6 for BQ), plain
+torch for the residual-BQ affine scores and the f32-LUT PQ scores (which
+have no score kernel in either package), a torch add for the additives and
+``torch.topk``: that branch is the JAX package's unfused search, not a
+fallback of a fused kernel. ``recall_target`` is not ported: the port's
+approx merges are exact (ROADMAP Queue 3, F9).
 
 Plugs into ``TwoStageIndex`` as a coarse stage (``encode_query`` /
 ``top_k_device`` / ``count``). Entry points place data on the CUDA card
@@ -44,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -58,10 +67,10 @@ from ..core.types import (
     VectorParameters,
     check_stop,
 )
+from ..ops import bq as bq_ops
 from ..ops import ivf as ivf_ops
 from ..ops import pq as pq_ops
-from ..ops import sq as sq_ops
-from ..ops.dispatch import resolve_device
+from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import bq_kernel, pq_kernel, sq_kernel
 from ..ops.kernels.ktile import APPROX_K_MAX, CORR_BLK, FUSED_K_MAX, SLOT, merge_chunks
 from ..ops.pq import full_f32
@@ -82,13 +91,6 @@ _INDEXED_CHUNK_TILES = 4096
 # fits this budget; QTPU_PQ_T_CAP overrides it in bytes.
 _PQ_T_BYTES_CAP = int(os.environ.get("QTPU_PQ_T_CAP", 4 << 30))
 
-RESIDUAL_BQ_UNPORTED = (
-    "residual=True with quantizer 'bq' is not ported yet: it needs kernel K5b "
-    "and the int8 value-query (query_affine) forms of K5a and K10, the next "
-    "slice of the port (ROADMAP Queue 1, item 8a)"
-)
-
-
 @dataclass
 class _ResidualQueryU8:
     """Signed zero-centered query codes for residual-SQ scoring (see
@@ -98,6 +100,19 @@ class _ResidualQueryU8:
     codes: torch.Tensor
     offsets: torch.Tensor
     mult: torch.Tensor
+
+
+@dataclass
+class _ResidualQueryBQ:
+    """Asymmetric residual-BQ query (see ``_residual_query_bq``): the corpus
+    keeps 1-bit residual signs, the query its quantized values, int8
+    [Q, Dpad] in [-127, 127]; ``mult`` = 2*A*beta*aq and ``qb`` =
+    -A*beta*aq*sum(q^), f32 [Q, 1] each, so that mult * (qs . bits) + qb =
+    A*beta*(q^ . sign(r))."""
+
+    codes: torch.Tensor
+    mult: torch.Tensor
+    qb: torch.Tensor
 
 
 def _registry():
@@ -188,8 +203,22 @@ def _residual_query_sq(q, alpha, offset, dpad, a, rc) -> _ResidualQueryU8:
     qc = torch.clamp(torch.round(q / aq), -127, 127).to(torch.int8)
     qc = pad_dim_to(qc, 1, dpad)
     qoff = (a * offset) * torch.sum(q, dim=1) + rc * qn
-    mult = torch.tensor(a * alpha, dtype=torch.float32, device=q.device) * aq[:, 0]
+    mult = aq[:, 0] * float(np.float32(a * alpha))  # an f32 product, no upload
     return _ResidualQueryU8(qc.contiguous(), qoff, mult)
+
+
+def _residual_query_bq(q, dp, a, beta) -> _ResidualQueryBQ:
+    """Residual-BQ query: value codes, each query scaled by its own aq =
+    max|q_i| / 127, the affine completed so that mult * (q^ . bits) + qb =
+    A*beta*aq*(2*(q^ . bits) - sum(q^)) = A*beta*(q . sign(r)) on the true
+    dims (pad dims hit q^ = 0)."""
+    # max / 127 in f64, rounded once (see _residual_query_sq).
+    aq = torch.clamp((q.abs().amax(dim=1, keepdim=True).double() / 127.0).float(), min=1e-30)
+    qc = torch.clamp(torch.round(q / aq), -127, 127).to(torch.int8)
+    qc = pad_dim_to(qc, 1, dp)
+    total = torch.sum(qc.to(torch.float32), dim=1, keepdim=True)  # integers: exact
+    ab = aq * float(np.float32(a * beta))  # an f32 product, as the JAX package's
+    return _ResidualQueryBQ(qc.contiguous(), 2.0 * ab, -ab * total)
 
 
 def _residual_query_pq(lut, a) -> EncodedQueryPQ:
@@ -273,7 +302,7 @@ def _scan_buckets_compact(kind, eq, inner, union, *, nb, s, dt, invert, dim, use
 
     ``corr`` [Q, U] (residual indexes): the bucket term of each union
     bucket, expanded here to one column per 512 rows; ``rowadd`` a per-slot
-    additive [>= nb*s] (PQ; SQ's rides its voff)."""
+    additive [>= nb*s] (PQ, BQ; SQ's rides its voff)."""
     width = union.shape[0] * s
     mode = "approx" if method == "approx" else "exact"
     corr_c = None if corr is None else torch.repeat_interleave(corr, s // CORR_BLK, dim=1)
@@ -290,23 +319,30 @@ def _scan_buckets_compact(kind, eq, inner, union, *, nb, s, dt, invert, dim, use
         if use_fused:
             return sq_kernel.sq_search(qcodes, qoff, g, gv, mult, padded_corr(npadc),
                                        distance_type=dt, n_valid=width, k=kk2, mode=mode)
-        if dt == DistanceType.L1:  # no L1 kernel (K12): plain, as models/sq.py scores it
-            scores = sq_ops.score_batch(qcodes, qoff, g[:width], gv[:width], mult,
-                                        distance_type=dt)
-        else:
-            scores = sq_kernel.sq_scores(qcodes, qoff, g, gv, mult, distance_type=dt,
-                                         n_valid=width)
+        # K3 for DOT / L2, K12 for L1
+        scores = sq_kernel.sq_scores(qcodes, qoff, g, gv, mult, distance_type=dt,
+                                     n_valid=width)
         if corr_c is not None:
             scores = scores + torch.repeat_interleave(corr_c, CORR_BLK, dim=1)
     elif kind == "bq":
-        (qwords,) = eq
+        qwords, qaff = _bq_query(eq)
         (planes,) = inner
         npadc = width + (-width) % bq_kernel.TILE_N
         g = pad_dim_to(_gather_buckets(planes, union, nb, s, 1), 1, npadc).contiguous()
+        ra = None if rowadd is None else _gather_buckets(rowadd, union, nb, s, 0)
         kw = dict(distance_type=dt, invert=invert, dim=dim, n_valid=width)
         if use_fused:
-            return bq_kernel.bq_search(qwords, g, k=kk2, mode=mode, **kw)
-        scores = bq_kernel.bq_scores(qwords, g, **kw)
+            return bq_kernel.bq_search(
+                qwords, g, padded_corr(npadc), k=kk2, mode=mode, query_affine=qaff,
+                rowadd=None if ra is None else pad_dim_to(ra, 0, npadc, value=NEG), **kw)
+        if qaff is None:
+            scores = bq_kernel.bq_scores(qwords, g, **kw)
+        else:
+            scores = bq_ops.score_affine(*qaff, g[:, :width])
+        if ra is not None:
+            scores = scores + ra[None, :]
+        if corr_c is not None:
+            scores = scores + torch.repeat_interleave(corr_c, CORR_BLK, dim=1)
     else:  # pq: inner is the quantizer, read in whichever layout it holds
         (lut,) = eq
         (qz,) = inner
@@ -326,6 +362,12 @@ def _scan_buckets_compact(kind, eq, inner, union, *, nb, s, dt, invert, dim, use
     return sv, loc
 
 
+def _bq_query(eq):
+    """(sign query words, None) or (None, (qs, mult, qb)) of a residual
+    index's value query."""
+    return (None, tuple(eq)) if len(eq) == 3 else (eq[0], None)
+
+
 def _scan_tiles_indexed(kind, eq, inner, tiles, *, itile, dt, invert, dim, kk2, mode,
                         corr=None, rowadd=None, precision=None):
     if kind == "sq":
@@ -334,8 +376,10 @@ def _scan_tiles_indexed(kind, eq, inner, tiles, *, itile, dt, invert, dim, kk2, 
         return sq_kernel.sq_search_indexed(qcodes, qoff, codes, voff, mult, tiles, corr,
                                            distance_type=dt, k=kk2, mode=mode, tile_n=itile)
     if kind == "bq":
-        return bq_kernel.bq_search_indexed(eq[0], inner[0], tiles, distance_type=dt,
-                                           invert=invert, dim=dim, k=kk2, tile_n=itile)
+        qwords, qaff = _bq_query(eq)
+        return bq_kernel.bq_search_indexed(qwords, inner[0], tiles, corr, distance_type=dt,
+                                           invert=invert, dim=dim, k=kk2, tile_n=itile,
+                                           query_affine=qaff, rowadd=rowadd)
     return pq_kernel.pq_search_indexed(eq[0], inner[0], tiles, rowadd, corr, k=kk2,
                                        precision=precision, tile_n=itile)
 
@@ -425,8 +469,8 @@ def _ivf_search(q, eq, means, slot_ids, inner, resid=None, *, kind, k, p, u, met
     """One batch-union IVF search: probe priority, union, the family's scan
     (indexed or compact), ids through the slot map, dedupe and select.
 
-    ``resid`` (residual indexes): ``(a,)`` for SQ or ``(a, rowadd)`` for PQ;
-    the bucket term (``_bucket_term``) is added in the kernel before
+    ``resid`` (residual indexes): ``(a,)`` for SQ or ``(a, rowadd)`` for PQ
+    and BQ; the bucket term (``_bucket_term``) is added in the kernel before
     selection."""
     nq, nb = q.shape[0], means.shape[0]
     union = _union(q, means, dt, invert, p, u)
@@ -435,7 +479,7 @@ def _ivf_search(q, eq, means, slot_ids, inner, resid=None, *, kind, k, p, u, met
     if resid is not None:
         rc = _residual_coeffs(dt, invert)[1] if kind == "pq" else 0.0
         qc_u = _bucket_term(q, means, union, resid[0], rc)  # [U, Q]
-        if kind == "pq":
+        if len(resid) > 1:
             rowadd = resid[1]
 
     if indexed:
@@ -462,6 +506,26 @@ def _ivf_search(q, eq, means, slot_ids, inner, resid=None, *, kind, k, p, u, met
     return _dedupe_select(sv, out_ids, nq, k, kk2)
 
 
+def _warn_if_normalized(data: np.ndarray, count: int, seed: int) -> None:
+    """The JAX package's measured regime rule for residual BQ: on a
+    unit-normalized corpus the within-bucket score spread sits below the
+    1-bit estimator's noise floor, and residual BQ loses recall against
+    plain signs, so the build warns (4,096 row norms sampled from their own
+    stream)."""
+    nidx = np.random.default_rng(seed ^ 0x5EED).choice(count, size=min(count, 4096),
+                                                      replace=False)
+    norms = np.linalg.norm(np.asarray(data[nidx], np.float32), axis=1)
+    if norms.size and float(np.mean(np.abs(norms - 1.0))) < 0.02:
+        warnings.warn(
+            "residual=True with quantizer='bq' on a unit-normalized corpus: measured on "
+            "this regime residual-BQ REDUCES recall vs plain IVF-BQ (the JAX package's "
+            "10M x 768 normalized run: coarse 0.330 -> 0.277, rescored 0.935 -> 0.918 at "
+            "equal scan cost). Keep residual=False for BQ here and spend the win on "
+            "rescore depth R, or use residual SQ/PQ.",
+            stacklevel=3,
+        )
+
+
 class IVFIndex:
     """Bucket-probing search index over an inner quantizer.
 
@@ -473,8 +537,6 @@ class IVFIndex:
 
     def __init__(self, quantizer, bucket_ids: np.ndarray, bucket_means: np.ndarray,
                  metadata: IVFMetadata):
-        if metadata.residual and metadata.kind == "bq":
-            raise ArgumentsError(RESIDUAL_BQ_UNPORTED)
         self.quantizer = quantizer
         self.metadata = metadata
         self.params = metadata.vector_parameters
@@ -482,9 +544,16 @@ class IVFIndex:
         self.bucket_ids = np.asarray(bucket_ids, np.int32)
         self.bucket_means = np.asarray(bucket_means, np.float32)
         slot_ids, self._max_dup = _derive_slot_ids(self.bucket_ids, self.params.count)
+        if metadata.residual and metadata.kind == "bq":
+            # Residual BQ masks pad slots in the id map, as the JAX package
+            # does: a pad duplicates a row of another bucket, and a residual
+            # code scored with a foreign bucket's q . c_b term is garbage.
+            # The scan also scores them NEG (_init_residual), so they never
+            # crowd real rows out of the kk2 candidates (ROADMAP F25).
+            slot_ids = np.where(self.bucket_ids >= 0, slot_ids, -1)
         self._slot_ids_dev = torch.from_numpy(slot_ids).to(self.device)
         self._means_dev = torch.from_numpy(np.array(self.bucket_means)).to(self.device)
-        self._resid_sq = self._resid_pq = None
+        self._resid_sq = self._resid_pq = self._resid_bq = None
         if metadata.residual:
             self._init_residual()
 
@@ -498,11 +567,22 @@ class IVFIndex:
         (s = -1 under ``invert``). A rescales the inner multiplier / LUT and
         the corr term; |v^|^2, the decoded norm recomputed from the codes,
         joins voff (SQ) or rowadd (PQ), where pad slots and rows past the
-        buckets get NEG: their residuals belong to another bucket."""
+        buckets get NEG: their residuals belong to another bucket. Residual
+        BQ (DOT only) needs only that mask, as its ``rowadd``: A and beta
+        ride the query."""
         a, rowcoef = _residual_coeffs(self.params.distance_type, self.params.invert)
         self._res_a, self._res_rowcoef = a, rowcoef
+        if self.metadata.kind == "bq":
+            if not self.metadata.residual_scale > 0.0:
+                raise ArgumentsError(
+                    "residual BQ index needs metadata.residual_scale > 0 "
+                    "(beta = E|r_i|, set by IVFIndex.encode)")
         pad = torch.from_numpy(self.bucket_ids.reshape(-1) < 0).to(self.device)
         nslots = self.bucket_ids.size
+        if self.metadata.kind == "bq":
+            npad = self.quantizer.planes.shape[1]
+            self._resid_bq = self._mask_pads(torch.zeros(npad, device=self.device), pad, nslots)
+            return
         s = self.metadata.bucket_size
         qz = self.quantizer
         if self.metadata.kind == "sq":
@@ -555,8 +635,12 @@ class IVFIndex:
         "bq" or one of the quantizer classes; extra kwargs (quantile,
         chunk_size, bits, rotation, ...) pass to its ``encode``. The inner
         corpus is padded to nbuckets * bucket_size rows with duplicates of
-        real rows, masked at search. ``residual=True`` (SQ / PQ, DOT / L2,
-        bucket_size a multiple of 512) encodes v - bucket mean."""
+        real rows, masked at search. ``residual=True`` (SQ / PQ with DOT or
+        L2, BQ with DOT; bucket_size a multiple of 512) encodes v - bucket
+        mean. Residual BQ lifts recall where buckets are tight against the
+        data scale (clustered, unnormalized corpora) and loses on
+        unit-normalized ones, where the build warns (the JAX package's
+        measured rule)."""
         device = resolve_device(device)
         registry = _registry()
         if isinstance(quantizer, str):
@@ -588,12 +672,17 @@ class IVFIndex:
         if residual:
             if params.distance_type == DistanceType.L1:
                 raise ArgumentsError("residual=True needs DOT or L2 (dot-expansion)")
-            if kind == "bq":
-                raise ArgumentsError(RESIDUAL_BQ_UNPORTED)
+            if kind == "bq" and params.distance_type != DistanceType.DOT:
+                raise ArgumentsError(
+                    "residual=True with quantizer 'bq' supports DOT only (the L2 "
+                    "expansion needs a per-slot |v^|^2 additive, which the 1-bit plane "
+                    "layout has no carrier for)")
             if bucket_size % CORR_BLK:
                 raise ArgumentsError(
                     f"residual=True needs bucket_size to be a multiple of {CORR_BLK}, "
                     f"got {bucket_size}")
+            if kind == "bq":
+                _warn_if_normalized(data, params.count, seed)
         check_stop(stop_condition)
 
         n = params.count
@@ -609,8 +698,15 @@ class IVFIndex:
         means = ivf_ops.bucket_means(data, perm, bucket_ids)
         check_stop(stop_condition)
         permuted = data[perm]
+        residual_scale = 0.0
         if residual:
             ivf_ops.residualize_inplace(permuted, means, bucket_ids)
+            if kind == "bq":
+                # beta = E|r_i| over a row sample, drawn from the same stream
+                # after the training sample, as the JAX package draws it.
+                ridx = rng.choice(perm.shape[0], size=min(perm.shape[0], 262_144),
+                                  replace=False)
+                residual_scale = max(float(np.mean(np.abs(permuted[ridx]))), 1e-30)
             inner_params = VectorParameters(params.dim, perm.shape[0], DistanceType.DOT, False)
         else:
             inner_params = VectorParameters(params.dim, perm.shape[0], params.distance_type,
@@ -620,7 +716,7 @@ class IVFIndex:
         meta = IVFMetadata(
             nlist=nlist, bucket_size=bucket_size, nprobe=nprobe, kind=kind,
             nbuckets=bucket_ids.shape[0], vector_parameters=params, nscan=nscan,
-            residual=residual,
+            residual=residual, residual_scale=residual_scale,
         )
         return cls(inner, bucket_ids, means, meta)
 
@@ -637,10 +733,13 @@ class IVFIndex:
             qh = qh[None, :]
         if qh.shape[1] != self.params.dim:
             raise ArgumentsError(f"query dim {qh.shape[1]} != corpus dim {self.params.dim}")
-        q = torch.from_numpy(np.ascontiguousarray(qh)).to(self.device)
+        q = upload(qh, self.device)
         if not self.metadata.residual:
             return q, self.quantizer.encode_query(qh)
         a, rc = self._res_a, self._res_rowcoef
+        if self.metadata.kind == "bq":
+            return q, _residual_query_bq(q, self.quantizer.planes.shape[0] * 32, a,
+                                         self.metadata.residual_scale)
         if self.metadata.kind == "sq":
             meta = self.quantizer.metadata
             return q, _residual_query_sq(q, meta.alpha, meta.offset,
@@ -656,6 +755,8 @@ class IVFIndex:
                         (qz.codes, self._resid_sq, eq_inner.mult))
             return (eq_inner.codes, eq_inner.offsets), (qz.codes, qz.voffsets, qz._mult)
         if kind == "bq":
+            if self.metadata.residual:
+                return (eq_inner.codes, eq_inner.mult, eq_inner.qb), (qz.planes,)
             return (eq_inner.planes,), (qz.planes,)
         # PQ's inner arrays depend on the scan: indexed reads the transposed
         # layout, compact whichever layout the quantizer holds.
@@ -716,7 +817,8 @@ class IVFIndex:
             precision = None
         resid = None
         if meta.residual:
-            resid = (self._res_a, self._resid_pq) if kind == "pq" else (self._res_a,)
+            rowadd = {"pq": self._resid_pq, "bq": self._resid_bq}.get(kind)
+            resid = (self._res_a,) if rowadd is None else (self._res_a, rowadd)
         return _ivf_search(
             q, eq, self._means_dev, self._slot_ids_dev, inner, resid, kind=kind, k=int(k),
             p=p, u=u, method=method, dt=self.params.distance_type, invert=self.params.invert,

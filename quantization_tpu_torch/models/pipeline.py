@@ -23,7 +23,7 @@ import torch
 from ..core.distances import pairwise_score, score
 from ..core.interface import EncodedVectors, as_ids
 from ..core.types import ArgumentsError
-from ..ops.dispatch import resolve_device
+from ..ops.dispatch import resolve_device, upload
 
 
 class ExactRescorer:
@@ -54,7 +54,7 @@ class ExactRescorer:
         self._invert = invert
 
     def encode_query(self, queries) -> torch.Tensor:
-        q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+        q = upload(np.asarray(queries, np.float32), self.device)
         return q[None, :] if q.ndim == 1 else q
 
     def _rows(self, ids: torch.Tensor) -> torch.Tensor:

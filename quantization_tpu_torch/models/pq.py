@@ -55,7 +55,7 @@ from ..core.types import (
     check_stop,
 )
 from ..ops import pq as pq_ops
-from ..ops.dispatch import resolve_device
+from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import pq_kernel
 from ..ops.kernels.ktile import APPROX_K_MAX, FUSED_K_MAX
 from ..ops.kmeans import kmeans_batched
@@ -307,7 +307,7 @@ class ProductQuantizer(EncodedVectors):
             q = q[None, :]
         if q.shape[1] != self.params.dim:
             raise ArgumentsError(f"query dim {q.shape[1]} != corpus dim {self.params.dim}")
-        x = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        x = upload(q, self.device)
         if self._rot is not None:
             # OPQ: queries rotate into code space at full f32 (a rotation at
             # reduced precision shifts every LUT entry coherently).

@@ -15,12 +15,14 @@ Scoring math (parity with encoded_vectors_u8.rs:145-158,386-453):
     score_internal(i,j)= multiplier * kernel(V_i, V_j) + off_i + off_j - diff
     diff               = actual_dim * offset^2   (negated when invert)
 
-DOT and L2 scores and searches go through the hand-written kernels on a CUDA
-device (``ops/kernels/sq_kernel.py``); L1, which has no kernel yet, takes the
-plain path on every device, as its JAX twin routes L1 to XLA. Candidate
-rescoring (``score_candidates``, the fine stage of two-stage retrieval) goes
-through the K4 kernel (``ops/kernels/gather.py``) for every metric. Data is
-placed on the CUDA card unless the caller names another device.
+Scores go through the hand-written kernels on a CUDA device
+(``ops/kernels/sq_kernel.py``): K3 for DOT and L2, K12 for L1. DOT and L2
+searches are fused (K1 exact, K2 approx); L1 has no fused search in either
+package, so it scores through K12 and then selects, blocked over the corpus
+past ``L1_BLOCK_ROWS``. Candidate rescoring (``score_candidates``, the fine
+stage of two-stage retrieval) goes through the K4 kernel
+(``ops/kernels/gather.py``) for every metric. Data is placed on the CUDA
+card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ..core.types import (
     check_stop,
 )
 from ..ops import sq as sq_ops
-from ..ops.dispatch import resolve_device
+from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import gather, sq_kernel
 from ..ops.kernels.ktile import APPROX_K_MAX, FUSED_K_MAX
 from ..ops.quantile import (
@@ -235,7 +237,7 @@ class ScalarQuantizerU8(EncodedVectors):
             )
         m = self.metadata
         codes, qoff = sq_ops.encode_query_batch(
-            torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
+            upload(q, self.device),
             alpha=m.alpha,
             offset=m.offset,
             distance_type=self.params.distance_type,
@@ -246,36 +248,36 @@ class ScalarQuantizerU8(EncodedVectors):
         return EncodedQueryU8(codes, qoff)
 
     # ------------------------------------------------------------------ score
-    def _kernel_ok(self) -> bool:
+    def _fused_ok(self) -> bool:
+        """The fused searches (K1 / K2) take DOT and L2; the score kernels
+        (K3 / K12) take every metric."""
         return self.count > 0 and self.params.distance_type != DistanceType.L1
 
-    def score_batch(self, equery: EncodedQueryU8) -> torch.Tensor:
-        if self._kernel_ok():
-            return sq_kernel.sq_scores(
-                equery.codes,
-                equery.offsets,
-                self.codes,
-                self.voffsets,
-                self._mult,
-                distance_type=self.params.distance_type,
-                n_valid=self.count,
-            )
-        return sq_ops.score_batch(
+    def _scores(self, equery: EncodedQueryU8, b0: int, b1: int) -> torch.Tensor:
+        """[Q, b1 - b0] scores of corpus rows [b0, b1) through K3 / K12 (the
+        plain versions on the CPU). The slice runs to the next multiple of
+        512 rows, inside the padded codes, and only b1 - b0 are scored."""
+        end = min(b1 + (b0 - b1) % sq_kernel.TILE_N, self.codes.shape[0])
+        return sq_kernel.sq_scores(
             equery.codes,
             equery.offsets,
-            self.codes[: self.count],
-            self.voffsets[: self.count],
+            self.codes[b0:end],
+            self.voffsets[b0:end],
             self._mult,
             distance_type=self.params.distance_type,
+            n_valid=b1 - b0,
         )
+
+    def score_batch(self, equery: EncodedQueryU8) -> torch.Tensor:
+        return self._scores(equery, 0, self.count)
 
     def top_k_device(self, equery: EncodedQueryU8, k: int, method: str = "exact"):
         """Fused search for DOT/L2 (K1 exact, K2 approx): the [Q, N] score
         matrix is never materialized. L1 and k beyond the fused caps score
-        then select, blocked over the corpus at large N so peak memory is
-        [Q, block] + codes, never [Q, N]."""
+        (K3 / K12) then select, blocked over the corpus at large N so peak
+        memory is [Q, block] + codes, never [Q, N]."""
         cap = FUSED_K_MAX if method == "exact" else APPROX_K_MAX
-        if self._kernel_ok() and k <= cap:
+        if self._fused_ok() and k <= cap:
             return sq_kernel.sq_search(
                 equery.codes,
                 equery.offsets,
@@ -288,19 +290,9 @@ class ScalarQuantizerU8(EncodedVectors):
                 mode=method,
             )
         if self.count > L1_BLOCK_ROWS:
-
-            def score_block(b0, b1):
-                return sq_ops.score_batch(
-                    equery.codes,
-                    equery.offsets,
-                    self.codes[b0:b1],
-                    self.voffsets[b0:b1],
-                    self._mult,
-                    distance_type=self.params.distance_type,
-                )
-
             return blocked_topk(
-                score_block, self.count, k, method, block_rows=L1_BLOCK_ROWS
+                lambda b0, b1: self._scores(equery, b0, b1), self.count, k, method,
+                block_rows=L1_BLOCK_ROWS,
             )
         return super().top_k_device(equery, k, method=method)
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.types import ArgumentsError, DistanceType
+from .sq import affine_once, int_dot
 
 
 def storage_bytes(dim: int, store_type: str = "u128") -> int:
@@ -149,6 +150,36 @@ def score_batch(
         xor_counts(qwords, planes),
         distance_type=distance_type, invert=invert, dim=dim,
     )
+
+
+def unpack_bits(planes: torch.Tensor) -> torch.Tensor:
+    """int32 planes [W, n] -> int8 0/1 [W*32, n]: row 32w + j is bit j of
+    word w, LSB first (``_unpack_bits`` of the JAX kernels). The shift is
+    arithmetic, but ``& 1`` keeps only the bit shifted down."""
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    bits = (planes[:, None, :] >> shifts[None, :, None]) & 1
+    return bits.reshape(-1, planes.shape[1]).to(torch.int8)
+
+
+def score_affine(
+    qs: torch.Tensor,  # int8 [Q, W*32] quantized query values, 0 on pad dims
+    mult,  # f32 scalar or per-query [Q] / [Q, 1]
+    qb: torch.Tensor,  # f32 [Q, 1] per-query bias
+    planes: torch.Tensor,  # int32 [W, N]
+    *,
+    tile: int = 1 << 15,
+) -> torch.Tensor:
+    """[Q, N] affine bit scores ``mult * (qs . bits) + qb`` (the residual-BQ
+    asymmetric query against the unpacked 0/1 corpus bits); the plain version
+    of the residual kernels (K5b, value-query K5a / K10). Twin of
+    ``score_affine_xla``, tiled over N as it is: a [W*32, tile] int8 unpack
+    per step, never the [W*32, N] one."""
+    n = planes.shape[1]
+    out = torch.empty((qs.shape[0], n), dtype=torch.float32, device=planes.device)
+    for n0 in range(0, n, tile):
+        acc = int_dot(qs, unpack_bits(planes[:, n0 : n0 + tile]).T)
+        out[:, n0 : n0 + tile] = affine_once(mult, acc, qb)
+    return out
 
 
 def score_candidates(

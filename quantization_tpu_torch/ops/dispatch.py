@@ -10,6 +10,7 @@ device; without a card such a call raises rather than run on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -34,3 +35,15 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return torch.device(DEFAULT_DEVICE)
+
+
+def upload(array, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a CUDA card it is staged in
+    pinned memory and copied without blocking: PyTorch synchronises the
+    stream after a copy from pageable memory, which would hold a query batch
+    behind every search still in flight (``serving.PipelinedSearcher``)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

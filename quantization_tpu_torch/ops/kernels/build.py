@@ -165,6 +165,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     sigs = {
         # (qcodes, qoff, mult, codes, voff, ..., mstride, [scan,] stream)
         "qtt_sq_scores": [p, p, p, p, p, p, i, i, i, i, p],
+        "qtt_sq_scores_l1": [p, p, p, p, p, p, i, i, i, i, p],
         "qtt_sq_search_exact": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, *scan, p],
         "qtt_sq_search_approx": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, *scan, p],
         # (qcodes, qoff, mult, codes, voff, cand, out, Q, R, n_valid, D, l1,
@@ -175,6 +176,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         "qtt_bq_scores": [p, p, p, i, i, i, ll, i, i, i, p],
         "qtt_bq_search_exact": [p, p, p, p, i, i, i, ll, i, i, i, i, i, p],
         "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, i, ll, i, i, i, i, i, p, i, ll, p],
+        # (qs, qb, mult, planes, rowadd, outputs..., Q, W8, npad, ncomp, n_valid,
+        #  ..., mstride, scan, stream): the residual forms
+        "qtt_bq_search_exact_res": [p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, *scan, p],
+        "qtt_bq_search_approx_res": [p, p, p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i,
+                                     *scan, p],
         # (lut, scale, bias, codes_t, outputs..., Q, mpad, npad, n_valid, kc,
         #  kind, [kk,] [rowadd, corr, corr_qs, corr_bs,] [sel, tile_n, ncomp,
         #  part,] stream)

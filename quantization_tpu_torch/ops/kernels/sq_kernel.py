@@ -4,7 +4,9 @@ each beside its plain PyTorch version.
 Twin of ``quantization_tpu/ops/pallas/sq_kernel.py``. The kernels live in
 ``quantization_tpu_torch/csrc/sq_kernels.cu``:
 
-  * K3 ``sq_scores``            — the [Q, n_valid] f32 score matrix;
+  * K3 ``sq_scores``            — the [Q, n_valid] f32 score matrix, DOT / L2;
+  * K12 ``sq_scores`` with L1    — the same with the sum of absolute
+    differences, ``mult*L1 + qoff`` rounded once, then ``+ voff`` (F24);
   * K1 ``sq_search`` exact      — scores fused with an exact per-split top-k;
   * K2 ``sq_search`` approx     — scores fused with the stride-class maxima;
   * K9b / K9a ``sq_search_indexed`` exact / approx — the K1 / K2 bodies
@@ -54,8 +56,9 @@ APPROX_PART = 2048
 D_ALIGN = 128
 
 #: Kernel launches per wrapper since the last reset (plain runs not counted).
-LAUNCHES = {"sq_scores": 0, "sq_search_exact": 0, "sq_search_approx": 0,
-            "sq_search_indexed_exact": 0, "sq_search_indexed_approx": 0}
+LAUNCHES = {"sq_scores": 0, "sq_scores_l1": 0, "sq_search_exact": 0,
+            "sq_search_approx": 0, "sq_search_indexed_exact": 0,
+            "sq_search_indexed_approx": 0}
 
 
 def reset_launches() -> None:
@@ -85,9 +88,9 @@ def mult_arg(multiplier, q: int, device):
     return m.contiguous(), 1
 
 
-def _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid):
-    if distance_type == DistanceType.L1:
-        raise ArgumentsError("the SQ kernels score DOT and L2; L1 takes the plain path")
+def _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid, search=True):
+    if search and distance_type == DistanceType.L1:
+        raise ArgumentsError("the fused SQ searches take DOT and L2; L1 scores, then selects")
     q, d = qcodes.shape
     npad = codes.shape[0]
     check_tensors(codes.device, (
@@ -104,11 +107,11 @@ def _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid):
         raise ArgumentsError(f"n_valid={n_valid} outside [0, {npad}]")
 
 
-# ------------------------------------------------------------------ K3
+# ------------------------------------------------------------ K3 / K12
 
 
 def sq_scores_plain(qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid):
-    """Plain version of K3: [Q, n_valid] f32 scores."""
+    """Plain version of K3 (DOT / L2) and K12 (L1): [Q, n_valid] f32 scores."""
     return sq_ops.score_batch(
         qcodes, qoff, codes[:n_valid], voff[:n_valid], multiplier,
         distance_type=distance_type,
@@ -116,26 +119,29 @@ def sq_scores_plain(qcodes, qoff, codes, voff, multiplier, *, distance_type, n_v
 
 
 def sq_scores(qcodes, qoff, codes, voff, multiplier, *, distance_type, n_valid):
-    """[Q, n_valid] f32 scores (mult*dot + qoff) + voff."""
+    """[Q, n_valid] f32 scores (mult*dot + qoff) + voff (K3), or with L1
+    (mult*L1 + qoff, rounded once) + voff (K12). Rows [n_valid, Npad) are
+    never scored, so a caller may pass a slice of a corpus padded to 512
+    rows."""
     if not use_kernels(codes):
         return sq_scores_plain(
             qcodes, qoff, codes, voff, multiplier,
             distance_type=distance_type, n_valid=n_valid,
         )
-    _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid)
+    _check_operands(qcodes, qoff, codes, voff, distance_type, n_valid, search=False)
     q, d = qcodes.shape
     out = torch.empty((q, n_valid), dtype=torch.float32, device=codes.device)
     if q == 0 or n_valid == 0:
         return out
     mult, mstride = mult_arg(multiplier, q, codes.device)
     lib = load_library()
-    err = lib.qtt_sq_scores(
-        qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
-        voff.data_ptr(), out.data_ptr(), q, n_valid, d, mstride,
-        torch.cuda.current_stream(codes.device).cuda_stream,
-    )
-    check(lib, err, "sq_scores")
-    LAUNCHES["sq_scores"] += 1
+    args = (qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
+            voff.data_ptr(), out.data_ptr(), q, n_valid, d, mstride)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    name = "sq_scores_l1" if distance_type == DistanceType.L1 else "sq_scores"
+    err = getattr(lib, "qtt_" + name)(*args, stream)
+    check(lib, err, name)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -205,6 +205,15 @@ def _mult_col(multiplier, q: int, device) -> torch.Tensor:
     return m.reshape(-1, 1).expand(q, 1)
 
 
+def affine_once(mult, acc: torch.Tensor, qoff: torch.Tensor) -> torch.Tensor:
+    """f32 ``mult * acc + qoff`` [Q, N] computed in f64 and rounded once: the
+    value of the JAX package's compiled code, which fuses that multiply-add
+    (ROADMAP F24). ``mult`` a scalar or per query, ``qoff`` [Q] or [Q, 1],
+    ``acc`` integer [Q, N]."""
+    m = torch.as_tensor(mult, dtype=torch.float32, device=acc.device).reshape(-1, 1)
+    return (m.double() * acc.double() + qoff.reshape(-1, 1).double()).float()
+
+
 def score_batch(
     qcodes: torch.Tensor,
     qoff: torch.Tensor,
@@ -215,12 +224,13 @@ def score_batch(
     distance_type: DistanceType,
 ) -> torch.Tensor:
     """[Q, N] scores: (multiplier * kernel + qoff) + voff
-    (encoded_vectors_u8.rs:145-158). DOT and L2 share the dot kernel.
-    ``multiplier`` is a scalar or per-query [Q] / [Q, 1]."""
+    (encoded_vectors_u8.rs:145-158). DOT and L2 share the dot kernel; L1
+    rounds ``multiplier * kernel + qoff`` once (``affine_once``), as the JAX
+    package's compiled L1 and the K12 kernel do. ``multiplier`` is a scalar
+    or per-query [Q] / [Q, 1]."""
     if distance_type == DistanceType.L1:
-        raw = int_l1(qcodes, codes)
-    else:
-        raw = int_dot(qcodes, codes)
+        return affine_once(multiplier, int_l1(qcodes, codes), qoff) + voff[None, :]
+    raw = int_dot(qcodes, codes)
     m = _mult_col(multiplier, qcodes.shape[0], qcodes.device)
     return m * raw.to(torch.float32) + qoff[:, None] + voff[None, :]
 

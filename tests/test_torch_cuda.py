@@ -7,9 +7,11 @@ imports no JAX, so it runs where JAX is not installed:
 Tolerance: none. The kernels' epilogue rounds like the plain version (no
 fused multiply-add) and the int8 dot is exact, so scores are equal to the
 bit and exact top-k values are equal; ids may differ only among tied
-scores. BQ scores (K5a, K5c, K6) are exact integers, so the same holds. The PQ kernels (K7a, K7b, K8) sum their
-LUT entries in their plain version's order, round each step alike, and
-compute the int8 epilogue in f64 rounded once, as the plain version does."""
+scores. BQ scores (K5a, K5c, K6) are exact integers, so the same holds. The
+PQ kernels (K7a, K7b, K8) sum their LUT entries in their plain version's
+order, round each step alike, and compute the int8 epilogue in f64 rounded
+once, as the plain version does; K12 and the residual-BQ forms (K5b and the
+value-query K5a / K10) round their multiply-add once in f64, as theirs do."""
 
 import numpy as np
 import pytest
@@ -104,9 +106,11 @@ def test_k2_approx_equal_plain(dev, n_valid):
 
 
 def test_kernels_refuse_l1_and_bad_layouts(dev):
+    """The fused searches refuse L1 (its scores go through K12, then a
+    selection); the kernels refuse layouts they do not take."""
     a = _operands(dev, 1000, 256, 4, seed=1)
     with pytest.raises(qt.ArgumentsError):
-        sq_kernel.sq_scores(*a, distance_type=qt.DistanceType.L1, n_valid=1000)
+        sq_kernel.sq_search(*a, distance_type=qt.DistanceType.L1, n_valid=1000, k=5)
     qcodes, qoff, codes, voff, mult = a
     with pytest.raises(qt.ArgumentsError):
         sq_kernel.sq_search(qcodes[:, :200].contiguous(), qoff, codes[:, :200].contiguous(),
@@ -531,7 +535,7 @@ def test_k7_pq_residual_equal_plain(dev, kc, m, precision, mode):
 
 
 @pytest.mark.parametrize("kind,residual", [("sq", False), ("sq", True), ("pq", True),
-                                           ("bq", False)])
+                                           ("bq", False), ("bq", True)])
 def test_ivf_path_runs_through_the_kernels(dev, kind, residual):
     rng = np.random.default_rng(3)
     n, dim = 12000, 64
@@ -562,4 +566,154 @@ def test_ivf_path_runs_through_the_kernels(dev, kind, residual):
     launched = {k: v for m_ in mods for k, v in m_.LAUNCHES.items() if v}
     want = {"sq": "sq_search_indexed_approx", "bq": "bq_search_indexed",
             "pq": "pq_search_indexed"}[kind]
+    if kind == "bq" and residual:
+        want = "bq_search_indexed_res"
+        assert launched.get("bq_search_exact_res", 0) > 0, launched
+        assert launched.get("bq_search_approx_res", 0) > 0, launched
     assert launched.get(want, 0) > 0, launched
+
+
+# ------------------------------------------- K12 and the residual-BQ forms
+
+
+@pytest.mark.parametrize("n_valid,d,q", [(5000, 256, 40), (1000, 1024, 1), (513, 128, 33)])
+def test_k12_l1_scores_equal_plain(dev, n_valid, d, q):
+    a = _operands(dev, n_valid, d, q, seed=n_valid + d)
+    before = sq_kernel.LAUNCHES["sq_scores_l1"]
+    got = sq_kernel.sq_scores(*a, distance_type=qt.DistanceType.L1, n_valid=n_valid)
+    assert sq_kernel.LAUNCHES["sq_scores_l1"] == before + 1
+    want = sq_kernel.sq_scores_plain(*a, distance_type=qt.DistanceType.L1, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_sq_l1_model_runs_through_k12(dev, monkeypatch):
+    import quantization_tpu_torch.models.sq as sq_model
+
+    rng = np.random.default_rng(5)
+    n, dim = 5000, 200
+    data = rng.random((n, dim), dtype=np.float32)
+    params = qt.VectorParameters(dim, n, qt.DistanceType.L1, True)
+    enc = qt.ScalarQuantizerU8.encode(data, params)
+    cpu = qt.sq_from_numpy(*qt.sq_to_numpy(enc), device="cpu")
+    queries = rng.random((9, dim), dtype=np.float32)
+    eq, ceq = enc.encode_query(queries), cpu.encode_query(queries)
+    sq_kernel.reset_launches()
+    scores = enc.score_batch(eq)
+    assert torch.equal(scores.cpu(), cpu.score_batch(ceq))
+    s, _ = enc.top_k(eq, 10)
+    monkeypatch.setattr(sq_model, "L1_BLOCK_ROWS", 1024)  # blocks at multiples of 512
+    sb, ib = enc.top_k(eq, 10)
+    np.testing.assert_array_equal(s, sb)
+    np.testing.assert_array_equal(np.take_along_axis(scores.cpu().numpy(), ib, 1), sb)
+    assert sq_kernel.LAUNCHES["sq_scores_l1"] == 2 + (n + 1023) // 1024
+    assert sq_kernel.LAUNCHES["sq_search_exact"] == 0
+
+
+def _rowadd(dev, n, g):
+    """A per-row additive as residual IVF-BQ builds it: 0, and NEG on a
+    random fifth of the rows (pad slots)."""
+    return torch.where(torch.rand(n, generator=g, device=dev) < 0.2,
+                       torch.tensor(bq_kernel.NEG, device=dev), torch.tensor(0.0, device=dev))
+
+
+def _value_query(dev, npad, dim, q, per_query, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = -(-dim // 32)
+    w8 = w + (-w) % 8
+    planes = torch.randint(-2**31, 2**31 - 1, (w8, npad), generator=g, device=dev,
+                           dtype=torch.int32)
+    planes[w:] = 0
+    qs = torch.randint(-127, 128, (q, w8 * 32), generator=g, device=dev, dtype=torch.int8)
+    qs[:, dim:] = 0
+    ab = torch.rand(q, 1, generator=g, device=dev) * 0.02 + 1e-3
+    if not per_query:
+        ab = ab[:1].expand(q, 1).contiguous()
+    qb = -ab * qs.float().sum(1, keepdim=True)
+    mult = 2.0 * (ab if per_query else ab[:1, 0])
+    return planes, (qs, mult, qb), g
+
+
+@pytest.mark.parametrize("per_query", [True, False])
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("k", [1, 20, 513, 1024])
+def test_k5b_value_exact_equal_plain(dev, k, with_corr, per_query):
+    npad, n_valid, q, dim = 8192, 7900, 37, 200
+    planes, aff, g = _value_query(dev, npad, dim, q, per_query, seed=k)
+    corr = torch.randn(q, npad // 512, generator=g, device=dev) * 3 if with_corr else None
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid, k=k,
+              mode="exact", query_affine=aff,
+              rowadd=_rowadd(dev, npad, g) if with_corr else None)
+    before = bq_kernel.LAUNCHES["bq_search_exact_res"]
+    v, i = bq_kernel.bq_search(None, planes, corr, **kw)
+    assert bq_kernel.LAUNCHES["bq_search_exact_res"] == before + 1
+    pv, _ = bq_kernel.bq_search_plain(None, planes, corr, **kw)
+    scores = bq_kernel._plain_scores(None, planes, corr, aff, distance_type=DistanceType.DOT,
+                                     invert=False, dim=dim, rowadd=kw["rowadd"])[:, :n_valid]
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+
+
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("n_valid,dim", [(3000, 128), (10_000, 768), (4000, 1536)])
+def test_k5a_value_approx_equal_plain(dev, n_valid, dim, with_corr):
+    npad = n_valid + (-n_valid) % bq_kernel.TILE_N
+    planes, aff, g = _value_query(dev, npad, dim, 33, True, seed=n_valid)
+    corr = torch.randn(33, npad // 512, generator=g, device=dev) * 3 if with_corr else None
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid, k=40,
+              mode="approx", query_affine=aff,
+              rowadd=_rowadd(dev, npad, g) if with_corr else None)
+    v, i = bq_kernel.bq_search(None, planes, corr, **kw)
+    pv, pi = bq_kernel.bq_search_plain(None, planes, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("tile_n", [512, 1024, 2048])
+def test_k10_value_indexed_equal_plain(dev, tile_n, with_corr):
+    npad, q, dim = 16384, 37, 768
+    planes, aff, g = _value_query(dev, npad, dim, q, True, seed=tile_n)
+    t = 5
+    sel = torch.randperm(npad // tile_n, generator=g, device=dev)[:t].to(torch.int32)
+    corr = torch.randn(t * tile_n // 512, q, generator=g, device=dev) * 3 if with_corr \
+        else None
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=20, tile_n=tile_n,
+              query_affine=aff, rowadd=_rowadd(dev, npad, g) if with_corr else None)
+    before = bq_kernel.LAUNCHES["bq_search_indexed_res"]
+    v, i = bq_kernel.bq_search_indexed(None, planes, sel, corr, **kw)
+    assert bq_kernel.LAUNCHES["bq_search_indexed_res"] == before + 1
+    pv, pi = bq_kernel.bq_search_indexed_plain(None, planes, sel, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_pipelined_searcher_sync_is_a_barrier(dev):
+    """PipelinedSearcher.sync() waits on every in-flight search's CUDA event
+    (ROADMAP F3), drains nothing, and the pipelined results equal blocking
+    ones in submission order."""
+    rng = np.random.default_rng(11)
+    n, dim = 20000, 256
+    data = rng.random((n, dim), dtype=np.float32)
+    enc = qt.ScalarQuantizerU8.encode(data, qt.VectorParameters(dim, n, qt.DistanceType.DOT,
+                                                                False))
+    batches = [rng.random((32, dim), dtype=np.float32) for _ in range(6)]
+    searcher = qt.PipelinedSearcher(enc, k=10, depth=8)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for j, b in enumerate(batches):  # half on the default stream, half on a side one
+        with torch.cuda.stream(side if j % 2 else torch.cuda.current_stream()):
+            assert searcher.submit(b) is None
+    assert searcher.in_flight == 6
+    assert len({st.cuda_stream for _, _, st in searcher._pending}) == 2
+    searcher.sync()
+    assert searcher.in_flight == 6
+    assert all(ev.query() for _, ev, _ in searcher._pending)
+    for b, (s, i) in zip(batches, searcher.flush()):
+        ws, wi = enc.top_k(enc.encode_query(b), 10)
+        np.testing.assert_array_equal(s, ws)
+        np.testing.assert_array_equal(i, wi)
+    lazy = qt.PipelinedSearcher(enc, k=10, depth=1, materialize=False)
+    s, i = lazy.search(batches[0])
+    assert s.is_cuda and i.is_cuda

@@ -116,7 +116,8 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
-    assert [pathlib.Path(h).name for h in build.headers()] == ["ktile.cuh", "pq_kernels.cuh"]
+    assert [pathlib.Path(h).name for h in build.headers()] == ["dot_scan.cuh", "ktile.cuh",
+                                                                "pq_kernels.cuh"]
     path = build.library_path()
     header = csrc / "ktile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -243,3 +244,28 @@ def test_ivf_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path)
             call()
     back = qt.IVFIndex.load(tmp_path / "ivf.bin", tmp_path / "ivf.json", params, device="cpu")
     assert back.device == torch.device("cpu") and back._means_dev.device.type == "cpu"
+
+
+def test_serving_modules_are_checked():
+    """The serving slice's modules are among those imported without JAX
+    above, and the package exports what the JAX package's does."""
+    for mod in ("quantization_tpu_torch.policy", "quantization_tpu_torch.serving"):
+        assert mod in MODULES
+    for name in ("recommend", "ServingPlan", "exact_topk", "recall_at_k", "PipelinedSearcher"):
+        assert name in quantization_tpu_torch.__all__
+
+
+def test_serving_entry_points_need_a_device_without_cuda(monkeypatch, rng):
+    """The oracle and the plan's rescorer follow the index's device; with a
+    host corpus and no index they default to the card and raise without one."""
+    qt = quantization_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = rng.random((600, 16), dtype=np.float32)
+    with pytest.raises(qt.NoDeviceError, match="device='cpu'"):
+        qt.exact_topk(data[:3], data, qt.DistanceType.L2, True, 5)
+    _, ids = qt.exact_topk(data[:3], data, qt.DistanceType.L2, True, 5, device="cpu")
+    assert (ids[:, 0].numpy() == np.arange(3)).all()
+    params = qt.VectorParameters(16, 600, qt.DistanceType.DOT, False)
+    ivf = qt.IVFIndex.encode(data, params, nlist=2, bucket_size=64, device="cpu")
+    plan = qt.ServingPlan(nscan=4, oversampling=4.0)
+    assert plan.build(ivf, data).fine.device == torch.device("cpu")

@@ -166,7 +166,7 @@ def test_build_pq_matches_jax(rng):
     assert (got != want).mean() < 0.01
 
 
-@pytest.mark.parametrize("name", ["sq_res_l2", "pq_res", "bq", "pq"])
+@pytest.mark.parametrize("name", ["sq_res_l2", "pq_res", "bq", "pq", "bq_res"])
 def test_checkpoints_load_across_packages(built, force_pallas, tmp_path, name):
     jivf, tivf, queries, _ = index(built, name)
     tparams = qt.VectorParameters.from_json(jivf.params.to_json())
@@ -187,7 +187,7 @@ def test_checkpoints_load_across_packages(built, force_pallas, tmp_path, name):
     np.testing.assert_allclose(want[0], np.asarray(ws), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["sq", "pq4_res", "bq"])
+@pytest.mark.parametrize("name", ["sq", "pq4_res", "bq", "bq_res"])
 def test_auto_scan_and_wide_union(built, force_pallas, name):
     """scan="auto" and a union of every bucket (the full probe), exact for
     SQ, approx for the others."""
@@ -196,7 +196,8 @@ def test_auto_scan_and_wide_union(built, force_pallas, name):
     nb = jivf.metadata.nbuckets
     ws, wi = jivf.top_k(jivf.encode_query(queries), K, method=method, nprobe=nb)
     gs, gi = tivf.top_k(tivf.encode_query(queries), K, method=method, nprobe=nb)
-    assert_search_matches(gs, gi, np.asarray(ws), np.asarray(wi), N, ties=name == "bq")
+    assert_search_matches(gs, gi, np.asarray(ws), np.asarray(wi), N,
+                          ties=name.startswith("bq"))
 
 
 @pytest.mark.parametrize("name", ["sq", "opq_res_l2"])
@@ -213,18 +214,31 @@ def test_two_stage_over_ivf_matches_jax(built, force_pallas, name):
 
 
 def test_residual_bq_raises(built, rng, tmp_path):
+    """Residual IVF-BQ raises only where the JAX package's does: with L2
+    (no per-slot |v^|^2 carrier in the planes) and without its beta; a JAX
+    residual-BQ index carries across and loads, residual_scale included."""
     data = clustered(rng, 1200)
-    params = qt.VectorParameters(DIM, 1200, qt.DistanceType.DOT, False)
-    with pytest.raises(qt.ArgumentsError, match="not ported yet.*K5b"):
-        qt.IVFIndex.encode(data, params, quantizer="bq", residual=True, nlist=2,
-                           bucket_size=512, device="cpu")
+    with pytest.raises(qt.ArgumentsError, match="DOT only"):
+        qt.IVFIndex.encode(data, qt.VectorParameters(DIM, 1200, qt.DistanceType.L2, False),
+                           quantizer="bq", residual=True, nlist=2, bucket_size=512,
+                           device="cpu")
     jivf = j_ivf.IVFIndex.encode(data, jparams("Dot", False, 1200), quantizer="bq",
                                  residual=True, nlist=2, bucket_size=512)
-    with pytest.raises(qt.ArgumentsError, match="not ported yet"):
-        carry(jivf)
+    tivf = carry(jivf)
+    assert tivf.metadata.residual_scale == jivf.metadata.residual_scale > 0
+    params = qt.VectorParameters(DIM, 1200, qt.DistanceType.DOT, False)
     jivf.save(tmp_path / "r.bin", tmp_path / "r.json")
-    with pytest.raises(qt.ArgumentsError, match="not ported yet"):
-        qt.IVFIndex.load(tmp_path / "r.bin", tmp_path / "r.json", params, device="cpu")
+    back = qt.IVFIndex.load(tmp_path / "r.bin", tmp_path / "r.json", params, device="cpu")
+    assert back.metadata.to_json() == jivf.metadata.to_json()
+    queries = clustered(rng, 4)
+    a = tivf.top_k(tivf.encode_query(queries), K)
+    b = back.top_k(back.encode_query(queries), K)
+    np.testing.assert_array_equal(a[0], b[0])
+    meta = dict(jivf.metadata.to_json())
+    del meta["residual_scale"]
+    with pytest.raises(qt.ArgumentsError, match="residual_scale"):
+        qt.ivf_from_numpy(inner_state(jivf), jivf.bucket_ids, jivf.bucket_means, meta,
+                          device="cpu")
 
 
 def test_compact_pq_scan_reads_the_layout_it_has(built, force_pallas):

@@ -48,6 +48,7 @@ CONFIGS = {
     "opq_res_l2": ("pq", True, "L2", False, 1024, {"chunk_size": 4, "rotation": "opq"}),
     "pq4_res": ("pq", True, "Dot", False, 1024, {"chunk_size": 2, "bits": 4}),
     "bq": ("bq", False, "Dot", False, 512, {}),
+    "bq_res": ("bq", True, "Dot", False, 512, {}),
 }
 
 
