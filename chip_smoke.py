@@ -6,12 +6,14 @@
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
-nvcc (one process per source, all at once), and drives the port's five main
-paths through the public API, each with the kernel launch counts set to 0
-just before it and read just after:
+nvcc (one process per source, all at once), checks with cuobjdump that
+every entry function of the int8 scan body runs on wgmma, and drives the
+port's five main paths through the public API, each with the kernel launch
+counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
-     top-10 exact (K1) and approx (K2), score_batch (K3), save/load.
+     top-10 exact (K1) and approx (K2), score_batch (K3), save/load; K1-K3
+     are timed at Q = 256 and at Q = 32.
   2. BQ + two-stage retrieval at the shape of dbpedia-entities-openai-1M
      (1,000,000 x 1536, DOT on cosine-normalised rows; synthetic, clustered
      data made on the card from the seed), Q = 256, k = 10, oversampling 4:
@@ -54,7 +56,9 @@ both corpora, since the clustered one ties far more.
      16 fresh 256-query batches (depth 8): each result equal to the
      blocking search, the held-out recall, the per-batch walls, the device
      idle share from the searches' CUDA-event spans in unprofiled windows,
-     and the host syncs per search in a profiler window.
+     and the host syncs per search in a profiler window. The served
+     searches' K10 (value query, every bucket) is held against its plain
+     version and timed at the plan's width as its own kernels-line entry.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -131,6 +135,10 @@ KERNELS.update({
                               "quantization_tpu/ops/pallas/bq_kernel.py:328"),
     "sq_scores_l1": ("sq_kernels.cu", "quantization_tpu/ops/pallas/sq_kernel.py:748"),
 })
+# K10 with a value query again, at the serving plan's width (every bucket).
+KERNELS["bq_search_indexed_res_serve"] = KERNELS["bq_search_indexed_res"]
+# The small batch at which K1-K3 are timed beside Q.
+Q_SMALL = 32
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -553,6 +561,15 @@ def sq_path(dev, smi, do_profile):
         "sq_search_approx": timed_ms(
             lambda: sq_kernel.sq_search_plain(*args, k=K, mode="approx", **kw)),
     }
+    # The same kernels at a small batch: the first Q_SMALL queries.
+    args_s = (eq.codes[:Q_SMALL].contiguous(), eq.offsets[:Q_SMALL].contiguous(), enc.codes,
+              enc.voffsets, enc._mult)
+    small_ms = {
+        "sq_scores": timed_ms(lambda: sq_kernel.sq_scores(*args_s, **kw)),
+        "sq_search_exact": timed_ms(lambda: sq_kernel.sq_search(*args_s, k=K, **kw)),
+        "sq_search_approx": timed_ms(
+            lambda: sq_kernel.sq_search(*args_s, k=K, mode="approx", **kw)),
+    }
     # The library yardstick of K3: cuBLAS int8 GEMM (torch._int_mm) and the
     # same affine epilogue, timed together. K1/K2 have none: no PyTorch call
     # fuses a score matrix with its top-k.
@@ -578,6 +595,8 @@ def sq_path(dev, smi, do_profile):
             f"per {Q}-query batch at N={N} D={D} on {smi}")
     say("time", f"f32 matmul + topk baseline: {f32_ms:.4f} ms per batch at N={N} D={D} "
         f"on {smi}")
+    say("time", f"at Q={Q_SMALL}: " + ", ".join(f"{n_} {t:.4f} ms" for n_, t in small_ms.items())
+        + f" per batch at N={N} D={D} on {smi}")
     if do_profile:
         profile("SQ top_k exact", lambda: enc.top_k(eq, K))
         profile("SQ top_k approx", lambda: enc.top_k(eq, K, method="approx"))
@@ -593,7 +612,8 @@ def sq_path(dev, smi, do_profile):
     }
     recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
                  plain_ms=pms[n], bound=bounds[n], library_ms=lib_ms[n]) for n in ms]
-    return recs, {"f32_ms": f32_ms, "recall_exact": r_ex, "recall_approx": r_ap}
+    return recs, {"f32_ms": f32_ms, "recall_exact": r_ex, "recall_approx": r_ap,
+                  "small_batch_ms": small_ms}
 
 
 def bq_path(dev, smi, do_profile):
@@ -2112,6 +2132,39 @@ def rbq_path(dev, smi, do_profile):
         f"{plan.expected_recall:.4f})")
     require(held_recall >= plan.expected_recall - SERVE_RECALL_SLACK,
             "held-out recall >= the calibrated recall - 0.05")
+    # K10 with a value query as the plan runs it: the arguments of one
+    # search's scan, caught on the way in, then the kernel against plain.
+    calls = []
+    scan_fn = bq_kernel.bq_search_indexed
+    bq_kernel.bq_search_indexed = lambda *a, **kw_: calls.append((a, kw_)) or scan_fn(*a, **kw_)
+    try:
+        direct.top_k_device(direct.encode_query(serve[0]), K)
+    finally:
+        bq_kernel.bq_search_indexed = scan_fn
+    require(len(calls) == 1 and calls[0][1].get("query_affine") is not None,
+            "the plan's search scans through K10 with a value query")
+    sa, skw = calls[0]
+    v, i = scan_fn(*sa, **skw)
+    pv, pi = bq_kernel.bq_search_indexed_plain(*sa, **skw)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi),
+            "K10 value query at the serving width: equal plain")
+    del pv, pi
+    s_tiles, s_k = sa[2], skw["k"]
+    s_rows = s_tiles.shape[0] * skw["tile_n"]
+    s_bytes = (s_rows * (rows_b + 4) + Q * (dp + 8) + Q * s_rows // ktile.CORR_BLK * 4
+               + s_tiles.shape[0] * 4 + Q * s_k * 8)
+    recs.append(dict(name="bq_search_indexed_res_serve",
+                     launches=serve_launches.get("bq_search_indexed_res", 0), max_abs_err=0.0,
+                     ms=timed_ms(lambda: scan_fn(*sa, **skw)),
+                     plain_ms=plain_ms(lambda: bq_kernel.bq_search_indexed_plain(*sa, **skw)),
+                     bound=bound(s_bytes, 2 * Q * s_rows * PD, INT8_OPS_PER_S), library_ms=None))
+    r = recs[-1]
+    require(r["launches"] > 0, "the served searches launched K10 with a value query")
+    say("time", f"bq_search_indexed_res_serve: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) per {Q}-query "
+        f"batch over {s_tiles.shape[0]} tiles = {s_rows} rows x {PD} dims, k={s_k}, launched "
+        f"{r['launches']} times by the served batches, on {smi}")
     # The idle share, from unprofiled windows: 1 - (sum of the searches'
     # CUDA-event spans) / host wall of the pipelined loop.
     spans = SearchSpans(direct)
@@ -2198,6 +2251,32 @@ def rehearse(which, n=30_000):
     return 0
 
 
+def tensor_core_bodies(build):
+    """The wgmma instructions (SASS *GMMA) in each entry function of the
+    shared scan body (K3 scores_kernel, the approx_parts_kernel and
+    search_exact_kernel instantiations), read from the built library with
+    cuobjdump; every one must have some."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel)"
+                      r"(?:INS_\d+(CodeRows|PlaneRows))?", name)
+        if m:
+            key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            found[key] = found.get(key, 0) + part.count("GMMA")
+    require(set(found) == {"scores_kernel", "approx_parts_kernel<CodeRows>",
+                           "approx_parts_kernel<PlaneRows>", "search_exact_kernel<CodeRows>",
+                           "search_exact_kernel<PlaneRows>"},
+            f"the scan body's entry functions in the library ({sorted(found)})")
+    require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
+    return found
+
+
 def max_sm_clock_hz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2240,6 +2319,9 @@ def main():
     for line in info["log"].splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             say("build", "ptxas " + line.strip())
+    gmma = tensor_core_bodies(build)
+    say("build", "wgmma instructions (SASS GMMA) in " + ", ".join(
+        f"{k} {v}" for k, v in sorted(gmma.items())))
 
     # ------------------------------------------------------- 3. the paths
     sq_recs, sq_info = sq_path(dev, smi, do_profile)
@@ -2271,6 +2353,7 @@ def main():
     say("wall", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
         "kernels": kernels,
+        "sq_small_batch_ms": {"q": Q_SMALL, **sq_info["small_batch_ms"]},
         "f32_baseline_ms": {"sq_100k_x_1024": sq_info["f32_ms"],
                             "bq_1m_x_1536": bq_info["f32_ms"]},
         "recall_at_10": {"sq_exact": sq_info["recall_exact"],

@@ -41,7 +41,7 @@ from .interop import (
     sq_to_numpy,
 )
 from .models.bq import BinaryQuantizer, EncodedQueryBin, EncodedVectorsBin
-from .models.ivf import IVFIndex, IVFMetadata
+from .models.ivf import IVFIndex, IVFMetadata, auto_geometry
 from .models.pipeline import ExactRescorer, TwoStageIndex
 from .models.pq import EncodedQueryPQ, EncodedVectorsPQ, PQMetadata, ProductQuantizer
 from .models.sq import EncodedQueryU8, EncodedVectorsU8, ScalarQuantizerU8
@@ -77,6 +77,7 @@ __all__ = [
     "StorageIOError",
     "TwoStageIndex",
     "VectorParameters",
+    "auto_geometry",
     "bq_from_numpy",
     "bq_to_numpy",
     "ivf_from_numpy",

@@ -20,7 +20,8 @@ contract, encoded_vectors_u8.rs:35).
 from __future__ import annotations
 
 import abc
-from typing import Callable, Iterable, Iterator, Tuple, Union
+import numbers
+from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +32,21 @@ from .types import ArgumentsError, VectorParameters
 # iterator of [batch, dim] float32 arrays: encode passes over the data more
 # than once (calibration pass + encode pass).
 DataLike = Union[np.ndarray, Callable[[], Iterable[np.ndarray]]]
+
+
+def check_recall_target(recall_target: Optional[float]) -> None:
+    """The JAX package's approx-merge dial (``approx_max_k``'s
+    ``recall_target``, default 0.95): None or a float in (0, 1], else
+    ``ArgumentsError``. The port accepts it and ignores it: its approx merge
+    is an exact top-k over the same candidates, so its recall is never lower
+    (ROADMAP F9)."""
+    if recall_target is None:
+        return
+    if isinstance(recall_target, bool) or not isinstance(recall_target, numbers.Real):
+        raise ArgumentsError(f"recall_target must be None or a float in (0, 1], "
+                             f"got {recall_target!r}")
+    if not 0.0 < float(recall_target) <= 1.0:
+        raise ArgumentsError(f"recall_target must be in (0, 1], got {recall_target!r}")
 
 
 def iter_batches(
@@ -143,20 +159,25 @@ class EncodedVectors(abc.ABC):
         return float(out.reshape(-1)[0])
 
     # -- serving ------------------------------------------------------------
-    def top_k_device(self, equery, k: int, method: str = "exact"):
+    def top_k_device(self, equery, k: int, method: str = "exact",
+                     recall_target: Optional[float] = None):
         """(scores[Q, k], indices[Q, k]) as tensors on the corpus device, with
-        no host sync. ``top_k`` is the sync-and-convert wrapper."""
+        no host sync. ``top_k`` is the sync-and-convert wrapper.
+        ``recall_target``: see ``check_recall_target``."""
         from ..ops.topk import top_k as _topk
 
+        check_recall_target(recall_target)
         return _topk(self.score_batch(equery), k, method=method)
 
     def top_k(
-        self, equery, k: int, method: str = "exact"
+        self, equery, k: int, method: str = "exact",
+        recall_target: Optional[float] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(scores[Q, k], indices[Q, k]) of the best-scoring points, as numpy.
 
         "Best" always means largest score — callers encode their ranking
         direction via ``invert`` exactly as in the reference contract.
-        ``method``: "exact" or "approx"."""
-        s, i = self.top_k_device(equery, k, method=method)
+        ``method``: "exact" or "approx"; ``recall_target``: see
+        ``check_recall_target``."""
+        s, i = self.top_k_device(equery, k, method=method, recall_target=recall_target)
         return s.cpu().numpy(), i.cpu().numpy()

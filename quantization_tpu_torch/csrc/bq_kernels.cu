@@ -21,16 +21,15 @@
 //                               query_affine=) (bq_kernel.py:328)
 //
 // The residual forms score mult[q] * (qs[q] . bits[n]) + qb[q] (+ rowadd[n])
-// (+ corr), qs
-// int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
-// dot_scan.cuh (K1 / K2 / K9a) over 0/1 bytes that a PlaneRows loader
-// expands from the planes, with the multiply-add rounded once (F24). They
-// keep the BQ approx geometry (spans of SPAN * mxu_tile_n dense, SPAN *
-// tile_n indexed), so their candidates are the BQ plain versions'. Bound on
-// the H100: 2 * Q * rows * dims int8 operations at 1,979 TOPS (0.05 ms for
-// 256 queries over 262,144 rows of 768 dims); like K1 they are __dp4a-issue-
-// bound, about 1.5 ms there, plus the bit expansion (16 integer operations
-// per plane word, one word per 32 dims of a row, done once per 32 queries).
+// (+ corr), qs int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
+// dot_scan.cuh (K1 / K2 / K9a, on the tensor cores) over 0/1 bytes that a
+// PlaneRows loader expands from the planes into the swizzled wgmma tile, with
+// the multiply-add rounded once (F24). They keep the BQ approx geometry
+// (spans of SPAN * mxu_tile_n dense, SPAN * tile_n indexed), so their
+// candidates are the BQ plain versions'. Bound on the H100: 2 * Q * rows *
+// dims int8 operations at 1,979 TOPS (0.05 ms for 256 queries over 262,144
+// rows of 768 dims, 0.25 ms over the serving plan's 1,255,424); K5a / K10
+// run about 10 times that, K5b's radix select several times more (PERF.md).
 //
 // Layout, as in the JAX package: corpus sign bits as bit planes, u32
 // [W8, npad] (word w of row n at planes[w * npad + n], LSB-first bit order),

@@ -1,38 +1,83 @@
-// The int8 scan bodies shared by sq_kernels.cu (K1-K3, K9a / K9b, K12) and
-// bq_kernels.cu (K5b and the value-query forms of K5a / K10).
+// The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b) and
+// bq_kernels.cu (K5b and the value-query forms of K5a / K10), on the tensor
+// cores: wgmma.mma_async m64n64k32 s32.s8.s8, both operands K-major in
+// shared memory (mma_segment). K12 (L1) keeps a __dp4a body of its own in
+// sq_kernels.cu: the sum of absolute differences has no tensor-core form.
 //
-// A block scores one 128-row corpus segment against a 32-query tile: both
-// sides are staged into shared memory 128 bytes of depth at a time, and each
-// thread holds a 4-query x 4-row register tile that reads its operands as
-// 16-byte vectors (rows padded to 144 bytes, so a warp's vector reads are
-// free of bank conflicts): 16 four-byte steps per 2 shared-memory loads.
-//
-// The searches ask for two blocks per SM (__launch_bounds__(kThreads, 2)):
-// left to itself, ptxas gave the approx body 158 registers (one block per
-// SM) and the exact body 64 with spills, and K9a / K1 ran up to a third
-// slower on the H100 than before the bodies were shared (PERF.md).
-//
-// Where the rows come from ("Rows"; each kernel takes the row source as a
-// __restrict__ pointer and a stride and builds its Rows inside: passed as a
-// struct kernel parameter, the scan ran K2 measurably slower on the H100):
-//   * CodeRows: SQ-u8 codes int8 [N, D] row-major, copied 16 bytes a thread.
+// A block of 256 threads (two warpgroups) scores one 128-row corpus segment
+// against a tile of TQ queries: corpus rows are the M side (warpgroup g owns
+// segment rows 64g .. 64g+63), queries the N side, one n64 product per 64
+// queries of the tile. The depth streams through a ring of S = 3 chunks of
+// 128 bytes, each [rows][128 B] in the 128-byte swizzle the wgmma
+// descriptors name (16-byte piece c of row r at piece c ^ (r % 8); 8-row
+// groups 1024 bytes apart), filled two chunks ahead of the products:
+//   * CodeRows: SQ-u8 codes int8 [N, D] row-major, 16-byte cp.async.cg.
 //   * PlaneRows: BQ bit planes u32 [W8, npad] (word w of row n at
 //     planes[w * npad + n], bit j of word w = dim 32w + j, LSB first, as
-//     ops/bq.py packs them). A thread loads one word of one row — a warp
-//     reads 32 neighbouring rows, one 128-byte line — and expands it to 32
-//     0/1 bytes, one nibble at a time: (nibble * 0x00204081) & 0x01010101
-//     moves bit i of the nibble to byte i. The residual-BQ score is then
-//     the SQ dot of an int8 value query against 0/1 "codes", so K5b and the
-//     value forms of K5a / K10 are the K1 / K2 / K9a bodies with this row
-//     loader. The alternative, 8 AND + __popc planes of the int8 query per
-//     word, issues as many instructions at a quarter of __dp4a's rate.
+//     ops/bq.py packs them). A thread loads one word of one row a chunk
+//     early (a warp reads 32 neighbouring rows, one 128-byte line) and,
+//     while the products run, expands it to 32 0/1 bytes, one nibble at a
+//     time ((nibble * 0x00204081) & 0x01010101 moves bit i of the nibble to
+//     byte i), straight into the swizzled tile. The residual-BQ score is
+//     then the SQ dot of an int8 value query against 0/1 "codes", so K5b
+//     and the value forms of K5a / K10 are the K1 / K2 / K9a bodies with
+//     this row loader, expanding once per 64 queries.
+//   * Queries: int8 [Q, D] rows, cp.async with zero fill for rows >= Q.
+// The rows of a segment come from ScanMap::row (ktile.cuh), so the IVF tile
+// lists (K9a, K9b, K10) stream in place with no tensor map. The sums are
+// exact: SQ codes and queries lie in [0, 127], plane bytes are 0/1 against
+// signed int8 value queries, so the s32 accumulators equal the __dp4a sums
+// of the body this one replaced to the bit. A block's query tiles are
+// neighbours in launch order (a 1-D grid, the tile index fastest), so the
+// tiles of one segment read its rows from device memory together.
 //
-// What each four-byte step does ("Op"): DotOp, the int8 dot (__dp4a);
-// AbsDiffDotOp, the L1 sum of absolute differences of bytes in [0, 127]
-// (exact as unsigned), as __vabsdiffu4 then a __dp4a against 0x01010101.
-// A __vsadu4 step was timed beside it and dropped: on an NVIDIA H100 80GB
-// HBM3 at 700 W it ran 0.71 ms against this step's 0.60-0.62 ms at
-// 100k x 1024, Q = 256 (chip_smoke.py; PERF.md).
+// The accumulator fragment fixes which thread holds which (row, query):
+// thread t of warpgroup g holds segment rows 64g + 16(t/32 % 4) + t%32/4
+// (+ 8) against queries 8j + 2(t % 4) (+ 1), j < 8, of each 64-query half
+// (frag_row / frag_col). A row of the segment is a stride class l of the
+// approx geometry (compact row mod 128 within a part), so one thread holds
+// each (query, class) pair for every segment of a part, and its running
+// maximum with a strict ">" in segment order keeps the first row of a tie,
+// as the Pallas kernels' compares do.
+//
+// Tiles (Tile<TQ, S, blocks per SM>; H100: 227 KB of shared memory and 64K
+// registers a SM), with ptxas's counts (-Xptxas -v, printed by
+// chip_smoke.py):
+//   * K3 (scores_kernel, sq_kernels.cu): TQ = 128, a 96 KB ring, two blocks
+//     per SM; 110 registers, no spills. The [128 query][128 row] int32 tile
+//     goes through the ring's memory after the scan, so whole output rows
+//     leave as coalesced (16-byte where n_valid % 4 == 0) stores, with the
+//     epilogue applied there.
+//   * approx (K2, K9a, K10 / K5a value): TQ = 64, a 72 KB ring, two blocks
+//     per SM (128 registers; 88 bytes of spills for CodeRows, 68 for
+//     PlaneRows). A thread keeps 32 accumulators, 32 running maxima and
+//     their segment numbers as bytes (8 registers), turned into corpus rows
+//     once at the end. One block per SM, without the spills, ran slower.
+//   * exact (K1, K9b, K5b): TQ = 64, the 72 KB ring plus the split's keys
+//     [64][split + 4] u32 (132 KB at split 512; the 4-word pad spreads the
+//     fragment's writes over every bank) and 8 KB of histograms: one block
+//     per SM; 112 / 102 registers, no spills. Each warp then radix-selects
+//     8 queries (ktile.cuh), which takes most of the kernel's time.
+// Also measured and dropped (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py): a
+// fourth ring stage with one product group left in flight across the next
+// chunk's barrier, for the approx body and for K3 (no gain, PlaneRows and
+// K3 slower); one chunk stream across a block's segments with the epilogue
+// between chunks (approx slower); 1024-row approx parts (slower); a 32-query
+// exact tile with 256-row splits at two blocks per SM (no gain).
+//
+// What bounds them on the H100: int8 tensor work at 1,979 TOPS against the
+// corpus bytes at 3.35 TB/s; at Q = 256 the SQ scans are bound by bytes, the
+// residual-BQ scans by operations. The design reads the corpus ceil(Q / TQ)
+// times (2 / 4 passes at Q = 256, the later ones from L2 where the tiles run
+// together). A segment's products take about 40 % of the tensor-core rate
+// per chunk; the per-segment epilogue, the searches' selection (the exact
+// body's radix select, the approx merge's torch.topk) and K3's output write
+// take the rest. The replaced body, a __dp4a 4 x 4 register tile over 32
+// queries, was bound by instruction issue at 3-5 % of the int8 tensor-core
+// bound: K3 0.51, K2 0.64, K1 0.75 ms at 100k x 1024, Q = 256, and the
+// value-query K10 1.22 ms over 262,144 x 768 rows and 5.49 ms over the
+// serving plan's 1,255,424 rows, against about 0.12, 0.18, 0.52, 0.50 and
+// 2.05 ms for this one (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md).
 //
 // The epilogue ("kOnce"): false — (mult * acc + qoff) + voff, each step
 // rounded on its own (__fmul_rn / __fadd_rn; the library is built with
@@ -40,10 +85,9 @@
 // qoff in f64, rounded once to f32, then + voff: the value of the JAX
 // package's compiled code, which fuses that multiply-add (ROADMAP F24; K12,
 // and residual BQ, whose qoff is the query's qb and whose voff is the
-// per-row rowadd that poisons pad slots). voff is never null: a null check
-// in the epilogue slowed K2 too. Every search then adds the optional
-// residual-IVF corr of the row's 512-row block (ktile.cuh ScanMap), rounded
-// once more, before it selects.
+// per-row rowadd that poisons pad slots). voff is never null. Every search
+// then adds the optional residual-IVF corr of the row's 512-row block
+// (ktile.cuh ScanMap), rounded once more, before it selects.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,57 +97,174 @@
 
 namespace {
 
-constexpr int kThreads = 256;             // 8 warps
-constexpr int kTQ = 32;                   // queries per block: 4 per warp
-constexpr int kSeg = 128;                 // corpus rows per segment: 4 per lane
-constexpr int kDK = 128;                  // bytes of depth per staged chunk
-constexpr int kDKP = kDK + 16;            // padded shared-memory row stride
-constexpr int kStageBytes = (kSeg + kTQ) * kDKP;
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kSeg = 128;       // corpus rows per segment: 64 per warpgroup
+constexpr int kDK = 128;        // bytes of depth per staged chunk: one swizzle row
+constexpr int kKeyPad = 4;      // words after each query's keys in the exact body
+constexpr int kAlign = 1024;    // the swizzle atom: ring stages start on it
 
+// A body's tile: TQ queries (TQ / 64 products of 64), a ring of S chunks
+// filled S - 1 chunks ahead of the products, and the blocks per SM its
+// registers are held to.
+template <int TQ_, int S_, int kBlocks_>
+struct Tile {
+  static constexpr int TQ = TQ_, S = S_, kBlocks = kBlocks_, kH = TQ / 64;
+  static constexpr int kStage = (kSeg + TQ) * kDK;  // A: kSeg rows, B: TQ rows
+  static constexpr int kBytes = S * kStage;
+};
+using ScoresTile = Tile<128, 3, 2>;
+using ExactTile = Tile<64, 3, 1>;
+using ApproxTile = Tile<64, 3, 2>;
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte piece c of row r in a 128-byte-swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * kDK + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Writes of the generic proxy (st.shared, cp.async) made visible to wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b),
+               "r"(c), "r"(d)
+               : "memory");
+}
+
+// K-major operand, 128-byte swizzle: the leading offset is unused (16 B),
+// 8-row groups are 1024 bytes apart; each 32-byte k step adds 2 to the
+// start address field.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 64] += A[64 x 32] . B[64 x 32]^T, s8 x s8 -> s32, from shared memory.
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// Element e of a thread's 64 x 64 fragment: its segment row and its query
+// within the 64-query half.
+__device__ __forceinline__ int frag_row(int e) {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2) + ((e >> 1) & 1) * 8;
+}
+__device__ __forceinline__ int frag_col(int e) {
+  return (e >> 2) * 8 + (threadIdx.x & 3) * 2 + (e & 1);
+}
+
+// ------------------------------------------------------------ row sources
+
+// A row source moves chunk d0 of segment rows row0 .. row0+127 into the A
+// tile at a in three steps, each a no-op for one of them: prefetch (one
+// chunk ahead: global loads into registers), issue (before the chunk's
+// cp.async group is committed) and put (while the products run).
 struct CodeRows {
   using Elem = int8_t;
+  struct Pending {};
   const int8_t* codes;
   long long D;
-  // cs[r][0 .. 128) = codes[row0 + r][d0 .. d0 + 128) for r < 128.
-  __device__ __forceinline__ void stage(int8_t* cs, long long row0, int d0) const {
+  __device__ __forceinline__ void prefetch(Pending&, long long, int) const {}
+  // A tile rows r < 128 = codes[row0 + r][d0 .. d0 + 128), by cp.async.
+  __device__ __forceinline__ void issue(uint32_t a, long long row0, int d0) const {
 #pragma unroll
     for (int t = 0; t < kSeg * (kDK / 16) / kThreads; ++t) {
       const int idx = threadIdx.x + t * kThreads, r = idx >> 3, c = idx & 7;
-      const int4 v = __ldg(reinterpret_cast<const int4*>(
-          codes + (row0 + r) * D + d0 + c * 16));
-      *reinterpret_cast<int4*>(cs + r * kDKP + c * 16) = v;
+      cp_async16(a + swz(r, c), codes + (row0 + r) * D + d0 + c * 16, 16);
     }
   }
+  __device__ __forceinline__ void put(uint32_t, const Pending&) const {}
 };
 
 struct PlaneRows {
   using Elem = uint32_t;
+  static constexpr int kWords = kSeg * (kDK / 32) / kThreads;  // plane words a thread moves
+  struct Pending {
+    uint32_t v[kWords];
+  };
   const uint32_t* planes;
   long long npad;
-  // cs[r][32w + j] = bit j of word d0/32 + w of row row0 + r, w < 4.
-  __device__ __forceinline__ void stage(int8_t* cs, long long row0, int d0) const {
+  // The words d0/32 .. d0/32 + 3 of rows row0 .. row0+127, one chunk ahead.
+  __device__ __forceinline__ void prefetch(Pending& p, long long row0, int d0) const {
     const int w0 = d0 >> 5;
 #pragma unroll
-    for (int t = 0; t < kSeg * (kDK / 32) / kThreads; ++t) {
+    for (int t = 0; t < kWords; ++t) {
       const int idx = threadIdx.x + t * kThreads, r = idx & (kSeg - 1), w = idx >> 7;
-      const uint32_t v = __ldg(planes + (long long)(w0 + w) * npad + row0 + r);
+      p.v[t] = __ldg(planes + (long long)(w0 + w) * npad + row0 + r);
+    }
+  }
+  __device__ __forceinline__ void issue(uint32_t, long long, int) const {}
+  // A tile row r, byte 32w + j = bit j of word w of row r.
+  __device__ __forceinline__ void put(uint32_t a, const Pending& p) const {
+#pragma unroll
+    for (int t = 0; t < kWords; ++t) {
+      const int idx = threadIdx.x + t * kThreads, r = idx & (kSeg - 1), w = idx >> 7;
+      const uint32_t v = p.v[t];
       uint32_t b[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) b[i] = (((v >> (4 * i)) & 0xFu) * 0x00204081u) & 0x01010101u;
-      int4* dst = reinterpret_cast<int4*>(cs + r * kDKP + w * 32);
-      dst[0] = make_int4((int)b[0], (int)b[1], (int)b[2], (int)b[3]);
-      dst[1] = make_int4((int)b[4], (int)b[5], (int)b[6], (int)b[7]);
+      st_shared_v4(a + swz(r, 2 * w), b[0], b[1], b[2], b[3]);
+      st_shared_v4(a + swz(r, 2 * w + 1), b[4], b[5], b[6], b[7]);
     }
-  }
-};
-
-struct DotOp {
-  __device__ static __forceinline__ int step(int a, int b, int c) { return __dp4a(a, b, c); }
-};
-
-struct AbsDiffDotOp {
-  __device__ static __forceinline__ int step(int a, int b, int c) {
-    return (int)__dp4a(__vabsdiffu4((unsigned)a, (unsigned)b), 0x01010101u, (unsigned)c);
   }
 };
 
@@ -119,207 +280,259 @@ __device__ __forceinline__ float epilogue(float m, int acc, float qo,
   return __fadd_rn(s, voff[row]);
 }
 
-template <class Op>
-__device__ __forceinline__ int step4(const int4& a, const int4& b, int c) {
-  c = Op::step(a.x, b.x, c);
-  c = Op::step(a.y, b.y, c);
-  c = Op::step(a.z, b.z, c);
-  return Op::step(a.w, b.w, c);
+// The kOnce epilogue with m and qo already in f64 (exact widenings of the
+// f32 values), and acc widened by adding it to 2^52 + 2^31 in the low word
+// of a double: one f64 add in place of a 64-bit conversion, exact for any
+// int32.
+__device__ __forceinline__ float epilogue(double m, int acc, double qo,
+                                          const float* __restrict__ voff, long long row) {
+  const double a = __hiloint2double(0x43300000, (int)((unsigned)acc ^ 0x80000000u)) -
+                   4503601774854144.0;
+  return __fadd_rn(__double2float_rn(__dadd_rn(__dmul_rn(m, a), qo)), voff[row]);
 }
 
-// acc[j][i] = Op over the depth of query q0 + 4*warp + j against segment row
-// row0 + lane + 32*i. Rows row0 .. row0+127 must exist; queries >= Q read as
-// zeros. qcodes is int8 [Q, D], D a multiple of 128. Every thread of the
-// block must call it (it synchronises).
-template <class Rows, class Op>
-__device__ __forceinline__ void segment_scan(const Rows& rows,
-                                             const int8_t* __restrict__ qcodes, int q0,
-                                             int Q, long long row0, int D, int8_t* cs,
-                                             int8_t* qs, int acc[4][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-  for (int d0 = 0; d0 < D; d0 += kDK) {
-    __syncthreads();  // the previous chunk's readers are done
-    rows.stage(cs, row0, d0);
-    {
-      const int r = tid >> 3, c = tid & 7, q = q0 + r;  // 32 rows x 8 vectors
-      int4 v = make_int4(0, 0, 0, 0);
-      if (q < Q)
-        v = *reinterpret_cast<const int4*>(qcodes + (long long)q * D + d0 + c * 16);
-      *reinterpret_cast<int4*>(qs + r * kDKP + c * 16) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k16 = 0; k16 < kDK / 16; ++k16) {
-      int4 a[4], b[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        a[j] = *reinterpret_cast<const int4*>(qs + (warp * 4 + j) * kDKP + k16 * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        b[i] = *reinterpret_cast<const int4*>(cs + (lane + 32 * i) * kDKP + k16 * 16);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = step4<Op>(a[j], b[i], acc[j][i]);
-    }
+// A body's per-query epilogue parameters in shared memory: f32, or f64
+// where the epilogue rounds once; epilogue_q picks the form.
+template <bool kOnce>
+struct QParam {
+  using T = float;
+};
+template <>
+struct QParam<true> {
+  using T = double;
+};
+
+template <bool kOnce>
+__device__ __forceinline__ float epilogue_q(typename QParam<kOnce>::T m, int acc,
+                                            typename QParam<kOnce>::T qo,
+                                            const float* __restrict__ voff, long long row) {
+  if constexpr (kOnce) {
+    return epilogue(m, acc, qo, voff, row);
+  } else {
+    return epilogue<false>(m, acc, qo, voff, row);
   }
 }
 
-// ------------------------------------------------------------ score matrix
-// grid (ceil(n_valid / 128), ceil(Q / 32)); out f32 [Q, n_valid].
-template <class Rows, class Op, bool kOnce>
-__global__ void __launch_bounds__(kThreads) scores_kernel(
-    const typename Rows::Elem* __restrict__ base, long long stride,
-    const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
-    const float* __restrict__ mult, const float* __restrict__ voff, float* __restrict__ out,
-    int Q, int n_valid, int D, int mstride) {
-  __shared__ __align__(16) int8_t stage[kStageBytes];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.y * kTQ;
-  const long long row0 = (long long)blockIdx.x * kSeg;
-  int acc[4][4];
-  segment_scan<Rows, Op>(Rows{base, stride}, qcodes, q0, Q, row0, D, stage,
-                         stage + kSeg * kDKP, acc);
+// The 1024-aligned start of a block's dynamic shared memory (the launchers
+// ask for kAlign bytes more than the layout needs).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+// acc[h][e] = the int8 dot over the depth of segment row frag_row(e) (corpus
+// row row0 + frag_row(e)) against query q0 + 64h + frag_col(e). Rows row0 ..
+// row0+127 must exist; queries >= Q read as zeros. qcodes is int8 [Q, D], D
+// a multiple of 128. Every thread of the block must call it (it
+// synchronises); ring is the shared address of T::kBytes, 1024-aligned.
+template <class T, class Rows>
+__device__ __forceinline__ void mma_segment(const Rows& rows,
+                                            const int8_t* __restrict__ qcodes, int q0,
+                                            int Q, long long row0, int D, uint32_t ring,
+                                            int (&acc)[T::kH][32]) {
+  constexpr int TQ = T::TQ, S = T::S, kStage = T::kStage, kH = T::kH;
+  const int tid = threadIdx.x;
+  const int nk = D / kDK;
+  const uint32_t a_off = (uint32_t)(tid >> 7) * 64 * kDK;  // this warpgroup's rows
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int q = q0 + warp * 4 + j;
-    if (q >= Q) continue;
-    const float m = mult[q * mstride], qo = qoff[q];
+  for (int h = 0; h < kH; ++h) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long row = row0 + lane + 32 * i;
-      if (row < n_valid)
-        out[(long long)q * n_valid + row] = epilogue<kOnce>(m, acc[j][i], qo, voff, row);
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0;
+    fence_acc(acc[h]);
+  }
+
+  // The queries' chunk d0 into the B tile at b: TQ rows x 8 pieces.
+  auto fetch_queries = [&](uint32_t b, int d0) {
+#pragma unroll
+    for (int t = 0; t < TQ * (kDK / 16) / kThreads; ++t) {
+      const int idx = tid + t * kThreads, r = idx >> 3, c = idx & 7, q = q0 + r;
+      cp_async16(b + swz(r, c), qcodes + (long long)min(q, Q - 1) * D + d0 + c * 16,
+                 q < Q ? 16 : 0);
     }
+  };
+
+  __syncthreads();  // the ring's previous readers (scan or epilogue) are done
+  typename Rows::Pending p;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) {
+      const uint32_t st = ring + s * kStage;
+      rows.prefetch(p, row0, s * kDK);
+      rows.issue(st, row0, s * kDK);
+      fetch_queries(st + kSeg * kDK, s * kDK);
+      rows.put(st, p);
+    }
+    cp_async_commit();
+  }
+  if (S - 1 < nk) rows.prefetch(p, row0, (S - 1) * kDK);
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<S - 2>();  // this thread's copies of chunk c landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's, and chunk c-1's products are done
+    const int nc = c + S - 1;
+    const uint32_t nst = ring + (nc % S) * kStage;
+    if (nc < nk) {
+      rows.issue(nst, row0, nc * kDK);
+      fetch_queries(nst + kSeg * kDK, nc * kDK);
+    }
+    cp_async_commit();
+    const uint32_t st = ring + (c % S) * kStage;
+    const uint64_t da = wgmma_desc(st + a_off), db = wgmma_desc(st + kSeg * kDK);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kDK / 32; ++k)
+#pragma unroll
+      for (int h = 0; h < kH; ++h)
+        wgmma_m64n64k32(acc[h], da + 2 * k, db + (uint64_t)(h * 64 * kDK >> 4) + 2 * k);
+    wgmma_commit();
+    if (nc < nk) rows.put(nst, p);  // while the products run
+    if (nc + 1 < nk) rows.prefetch(p, row0, (nc + 1) * kDK);
+    wgmma_wait_all();
+  }
+#pragma unroll
+  for (int h = 0; h < kH; ++h) fence_acc(acc[h]);
+}
+
+// Loads mult and qoff of the block's queries (clamped to Q - 1) into shared
+// memory; read after mma_segment's first barrier.
+template <int TQ, class P>
+__device__ __forceinline__ void load_qparams(P* qm, P* qo, const float* __restrict__ mult,
+                                             const float* __restrict__ qoff, int q0, int Q,
+                                             int mstride) {
+  for (int i = threadIdx.x; i < TQ; i += kThreads) {
+    const int q = min(q0 + i, Q - 1);
+    qm[i] = mult[q * mstride];
+    qo[i] = qoff[q];
   }
 }
 
 // ----------------------------------------------------------- exact search
-// grid (nsplit = ceil(ncomp / split), ceil(Q / 32)). Block (s, t) scores
-// compact rows [s*split, s*split + split) of its 32 queries into shared
-// memory as ordered keys, then each warp selects the exact top-kk of its 4
+// grid nsplit * ceil(Q / 64), nsplit = ceil(ncomp / split), the query tiles
+// of a split neighbours in launch order. Block (s, t) scores
+// compact rows [s*split, s*split + split) of its 64 queries into shared
+// memory as ordered keys, then each warp selects the exact top-kk of its 8
 // queries among the split's valid rows (compact rows < n_valid) by a 4-pass
 // radix select, and writes them, unordered, with their corpus rows, to
 // cand_v / cand_i [Q, nsplit*kk] at columns s*kk .. s*kk+kk-1. Slots beyond
 // the split's valid rows hold NEG / -1. A split lies in one selected tile
 // (split divides tile_n), so its corpus rows are consecutive.
 template <class Rows, bool kOnce>
-__global__ void __launch_bounds__(kThreads, 2) search_exact_kernel(
+__global__ void __launch_bounds__(kThreads, ExactTile::kBlocks) search_exact_kernel(
     const typename Rows::Elem* __restrict__ base, long long stride,
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const float* __restrict__ voff,
     float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int ncomp, int n_valid,
     int D, int split, int kk, int mstride, ScanMap map) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* cs = smem;
-  int8_t* qs = smem + kSeg * kDKP;
-  unsigned* keys = reinterpret_cast<unsigned*>(smem + kStageBytes);  // [32][split]
-  unsigned* hist_all = keys + kTQ * split;                           // [8][256]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.y * kTQ;
-  const long long start = (long long)blockIdx.x * split;
+  using T = ExactTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  using P = typename QParam<kOnce>::T;
+  P* qm = reinterpret_cast<P*>(smem + T::kBytes);
+  P* qo = qm + TQ;
+  const int ks = split + kKeyPad;                               // key row stride
+  unsigned* keys = reinterpret_cast<unsigned*>(qo + TQ);        // [TQ][ks]
+  unsigned* hist_all = keys + TQ * ks;                          // [8][256]
+  const int warp = threadIdx.x >> 5;
+  const int nqt = (Q + TQ - 1) / TQ, nsplit = (ncomp + split - 1) / split;
+  const int split_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)split_id * split;
   const long long row0 = map.row(start);
+  load_qparams<TQ>(qm, qo, mult, qoff, q0, Q, mstride);
 
   for (int off = 0; off < split && start + off < ncomp; off += kSeg) {
-    int acc[4][4];
-    segment_scan<Rows, DotOp>(Rows{base, stride}, qcodes, q0, Q, row0 + off, D, cs, qs, acc);
+    int acc[1][32];
+    mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, row0 + off, D, smem_addr(smem), acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = min(q0 + warp * 4 + j, Q - 1);  // rows >= Q are never read
-      const float m = mult[q * mstride], qo = qoff[q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = off + lane + 32 * i;
-        keys[(warp * 4 + j) * split + e] = float_to_key(
-            map.add_corr(epilogue<kOnce>(m, acc[j][i], qo, voff, row0 + e), q, start + e));
-      }
+    for (int e = 0; e < 32; ++e) {
+      const int j = frag_col(e), r = off + frag_row(e);
+      keys[j * ks + r] = float_to_key(map.add_corr(
+          epilogue_q<kOnce>(qm[j], acc[0][e], qo[j], voff, row0 + r), min(q0 + j, Q - 1),
+          start + r));
     }
   }
-  // Each warp wrote every key of its own 4 queries: no block barrier needed.
-  __syncwarp();
+  __syncthreads();  // the keys of a query come from every warp
 
   const long long valid = (long long)n_valid - start;
   const int cnt = (int)(valid < 0 ? 0 : (valid < split ? valid : split));
-  const long long width = (long long)gridDim.x * kk;
-  for (int j = 0; j < 4; ++j) {
-    const int q = q0 + warp * 4 + j;
+  const long long width = (long long)nsplit * kk;
+  for (int j = warp; j < TQ; j += kThreads / 32) {
+    const int q = q0 + j;
     if (q >= Q) break;
-    const long long o = (long long)q * width + (long long)blockIdx.x * kk;
-    warp_select_topk(keys + (warp * 4 + j) * split, cnt, kk, row0, cand_v + o,
-                     cand_i + o, hist_all + warp * 256);
+    const long long o = (long long)q * width + (long long)split_id * kk;
+    warp_select_topk(keys + j * ks, cnt, kk, row0, cand_v + o, cand_i + o,
+                     hist_all + warp * 256);
   }
 }
 
 // ---------------------------------------------------------- approx search
-// Pass 1, grid (ceil(ncomp / part), ceil(Q / 32)): block p keeps, for each
-// of its queries and each stride class l (compact rows p*part + m*128 + l),
+// Pass 1, grid ceil(ncomp / part) * ceil(Q / 64), the query tiles of a part
+// neighbours in launch order: block p keeps, for each of its queries and
+// each stride class l (compact rows p*part + m*128 + l),
 // the running maximum and its corpus row — strict ">" in compact order, so
 // the first row wins ties, as the Pallas kernels' compares do. Compact rows
-// >= n_valid score NEG. A 128-row segment lies in one selected tile.
+// >= n_valid score NEG. A 128-row segment lies in one selected tile; part
+// is a multiple of 128 below 255 * 128, so a segment number m fits a byte.
 // part_v / part_i: [Q, nparts*128]. Pass 2 is ktile.cuh's in-order combine
 // per span block.
 template <class Rows, bool kOnce>
-__global__ void __launch_bounds__(kThreads, 2) approx_parts_kernel(
+__global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_kernel(
     const typename Rows::Elem* __restrict__ base, long long stride,
     const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
     const float* __restrict__ mult, const float* __restrict__ voff,
     float* __restrict__ part_v, int* __restrict__ part_i, int Q, int ncomp, int n_valid,
     int D, int part, int mstride, ScanMap map) {
-  __shared__ __align__(16) int8_t stage[kStageBytes];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.y * kTQ;
-  const long long start = (long long)blockIdx.x * part;
-  float best[4][4];
-  int arg[4][4];
+  using T = ApproxTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  using P = typename QParam<kOnce>::T;
+  P* qm = reinterpret_cast<P*>(smem + T::kBytes);
+  P* qo = qm + TQ;
+  const int nqt = (Q + TQ - 1) / TQ, nparts = (ncomp + part - 1) / part;
+  const int part_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)part_id * part;
+  load_qparams<TQ>(qm, qo, mult, qoff, q0, Q, mstride);
+  float best[32];
+  unsigned seg[8];  // byte e % 4 of seg[e / 4]: the segment of best[e]; 0xff: none
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int e = 0; e < 32; ++e) best[e] = -__int_as_float(0x7f800000);  // -inf
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      best[j][i] = -__int_as_float(0x7f800000);  // -inf: any score beats it
-      arg[j][i] = -1;
-    }
-  for (int off = 0; off < part && start + off < ncomp; off += kSeg) {
-    int acc[4][4];
+  for (int i = 0; i < 8; ++i) seg[i] = 0xffffffffu;
+  int m = 0;
+  for (int off = 0; off < part && start + off < ncomp; off += kSeg, ++m) {
+    int acc[1][32];
     const long long seg0 = map.row(start + off);
-    segment_scan<Rows, DotOp>(Rows{base, stride}, qcodes, q0, Q, seg0, D, stage,
-                              stage + kSeg * kDKP, acc);
+    mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, seg0, D, smem_addr(smem), acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = min(q0 + warp * 4 + j, Q - 1);
-      const float m = mult[q * mstride], qo = qoff[q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long c = start + off + lane + 32 * i, row = seg0 + lane + 32 * i;
-        const float s =
-            c < n_valid ? map.add_corr(epilogue<kOnce>(m, acc[j][i], qo, voff, row), q, c)
-                        : kNeg;
-        if (s > best[j][i]) {
-          best[j][i] = s;
-          arg[j][i] = (int)row;
-        }
+    for (int e = 0; e < 32; ++e) {
+      const int j = frag_col(e), r = frag_row(e);
+      const long long c = start + off + r;
+      const float sc =
+          c < n_valid ? map.add_corr(epilogue_q<kOnce>(qm[j], acc[0][e], qo[j], voff, seg0 + r),
+                                     min(q0 + j, Q - 1), c)
+                      : kNeg;
+      if (sc > best[e]) {
+        best[e] = sc;
+        const int sh = 8 * (e & 3);
+        seg[e >> 2] = (seg[e >> 2] & ~(0xffu << sh)) | ((unsigned)m << sh);
       }
     }
   }
-  const long long width = (long long)gridDim.x * kSlot;
+  const long long width = (long long)nparts * kSlot;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int q = q0 + warp * 4 + j;
+  for (int e = 0; e < 32; ++e) {
+    const int q = q0 + frag_col(e), l = frag_row(e);
     if (q >= Q) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long c = (long long)q * width + (long long)blockIdx.x * kSlot + lane + 32 * i;
-      part_v[c] = best[j][i];
-      part_i[c] = arg[j][i];
-    }
+    const unsigned sm = (seg[e >> 2] >> (8 * (e & 3))) & 0xffu;
+    const long long c = (long long)q * width + (long long)part_id * kSlot + l;
+    part_v[c] = best[e];
+    part_i[c] = sm == 0xffu ? -1 : (int)map.row(start + (long long)sm * kSeg + l);
   }
 }
 
 // --------------------------------------------------------- host launches
-// Both launch on `s` without synchronising and return cudaGetLastError().
+// Each launches on `s` without synchronising and returns cudaGetLastError().
 
 template <class Rows, bool kOnce>
 cudaError_t launch_search_exact(const void* base, long long stride, const void* qcodes,
@@ -328,12 +541,18 @@ cudaError_t launch_search_exact(const void* base, long long stride, const void* 
                                 void* cand_i, int Q, int ncomp, int n_valid, int D,
                                 int split, int kk, int mstride, ScanMap map,
                                 cudaStream_t s) {
-  const size_t smem = kStageBytes + sizeof(unsigned) * ((size_t)kTQ * split + 8 * 256);
+  if (split % kSeg) return cudaErrorInvalidValue;
+  const size_t smem = kAlign + ExactTile::kBytes +
+                      sizeof(typename QParam<kOnce>::T) * 2 * ExactTile::TQ +
+                      sizeof(unsigned) * ((size_t)ExactTile::TQ * (split + kKeyPad) + 8 * 256);
   cudaError_t err = cudaFuncSetAttribute(search_exact_kernel<Rows, kOnce>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((ncomp + split - 1) / split, (Q + kTQ - 1) / kTQ);
+  // The query tiles of one split are neighbours in launch order, so they
+  // run together and read its rows once from device memory.
+  const unsigned grid =
+      (unsigned)((ncomp + split - 1) / split) * ((Q + ExactTile::TQ - 1) / ExactTile::TQ);
   search_exact_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
       static_cast<const typename Rows::Elem*>(base), stride,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
@@ -350,15 +569,22 @@ cudaError_t launch_search_approx(const void* base, long long stride, const void*
                                  void* part_i, void* out_v, void* out_i, int Q, int ncomp,
                                  int n_valid, int D, int part, int span_rows, int mstride,
                                  ScanMap map, cudaStream_t s) {
+  if (part % kSeg || part / kSeg > 255) return cudaErrorInvalidValue;
+  const size_t smem =
+      kAlign + ApproxTile::kBytes + sizeof(typename QParam<kOnce>::T) * 2 * ApproxTile::TQ;
+  cudaError_t err = cudaFuncSetAttribute(approx_parts_kernel<Rows, kOnce>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
   const int nparts = (ncomp + part - 1) / part;
-  const dim3 grid(nparts, (Q + kTQ - 1) / kTQ);
-  approx_parts_kernel<Rows, kOnce><<<grid, kThreads, 0, s>>>(
+  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
+  approx_parts_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
       static_cast<const typename Rows::Elem*>(base), stride,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const float*>(voff),
       static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
       mstride, map);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_approx_combine(static_cast<const float*>(part_v),
                                static_cast<const int*>(part_i), static_cast<float*>(out_v),

@@ -31,27 +31,23 @@
 //
 // What bounds them on the H100: the main path's corpus is 100,000 x 1024
 // int8 codes, 100 MB, and every search streams it from HBM at most 3.35 TB/s,
-// so about 30 us per pass is the floor. The int8 work is 256 x 100,000 x 1024
-// multiply-adds (26 G) per 256-query batch; on CUDA cores with __dp4a (4 MACs
-// per instruction) that is some 0.5 ms at the card's integer issue rate, well
-// above the HBM floor, so these first kernels are bound by instruction issue,
-// not by memory. Their design does three things about it:
-//   * a 32-query tile per block reuses every 128-byte corpus chunk it loads
-//     32 times from shared memory, so the corpus is read from device memory
-//     ceil(Q/32) times (8 passes at Q=256, most of it from L2);
-//   * each thread holds a 4-query x 4-row register tile and reads operands as
-//     16-byte vectors from shared memory, padded to 144-byte rows so the
-//     vector reads of a warp are free of bank conflicts: 16 __dp4a per 2
-//     shared-memory loads;
+// so about 30 us per pass is the floor; the int8 work, 256 x 100,000 x 1024
+// multiply-adds per 256-query batch, takes 26 us at the tensor cores' 1,979
+// TOPS, and K3 writes a 102 MB score matrix (31 us). So K1-K3 and K9 are
+// bound by bytes. K1-K3 and K9 run on the tensor-core body of dot_scan.cuh
+// (wgmma m64n64k32, 128 corpus rows x 64 or 128 queries a block; its header
+// gives the tiles, the registers and the measured times):
+//   * K3 takes 128 queries a block, so the corpus is read twice at Q = 256,
+//     the two tiles of a segment together; the int32 tile is staged through
+//     shared memory and each output row leaves as coalesced stores, with the
+//     epilogue applied on the way out;
 //   * the fused searches never write the [Q, N] score matrix: K1 selects the
 //     exact top-k of each 512-row split inside the block (radix select in
 //     shared memory, ktile.cuh), K2 keeps one running maximum per stride
 //     class in registers, and only candidates reach device memory.
-// K12 is K3's structure with a byte-SIMD absolute difference per four-byte
-// step (dot_scan.cuh AbsDiffDotOp, __vabsdiffu4 + __dp4a): the same bytes,
-// so the same 0.06 ms HBM bound at 100k x 1024; it measured within 5 % of
-// K3's time on the H100, where a __vsadu4 step ran about 20 % above it.
-// The tensor cores (wgmma int8, ~2 POPS) and TMA pipelining are later work.
+// K12 has no tensor-core form and keeps a __dp4a body of its own (below),
+// bound by instruction issue: the same bytes as K3, 0.06 ms at 100k x 1024,
+// and about 0.6 ms of __dp4a issue.
 //
 // The C functions below are the SQ entry points. qtt_error_string, shared
 // by every kernel source of the library, is defined here too.
@@ -59,20 +55,163 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "dot_scan.cuh"
 
 namespace {
 
-template <class Op>
-cudaError_t launch_scores(const void* qcodes, const void* qoff, const void* mult,
-                          const void* codes, const void* voff, void* out, int Q,
-                          int n_valid, int D, int mstride, cudaStream_t s) {
-  const dim3 grid((n_valid + kSeg - 1) / kSeg, (Q + kTQ - 1) / kTQ);
-  constexpr bool kOnce = !std::is_same<Op, DotOp>::value;  // L1 rounds once (F24)
-  scores_kernel<CodeRows, Op, kOnce><<<grid, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(codes), D, static_cast<const int8_t*>(qcodes),
+// ------------------------------------------------------------ score matrix
+// grid ceil(n_valid / 128) * ceil(Q / 128), the query tiles of a segment
+// neighbours; out f32 [Q, n_valid].
+__global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
+    const int8_t* __restrict__ codes, const int8_t* __restrict__ qcodes,
+    const float* __restrict__ qoff, const float* __restrict__ mult,
+    const float* __restrict__ voff, float* __restrict__ out, int Q, int n_valid, int D,
+    int mstride) {
+  using T = ScoresTile;
+  constexpr int TQ = T::TQ, kTS = kSeg + 4;  // int tile [TQ][kTS]
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int nqt = (Q + TQ - 1) / TQ;
+  const int q0 = (blockIdx.x % nqt) * TQ;
+  const long long row0 = (long long)(blockIdx.x / nqt) * kSeg;
+  int acc[T::kH][32];
+  mma_segment<T>(CodeRows{codes, D}, qcodes, q0, Q, row0, D, smem_addr(smem), acc);
+  __syncthreads();  // every warpgroup's products are done: the ring is free
+  int* tile = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int h = 0; h < T::kH; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tile[(64 * h + frag_col(e)) * kTS + frag_row(e)] = acc[h][e];
+  __syncthreads();
+  // Warp w writes query rows w, w + 8, ...: lane l the rows 4l .. 4l+3.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = row0 + 4 * lane;
+  const bool vec = (n_valid & 3) == 0 && r + 3 < n_valid;
+  for (int i = warp; i < TQ; i += kThreads / 32) {
+    const int q = q0 + i;
+    if (q >= Q) break;
+    const float m = mult[q * mstride], qo = qoff[q];
+    const int4 a = *reinterpret_cast<const int4*>(tile + i * kTS + 4 * lane);
+    float* o = out + (long long)q * n_valid + r;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = make_float4(
+          epilogue<false>(m, a.x, qo, voff, r), epilogue<false>(m, a.y, qo, voff, r + 1),
+          epilogue<false>(m, a.z, qo, voff, r + 2), epilogue<false>(m, a.w, qo, voff, r + 3));
+    } else {
+      const int v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (r + j < n_valid) o[j] = epilogue<false>(m, v[j], qo, voff, r + j);
+    }
+  }
+}
+
+inline cudaError_t launch_scores(const void* qcodes, const void* qoff, const void* mult,
+                                 const void* codes, const void* voff, void* out, int Q,
+                                 int n_valid, int D, int mstride, cudaStream_t s) {
+  const size_t smem = kAlign + ScoresTile::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(scores_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid =
+      (unsigned)((n_valid + kSeg - 1) / kSeg) * ((Q + ScoresTile::TQ - 1) / ScoresTile::TQ);
+  scores_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const int8_t*>(codes), static_cast<const int8_t*>(qcodes),
+      static_cast<const float*>(qoff), static_cast<const float*>(mult),
+      static_cast<const float*>(voff), static_cast<float*>(out), Q, n_valid, D, mstride);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ K12 (L1)
+// The __dp4a body: a block scores one 128-row segment against 32 queries,
+// both staged 128 bytes of depth at a time into rows padded to 144 bytes
+// (a warp's 16-byte reads free of bank conflicts); each thread holds a
+// 4-query x 4-row register tile. Each four-byte step is __vabsdiffu4 then a
+// __dp4a against 0x01010101 (exact as unsigned for bytes in [0, 127]). A
+// __vsadu4 step was timed beside it and dropped: on an NVIDIA H100 80GB HBM3
+// at 700 W it ran 0.71 ms against this step's 0.60-0.62 ms at 100k x 1024,
+// Q = 256 (chip_smoke.py; PERF.md). grid (ceil(n_valid / 128), ceil(Q / 32)).
+constexpr int kL1TQ = 32;
+constexpr int kL1DKP = kDK + 16;
+constexpr int kL1StageBytes = (kSeg + kL1TQ) * kL1DKP;
+
+__device__ __forceinline__ int absdiff_dot(int a, int b, int c) {
+  return (int)__dp4a(__vabsdiffu4((unsigned)a, (unsigned)b), 0x01010101u, (unsigned)c);
+}
+
+__global__ void __launch_bounds__(kThreads) l1_scores_kernel(
+    const int8_t* __restrict__ codes, const int8_t* __restrict__ qcodes,
+    const float* __restrict__ qoff, const float* __restrict__ mult,
+    const float* __restrict__ voff, float* __restrict__ out, int Q, int n_valid, int D,
+    int mstride) {
+  __shared__ __align__(16) int8_t stage[kL1StageBytes];
+  int8_t* cs = stage;
+  int8_t* qs = stage + kSeg * kL1DKP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.y * kL1TQ;
+  const long long row0 = (long long)blockIdx.x * kSeg;
+  int acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+  for (int d0 = 0; d0 < D; d0 += kDK) {
+    __syncthreads();  // the previous chunk's readers are done
+#pragma unroll
+    for (int t = 0; t < kSeg * (kDK / 16) / kThreads; ++t) {
+      const int idx = tid + t * kThreads, r = idx >> 3, c = idx & 7;
+      *reinterpret_cast<int4*>(cs + r * kL1DKP + c * 16) =
+          __ldg(reinterpret_cast<const int4*>(codes + (row0 + r) * D + d0 + c * 16));
+    }
+    {
+      const int r = tid >> 3, c = tid & 7, q = q0 + r;  // 32 rows x 8 vectors
+      int4 v = make_int4(0, 0, 0, 0);
+      if (q < Q)
+        v = *reinterpret_cast<const int4*>(qcodes + (long long)q * D + d0 + c * 16);
+      *reinterpret_cast<int4*>(qs + r * kL1DKP + c * 16) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k16 = 0; k16 < kDK / 16; ++k16) {
+      int4 a[4], b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a[j] = *reinterpret_cast<const int4*>(qs + (warp * 4 + j) * kL1DKP + k16 * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        b[i] = *reinterpret_cast<const int4*>(cs + (lane + 32 * i) * kL1DKP + k16 * 16);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int c = acc[j][i];
+          c = absdiff_dot(a[j].x, b[i].x, c);
+          c = absdiff_dot(a[j].y, b[i].y, c);
+          c = absdiff_dot(a[j].z, b[i].z, c);
+          acc[j][i] = absdiff_dot(a[j].w, b[i].w, c);
+        }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int q = q0 + warp * 4 + j;
+    if (q >= Q) continue;
+    const float m = mult[q * mstride], qo = qoff[q];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long row = row0 + lane + 32 * i;
+      if (row < n_valid)
+        out[(long long)q * n_valid + row] = epilogue<true>(m, acc[j][i], qo, voff, row);
+    }
+  }
+}
+
+inline cudaError_t launch_l1_scores(const void* qcodes, const void* qoff, const void* mult,
+                                    const void* codes, const void* voff, void* out, int Q,
+                                    int n_valid, int D, int mstride, cudaStream_t s) {
+  const dim3 grid((n_valid + kSeg - 1) / kSeg, (Q + kL1TQ - 1) / kL1TQ);
+  l1_scores_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const int8_t*>(codes), static_cast<const int8_t*>(qcodes),
       static_cast<const float*>(qoff), static_cast<const float*>(mult),
       static_cast<const float*>(voff), static_cast<float*>(out), Q, n_valid, D, mstride);
   return cudaGetLastError();
@@ -98,17 +237,15 @@ const char* qtt_error_string(int err) {
 int qtt_sq_scores(const void* qcodes, const void* qoff, const void* mult,
                   const void* codes, const void* voff, void* out, int Q,
                   int n_valid, int D, int mstride, void* stream) {
-  return static_cast<int>(launch_scores<DotOp>(qcodes, qoff, mult, codes, voff, out, Q,
-                                               n_valid, D, mstride,
-                                               static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_scores(qcodes, qoff, mult, codes, voff, out, Q, n_valid, D,
+                                        mstride, static_cast<cudaStream_t>(stream)));
 }
 
 int qtt_sq_scores_l1(const void* qcodes, const void* qoff, const void* mult,
                      const void* codes, const void* voff, void* out, int Q,
                      int n_valid, int D, int mstride, void* stream) {
-  return static_cast<int>(launch_scores<AbsDiffDotOp>(qcodes, qoff, mult, codes, voff, out,
-                                                      Q, n_valid, D, mstride,
-                                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_l1_scores(qcodes, qoff, mult, codes, voff, out, Q, n_valid,
+                                           D, mstride, static_cast<cudaStream_t>(stream)));
 }
 
 int qtt_sq_search_exact(const void* qcodes, const void* qoff, const void* mult,

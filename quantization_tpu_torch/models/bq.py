@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from ..core.interface import (
     DataLike,
     EncodedVectors,
     as_ids,
+    check_recall_target,
     iter_batches,
     validate_vector_parameters,
 )
@@ -186,11 +188,13 @@ class BinaryQuantizer(EncodedVectors):
             equery.planes, self.planes, n_valid=self.count, **self._kw()
         )
 
-    def top_k_device(self, equery: EncodedQueryBin, k: int, method: str = "exact"):
+    def top_k_device(self, equery: EncodedQueryBin, k: int, method: str = "exact",
+                     recall_target: Optional[float] = None):
         """Fused search (K5c exact, K5a approx — the coarse stage of
         two-stage retrieval scans the whole corpus, so the [Q, N] score
         matrix is never built). Beyond the fused caps: score then select,
         blocked over the corpus at large N so peak memory is [Q, block]."""
+        check_recall_target(recall_target)
         cap = FUSED_K_MAX if method == "exact" else APPROX_K_MAX
         if self.count and k <= cap:
             return bq_kernel.bq_search(

@@ -40,8 +40,9 @@ where one exists (K3 for SQ DOT / L2, K12 for SQ L1, K6 for BQ), plain
 torch for the residual-BQ affine scores and the f32-LUT PQ scores (which
 have no score kernel in either package), a torch add for the additives and
 ``torch.topk``: that branch is the JAX package's unfused search, not a
-fallback of a fused kernel. ``recall_target`` is not ported: the port's
-approx merges are exact (ROADMAP Queue 3, F9).
+fallback of a fused kernel. ``recall_target`` is accepted, checked and
+ignored: the port's approx merges are exact, so its recall is never lower
+(ROADMAP Queue 3, F9; ``core.interface.check_recall_target``).
 
 Plugs into ``TwoStageIndex`` as a coarse stage (``encode_query`` /
 ``top_k_device`` / ``count``). Entry points place data on the CUDA card
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 from ..core.distances import pairwise_score
+from ..core.interface import check_recall_target
 from ..core.types import (
     ArgumentsError,
     DistanceType,
@@ -763,7 +765,8 @@ class IVFIndex:
         return (eq_inner.lut,), None
 
     def top_k_device(self, equery, k: int, method: str = "exact", nprobe: Optional[int] = None,
-                     nscan: Optional[int] = None, scan: str = "auto"):
+                     nscan: Optional[int] = None, scan: str = "auto",
+                     recall_target: Optional[float] = None):
         """Probe + probed-bucket scan + select, on the device.
 
         ``nprobe``: per-query probe votes; ``nscan``: batch-shared scanned
@@ -772,7 +775,9 @@ class IVFIndex:
         or "approx" (stride-class candidates). ``scan``: "indexed" reads the
         selected buckets in place (SQ, and BQ / PQ approx, with a bucket
         size the family's tile divides), "compact" gathers them first,
-        "auto" prefers indexed where it is available."""
+        "auto" prefers indexed where it is available. ``recall_target``:
+        checked and ignored (``check_recall_target``)."""
+        check_recall_target(recall_target)
         if method not in ("exact", "approx"):
             raise ArgumentsError(f"unknown search method {method!r}")
         if scan not in ("auto", "indexed", "compact"):
@@ -827,9 +832,10 @@ class IVFIndex:
         )
 
     def top_k(self, equery, k: int, method: str = "exact", nprobe: Optional[int] = None,
-              nscan: Optional[int] = None, scan: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+              nscan: Optional[int] = None, scan: str = "auto",
+              recall_target: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
         sv, ids = self.top_k_device(equery, k, method=method, nprobe=nprobe, nscan=nscan,
-                                    scan=scan)
+                                    scan=scan, recall_target=recall_target)
         return sv.cpu().numpy(), ids.cpu().numpy()
 
     # ----------------------------------------------------------- storage

@@ -9,19 +9,20 @@ device; only the final (scores, indices) land on the host.
 
 Padding ids (-1) from a coarse stage score -inf in every port rescorer;
 the JAX package's rescorers read some row for them (ROADMAP F4), and both
-packages mask them in ``_mask_select``. ``recall_target`` is not ported: the
-port's approx merges are exact (ROADMAP F9).
+packages mask them in ``_mask_select``. ``recall_target`` is checked and
+ignored: the port's approx merges are exact, so its recall is never lower
+(ROADMAP F9).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.distances import pairwise_score, score
-from ..core.interface import EncodedVectors, as_ids
+from ..core.interface import EncodedVectors, as_ids, check_recall_target
 from ..core.types import ArgumentsError
 from ..ops.dispatch import resolve_device, upload
 
@@ -115,9 +116,12 @@ class TwoStageIndex:
             self.fine.encode_query(queries),
         )
 
-    def top_k_device(self, equery, k: int, method: str = None):
+    def top_k_device(self, equery, k: int, method: str = None,
+                     recall_target: Optional[float] = None):
         """Both stages stay on the device; no host sync between coarse and
-        fine. ``method`` overrides the constructor's coarse_method."""
+        fine. ``method`` overrides the constructor's coarse_method;
+        ``recall_target``: checked and ignored (``check_recall_target``)."""
+        check_recall_target(recall_target)
         eq_coarse, eq_fine = equery
         r = int(np.ceil(k * self.oversampling))
         r = min(r, self.coarse.count if self.coarse.count else r)
@@ -128,7 +132,7 @@ class TwoStageIndex:
         return _mask_select(cand, fine_scores, min(k, r))
 
     def top_k(
-        self, equery, k: int, method: str = None
+        self, equery, k: int, method: str = None, recall_target: Optional[float] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
-        s, idx = self.top_k_device(equery, k, method=method)
+        s, idx = self.top_k_device(equery, k, method=method, recall_target=recall_target)
         return s.cpu().numpy(), idx.cpu().numpy()

@@ -43,6 +43,7 @@ from ..core.interface import (
     DataLike,
     EncodedVectors,
     as_ids,
+    check_recall_target,
     iter_batches,
     validate_vector_parameters,
 )
@@ -334,13 +335,15 @@ class ProductQuantizer(EncodedVectors):
         return pq_kernel.pq_scores(equery.lut, self.codes_t, n_valid=self.count,
                                    precision=pq_kernel.lut_precision())
 
-    def top_k_device(self, equery: EncodedQueryPQ, k: int, method: str = "exact"):
+    def top_k_device(self, equery: EncodedQueryPQ, k: int, method: str = "exact",
+                     recall_target: Optional[float] = None):
         """Fused search (K7b exact, K7a approx): no [Q, N] score matrix.
         ``method="exact"`` is exact selection over the LUT scores of
         ``lut_precision()`` (int8 by default, one quantization step from the
         f32 LUT; ``QTPU_PQ_LUT=bf16`` for near-f32 scores), read at each call.
         Beyond the fused caps: the f32 LUT, blocked over the corpus at large N
         so peak memory is [Q, block], else score then select."""
+        check_recall_target(recall_target)
         cap = FUSED_K_MAX if method == "exact" else APPROX_K_MAX
         if self.count and k <= cap:
             return pq_kernel.pq_search(equery.lut, self.codes_t, n_valid=self.count, k=k,

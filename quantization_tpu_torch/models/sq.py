@@ -39,6 +39,7 @@ from ..core.interface import (
     DataLike,
     EncodedVectors,
     as_ids,
+    check_recall_target,
     iter_batches,
     validate_vector_parameters,
 )
@@ -271,11 +272,13 @@ class ScalarQuantizerU8(EncodedVectors):
     def score_batch(self, equery: EncodedQueryU8) -> torch.Tensor:
         return self._scores(equery, 0, self.count)
 
-    def top_k_device(self, equery: EncodedQueryU8, k: int, method: str = "exact"):
+    def top_k_device(self, equery: EncodedQueryU8, k: int, method: str = "exact",
+                     recall_target: Optional[float] = None):
         """Fused search for DOT/L2 (K1 exact, K2 approx): the [Q, N] score
         matrix is never materialized. L1 and k beyond the fused caps score
         (K3 / K12) then select, blocked over the corpus at large N so peak
         memory is [Q, block] + codes, never [Q, N]."""
+        check_recall_target(recall_target)
         cap = FUSED_K_MAX if method == "exact" else APPROX_K_MAX
         if self._fused_ok() and k <= cap:
             return sq_kernel.sq_search(

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Times the port's int8 scan kernels on one CUDA card, for comparing two
+checkouts in turns on the same card.
+
+    python3 scan_ab.py                  # this checkout's quantization_tpu_torch
+    python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
+
+Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
+K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
+chip_smoke.py times it, on random operands made on the card from a fixed
+seed: K3, K1, K2 at 100,000 x 1024 (Q = 256 and Q = 32), K12 there too;
+K9a / K9b over 256 tiles of 1024 rows of a 1,179,648 x 768 corpus and K1 / K2
+with corr over the 262,144-row compact union; residual BQ at 768 dims — K5b
+and the value-query K5a over 262,144 rows with rowadd and corr, K10 over 256
+of 1,226 tiles of 1024 rows, and K10 over all 1,226 tiles at the serving
+plan's scan width. Times are CUDA-event medians of 7 runs of 10 calls, in ms
+per batch. Prints one JSON object: the card (nvidia-smi name and power
+limit), the package's directory and the times. Needs a CUDA card; the
+kernels are built from the checkout's sources on first use.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+SEED = 6
+Q, QS, K = 256, 32, 10
+N, D = 100_000, 1024  # the SQ main path (bench.py)
+IVF_D, TILE, IVF_TILES, UNION_TILES = 768, 1024, 1152, 256  # IVF-SQ at S = 1024
+RES_TILES = 1226  # residual IVF-BQ at auto_geometry, 1M x 768
+KK2 = 2 * K  # the IVF searches' candidate width
+SERVE_K = 1280  # the calibrated plan's scan width: kk2 for 640 rescored candidates
+
+
+def timed_ms(fn, warmup=3, iters=10, reps=7):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / iters)
+    return statistics.median(runs)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="directory holding the quantization_tpu_torch package to time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("scan_ab.py: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from quantization_tpu_torch.core.types import DistanceType
+    from quantization_tpu_torch.ops.kernels import bq_kernel, sq_kernel
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    dot = DistanceType.DOT
+
+    def sq_operands(n, d, q):
+        codes = torch.randint(0, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+        voff = torch.rand(n, generator=g, device=dev)
+        qcodes = torch.randint(0, 128, (q, d), generator=g, device=dev, dtype=torch.int8)
+        qoff = torch.rand(q, generator=g, device=dev)
+        return qcodes, qoff, codes, voff, torch.full((1,), 1e-3, device=dev)
+
+    ms = {}
+    npad = N + (-N) % sq_kernel.TILE_N
+    a = sq_operands(npad, D, Q)
+    small = (a[0][:QS].contiguous(), a[1][:QS].contiguous(), *a[2:])
+    for tag, ops in (("", a), (f"_q{QS}", small)):
+        ms["sq_scores" + tag] = timed_ms(
+            lambda: sq_kernel.sq_scores(*ops, distance_type=dot, n_valid=N))
+        for mode in ("exact", "approx"):
+            ms[f"sq_search_{mode}" + tag] = timed_ms(lambda: sq_kernel.sq_search(
+                *ops, distance_type=dot, n_valid=N, k=K, mode=mode))
+    ms["sq_scores_l1"] = timed_ms(
+        lambda: sq_kernel.sq_scores(*a, distance_type=DistanceType.L1, n_valid=N))
+    del a, small
+
+    # IVF-SQ: the indexed scans over 256 tiles, the compact ones with corr.
+    b = sq_operands(IVF_TILES * TILE, IVF_D, Q)
+    sel = torch.randperm(IVF_TILES, generator=g, device=dev)[:UNION_TILES].to(torch.int32)
+    for mode in ("exact", "approx"):
+        ms[f"sq_search_indexed_{mode}"] = timed_ms(lambda: sq_kernel.sq_search_indexed(
+            *b, sel, None, distance_type=dot, k=KK2, mode=mode, tile_n=TILE))
+    rows = UNION_TILES * TILE
+    comp = (b[0], b[1], b[2][:rows].contiguous(), b[3][:rows].contiguous(), b[4])
+    corr = torch.randn(Q, rows // 512, generator=g, device=dev)
+    for mode in ("exact", "approx"):
+        ms[f"sq_search_{mode}_ivf"] = timed_ms(lambda: sq_kernel.sq_search(
+            *comp, corr, distance_type=dot, n_valid=rows, k=KK2, mode=mode))
+    del b, comp
+
+    # Residual BQ: value queries against sign planes, rowadd and corr.
+    w8 = IVF_D // 32
+    planes = torch.randint(-2**31, 2**31 - 1, (w8, RES_TILES * TILE), generator=g, device=dev,
+                           dtype=torch.int32)
+    qs = torch.randint(-127, 128, (Q, IVF_D), generator=g, device=dev, dtype=torch.int8)
+    ab = torch.rand(Q, 1, generator=g, device=dev) * 0.02 + 1e-3
+    aff = (qs, 2.0 * ab, -ab * qs.float().sum(1, keepdim=True))
+    rowadd = torch.zeros(planes.shape[1], device=dev)
+    kw = dict(distance_type=dot, invert=False, dim=IVF_D, query_affine=aff)
+    cplanes, crow = planes[:, :rows].contiguous(), rowadd[:rows].contiguous()
+    for mode, name in (("exact", "bq_search_exact_res"), ("approx", "bq_search_approx_res")):
+        ms[name] = timed_ms(lambda: bq_kernel.bq_search(
+            None, cplanes, corr, n_valid=rows, k=KK2, mode=mode, rowadd=crow, **kw))
+    for name, ntiles, k in (("bq_search_indexed_res", UNION_TILES, KK2),
+                            ("bq_search_indexed_res_serve", RES_TILES, SERVE_K)):
+        tiles = torch.randperm(RES_TILES, generator=g, device=dev)[:ntiles].to(torch.int32)
+        tcorr = torch.randn(ntiles * TILE // 512, Q, generator=g, device=dev)
+        ms[name] = timed_ms(lambda: bq_kernel.bq_search_indexed(
+            None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
+    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -717,3 +717,111 @@ def test_pipelined_searcher_sync_is_a_barrier(dev):
     lazy = qt.PipelinedSearcher(enc, k=10, depth=1, materialize=False)
     s, i = lazy.search(batches[0])
     assert s.is_cuda and i.is_cuda
+
+
+# ------------------------------------------- the tensor-core scan body
+# The dot bodies run on wgmma tiles of 128 corpus rows x 64 (searches) or
+# 128 (K3) queries. Ragged n_valid (not a multiple of 128 or 512), query
+# counts on both sides of the tiles and depths of 1, 8 and 12 chunks.
+MMA_QS = [1, 7, 33, 64, 65, 256, 300]
+MMA_DS = [128, 1024, 1536]
+MMA_N = 4100
+
+
+@pytest.mark.parametrize("d", MMA_DS)
+@pytest.mark.parametrize("q", MMA_QS)
+def test_mma_k3_equal_plain(dev, q, d):
+    a = _operands(dev, MMA_N, d, q, seed=q * 7 + d)
+    got = sq_kernel.sq_scores(*a, distance_type=qt.DistanceType.DOT, n_valid=MMA_N)
+    want = sq_kernel.sq_scores_plain(*a, distance_type=qt.DistanceType.DOT, n_valid=MMA_N)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("d", MMA_DS)
+@pytest.mark.parametrize("q", MMA_QS)
+def test_mma_k1_k2_equal_plain(dev, q, d, mode):
+    a = _operands(dev, MMA_N, d, q, seed=q * 11 + d)
+    kw = dict(distance_type=qt.DistanceType.DOT, n_valid=MMA_N, k=10, mode=mode)
+    v, i = sq_kernel.sq_search(*a, **kw)
+    pv, pi = sq_kernel.sq_search_plain(*a, **kw)
+    scores = sq_kernel.sq_scores_plain(*a, distance_type=qt.DistanceType.DOT, n_valid=MMA_N)
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, MMA_N)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+
+
+def _first_rows_of_splits(i, k):
+    """Where every score ties, each 512-row split of the exact body yields
+    its first k rows (row order)."""
+    live = i >= 0
+    return bool(((i[live] % sq_kernel.EXACT_SPLIT) < k).all())
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("q", [1, 65, 300])
+def test_mma_constant_corpus_first_row_wins(dev, q, mode):
+    qcodes, qoff, codes, voff, mult = _operands(dev, MMA_N, 256, q, seed=q)
+    codes[:] = codes[0]
+    voff[:] = 0.5
+    kw = dict(distance_type=qt.DistanceType.DOT, n_valid=MMA_N, k=20, mode=mode)
+    v, i = sq_kernel.sq_search(qcodes, qoff, codes, voff, mult, **kw)
+    pv, pi = sq_kernel.sq_search_plain(qcodes, qoff, codes, voff, mult, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+    else:
+        assert _first_rows_of_splits(i, 20)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("dim", [128, 1000, 1536])
+@pytest.mark.parametrize("q", MMA_QS)
+def test_mma_value_query_with_corr_equal_plain(dev, q, dim, mode):
+    npad = MMA_N + (-MMA_N) % bq_kernel.TILE_N
+    planes, aff, g = _value_query(dev, npad, dim, q, True, seed=q + dim)
+    corr = torch.randn(q, npad // 512, generator=g, device=dev) * 3
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=MMA_N, k=20,
+              mode=mode, query_affine=aff, rowadd=_rowadd(dev, npad, g))
+    v, i = bq_kernel.bq_search(None, planes, corr, **kw)
+    pv, pi = bq_kernel.bq_search_plain(None, planes, corr, **kw)
+    scores = bq_kernel._plain_scores(None, planes, corr, aff, distance_type=DistanceType.DOT,
+                                     invert=False, dim=dim, rowadd=kw["rowadd"])[:, :MMA_N]
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, MMA_N)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+def test_mma_value_query_constant_planes_first_row_wins(dev, mode):
+    npad = MMA_N + (-MMA_N) % bq_kernel.TILE_N
+    planes, aff, g = _value_query(dev, npad, 768, 65, True, seed=5)
+    planes[:] = planes[:, :1]
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=768, n_valid=MMA_N, k=20,
+              mode=mode, query_affine=aff, rowadd=torch.zeros(npad, device=dev))
+    v, i = bq_kernel.bq_search(None, planes, None, **kw)
+    pv, pi = bq_kernel.bq_search_plain(None, planes, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+    else:
+        assert _first_rows_of_splits(i, 20)
+
+
+@pytest.mark.parametrize("q", [1, 65, 300])
+def test_mma_k10_value_indexed_equal_plain(dev, q):
+    npad, dim, tile_n = 16384, 1536, 1024
+    planes, aff, g = _value_query(dev, npad, dim, q, True, seed=q)
+    sel = torch.randperm(npad // tile_n, generator=g, device=dev)[:6].to(torch.int32)
+    corr = torch.randn(6 * tile_n // 512, q, generator=g, device=dev) * 3
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=40, tile_n=tile_n,
+              query_affine=aff, rowadd=_rowadd(dev, npad, g))
+    v, i = bq_kernel.bq_search_indexed(None, planes, sel, corr, **kw)
+    pv, pi = bq_kernel.bq_search_indexed_plain(None, planes, sel, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)

@@ -269,3 +269,14 @@ def test_serving_entry_points_need_a_device_without_cuda(monkeypatch, rng):
     ivf = qt.IVFIndex.encode(data, params, nlist=2, bucket_size=64, device="cpu")
     plan = qt.ServingPlan(nscan=4, oversampling=4.0)
     assert plan.build(ivf, data).fine.device == torch.device("cpu")
+
+
+def test_all_holds_every_name_of_the_jax_package():
+    """ROADMAP F26: a JAX caller's ``from quantization_tpu import X`` works
+    against the port for every public name (``auto_geometry`` was missing)."""
+    import quantization_tpu
+
+    missing = sorted(set(quantization_tpu.__all__) - set(quantization_tpu_torch.__all__))
+    assert not missing, missing
+    for name in quantization_tpu_torch.__all__:
+        assert hasattr(quantization_tpu_torch, name), name
