@@ -29,7 +29,10 @@ both corpora, since the clustered one ties far more.
      neighbourhood corpus, Q = 256, k = 10: 8-bit (96 subquantizers x 256
      centroids) and 4-bit (192 x 16) trained and encoded on the card, exact
      (K7b) and approx (K7a) top-10 and score_batch (K8), counted per bit
-     width; codes against the CPU encoder, save/load, then OPQ and an OPQ ->
+     width (with 4-bit codes and the int8 LUT, K8 and K7a take the one-hot
+     route on the tensor-core scan body, counted apart and also held
+     against plain with the residual additives); codes against the CPU
+     encoder, save/load, then OPQ and an OPQ ->
      f32 two-stage index (R = 40), whose recall@10 is held to the floor of
      the CPU rehearsal (``--rehearse``).
 
@@ -112,6 +115,12 @@ for _sfx in ("", "_4bit"):  # one kernel per name; the 4-bit rows time KC = 16
         "pq_search_approx" + _sfx: ("pq_kernels.cu",
                                     "quantization_tpu/ops/pallas/pq_kernel.py:791"),
     })
+# The 4-bit rows time the int8 LUT, which runs K8a and K7a on the one-hot
+# route (the int8 scan body of dot_scan.cuh); K7b stays on the gather body.
+KERNELS["pq_scores_4bit"] = ("pq4_mma_kernels.cu",
+                             "quantization_tpu/ops/pallas/pq_kernel.py:943")
+KERNELS["pq_search_approx_4bit"] = ("pq4_mma_kernels.cu",
+                                    "quantization_tpu/ops/pallas/pq_kernel.py:791")
 # K7a again, as the coarse stage of OPQ -> f32 two-stage (k = R).
 KERNELS["pq_search_approx_opq"] = KERNELS["pq_search_approx"]
 # Path 4 (IVF): the indexed scans, and the dense kernels again as the
@@ -143,6 +152,7 @@ Q_SMALL = 32
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989.4e12
 # __popc issue: 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0), times SMs and max clock:
 # the floor of the BQ kernels' own design, printed beside their bound. The
@@ -170,6 +180,11 @@ INT8_RECALL_SLACK = 0.02
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
 SMEM_WORDS_PER_CLOCK_PER_SM = 32
 LUT_ENTRY_BYTES = {"int8": 1, "bf16": 2, "bf16x2": 4}
+# The one-hot product's rate on the tensor cores for the LUT's own type: an
+# int8 LUT multiplies as int8, a bf16 LUT as bf16, and bf16x2 is two bf16
+# products.
+ONEHOT_OPS_PER_S = {"int8": INT8_OPS_PER_S, "bf16": BF16_FLOPS_PER_S,
+                    "bf16x2": BF16_FLOPS_PER_S / 2}
 # Path 4 (IVF) on path 3's corpus: per-query probes and the batch-union
 # widths of the search ladder (in buckets), the README geometry's nlist and
 # bucket size for residual OPQ (README.md:134-136), and the floor of the
@@ -927,12 +942,13 @@ def pq_bound(kind, q, n, m, kc, k, precision, props, clock_hz):
     f32 LUT and the codes read once, the output written once) at the HBM rate
     and its operations done the cheaper of two ways: Q*N*m LUT lookups at the
     shared-memory rate for the entry type (128 B per clock per SM), or the
-    one-hot product, 2*Q*N*m*kc int8 operations on the tensor cores."""
+    one-hot product, 2*Q*N*m*kc operations on the tensor cores at the rate
+    of the LUT's type."""
     out = q * n * 4 if kind == "scores" else q * k * 8
     t_bytes = (q * m * kc * 4 + m * n + out) / HBM_BYTES_PER_S * 1e3
     lookups = lookup_ms(q, n, m, SMEM_BYTES_PER_CLOCK_PER_SM // LUT_ENTRY_BYTES[precision],
                         props, clock_hz)
-    onehot = 2 * q * n * m * kc / INT8_OPS_PER_S * 1e3
+    onehot = 2 * q * n * m * kc / ONEHOT_OPS_PER_S[precision] * 1e3
     t_ops = min(lookups, onehot)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1036,10 +1052,19 @@ def pq_path(dev, smi, do_profile):
         sfx = "" if label == "8bit" else "_4bit"
         dense = {n: pq_kernel.LAUNCHES[n]
                  for n in ("pq_scores", "pq_search_exact", "pq_search_approx")}
+        onehot = dict(pq_kernel.ONEHOT_LAUNCHES)
         launches.update({name + sfx: n for name, n in dense.items()})
-        say("pq-main", f"{label}: launches {dense}")
+        say("pq-main", f"{label}: launches {dense}, of which on the one-hot route {onehot}")
         for name, n in dense.items():
             require(n > 0, f"PQ {label} main path launched {name}")
+        if label == "4bit":
+            # The kernels line's 4-bit K8 / K7a entries are the one-hot
+            # route's: its own launches (the bf16 score_batch is K8b's).
+            launches.update({name + sfx: n for name, n in onehot.items()})
+            require(all(n > 0 for n in onehot.values()),
+                    "PQ 4-bit int8 main path launched the one-hot K8 and K7a")
+        else:
+            require(not any(onehot.values()), "PQ 8-bit main path stays on the gather body")
         require(enc.codes_t.is_cuda and tuple(enc.codes_t.shape)
                 == (enc.num_chunks + (-enc.num_chunks) % pq_kernel.M_BLK,
                     PN + (-PN) % pq_kernel.TILE_N),
@@ -1144,6 +1169,21 @@ def pq_path(dev, smi, do_profile):
             err["pq_search_approx" + sfx] = max(err["pq_search_approx" + sfx], e)
         say("K7a", f"{label} approx k={R}, int8 and bf16 LUT: values and ids equal the plain "
             "approx")
+        if label == "4bit":  # the one-hot route with the residual pair
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 8)
+            npad = ct.shape[1]
+            rowadd = torch.randn(npad, generator=gen, device=dev) * 5
+            rowadd[PN:] = ktile.NEG  # the pad mask rides rowadd
+            corr = torch.randn(Q, npad // ktile.CORR_BLK, generator=gen, device=dev)
+            rkw = dict(n_valid=PN, k=R, mode="approx", precision="int8")
+            pv, pi = pq_kernel.pq_search_plain(lut, ct, rowadd, corr, **rkw)
+            v, i = pq_kernel.pq_search(lut, ct, rowadd, corr, **rkw)
+            require(torch.equal(v, pv) and torch.equal(i, pi),
+                    "K7a 4bit int8 with rowadd and corr: values and ids equal the plain approx")
+            say("K7a", f"4bit approx k={R}, int8 LUT with rowadd and corr (the one-hot "
+                "route): values and ids equal the plain approx")
+            del pv, pi, rowadd, corr
         del plain
 
         # ------------------------------------------------------------ times
@@ -2253,8 +2293,9 @@ def rehearse(which, n=30_000):
 
 def tensor_core_bodies(build):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
-    shared scan body (K3 scores_kernel, the approx_parts_kernel and
-    search_exact_kernel instantiations), read from the built library with
+    shared scan body (the scores_kernel, approx_parts_kernel and
+    search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
+    one-hot route of 4-bit int8-LUT PQ), read from the built library with
     cuobjdump; every one must have some."""
     import re
 
@@ -2265,12 +2306,13 @@ def tensor_core_bodies(build):
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
         m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel)"
-                      r"(?:INS_\d+(CodeRows|PlaneRows))?", name)
+                      r"INS_\d+(CodeRows|PlaneRows|NibbleRows)", name)
         if m:
-            key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            key = f"{m.group(1)}<{m.group(2)}>"
             found[key] = found.get(key, 0) + part.count("GMMA")
-    require(set(found) == {"scores_kernel", "approx_parts_kernel<CodeRows>",
-                           "approx_parts_kernel<PlaneRows>", "search_exact_kernel<CodeRows>",
+    require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
+                           "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
+                           "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>"},
             f"the scan body's entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")

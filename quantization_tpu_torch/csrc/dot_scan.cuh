@@ -1,8 +1,12 @@
-// The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b) and
-// bq_kernels.cu (K5b and the value-query forms of K5a / K10), on the tensor
-// cores: wgmma.mma_async m64n64k32 s32.s8.s8, both operands K-major in
-// shared memory (mma_segment). K12 (L1) keeps a __dp4a body of its own in
-// sq_kernels.cu: the sum of absolute differences has no tensor-core form.
+// The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b),
+// bq_kernels.cu (K5b and the value-query forms of K5a / K10) and
+// pq4_mma_kernels.cu (K8 and the dense K7a with 4-bit codes and the int8
+// LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
+// s32.s8.s8, both operands K-major in shared memory (mma_segment). K12 (L1)
+// keeps a __dp4a body of its own in sq_kernels.cu: the sum of absolute
+// differences has no tensor-core form. Every other PQ launch (K7b, K11,
+// the bf16 / bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of
+// pq_kernels.cuh.
 //
 // A block of 256 threads (two warpgroups) scores one 128-row corpus segment
 // against a tile of TQ queries: corpus rows are the M side (warpgroup g owns
@@ -22,14 +26,20 @@
 //     then the SQ dot of an int8 value query against 0/1 "codes", so K5b
 //     and the value forms of K5a / K10 are the K1 / K2 / K9a bodies with
 //     this row loader, expanding once per 64 queries.
+//   * NibbleRows: 4-bit PQ codes u8 [mpad, npad], transposed, expanded to
+//     16 one-hot bytes per chunk (one swizzle piece), a chunk ahead as
+//     PlaneRows does; the "queries" are then the int8 LUT [Q, mpad * 16],
+//     and the dot is the LUT sum of each row's codes.
 //   * Queries: int8 [Q, D] rows, cp.async with zero fill for rows >= Q.
 // The rows of a segment come from ScanMap::row (ktile.cuh), so the IVF tile
 // lists (K9a, K9b, K10) stream in place with no tensor map. The sums are
-// exact: SQ codes and queries lie in [0, 127], plane bytes are 0/1 against
-// signed int8 value queries, so the s32 accumulators equal the __dp4a sums
-// of the body this one replaced to the bit. A block's query tiles are
-// neighbours in launch order (a 1-D grid, the tile index fastest), so the
-// tiles of one segment read its rows from device memory together.
+// exact: SQ codes and queries lie in [0, 127], plane and one-hot bytes are
+// 0/1 against signed int8 value queries or LUT entries in [-127, 127], so
+// the s32 accumulators equal the __dp4a sums of the body this one replaced,
+// and the int32 LUT sums of the gather body, to the bit. A block's query
+// tiles are neighbours in launch order (a 1-D grid, the tile index
+// fastest), so the tiles of one segment read its rows from device memory
+// together.
 //
 // The accumulator fragment fixes which thread holds which (row, query):
 // thread t of warpgroup g holds segment rows 64g + 16(t/32 % 4) + t%32/4
@@ -43,16 +53,18 @@
 // Tiles (Tile<TQ, S, blocks per SM>; H100: 227 KB of shared memory and 64K
 // registers a SM), with ptxas's counts (-Xptxas -v, printed by
 // chip_smoke.py):
-//   * K3 (scores_kernel, sq_kernels.cu): TQ = 128, a 96 KB ring, two blocks
-//     per SM; 110 registers, no spills. The [128 query][128 row] int32 tile
-//     goes through the ring's memory after the scan, so whole output rows
-//     leave as coalesced (16-byte where n_valid % 4 == 0) stores, with the
-//     epilogue applied there.
+//   * scores_kernel, K3 (CodeRows) and K8 4-bit int8 (NibbleRows): TQ =
+//     128, a 96 KB ring, two blocks per SM; 108 / 94 registers, no spills.
+//     The [128 query][128 row] int32 tile goes through the ring's memory
+//     after the scan, so whole output rows leave as coalesced (16-byte
+//     where n_valid % 4 == 0) stores, with the epilogue applied there.
 //   * approx (K2, K9a, K10 / K5a value): TQ = 64, a 72 KB ring, two blocks
 //     per SM (128 registers; 88 bytes of spills for CodeRows, 68 for
-//     PlaneRows). A thread keeps 32 accumulators, 32 running maxima and
-//     their segment numbers as bytes (8 registers), turned into corpus rows
-//     once at the end. One block per SM, without the spills, ran slower.
+//     PlaneRows; K7a 4-bit int8 with NibbleRows, 4096-row parts: 64 bytes
+//     stored, 128 loaded). A thread keeps 32 accumulators, 32 running
+//     maxima and their segment numbers as bytes (8 registers), turned into
+//     corpus rows once at the end. One block per SM, without the spills,
+//     ran slower.
 //   * exact (K1, K9b, K5b): TQ = 64, the 72 KB ring plus the split's keys
 //     [64][split + 4] u32 (132 KB at split 512; the 4-word pad spreads the
 //     fragment's writes over every bank) and 8 KB of histograms: one block
@@ -78,6 +90,10 @@
 // value-query K10 1.22 ms over 262,144 x 768 rows and 5.49 ms over the
 // serving plan's 1,255,424 rows, against about 0.12, 0.18, 0.52, 0.50 and
 // 2.05 ms for this one (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md).
+// 4-bit PQ with the int8 LUT, 1M rows x 192 chunks, Q = 256 (a depth of
+// 3,072 one-hot bytes, bound by operations, 0.79 ms): K8 2.23 and K7a
+// 3.27 ms on this body against 12.49 and 12.31 on the LUT-gather body (the
+// same card, scan_ab.py).
 //
 // The epilogue ("kOnce"): false — (mult * acc + qoff) + voff, each step
 // rounded on its own (__fmul_rn / __fadd_rn; the library is built with
@@ -85,7 +101,9 @@
 // qoff in f64, rounded once to f32, then + voff: the value of the JAX
 // package's compiled code, which fuses that multiply-add (ROADMAP F24; K12,
 // and residual BQ, whose qoff is the query's qb and whose voff is the
-// per-row rowadd that poisons pad slots). voff is never null. Every search
+// per-row rowadd that poisons pad slots; K7a 4-bit, whose voff is the
+// residual rowadd or a zero row). voff is never null in the searches; the
+// scores kernel's kOnce form (K8) reads none. Every search
 // then adds the optional residual-IVF corr of the row's 512-row block
 // (ktile.cuh ScanMap), rounded once more, before it selects.
 #pragma once
@@ -235,6 +253,47 @@ struct CodeRows {
   __device__ __forceinline__ void put(uint32_t, const Pending&) const {}
 };
 
+// 4-bit PQ codes, transposed u8 [mpad, npad] (code of chunk c, row n at
+// codes_t[c * npad + n], read & 15 as the gather body masks with KC - 1),
+// expanded to one-hot bytes: byte 16j + i of A tile row r, depth chunk d0,
+// is 1 where code(chunk d0/16 + j, row r) == i. One 16-byte swizzle piece is
+// one PQ chunk. Warp w moves PQ chunk d0/16 + w: lane l loads the codes of
+// rows 4l .. 4l+3 as one word a chunk early (the warp reads one 128-byte
+// line) and, while the products run, writes one piece per row, row 4l + b'
+// at step b with b' = (b + l/2) % 4. The 8 lanes of a quarter-warp then hold
+// 8 distinct r % 8, so their 16-byte stores fall on 8 distinct swizzle
+// columns, free of bank conflicts; in row order (b' = b) every quarter-warp
+// would sit on two columns. Timed against PlaneRows' map (lane i row i, its
+// stores as free, but four byte loads a thread) and kept: at 1M x 192
+// chunks, Q = 256, K8 2.18-2.22 ms against 2.54-2.55, K7a 3.22-3.27 against
+// 3.95 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py, the two maps in turns).
+struct NibbleRows {
+  using Elem = uint8_t;
+  struct Pending {
+    uint32_t v;
+  };
+  const uint8_t* codes_t;
+  long long npad;
+  __device__ __forceinline__ void prefetch(Pending& p, long long row0, int d0) const {
+    const long long c = (d0 >> 4) + (threadIdx.x >> 5);
+    p.v = __ldg(reinterpret_cast<const uint32_t*>(codes_t + c * npad + row0) +
+                (threadIdx.x & 31));
+  }
+  __device__ __forceinline__ void issue(uint32_t, long long, int) const {}
+  // Word w of a code's piece: 1 << 8 * (code & 3) where w == code >> 2.
+  __device__ __forceinline__ void put(uint32_t a, const Pending& p) const {
+    const int j = threadIdx.x >> 5, l = threadIdx.x & 31;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int bb = (b + (l >> 1)) & 3;
+      const uint32_t code = (p.v >> (8 * bb)) & 0xFu, one = 1u << (8 * (code & 3)),
+                     w = code >> 2;
+      st_shared_v4(a + swz(4 * l + bb, j), w == 0 ? one : 0u, w == 1 ? one : 0u,
+                   w == 2 ? one : 0u, w == 3 ? one : 0u);
+    }
+  }
+};
+
 struct PlaneRows {
   using Elem = uint32_t;
   static constexpr int kWords = kSeg * (kDK / 32) / kThreads;  // plane words a thread moves
@@ -284,11 +343,15 @@ __device__ __forceinline__ float epilogue(float m, int acc, float qo,
 // f32 values), and acc widened by adding it to 2^52 + 2^31 in the low word
 // of a double: one f64 add in place of a 64-bit conversion, exact for any
 // int32.
-__device__ __forceinline__ float epilogue(double m, int acc, double qo,
-                                          const float* __restrict__ voff, long long row) {
+__device__ __forceinline__ float affine_once(double m, int acc, double qo) {
   const double a = __hiloint2double(0x43300000, (int)((unsigned)acc ^ 0x80000000u)) -
                    4503601774854144.0;
-  return __fadd_rn(__double2float_rn(__dadd_rn(__dmul_rn(m, a), qo)), voff[row]);
+  return __double2float_rn(__dadd_rn(__dmul_rn(m, a), qo));
+}
+
+__device__ __forceinline__ float epilogue(double m, int acc, double qo,
+                                          const float* __restrict__ voff, long long row) {
+  return __fadd_rn(affine_once(m, acc, qo), voff[row]);
 }
 
 // A body's per-query epilogue parameters in shared memory: f32, or f64
@@ -403,6 +466,64 @@ __device__ __forceinline__ void load_qparams(P* qm, P* qo, const float* __restri
     const int q = min(q0 + i, Q - 1);
     qm[i] = mult[q * mstride];
     qo[i] = qoff[q];
+  }
+}
+
+// ------------------------------------------------------------ score matrix
+// K3 (CodeRows, kOnce false: (mult * acc + qoff) + voff, step by step) and
+// K8 with the int8 LUT and 4-bit codes (NibbleRows, kOnce true: mult * acc
+// + qoff in f64 rounded once, with no row additive: voff is not read and may
+// be null, since x + 0.0 would turn a -0.0 into +0.0). grid ceil(n_valid /
+// 128) * ceil(Q / 128), the query tiles of a segment neighbours; out f32
+// [Q, n_valid].
+template <class Rows, bool kOnce>
+__global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
+    const typename Rows::Elem* __restrict__ base, long long stride,
+    const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
+    const float* __restrict__ mult, const float* __restrict__ voff, float* __restrict__ out,
+    int Q, int n_valid, int D, int mstride) {
+  using T = ScoresTile;
+  constexpr int TQ = T::TQ, kTS = kSeg + 4;  // int tile [TQ][kTS]
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int nqt = (Q + TQ - 1) / TQ;
+  const int q0 = (blockIdx.x % nqt) * TQ;
+  const long long row0 = (long long)(blockIdx.x / nqt) * kSeg;
+  int acc[T::kH][32];
+  mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, row0, D, smem_addr(smem), acc);
+  __syncthreads();  // every warpgroup's products are done: the ring is free
+  int* tile = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int h = 0; h < T::kH; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tile[(64 * h + frag_col(e)) * kTS + frag_row(e)] = acc[h][e];
+  __syncthreads();
+  // Warp w writes query rows w, w + 8, ...: lane l the rows 4l .. 4l+3.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = row0 + 4 * lane;
+  const bool vec = (n_valid & 3) == 0 && r + 3 < n_valid;
+  for (int i = warp; i < TQ; i += kThreads / 32) {
+    const int q = q0 + i;
+    if (q >= Q) break;
+    const typename QParam<kOnce>::T m = mult[q * mstride], qo = qoff[q];
+    auto score = [&](int a, long long row) {
+      if constexpr (kOnce) {
+        return affine_once(m, a, qo);
+      } else {
+        return epilogue<false>(m, a, qo, voff, row);
+      }
+    };
+    const int4 a = *reinterpret_cast<const int4*>(tile + i * kTS + 4 * lane);
+    float* o = out + (long long)q * n_valid + r;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(score(a.x, r), score(a.y, r + 1), score(a.z, r + 2), score(a.w, r + 3));
+    } else {
+      const int v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (r + j < n_valid) o[j] = score(v[j], r + j);
+    }
   }
 }
 
@@ -535,6 +656,24 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_ke
 // Each launches on `s` without synchronising and returns cudaGetLastError().
 
 template <class Rows, bool kOnce>
+cudaError_t launch_mma_scores(const void* base, long long stride, const void* qcodes,
+                              const void* qoff, const void* mult, const void* voff, void* out,
+                              int Q, int n_valid, int D, int mstride, cudaStream_t s) {
+  const size_t smem = kAlign + ScoresTile::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(scores_kernel<Rows, kOnce>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid =
+      (unsigned)((n_valid + kSeg - 1) / kSeg) * ((Q + ScoresTile::TQ - 1) / ScoresTile::TQ);
+  scores_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
+      static_cast<const typename Rows::Elem*>(base), stride,
+      static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
+      static_cast<const float*>(mult), static_cast<const float*>(voff),
+      static_cast<float*>(out), Q, n_valid, D, mstride);
+  return cudaGetLastError();
+}
+
+template <class Rows, bool kOnce>
 cudaError_t launch_search_exact(const void* base, long long stride, const void* qcodes,
                                 const void* qoff,
                                 const void* mult, const void* voff, void* cand_v,
@@ -569,7 +708,11 @@ cudaError_t launch_search_approx(const void* base, long long stride, const void*
                                  void* part_i, void* out_v, void* out_i, int Q, int ncomp,
                                  int n_valid, int D, int part, int span_rows, int mstride,
                                  ScanMap map, cudaStream_t s) {
-  if (part % kSeg || part / kSeg > 255) return cudaErrorInvalidValue;
+  // With out_v / out_i in the parts' place, each part must be a whole span
+  // block: pass 1's maxima are then the result, and no combine runs.
+  const bool in_place = out_v == part_v;
+  if (part % kSeg || part / kSeg > 255 || (in_place && span_rows != part))
+    return cudaErrorInvalidValue;
   const size_t smem =
       kAlign + ApproxTile::kBytes + sizeof(typename QParam<kOnce>::T) * 2 * ApproxTile::TQ;
   cudaError_t err = cudaFuncSetAttribute(approx_parts_kernel<Rows, kOnce>,
@@ -585,7 +728,7 @@ cudaError_t launch_search_approx(const void* base, long long stride, const void*
       static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
       mstride, map);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || in_place) return err;
   return launch_approx_combine(static_cast<const float*>(part_v),
                                static_cast<const int*>(part_i), static_cast<float*>(out_v),
                                static_cast<int*>(out_i), Q, nparts, span_rows / part, s);

@@ -1,7 +1,8 @@
-// PQ kernels for 8-bit codes (KC = 256) and the C interface of every PQ
-// kernel; the kernels themselves are in pq_kernels.cuh, and pq4_kernels.cu
-// holds their 4-bit instantiations, to which the entry points below forward
-// kc = 16.
+// PQ kernels for 8-bit codes (KC = 256) and the C interface of the
+// LUT-gather body; the kernels themselves are in pq_kernels.cuh, and
+// pq4_kernels.cu holds their 4-bit instantiations, to which the entry points
+// below forward kc = 16. K8 and the dense K7a with 4-bit codes and the int8
+// LUT have entry points of their own, in pq4_mma_kernels.cu.
 
 #include "pq_kernels.cuh"
 

@@ -13,6 +13,11 @@
 //                               _make_pq_topk_kernel (pq_kernel.py:791)
 //   K11 qtt_pq_search_approx with a tile selection <- pq_search_indexed /
 //                               _make_pq_topk_kernel_indexed (pq_kernel.py:582)
+// Which launches run here: every K7b and K11; K8 and K7a with the bf16 or
+// bf16x2 LUT or 8-bit codes. K8 and the dense K7a with 4-bit codes and the
+// int8 LUT run as one-hot products on the tensor-core scan body instead
+// (pq4_mma_kernels.cu, dot_scan.cuh NibbleRows); the wrapper
+// (ops/kernels/pq_kernel.py onehot_route) picks the route.
 //
 // All compute, for query q and corpus row n,
 //     acc = sum over chunks c in order 0 .. mpad-1 of lut[q][c][codes_t[c][n] & (KC-1)]
@@ -54,8 +59,10 @@
 // codes (96 MB) stream in 0.03 ms; K8's 1 GB output takes 0.3 ms. The LUT
 // is staged again for every 512-row
 // tile: 786 KB (int8) to 3.1 MB (bf16x2) per tile and 32 queries, read from
-// L2. A design that keeps the LUT resident for more rows, or a tensor-core
-// route for 4-bit codes (Quick ADC), is later work.
+// L2. A design that keeps the LUT resident for more rows is later work; the
+// tensor-core route now takes 4-bit codes with the int8 LUT (K8 12.49 ->
+// 2.23 ms, K7a 12.31 -> 3.27 ms at 1M x 192 chunks, Q = 256; NVIDIA H100
+// 80GB HBM3, 700 W, scan_ab.py).
 //
 // The searches then add the residual-IVF terms, when given, in the JAX order
 // (score + rowadd[n]) + corr[q, block of n], each add rounded once: rowadd

@@ -59,69 +59,6 @@
 
 namespace {
 
-// ------------------------------------------------------------ score matrix
-// grid ceil(n_valid / 128) * ceil(Q / 128), the query tiles of a segment
-// neighbours; out f32 [Q, n_valid].
-__global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
-    const int8_t* __restrict__ codes, const int8_t* __restrict__ qcodes,
-    const float* __restrict__ qoff, const float* __restrict__ mult,
-    const float* __restrict__ voff, float* __restrict__ out, int Q, int n_valid, int D,
-    int mstride) {
-  using T = ScoresTile;
-  constexpr int TQ = T::TQ, kTS = kSeg + 4;  // int tile [TQ][kTS]
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  const int nqt = (Q + TQ - 1) / TQ;
-  const int q0 = (blockIdx.x % nqt) * TQ;
-  const long long row0 = (long long)(blockIdx.x / nqt) * kSeg;
-  int acc[T::kH][32];
-  mma_segment<T>(CodeRows{codes, D}, qcodes, q0, Q, row0, D, smem_addr(smem), acc);
-  __syncthreads();  // every warpgroup's products are done: the ring is free
-  int* tile = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int h = 0; h < T::kH; ++h)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tile[(64 * h + frag_col(e)) * kTS + frag_row(e)] = acc[h][e];
-  __syncthreads();
-  // Warp w writes query rows w, w + 8, ...: lane l the rows 4l .. 4l+3.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long r = row0 + 4 * lane;
-  const bool vec = (n_valid & 3) == 0 && r + 3 < n_valid;
-  for (int i = warp; i < TQ; i += kThreads / 32) {
-    const int q = q0 + i;
-    if (q >= Q) break;
-    const float m = mult[q * mstride], qo = qoff[q];
-    const int4 a = *reinterpret_cast<const int4*>(tile + i * kTS + 4 * lane);
-    float* o = out + (long long)q * n_valid + r;
-    if (vec) {
-      *reinterpret_cast<float4*>(o) = make_float4(
-          epilogue<false>(m, a.x, qo, voff, r), epilogue<false>(m, a.y, qo, voff, r + 1),
-          epilogue<false>(m, a.z, qo, voff, r + 2), epilogue<false>(m, a.w, qo, voff, r + 3));
-    } else {
-      const int v[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (r + j < n_valid) o[j] = epilogue<false>(m, v[j], qo, voff, r + j);
-    }
-  }
-}
-
-inline cudaError_t launch_scores(const void* qcodes, const void* qoff, const void* mult,
-                                 const void* codes, const void* voff, void* out, int Q,
-                                 int n_valid, int D, int mstride, cudaStream_t s) {
-  const size_t smem = kAlign + ScoresTile::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(scores_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned grid =
-      (unsigned)((n_valid + kSeg - 1) / kSeg) * ((Q + ScoresTile::TQ - 1) / ScoresTile::TQ);
-  scores_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int8_t*>(codes), static_cast<const int8_t*>(qcodes),
-      static_cast<const float*>(qoff), static_cast<const float*>(mult),
-      static_cast<const float*>(voff), static_cast<float*>(out), Q, n_valid, D, mstride);
-  return cudaGetLastError();
-}
-
 // ------------------------------------------------------------ K12 (L1)
 // The __dp4a body: a block scores one 128-row segment against 32 queries,
 // both staged 128 bytes of depth at a time into rows padded to 144 bytes
@@ -237,8 +174,9 @@ const char* qtt_error_string(int err) {
 int qtt_sq_scores(const void* qcodes, const void* qoff, const void* mult,
                   const void* codes, const void* voff, void* out, int Q,
                   int n_valid, int D, int mstride, void* stream) {
-  return static_cast<int>(launch_scores(qcodes, qoff, mult, codes, voff, out, Q, n_valid, D,
-                                        mstride, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_mma_scores<CodeRows, false>(
+      codes, D, qcodes, qoff, mult, voff, out, Q, n_valid, D, mstride,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int qtt_sq_scores_l1(const void* qcodes, const void* qoff, const void* mult,

@@ -2,7 +2,9 @@
 each beside its plain PyTorch version.
 
 Twin of ``quantization_tpu/ops/pallas/pq_kernel.py``. The kernels live in
-``quantization_tpu_torch/csrc/pq_kernels.cu``:
+``quantization_tpu_torch/csrc/pq_kernels.cu`` (the LUT-gather body) and
+``pq4_mma_kernels.cu`` (4-bit codes with the int8 LUT on the tensor cores,
+see ``onehot_route``):
 
   * K8  ``pq_scores``          — the [Q, n_valid] f32 score matrix (the JAX
     package's int8-LUT and bf16-LUT ``pq_scores_pallas`` kernels; one
@@ -36,6 +38,13 @@ package does before its ``pallas_call``:
     two f32 sums with the lo sum folded in every ``M_BLK`` chunks. Only the
     searches take it: ``pq_scores`` rounds the LUT to bf16 for every
     precision but int8, as ``pq_scores_pallas`` does (Queue 3, F15).
+
+4-bit codes with the int8 LUT take another route for K8 and the dense K7a
+(``onehot_route``): the int8 scan body of ``csrc/dot_scan.cuh`` on
+``wgmma``, multiplying the LUT flattened to [Q, Mpad * 16]
+(``onehot_operands``) by the codes expanded to one-hot bytes. Its int32 sum
+and f64 epilogue are the gather body's, so both routes equal the same plain
+version to the bit.
 
 The plain versions sum in the kernels' order, so on the card each kernel
 equals its plain version to the bit; exact top-k values are equal and ids
@@ -95,11 +104,14 @@ _BIAS_BLOCK = 32
 #: Kernel launches per wrapper since the last reset (plain runs not counted).
 LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0,
             "pq_search_indexed": 0}
+#: Of those, the launches that took the one-hot route (``onehot_route``).
+ONEHOT_LAUNCHES = {"pq_scores": 0, "pq_search_approx": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ONEHOT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def lut_precision(residual: bool = False) -> str:
@@ -165,6 +177,26 @@ def _operands(lut: torch.Tensor, precision: str):
     if precision == "bf16":
         return (lut.to(torch.bfloat16),), None, None
     return split_lut_bf16x2(lut), None, None
+
+
+def onehot_route(kc: int, precision: str, mode: str = "scores") -> bool:
+    """Whether a dense launch runs on the one-hot route
+    (``csrc/pq4_mma_kernels.cu``): K8 (``mode="scores"``) and K7a
+    (``"approx"``) with 4-bit codes and the int8 LUT. K7b, K11 (which never
+    asks), the bf16 and bf16x2 LUTs and 8-bit codes stay on the LUT-gather
+    body."""
+    return kc == K4 and precision == "int8" and mode in ("scores", "approx")
+
+
+def onehot_operands(lut: torch.Tensor, mpad: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The one-hot route's operands: (int8 LUT [Q, mpad * kc], scale f32
+    [Q], bias f32 [Q]), ``quantize_lut``'s entries zero past m, flattened
+    with no transposition (the JAX package's ``lut_flat``). Byte 16c + i of
+    a query's row meets the one-hot byte of code i of chunk c."""
+    lutq, scale, bias = quantize_lut(lut)
+    q, _, kc = lut.shape
+    return pad_dim_to(lutq, 1, mpad).reshape(q, mpad * kc), scale, bias
 
 
 def _plain_scores(words, scale, bias, codes_t: torch.Tensor, n: int) -> torch.Tensor:
@@ -244,6 +276,30 @@ def _kernel_lut(words, mpad: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).contiguous().view(torch.int32)
 
 
+def _launch_onehot(name, lut, codes_t, n_valid, outs, *extra):
+    """The one-hot route of ``name`` (K8 or K7a): ``qtt_pq4_mma_<scores |
+    search_approx>`` on the current stream with (lutq, scale, bias,
+    codes_t, [voff,] *outs, Q, mpad, npad, n_valid, [part, corr, corr_qs,
+    corr_bs,] stream), ``extra`` the search's (voff, corr, corr_qs,
+    corr_bs). Counts the launch in LAUNCHES and ONEHOT_LAUNCHES; raises on
+    any error."""
+    mpad, npad = codes_t.shape
+    lutq, scale, bias = onehot_operands(lut, mpad)
+    lib = load_library()
+    stream = torch.cuda.current_stream(codes_t.device).cuda_stream
+    fn = "qtt_pq4_mma_scores" if name == "pq_scores" else "qtt_pq4_mma_search_approx"
+    head = [lutq.data_ptr(), scale.data_ptr(), bias.data_ptr(), codes_t.data_ptr()]
+    if name == "pq_scores":
+        args = [*head, outs[0].data_ptr(), lut.shape[0], mpad, npad, n_valid]
+    else:
+        voff, corr, corr_qs, corr_bs = extra
+        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), lut.shape[0], mpad,
+                npad, n_valid, SPAN * TILE_N, corr, corr_qs, corr_bs]
+    check(lib, getattr(lib, fn)(*args, stream), name)
+    LAUNCHES[name] += 1
+    ONEHOT_LAUNCHES[name] += 1
+
+
 def _launch(name, lut, codes_t, precision, n_valid, outs, *extra, fn=None):
     """Put the LUT in the kernels' layout and launch ``qtt_<fn or name>`` on
     the current stream: (lut, scale, bias, codes_t, *outs, Q, mpad, npad,
@@ -297,7 +353,10 @@ def pq_scores(lut, codes_t, *, n_valid, precision=None):
     out = torch.empty((lut.shape[0], n_valid), dtype=torch.float32, device=codes_t.device)
     if lut.shape[0] and n_valid:
         _check_operands(lut, codes_t, n_valid)
-        _launch("pq_scores", lut, codes_t, precision, n_valid, (out,))
+        if onehot_route(lut.shape[2], precision):
+            _launch_onehot("pq_scores", lut, codes_t, n_valid, (out,))
+        else:
+            _launch("pq_scores", lut, codes_t, precision, n_valid, (out,))
     return out
 
 
@@ -386,8 +445,14 @@ def pq_search(lut, codes_t, rowadd=None, corr=None, *, n_valid, k, mode="exact",
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
     if q and npad:
-        _launch("pq_search_approx", lut, codes_t, precision, n_valid, (vals, ids), *res,
-                0, 0, npad, SPAN * TILE_N)
+        if onehot_route(lut.shape[2], precision, mode):
+            # voff is never null in the scan body: a zero row stands for no rowadd.
+            voff = rowadd if rowadd is not None else torch.zeros(npad, device=dev)
+            _launch_onehot("pq_search_approx", lut, codes_t, n_valid, (vals, ids), voff,
+                           *res[1:])
+        else:
+            _launch("pq_search_approx", lut, codes_t, precision, n_valid, (vals, ids),
+                    *res, 0, 0, npad, SPAN * TILE_N)
     return merge_candidates(vals, ids, k)
 
 

@@ -13,10 +13,17 @@ K9a / K9b over 256 tiles of 1024 rows of a 1,179,648 x 768 corpus and K1 / K2
 with corr over the 262,144-row compact union; residual BQ at 768 dims — K5b
 and the value-query K5a over 262,144 rows with rowadd and corr, K10 over 256
 of 1,226 tiles of 1024 rows, and K10 over all 1,226 tiles at the serving
-plan's scan width. Times are CUDA-event medians of 7 runs of 10 calls, in ms
-per batch. Prints one JSON object: the card (nvidia-smi name and power
-limit), the package's directory and the times. Needs a CUDA card; the
-kernels are built from the checkout's sources on first use.
+plan's scan width. Then the PQ kernels at chip_smoke.py's path 3 shape
+(1,000,000 rows of 768 dims, Q = 256, k = 10) on random codes and a LUT
+made on the card: K8a and K7a with 4-bit codes and the int8 LUT (the
+one-hot route on the scan body), and as controls on the LUT-gather body,
+K8b 4-bit (bf16 LUT), K7b 4-bit (int8) and K8a 8-bit; then the same 4-bit
+width through the public API (ProductQuantizer trained on random vectors,
+the default int8 LUT): host walls of score_batch and of approx and exact
+top_k, medians of 7 calls. Kernel times are CUDA-event medians of 7 runs
+of 10 calls, in ms per batch. Prints one JSON object: the card (nvidia-smi
+name and power limit), the package's directory and the times. Needs a CUDA
+card; the kernels are built from the checkout's sources on first use.
 """
 
 import argparse
@@ -25,6 +32,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -35,6 +43,7 @@ IVF_D, TILE, IVF_TILES, UNION_TILES = 768, 1024, 1152, 256  # IVF-SQ at S = 1024
 RES_TILES = 1226  # residual IVF-BQ at auto_geometry, 1M x 768
 KK2 = 2 * K  # the IVF searches' candidate width
 SERVE_K = 1280  # the calibrated plan's scan width: kk2 for 640 rescored candidates
+PN, PM8, PM4 = 1_000_000, 96, 192  # PQ 8-bit and 4-bit chunks at 1M x 768 (path 3)
 
 
 def timed_ms(fn, warmup=3, iters=10, reps=7):
@@ -53,6 +62,20 @@ def timed_ms(fn, warmup=3, iters=10, reps=7):
     return statistics.median(runs)
 
 
+def wall_ms(fn, warmup=2, reps=7):
+    """Median host wall of fn() with the card synchronised after it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -62,8 +85,9 @@ def main():
         print("scan_ab.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
+    from quantization_tpu_torch import ProductQuantizer, VectorParameters
     from quantization_tpu_torch.core.types import DistanceType
-    from quantization_tpu_torch.ops.kernels import bq_kernel, sq_kernel
+    from quantization_tpu_torch.ops.kernels import bq_kernel, pq_kernel, sq_kernel
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -127,6 +151,41 @@ def main():
         tcorr = torch.randn(ntiles * TILE // 512, Q, generator=g, device=dev)
         ms[name] = timed_ms(lambda: bq_kernel.bq_search_indexed(
             None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
+    del planes, rowadd, cplanes, crow
+
+    # PQ: the one-hot route (4-bit, int8 LUT) and the gather body's controls.
+    pnpad = PN + (-PN) % pq_kernel.TILE_N
+    for bits, m, kc, rows in (
+            (4, PM4, pq_kernel.K4, (("scores", "int8"), ("approx", "int8"),
+                                    ("scores", "bf16"), ("exact", "int8"))),
+            (8, PM8, pq_kernel.K, (("scores", "int8"),))):
+        lut = (torch.randn(Q, m, kc, generator=g, device=dev) * 2
+               + torch.randn(Q, m, 1, generator=g, device=dev))
+        codes_t = torch.randint(0, kc, (m, pnpad), generator=g, device=dev,
+                                dtype=torch.uint8)  # m is a multiple of 16: Mpad = m
+        codes_t[:, PN:] = 0
+        for mode, prec in rows:
+            if mode == "scores":
+                fn = lambda p=prec: pq_kernel.pq_scores(lut, codes_t, n_valid=PN, precision=p)
+                name = f"pq_scores_{bits}bit_{prec}"
+            else:
+                fn = lambda p=prec, md=mode: pq_kernel.pq_search(
+                    lut, codes_t, n_valid=PN, k=K, mode=md, precision=p)
+                name = f"pq_search_{mode}_{bits}bit_{prec}"
+            ms[name] = timed_ms(fn)
+        del lut, codes_t
+
+    # The 4-bit width through the public API, with the default int8 LUT.
+    os.environ.pop("QTPU_PQ_LUT", None)
+    data = torch.randn(PN, IVF_D, generator=g, device=dev).cpu().numpy()
+    queries = torch.randn(Q, IVF_D, generator=g, device=dev).cpu().numpy()
+    enc = ProductQuantizer.encode(data, VectorParameters(IVF_D, PN, dot, False), chunk_size=4,
+                                  bits=4, device=dev)
+    del data
+    eq = enc.encode_query(queries)
+    ms["api_pq4_score_batch"] = wall_ms(lambda: enc.score_batch(eq))
+    ms["api_pq4_top_k_approx"] = wall_ms(lambda: enc.top_k(eq, K, method="approx"))
+    ms["api_pq4_top_k_exact"] = wall_ms(lambda: enc.top_k(eq, K))
     print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms}), flush=True)
     return 0
 

@@ -367,6 +367,79 @@ def test_k7a_pq_approx_equal_plain(dev, kc, m, n_valid, precision):
     assert torch.equal(i, pi)  # one tie rule: the first maximum in row order
 
 
+# 4-bit codes with the int8 LUT: K8 and the dense K7a on the one-hot route
+# (the tensor-core scan body, csrc/pq4_mma_kernels.cu). Query counts on both
+# sides of the 64- and 128-query tiles, n_valid on both sides of a 128-row
+# segment and a 4096-row part, m of 1, 3 and 24 depth chunks.
+ONEHOT_QS = [1, 64, 65, 129, 300]
+ONEHOT_NS = [1, 127, 128, 4097, 5000]
+ONEHOT_MS = [8, 24, 192]
+
+
+def _pq4_operands(dev, m, n_valid, q, seed):
+    """_pq_operands with 4-bit codes whose valid entries carry a random high
+    nibble (the kernels read ``& 15``)."""
+    lut, codes_t = _pq_operands(dev, pq_kernel.K4, m, n_valid, q, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    codes_t[:m, :n_valid] |= torch.randint(0, 16, (m, n_valid), generator=g, device=dev,
+                                           dtype=torch.uint8) << 4
+    return lut, codes_t
+
+
+@pytest.mark.parametrize("m", ONEHOT_MS)
+@pytest.mark.parametrize("n_valid", ONEHOT_NS)
+@pytest.mark.parametrize("q", ONEHOT_QS)
+def test_onehot_k8_equal_plain_to_the_bit(dev, q, n_valid, m):
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=q * 31 + n_valid + m)
+    before = pq_kernel.ONEHOT_LAUNCHES["pq_scores"]
+    got = pq_kernel.pq_scores(lut, codes_t, n_valid=n_valid, precision="int8")
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_scores"] == before + 1
+    want = pq_kernel.pq_scores_plain(lut, codes_t, n_valid=n_valid, precision="int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("m,n_valid,q", [(8, 1, 1), (24, 5000, 65), (192, 9000, 19),
+                                         (192, 70_000, 300), (24, 4097, 129)])
+def test_onehot_k7a_equal_plain(dev, m, n_valid, q, residual):
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=n_valid + m)
+    npad = codes_t.shape[1]
+    rowadd, corr = (_pq_residual(dev, q, npad, npad // 512, False, seed=m) if residual
+                    else (None, None))
+    kw = dict(n_valid=n_valid, k=40, mode="approx", precision="int8")
+    before = pq_kernel.ONEHOT_LAUNCHES["pq_search_approx"]
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_search_approx"] == before + 1
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_onehot_launch_counters(dev):
+    """Only K8 and the dense K7a with 4-bit codes and the int8 LUT count on
+    the one-hot route; every launch still counts under its wrapper's name."""
+    pq_kernel.reset_launches()
+    lut4, ct4 = _pq4_operands(dev, 24, 3000, 33, seed=5)
+    lut8, ct8 = _pq_operands(dev, 256, 24, 3000, 33, seed=6)
+    kw = dict(n_valid=3000)
+    pq_kernel.pq_scores(lut4, ct4, precision="int8", **kw)
+    pq_kernel.pq_search(lut4, ct4, k=10, mode="approx", precision="int8", **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES == {"pq_scores": 1, "pq_search_approx": 1}
+    pq_kernel.pq_scores(lut4, ct4, precision="bf16", **kw)
+    pq_kernel.pq_search(lut4, ct4, k=10, precision="int8", **kw)
+    pq_kernel.pq_search(lut4, ct4, k=10, mode="approx", precision="bf16x2", **kw)
+    pq_kernel.pq_scores(lut8, ct8, precision="int8", **kw)
+    pq_kernel.pq_search(lut8, ct8, k=10, mode="approx", precision="int8", **kw)
+    sel = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    pq_kernel.pq_search_indexed(lut4, ct4, sel, k=10, precision="int8")
+    torch.cuda.synchronize()
+    assert pq_kernel.ONEHOT_LAUNCHES == {"pq_scores": 1, "pq_search_approx": 1}
+    assert pq_kernel.LAUNCHES == {"pq_scores": 3, "pq_search_exact": 1,
+                                  "pq_search_approx": 3, "pq_search_indexed": 1}
+
+
 def test_pq_kernels_refuse_bad_layouts(dev):
     lut, codes_t = _pq_operands(dev, 256, 16, 1000, 4, seed=1)
     with pytest.raises(qt.ArgumentsError):
