@@ -7,7 +7,8 @@
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
-every entry function of the int8 scan body runs on wgmma, and drives the
+every entry function of the int8 scan body runs on wgmma and that the PQ
+searches' LUT ring is fed by bulk copies on mbarriers, and drives the
 port's five main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
@@ -29,19 +30,21 @@ both corpora, since the clustered one ties far more.
      neighbourhood corpus, Q = 256, k = 10: 8-bit (96 subquantizers x 256
      centroids) and 4-bit (192 x 16) trained and encoded on the card, exact
      (K7b) and approx (K7a) top-10 and score_batch (K8), counted per bit
-     width (with 4-bit codes and the int8 LUT, K8 and K7a take the one-hot
-     route on the tensor-core scan body, counted apart and also held
-     against plain with the residual additives); codes against the CPU
+     width (with 4-bit codes and the int8 LUT, K8, K7b and K7a take the
+     one-hot route on the tensor-core scan body, counted apart and the
+     searches also held against plain with the residual additives); codes
+     against the CPU
      encoder, save/load, then OPQ and an OPQ ->
      f32 two-stage index (R = 40), whose recall@10 is held to the floor of
      the CPU rehearsal (``--rehearse``).
 
   4. IVF on path 3's corpus (1,000,000 x 768, Q = 256, k = 10): IVF-SQ,
-     residual IVF-SQ, residual IVF-OPQ and IVF-BQ at the automatic geometry
-     (S = 1024), residual IVF-OPQ at the README geometry (nlist 2048,
-     S = 512), searched exact and approx at nprobe 32 over 256 and 512
-     buckets through the indexed scans (K9b, K9a, K10, K11) and the compact
-     ones (K1 / K2 with corr, K5c, K7b / K7a with rowadd and corr), and
+     residual IVF-SQ, residual IVF-OPQ, IVF-BQ and 4-bit IVF-PQ at the
+     automatic geometry (S = 1024), residual IVF-OPQ at the README geometry
+     (nlist 2048, S = 512), searched exact and approx at nprobe 32 over 256
+     and 512 buckets through the indexed scans (K9b, K9a, K10, K11; 4-bit
+     K11 on the one-hot route) and the compact ones (K1 / K2 with corr, K5c,
+     K7b / K7a with rowadd and corr, 4-bit K7b on the one-hot route), and
      IVF-SQ / IVF-OPQ -> f32 two-stage, whose recall@10 is held to the floor
      of the CPU rehearsal (``--rehearse ivf``); indexed == compact, the
      full probe == the full scan, chunked == unchunked, save/load.
@@ -115,10 +118,12 @@ for _sfx in ("", "_4bit"):  # one kernel per name; the 4-bit rows time KC = 16
         "pq_search_approx" + _sfx: ("pq_kernels.cu",
                                     "quantization_tpu/ops/pallas/pq_kernel.py:791"),
     })
-# The 4-bit rows time the int8 LUT, which runs K8a and K7a on the one-hot
-# route (the int8 scan body of dot_scan.cuh); K7b stays on the gather body.
+# The 4-bit rows time the int8 LUT, which runs K8a, K7b and K7a on the
+# one-hot route (the int8 scan body of dot_scan.cuh).
 KERNELS["pq_scores_4bit"] = ("pq4_mma_kernels.cu",
                              "quantization_tpu/ops/pallas/pq_kernel.py:943")
+KERNELS["pq_search_exact_4bit"] = ("pq4_mma_kernels.cu",
+                                   "quantization_tpu/ops/pallas/pq_kernel.py:866")
 KERNELS["pq_search_approx_4bit"] = ("pq4_mma_kernels.cu",
                                     "quantization_tpu/ops/pallas/pq_kernel.py:791")
 # K7a again, as the coarse stage of OPQ -> f32 two-stage (k = R).
@@ -131,6 +136,9 @@ KERNELS.update({
                                  "quantization_tpu/ops/pallas/sq_kernel.py:628"),
     "bq_search_indexed": ("bq_kernels.cu", "quantization_tpu/ops/pallas/bq_kernel.py:328"),
     "pq_search_indexed": ("pq_kernels.cu", "quantization_tpu/ops/pallas/pq_kernel.py:582"),
+    # K11 of the 4-bit IVF-PQ index (int8 LUT): the one-hot route.
+    "pq_search_indexed_4bit": ("pq4_mma_kernels.cu",
+                               "quantization_tpu/ops/pallas/pq_kernel.py:582"),
 })
 for _name in ("sq_search_exact", "sq_search_approx", "bq_search_exact", "pq_search_exact",
               "pq_search_approx"):
@@ -1050,21 +1058,22 @@ def pq_path(dev, smi, do_profile):
         with_lut("bf16", lambda: enc.score_batch(eq))  # K8b: the same kernel, bf16 words
         torch.cuda.synchronize()
         sfx = "" if label == "8bit" else "_4bit"
-        dense = {n: pq_kernel.LAUNCHES[n]
-                 for n in ("pq_scores", "pq_search_exact", "pq_search_approx")}
-        onehot = dict(pq_kernel.ONEHOT_LAUNCHES)
+        names = ("pq_scores", "pq_search_exact", "pq_search_approx")
+        dense = {n: pq_kernel.LAUNCHES[n] for n in names}
+        onehot = {n: pq_kernel.ONEHOT_LAUNCHES[n] for n in names}
         launches.update({name + sfx: n for name, n in dense.items()})
         say("pq-main", f"{label}: launches {dense}, of which on the one-hot route {onehot}")
         for name, n in dense.items():
             require(n > 0, f"PQ {label} main path launched {name}")
         if label == "4bit":
-            # The kernels line's 4-bit K8 / K7a entries are the one-hot
+            # The kernels line's 4-bit K8 / K7b / K7a entries are the one-hot
             # route's: its own launches (the bf16 score_batch is K8b's).
             launches.update({name + sfx: n for name, n in onehot.items()})
             require(all(n > 0 for n in onehot.values()),
-                    "PQ 4-bit int8 main path launched the one-hot K8 and K7a")
+                    "PQ 4-bit int8 main path launched the one-hot K8, K7b and K7a")
         else:
-            require(not any(onehot.values()), "PQ 8-bit main path stays on the gather body")
+            require(not any(pq_kernel.ONEHOT_LAUNCHES.values()),
+                    "PQ 8-bit main path stays on the gather body")
         require(enc.codes_t.is_cuda and tuple(enc.codes_t.shape)
                 == (enc.num_chunks + (-enc.num_chunks) % pq_kernel.M_BLK,
                     PN + (-PN) % pq_kernel.TILE_N),
@@ -1181,9 +1190,15 @@ def pq_path(dev, smi, do_profile):
             v, i = pq_kernel.pq_search(lut, ct, rowadd, corr, **rkw)
             require(torch.equal(v, pv) and torch.equal(i, pi),
                     "K7a 4bit int8 with rowadd and corr: values and ids equal the plain approx")
-            say("K7a", f"4bit approx k={R}, int8 LUT with rowadd and corr (the one-hot "
-                "route): values and ids equal the plain approx")
-            del pv, pi, rowadd, corr
+            rkw["mode"] = "exact"
+            pv, _ = pq_kernel.pq_search_plain(lut, ct, rowadd, corr, **rkw)
+            v, i = pq_kernel.pq_search(lut, ct, rowadd, corr, **rkw)
+            sc = (plain["int8"] + rowadd[None, :PN]) + ktile.expand_corr(corr)[:, :PN]
+            check_topk(v, i, pv, sc, PN, "K7b 4bit int8 with rowadd and corr")
+            say("K7a/K7b", f"4bit approx and exact k={R}, int8 LUT with rowadd and corr (the "
+                "one-hot route): values equal the plain version's, ids equal (approx) or "
+                "equal up to ties (exact)")
+            del pv, pi, rowadd, corr, sc
         del plain
 
         # ------------------------------------------------------------ times
@@ -1295,6 +1310,9 @@ IVF_SPECS = {  # name -> IVFIndex.encode arguments beyond (data, params)
     "bq": dict(quantizer="bq"),
     "opq_res_512": dict(quantizer="pq", chunk_size=PQ_CHUNK, rotation="opq", residual=True,
                         nlist=IVF_README_NLIST, bucket_size=IVF_README_BUCKET),
+    # 4-bit PQ with the default int8 LUT: K11 and the compact K7b on the
+    # one-hot route.
+    "pq4": dict(quantizer="pq", chunk_size=PQ4_CHUNK, bits=4),
 }
 
 
@@ -1444,8 +1462,12 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts(*mods)
+    # The 4-bit index's K11 and compact K7b run on the one-hot route: rows of
+    # their own, the ring kernels' rows count the rest.
+    onehot = {n: pq_kernel.ONEHOT_LAUNCHES[n] for n in ("pq_search_indexed", "pq_search_exact")}
+    launches["pq_search_indexed_4bit"] = onehot["pq_search_indexed"]
     say("ivf-main", f"{nsearch} IVF searches + 3 two-stage searches in {wall:.2f} s; "
-        f"launches {launches}")
+        f"launches {launches}, of which on the one-hot route {onehot}")
     path_kernels = {  # kernel -> the name of its row
         "sq_search_indexed_exact": "sq_search_indexed_exact",
         "sq_search_indexed_approx": "sq_search_indexed_approx",
@@ -1459,7 +1481,12 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     }
     for kname in path_kernels:
         require(launches[kname] > 0, f"IVF main path launched {kname}")
+    for kname, n in onehot.items():
+        require(0 < n < launches[kname], f"IVF main path launched {kname} on the one-hot "
+                "route (4-bit IVF-PQ) and on the ring")
     scans, searches = sum(launches[k] for k in path_kernels), nsearch + len(twos)
+    for kname, n in onehot.items():
+        launches[kname] -= n
     say("ivf-main", f"{scans} scan-kernel launches for {searches} searches: "
         f"{scans / searches:.2f} per search (probe, union, corr and dedupe are torch ops)")
     require(scans == searches, "one scan kernel per IVF search (no chunking at these shapes)")
@@ -1674,7 +1701,8 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     v, i = pq_kernel.pq_search_indexed(lut4, ct4, tiles, rowadd, corr, **kw4)
     pv, pi = pq_kernel.pq_search_indexed_plain(lut4, ct4, tiles, rowadd, corr, **kw4)
     torch.cuda.synchronize()
-    require(torch.equal(v, pv) and torch.equal(i, pi), "K11 4-bit: equal plain")
+    require(torch.equal(v, pv) and torch.equal(i, pi),
+            "K11 4-bit with (rowadd, corr): equal plain")
     prec = pq_kernel.lut_precision(residual=True)
     kw = dict(k=kk2, precision=prec, tile_n=s)
     record("pq_search_indexed", 0.0,
@@ -1682,7 +1710,26 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
            lambda: pq_kernel.pq_search_indexed_plain(lut, ct, tiles, rowadd, corr, **kw),
            pq_bound("search", Q, rows, m, 256, kk2, prec, props, clock))
     say("K11", f"residual OPQ: K11 over {tiles.shape[0]} permuted tiles of {s} rows, int8 / "
-        "bf16 / bf16x2 LUT with and without (rowadd, corr), and 4-bit once: equal to plain")
+        "bf16 / bf16x2 LUT with and without (rowadd, corr), and 4-bit int8 with them (the "
+        "one-hot route): equal to plain")
+    # K11 of the 4-bit IVF-PQ index at its own selection: the one-hot route.
+    ivf = idx["pq4"]
+    s = ivf.metadata.bucket_size
+    lut4, ct4 = ivf.encode_query(queries)[1].lut, ivf.quantizer.codes_t
+    m4 = ivf.quantizer.num_chunks
+    tiles4 = tiles_of(ivf_union(ivf, q_dev, IVF_NPROBE, nscan), s, s)
+    kw4 = dict(k=kk2, precision="int8", tile_n=s)
+    v, i = pq_kernel.pq_search_indexed(lut4, ct4, tiles4, **kw4)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut4, ct4, tiles4, **kw4)
+    torch.cuda.synchronize()
+    require(torch.equal(v, pv) and torch.equal(i, pi), "K11 4-bit IVF-PQ: equal plain")
+    rows4 = tiles4.shape[0] * s
+    record("pq_search_indexed_4bit", 0.0,
+           lambda: pq_kernel.pq_search_indexed(lut4, ct4, tiles4, **kw4),
+           lambda: pq_kernel.pq_search_indexed_plain(lut4, ct4, tiles4, **kw4),
+           pq_bound("search", Q, rows4, m4, 16, kk2, "int8", props, clock))
+    say("K11", f"4-bit IVF-PQ (m = {m4}): K11 over {tiles4.shape[0]} permuted tiles of {s} "
+        "rows, int8 LUT (the one-hot route): equal to plain")
 
     ivf = idx["opq_res_512"]
     s, nb = ivf.metadata.bucket_size, ivf.metadata.nbuckets
@@ -2291,20 +2338,25 @@ def rehearse(which, n=30_000):
     return 0
 
 
-def tensor_core_bodies(build):
-    """The wgmma instructions (SASS *GMMA) in each entry function of the
-    shared scan body (the scores_kernel, approx_parts_kernel and
-    search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
-    one-hot route of 4-bit int8-LUT PQ), read from the built library with
-    cuobjdump; every one must have some."""
-    import re
-
+def sass_functions(build):
+    """{mangled entry function name: its SASS} of the built library, read
+    with cuobjdump."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+    return {part.split("\n", 1)[0].strip(): part for part in sass.split("Function : ")[1:]}
+
+
+def tensor_core_bodies(funcs):
+    """The wgmma instructions (SASS *GMMA) in each entry function of the
+    shared scan body (the scores_kernel, approx_parts_kernel and
+    search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
+    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b); every one must
+    have some."""
+    import re
+
     found = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, part in funcs.items():
         m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel)"
                       r"INS_\d+(CodeRows|PlaneRows|NibbleRows)", name)
         if m:
@@ -2313,10 +2365,67 @@ def tensor_core_bodies(build):
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
-                           "search_exact_kernel<PlaneRows>"},
+                           "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>"},
             f"the scan body's entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found
+
+
+def ring_bodies(funcs):
+    """The bulk copies (SASS UBLKCP) and mbarrier operations (SYNCS) in each
+    instantiation of the PQ searches' ring kernels (pq_search_exact_kernel,
+    pq_search_approx_kernel: K7b, K7a / K11 on the LUT-gather body, 2 code
+    widths x 3 LUT words each, but K7b 8-bit int8); every one must have
+    both, and the synchronously staged kernels (K8's pq_scores_kernel, the
+    control, and K7b 8-bit int8's pq_search_exact_staged_kernel) neither."""
+    import re
+
+    found = {}
+    for name, part in funcs.items():
+        m = re.search(r"\d(pq_search_exact_kernel|pq_search_approx_kernel|pq_scores_kernel|"
+                      r"pq_search_exact_staged_kernel)ILi(\d+)ELi(\d)E", name)
+        if m:
+            found[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (part.count("UBLKCP"),
+                                                                   part.count("SYNCS"))
+    staged = {k: v for k, v in found.items()
+              if k.startswith(("pq_scores", "pq_search_exact_staged"))}
+    ring = {k: v for k, v in found.items() if k not in staged}
+    require(len(ring) == 11 and "pq_search_exact_staged_kernel<256, 0>" in staged,
+            f"the ring kernels' instantiations in the library ({sorted(found)})")
+    require(all(a > 0 and b > 0 for a, b in ring.values()),
+            f"every ring kernel stages by bulk copies on mbarriers ({ring})")
+    require(all(v == (0, 0) for v in staged.values()), f"K8 stages as before ({staged})")
+    return found
+
+
+def lookup_loops(funcs):
+    """{kernel: (instructions, LDS)} of the LUT-gather body's lookup loop in
+    the 8-bit kernels (K8's pq_scores_kernel and the ring's
+    pq_search_approx_kernel, per LUT word), read from the SASS: the
+    shortest loop (a backward branch) holding at least 64 shared-memory
+    loads, one chunk's lookups for a thread's 64 rows. Its instructions
+    over 64 are the lookups' issue cost; the bf16x2 loop also holds the lo
+    fold that runs once every 16 chunks."""
+    import re
+
+    out = {}
+    for name, part in funcs.items():
+        m = re.search(r"\d(pq_scores_kernel|pq_search_approx_kernel)ILi256ELi(\d)E", name)
+        if not m:
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        best = None
+        for addr, op in ins:
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if not b or int(b.group(1), 16) >= addr:
+                continue
+            body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
+            lds = sum(1 for o in body if re.match(r"(@!?U?P\w+\s+)?LDS\b", o))
+            if lds >= 64 and (best is None or len(body) < best[0]):
+                best = (len(body), lds)
+        out[f"{m.group(1)}<256, {('int8', 'bf16', 'bf16x2')[int(m.group(2))]}>"] = best
+    require(len(out) == 6 and all(out.values()), f"the lookup loops in the SASS ({out})")
+    return out
 
 
 def max_sm_clock_hz():
@@ -2361,9 +2470,16 @@ def main():
     for line in info["log"].splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             say("build", "ptxas " + line.strip())
-    gmma = tensor_core_bodies(build)
+    funcs = sass_functions(build)
+    gmma = tensor_core_bodies(funcs)
     say("build", "wgmma instructions (SASS GMMA) in " + ", ".join(
         f"{k} {v}" for k, v in sorted(gmma.items())))
+    ring = ring_bodies(funcs)
+    say("build", "bulk copies and mbarrier operations (SASS UBLKCP, SYNCS) in " + ", ".join(
+        f"{k} {a} / {b}" for k, (a, b) in sorted(ring.items())))
+    say("build", "the LUT-gather lookup loop (SASS instructions, LDS; 64 lookups a pass): "
+        + ", ".join(f"{k} {n}, {lds} ({n / 64:.2f} a lookup)"
+                    for k, (n, lds) in sorted(lookup_loops(funcs).items())))
 
     # ------------------------------------------------------- 3. the paths
     sq_recs, sq_info = sq_path(dev, smi, do_profile)

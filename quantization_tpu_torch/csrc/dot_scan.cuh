@@ -1,12 +1,11 @@
 // The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b),
 // bq_kernels.cu (K5b and the value-query forms of K5a / K10) and
-// pq4_mma_kernels.cu (K8 and the dense K7a with 4-bit codes and the int8
+// pq4_mma_kernels.cu (K8, K7a, K7b and K11 with 4-bit codes and the int8
 // LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
 // s32.s8.s8, both operands K-major in shared memory (mma_segment). K12 (L1)
 // keeps a __dp4a body of its own in sq_kernels.cu: the sum of absolute
-// differences has no tensor-core form. Every other PQ launch (K7b, K11,
-// the bf16 / bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of
-// pq_kernels.cuh.
+// differences has no tensor-core form. Every other PQ launch (the bf16 /
+// bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh.
 //
 // A block of 256 threads (two warpgroups) scores one 128-row corpus segment
 // against a tile of TQ queries: corpus rows are the M side (warpgroup g owns
@@ -58,17 +57,18 @@
 //     The [128 query][128 row] int32 tile goes through the ring's memory
 //     after the scan, so whole output rows leave as coalesced (16-byte
 //     where n_valid % 4 == 0) stores, with the epilogue applied there.
-//   * approx (K2, K9a, K10 / K5a value): TQ = 64, a 72 KB ring, two blocks
-//     per SM (128 registers; 88 bytes of spills for CodeRows, 68 for
-//     PlaneRows; K7a 4-bit int8 with NibbleRows, 4096-row parts: 64 bytes
+//   * approx (K2, K9a, K10 / K5a value; K7a and K11 4-bit int8): TQ = 64,
+//     a 72 KB ring, two blocks per SM (128 registers; 88 bytes of spills
+//     for CodeRows, 68 for PlaneRows; NibbleRows, 4096-row parts: 64 bytes
 //     stored, 128 loaded). A thread keeps 32 accumulators, 32 running
 //     maxima and their segment numbers as bytes (8 registers), turned into
 //     corpus rows once at the end. One block per SM, without the spills,
 //     ran slower.
-//   * exact (K1, K9b, K5b): TQ = 64, the 72 KB ring plus the split's keys
-//     [64][split + 4] u32 (132 KB at split 512; the 4-word pad spreads the
-//     fragment's writes over every bank) and 8 KB of histograms: one block
-//     per SM; 112 / 102 registers, no spills. Each warp then radix-selects
+//   * exact (K1, K9b, K5b; K7b 4-bit int8): TQ = 64, the 72 KB ring plus
+//     the split's keys [64][split + 4] u32 (132 KB at split 512; the 4-word
+//     pad spreads the fragment's writes over every bank) and 8 KB of
+//     histograms: one block per SM; 112 / 102 / 100 (NibbleRows) registers,
+//     no spills. Each warp then radix-selects
 //     8 queries (ktile.cuh), which takes most of the kernel's time.
 // Also measured and dropped (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py): a
 // fourth ring stage with one product group left in flight across the next

@@ -39,12 +39,14 @@ package does before its ``pallas_call``:
     searches take it: ``pq_scores`` rounds the LUT to bf16 for every
     precision but int8, as ``pq_scores_pallas`` does (Queue 3, F15).
 
-4-bit codes with the int8 LUT take another route for K8 and the dense K7a
+4-bit codes with the int8 LUT take another route for every kernel
 (``onehot_route``): the int8 scan body of ``csrc/dot_scan.cuh`` on
 ``wgmma``, multiplying the LUT flattened to [Q, Mpad * 16]
 (``onehot_operands``) by the codes expanded to one-hot bytes. Its int32 sum
 and f64 epilogue are the gather body's, so both routes equal the same plain
-version to the bit.
+version to the bit. Every other launch runs the LUT-gather body, whose
+searches stream the LUT through a ring fed by bulk copies
+(``csrc/pq_kernels.cuh``).
 
 The plain versions sum in the kernels' order, so on the card each kernel
 equals its plain version to the bit; exact top-k values are equal and ids
@@ -105,7 +107,10 @@ _BIAS_BLOCK = 32
 LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0,
             "pq_search_indexed": 0}
 #: Of those, the launches that took the one-hot route (``onehot_route``).
-ONEHOT_LAUNCHES = {"pq_scores": 0, "pq_search_approx": 0}
+ONEHOT_LAUNCHES = dict(LAUNCHES)
+# The one-hot approx body's largest part: a part's 128-row segment number
+# must fit a byte (csrc/dot_scan.cuh approx_parts_kernel).
+ONEHOT_PART_MAX = 255 * 128
 
 
 def reset_launches() -> None:
@@ -179,13 +184,17 @@ def _operands(lut: torch.Tensor, precision: str):
     return split_lut_bf16x2(lut), None, None
 
 
-def onehot_route(kc: int, precision: str, mode: str = "scores") -> bool:
-    """Whether a dense launch runs on the one-hot route
-    (``csrc/pq4_mma_kernels.cu``): K8 (``mode="scores"``) and K7a
-    (``"approx"``) with 4-bit codes and the int8 LUT. K7b, K11 (which never
-    asks), the bf16 and bf16x2 LUTs and 8-bit codes stay on the LUT-gather
-    body."""
-    return kc == K4 and precision == "int8" and mode in ("scores", "approx")
+def onehot_route(kc: int, precision: str, mode: str = "scores", tile_n: int = TILE_N) -> bool:
+    """Whether a launch runs on the one-hot route
+    (``csrc/pq4_mma_kernels.cu``): K8 (``mode="scores"``), K7b
+    (``"exact"``), K7a (``"approx"``) and K11 (``"indexed"``, whose span
+    of SPAN tiles must fit one part, at most ONEHOT_PART_MAX rows) with 4-bit
+    codes and the int8 LUT. The bf16 and bf16x2 LUTs and 8-bit codes run
+    the LUT-gather body."""
+    if mode == "indexed" and SPAN * tile_n > ONEHOT_PART_MAX:
+        return False
+    return kc == K4 and precision == "int8" and mode in ("scores", "exact", "approx",
+                                                         "indexed")
 
 
 def onehot_operands(lut: torch.Tensor, mpad: int
@@ -276,25 +285,36 @@ def _kernel_lut(words, mpad: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).contiguous().view(torch.int32)
 
 
-def _launch_onehot(name, lut, codes_t, n_valid, outs, *extra):
-    """The one-hot route of ``name`` (K8 or K7a): ``qtt_pq4_mma_<scores |
-    search_approx>`` on the current stream with (lutq, scale, bias,
-    codes_t, [voff,] *outs, Q, mpad, npad, n_valid, [part, corr, corr_qs,
-    corr_bs,] stream), ``extra`` the search's (voff, corr, corr_qs,
-    corr_bs). Counts the launch in LAUNCHES and ONEHOT_LAUNCHES; raises on
-    any error."""
+def onehot_voff(rowadd, npad: int, dev) -> torch.Tensor:
+    """The one-hot searches' row additive, never null in the scan body:
+    rowadd, or a row of -0.0, which adds nothing to any score, where +0.0
+    would turn a -0.0 score into +0.0 (a different key of the exact
+    select)."""
+    return rowadd if rowadd is not None else torch.full((npad,), -0.0, device=dev)
+
+
+def _launch_onehot(name, lut, codes_t, n_valid, outs, voff=None, res=(0, 0, 0), *, kk=0,
+                   sel=None, tile_n=0, ncomp=0, part=0):
+    """The one-hot route of ``name``: ``qtt_pq4_mma_scores`` (K8), ``_search_exact``
+    (K7b: voff, kk and the corr triple ``res``) or ``_search_approx`` (K7a,
+    and K11 with ``sel`` / ``tile_n``: voff, part, the selection and
+    ``res``) on the current stream. Counts the launch in LAUNCHES and
+    ONEHOT_LAUNCHES; raises on any error."""
     mpad, npad = codes_t.shape
     lutq, scale, bias = onehot_operands(lut, mpad)
     lib = load_library()
     stream = torch.cuda.current_stream(codes_t.device).cuda_stream
-    fn = "qtt_pq4_mma_scores" if name == "pq_scores" else "qtt_pq4_mma_search_approx"
     head = [lutq.data_ptr(), scale.data_ptr(), bias.data_ptr(), codes_t.data_ptr()]
+    dims = [lut.shape[0], mpad, npad, n_valid]
     if name == "pq_scores":
-        args = [*head, outs[0].data_ptr(), lut.shape[0], mpad, npad, n_valid]
+        fn, args = "qtt_pq4_mma_scores", [*head, outs[0].data_ptr(), *dims]
+    elif name == "pq_search_exact":
+        fn = "qtt_pq4_mma_search_exact"
+        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), *dims, kk, *res]
     else:
-        voff, corr, corr_qs, corr_bs = extra
-        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), lut.shape[0], mpad,
-                npad, n_valid, SPAN * TILE_N, corr, corr_qs, corr_bs]
+        fn = "qtt_pq4_mma_search_approx"
+        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), *dims, part,
+                0 if sel is None else sel.data_ptr(), tile_n, ncomp or npad, *res]
     check(lib, getattr(lib, fn)(*args, stream), name)
     LAUNCHES[name] += 1
     ONEHOT_LAUNCHES[name] += 1
@@ -432,24 +452,27 @@ def pq_search(lut, codes_t, rowadd=None, corr=None, *, n_valid, k, mode="exact",
     q, npad, dev = lut.shape[0], codes_t.shape[1], codes_t.device
     _check_operands(lut, codes_t, n_valid)
     res = _residual_args(rowadd, corr, q, npad, npad // CORR_BLK, False, dev)
+    onehot = onehot_route(lut.shape[2], precision, mode)
     if mode == "exact":
         kk = min(k, EXACT_SPLIT)
         width = (npad // EXACT_SPLIT) * kk
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q and npad:
-            _launch("pq_search_exact", lut, codes_t, precision, n_valid, (vals, ids), kk,
-                    *res)
+            if onehot:
+                _launch_onehot("pq_search_exact", lut, codes_t, n_valid, (vals, ids),
+                               onehot_voff(rowadd, npad, dev), res[1:], kk=kk)
+            else:
+                _launch("pq_search_exact", lut, codes_t, precision, n_valid, (vals, ids), kk,
+                        *res)
         return merge_exact(vals, ids, k)
     nblocks = -(-npad // (SPAN * TILE_N))
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
     if q and npad:
-        if onehot_route(lut.shape[2], precision, mode):
-            # voff is never null in the scan body: a zero row stands for no rowadd.
-            voff = rowadd if rowadd is not None else torch.zeros(npad, device=dev)
-            _launch_onehot("pq_search_approx", lut, codes_t, n_valid, (vals, ids), voff,
-                           *res[1:])
+        if onehot:
+            _launch_onehot("pq_search_approx", lut, codes_t, n_valid, (vals, ids),
+                           onehot_voff(rowadd, npad, dev), res[1:], part=SPAN * TILE_N)
         else:
             _launch("pq_search_approx", lut, codes_t, precision, n_valid, (vals, ids),
                     *res, 0, 0, npad, SPAN * TILE_N)
@@ -513,6 +536,11 @@ def pq_search_indexed(lut, codes_t, tile_sel, rowadd=None, corr=None, *, k,
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
     ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
     if q and nt:
-        _launch("pq_search_indexed", lut, codes_t, precision, n_valid, (vals, ids), *res,
-                sel.data_ptr(), tile_n, ncomp, span, fn="pq_search_approx")
+        if onehot_route(lut.shape[2], precision, "indexed", tile_n):
+            _launch_onehot("pq_search_indexed", lut, codes_t, n_valid, (vals, ids),
+                           onehot_voff(rowadd, npad, dev), res[1:], sel=sel, tile_n=tile_n,
+                           ncomp=ncomp, part=span)
+        else:
+            _launch("pq_search_indexed", lut, codes_t, precision, n_valid, (vals, ids), *res,
+                    sel.data_ptr(), tile_n, ncomp, span, fn="pq_search_approx")
     return merge_candidates(vals, ids, k)

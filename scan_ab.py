@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times the port's int8 scan kernels on one CUDA card, for comparing two
-checkouts in turns on the same card.
+"""Times the port's int8 scan kernels and PQ kernels on one CUDA card, for
+comparing two checkouts in turns on the same card.
 
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
+    python3 scan_ab.py --only pq,api    # some sections: sq, bq, pq, api
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -15,15 +16,21 @@ and the value-query K5a over 262,144 rows with rowadd and corr, K10 over 256
 of 1,226 tiles of 1024 rows, and K10 over all 1,226 tiles at the serving
 plan's scan width. Then the PQ kernels at chip_smoke.py's path 3 shape
 (1,000,000 rows of 768 dims, Q = 256, k = 10) on random codes and a LUT
-made on the card: K8a and K7a with 4-bit codes and the int8 LUT (the
-one-hot route on the scan body), and as controls on the LUT-gather body,
-K8b 4-bit (bf16 LUT), K7b 4-bit (int8) and K8a 8-bit; then the same 4-bit
-width through the public API (ProductQuantizer trained on random vectors,
-the default int8 LUT): host walls of score_batch and of approx and exact
-top_k, medians of 7 calls. Kernel times are CUDA-event medians of 7 runs
-of 10 calls, in ms per batch. Prints one JSON object: the card (nvidia-smi
-name and power limit), the package's directory and the times. Needs a CUDA
-card; the kernels are built from the checkout's sources on first use.
+made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
+one-hot route on the scan body), K8b 4-bit (bf16 LUT), at 8 bits K8a, K8b,
+K7b and K7a (int8 LUT, the LUT-gather body), and K7b / K7a at both widths
+with the bf16 and bf16x2 LUTs (the gather body); then path 4's PQ scans
+at m = 96 with the residual bf16x2 LUT (rowadd and corr): K11 over 256 of
+1,152 tiles of 1024 rows and the compact K7b / K7a over the README
+geometry's 131,072-row union (k = 20), and K11 of 4-bit IVF-PQ (m = 192,
+int8 LUT) over 256 tiles; then the 4-bit width through the public API
+(ProductQuantizer trained on random vectors, the default int8 LUT): host
+walls of score_batch and of approx and exact top_k, and of residual
+IVF-OPQ's approx top_k (nprobe 32 over 256 buckets), medians of 7 calls.
+Kernel times are CUDA-event medians of 7 runs of 10 calls, in ms per
+batch. Prints one JSON object: the card (nvidia-smi name and power limit),
+the package's directory and the times. Needs a CUDA card; the kernels are
+built from the checkout's sources on first use.
 """
 
 import argparse
@@ -44,6 +51,7 @@ RES_TILES = 1226  # residual IVF-BQ at auto_geometry, 1M x 768
 KK2 = 2 * K  # the IVF searches' candidate width
 SERVE_K = 1280  # the calibrated plan's scan width: kk2 for 640 rescored candidates
 PN, PM8, PM4 = 1_000_000, 96, 192  # PQ 8-bit and 4-bit chunks at 1M x 768 (path 3)
+README_ROWS = 256 * 512  # residual OPQ's compact union at the README geometry (path 4)
 
 
 def timed_ms(fn, warmup=3, iters=10, reps=7):
@@ -80,12 +88,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory holding the quantization_tpu_torch package to time")
+    ap.add_argument("--only", default="sq,bq,pq,api",
+                    help="comma-separated sections to time: sq, bq, pq, api (default all)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("scan_ab.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    from quantization_tpu_torch import ProductQuantizer, VectorParameters
+    from quantization_tpu_torch import IVFIndex, ProductQuantizer, VectorParameters
     from quantization_tpu_torch.core.types import DistanceType
     from quantization_tpu_torch.ops.kernels import bq_kernel, pq_kernel, sq_kernel
 
@@ -105,6 +116,23 @@ def main():
         return qcodes, qoff, codes, voff, torch.full((1,), 1e-3, device=dev)
 
     ms = {}
+    if "sq" in only:
+        sq_rows(ms, sq_kernel, sq_operands, dot, g, dev)
+    if "bq" in only:
+        bq_rows(ms, bq_kernel, dot, g, dev)
+    if "pq" in only:
+        pq_rows(ms, pq_kernel, g, dev)
+    if "api" in only:
+        api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
+    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms}), flush=True)
+    return 0
+
+
+def sq_rows(ms, sq_kernel, sq_operands, dot, g, dev):
+    """K3, K1, K2 at 100k x 1024 (Q = 256 and 32), K12; K9a / K9b and the
+    compact IVF scans with corr."""
+    from quantization_tpu_torch.core.types import DistanceType
+
     npad = N + (-N) % sq_kernel.TILE_N
     a = sq_operands(npad, D, Q)
     small = (a[0][:QS].contiguous(), a[1][:QS].contiguous(), *a[2:])
@@ -132,7 +160,11 @@ def main():
             *comp, corr, distance_type=dot, n_valid=rows, k=KK2, mode=mode))
     del b, comp
 
-    # Residual BQ: value queries against sign planes, rowadd and corr.
+
+def bq_rows(ms, bq_kernel, dot, g, dev):
+    """Residual BQ: value queries against sign planes, rowadd and corr."""
+    rows = UNION_TILES * TILE
+    corr = torch.randn(Q, rows // 512, generator=g, device=dev)
     w8 = IVF_D // 32
     planes = torch.randint(-2**31, 2**31 - 1, (w8, RES_TILES * TILE), generator=g, device=dev,
                            dtype=torch.int32)
@@ -153,17 +185,27 @@ def main():
             None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
     del planes, rowadd, cplanes, crow
 
-    # PQ: the one-hot route (4-bit, int8 LUT) and the gather body's controls.
+
+def pq_rows(ms, pq_kernel, g, dev):
+    """PQ: the one-hot route (4-bit, int8 LUT), the LUT-gather body's
+    searches (8-bit) and K8's controls at path 3's shape; path 4's scans."""
     pnpad = PN + (-PN) % pq_kernel.TILE_N
-    for bits, m, kc, rows in (
-            (4, PM4, pq_kernel.K4, (("scores", "int8"), ("approx", "int8"),
-                                    ("scores", "bf16"), ("exact", "int8"))),
-            (8, PM8, pq_kernel.K, (("scores", "int8"),))):
+
+    def pq_operands(m, kc, npad, n=None):
         lut = (torch.randn(Q, m, kc, generator=g, device=dev) * 2
                + torch.randn(Q, m, 1, generator=g, device=dev))
-        codes_t = torch.randint(0, kc, (m, pnpad), generator=g, device=dev,
+        codes_t = torch.randint(0, kc, (m, npad), generator=g, device=dev,
                                 dtype=torch.uint8)  # m is a multiple of 16: Mpad = m
-        codes_t[:, PN:] = 0
+        codes_t[:, n or npad:] = 0
+        return lut, codes_t
+
+    searches = tuple((mode, p) for p in ("bf16", "bf16x2") for mode in ("exact", "approx"))
+    for bits, m, kc, rows in (
+            (4, PM4, pq_kernel.K4, (("scores", "int8"), ("approx", "int8"),
+                                    ("scores", "bf16"), ("exact", "int8")) + searches),
+            (8, PM8, pq_kernel.K, (("scores", "int8"), ("scores", "bf16"), ("exact", "int8"),
+                                   ("approx", "int8")) + searches)):
+        lut, codes_t = pq_operands(m, kc, pnpad, PN)
         for mode, prec in rows:
             if mode == "scores":
                 fn = lambda p=prec: pq_kernel.pq_scores(lut, codes_t, n_valid=PN, precision=p)
@@ -175,19 +217,47 @@ def main():
             ms[name] = timed_ms(fn)
         del lut, codes_t
 
-    # The 4-bit width through the public API, with the default int8 LUT.
+    # Path 4's PQ scans: residual OPQ (bf16x2 LUT, rowadd and corr), indexed
+    # over 256 tiles and compact over the README geometry's union; 4-bit
+    # IVF-PQ's K11 (int8 LUT).
+    ivf_npad = IVF_TILES * TILE
+    sel = torch.randperm(IVF_TILES, generator=g, device=dev)[:UNION_TILES].to(torch.int32)
+    lut, codes_t = pq_operands(PM8, pq_kernel.K, ivf_npad)
+    rowadd = torch.randn(ivf_npad, generator=g, device=dev)
+    tcorr = torch.randn(UNION_TILES * TILE // 512, Q, generator=g, device=dev)
+    ms["pq_search_indexed_res_bf16x2"] = timed_ms(lambda: pq_kernel.pq_search_indexed(
+        lut, codes_t, sel, rowadd, tcorr, k=KK2, precision="bf16x2", tile_n=TILE))
+    cct, crow = codes_t[:, :README_ROWS].contiguous(), rowadd[:README_ROWS].contiguous()
+    ccorr = torch.randn(Q, README_ROWS // 512, generator=g, device=dev)
+    for mode in ("exact", "approx"):
+        ms[f"pq_search_{mode}_res_bf16x2"] = timed_ms(lambda md=mode: pq_kernel.pq_search(
+            lut, cct, crow, ccorr, n_valid=README_ROWS, k=KK2, mode=md, precision="bf16x2"))
+    del lut, codes_t, cct
+    lut, codes_t = pq_operands(PM4, pq_kernel.K4, ivf_npad)
+    ms["pq_search_indexed_4bit_int8"] = timed_ms(lambda: pq_kernel.pq_search_indexed(
+        lut, codes_t, sel, k=KK2, precision="int8", tile_n=TILE))
+    del lut, codes_t
+
+
+def api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev):
+    """The 4-bit width through the public API, with the default int8 LUT, and
+    residual IVF-OPQ's approx top_k."""
     os.environ.pop("QTPU_PQ_LUT", None)
     data = torch.randn(PN, IVF_D, generator=g, device=dev).cpu().numpy()
     queries = torch.randn(Q, IVF_D, generator=g, device=dev).cpu().numpy()
     enc = ProductQuantizer.encode(data, VectorParameters(IVF_D, PN, dot, False), chunk_size=4,
                                   bits=4, device=dev)
-    del data
     eq = enc.encode_query(queries)
     ms["api_pq4_score_batch"] = wall_ms(lambda: enc.score_batch(eq))
     ms["api_pq4_top_k_approx"] = wall_ms(lambda: enc.top_k(eq, K, method="approx"))
     ms["api_pq4_top_k_exact"] = wall_ms(lambda: enc.top_k(eq, K))
-    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms}), flush=True)
-    return 0
+    del enc, eq
+    # Residual IVF-OPQ at the automatic geometry (K11 with the bf16x2 LUT).
+    ivf = IVFIndex.encode(data, VectorParameters(IVF_D, PN, dot, False), quantizer="pq",
+                          chunk_size=8, rotation="opq", residual=True)
+    eq = ivf.encode_query(queries)
+    ms["api_ivf_opq_res_top_k_approx"] = wall_ms(lambda: ivf.top_k(
+        eq, K, method="approx", nprobe=32, nscan=UNION_TILES))
 
 
 if __name__ == "__main__":

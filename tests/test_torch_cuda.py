@@ -324,9 +324,14 @@ def test_k8_pq_scores_equal_plain(dev, kc, m, n_valid, q, precision):
     assert torch.equal(got, want)
 
 
+# m values that end a stage of the searches' LUT ring partway (a stage holds
+# 1 / 2 / 4 chunks at 8 bits for bf16x2 / bf16 / int8, 8 or 16 at 4 bits).
+RING_MS = [(256, 2), (256, 16), (256, 18), (256, 96), (16, 24)]
+
+
 @pytest.mark.parametrize("k", [1, 10, 512, 513, 1024])
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
-@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48)])
+@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48)] + RING_MS)
 def test_k7b_pq_exact_equal_plain(dev, kc, m, precision, k):
     n_valid = 6000
     lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=k + m)
@@ -353,7 +358,8 @@ def test_k7b_pq_k_beyond_n_valid_and_all_ties(dev):
 
 
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
-@pytest.mark.parametrize("kc,m,n_valid", [(256, 96, 3000), (16, 192, 9000), (256, 16, 100_000)])
+@pytest.mark.parametrize("kc,m,n_valid", [(256, 96, 3000), (16, 192, 9000), (256, 16, 100_000),
+                                          (256, 2, 5000), (256, 18, 9000), (16, 24, 4097)])
 def test_k7a_pq_approx_equal_plain(dev, kc, m, n_valid, precision):
     lut, codes_t = _pq_operands(dev, kc, m, n_valid, 19, seed=n_valid)
     kw = dict(n_valid=n_valid, k=40, mode="approx", precision=precision)
@@ -417,27 +423,97 @@ def test_onehot_k7a_equal_plain(dev, m, n_valid, q, residual):
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 512, 1024])
+@pytest.mark.parametrize("m,n_valid,q", [(8, 1, 1), (24, 127, 65), (192, 511, 19),
+                                         (192, 513, 300), (24, 5000, 129), (8, 70_000, 64)])
+def test_onehot_k7b_equal_plain(dev, m, n_valid, q, k, residual):
+    """K7b on the one-hot route (the exact scan body): values equal the
+    plain top-k's to the bit, ids up to ties; n_valid around a 128-row
+    segment and a 512-row split, codes with their high nibble set."""
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=n_valid + m + k)
+    npad = codes_t.shape[1]
+    rowadd, corr = (_pq_residual(dev, q, npad, npad // 512, False, seed=m) if residual
+                    else (None, None))
+    kw = dict(n_valid=n_valid, k=k, precision="int8")
+    before = pq_kernel.ONEHOT_LAUNCHES["pq_search_exact"]
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_search_exact"] == before + 1
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=npad, precision="int8")
+    if residual:
+        scores = (scores + rowadd[None]) + torch.repeat_interleave(corr, 512, dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    _check_topk(v, i, pv, scores[:, :n_valid], n_valid)
+
+
+def test_onehot_k7b_zero_scores(dev):
+    """A query whose LUT is all -0.0 scores every row exactly zero (the int8
+    epilogue gives +0.0: a zero sum plus a bias of -0.0), and the route's
+    row of -0.0 leaves every bit as the plain version has it."""
+    n_valid, q, k = 3000, 33, 600
+    lut, codes_t = _pq4_operands(dev, 32, n_valid, q, seed=9)
+    lut[3] = -0.0
+    kw = dict(n_valid=n_valid, k=k, precision="int8")
+    v, i = pq_kernel.pq_search(lut, codes_t, **kw)
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, **kw)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=n_valid, precision="int8")
+    torch.cuda.synchronize()
+    assert not bool(scores[3].view(torch.int32).any())  # +0.0 to the bit
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    _check_topk(v, i, pv, scores, n_valid)
+
+
+@pytest.mark.parametrize("tile_n,t,residual", [(256, 9, False), (512, 7, False),
+                                                (512, 7, True), (1024, 5, False),
+                                                (1024, 5, True), (1024, 1, True)])
+@pytest.mark.parametrize("m,q", [(8, 1), (24, 65), (192, 300)])
+def test_onehot_k11_equal_plain(dev, m, q, tile_n, t, residual):
+    """K11 on the one-hot route (the approx scan body with the tile list in
+    its ScanMap): values and ids equal the plain K11, over permuted tiles
+    (nine 256-row tiles pad the list to whole 512-row tiles; the additives
+    need tiles of whole 512-row corr blocks)."""
+    n_valid = 24 * 1024
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=m + tile_n + t)
+    sel = _selection(dev, n_valid // tile_n, t, seed=tile_n + t)
+    rowadd, corr = (_pq_residual(dev, q, codes_t.shape[1], t * tile_n // 512, True, seed=m)
+                    if residual else (None, None))
+    kw = dict(k=40, precision="int8", tile_n=tile_n)
+    before = pq_kernel.ONEHOT_LAUNCHES["pq_search_indexed"]
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, rowadd, corr, **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_search_indexed"] == before + 1
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 def test_onehot_launch_counters(dev):
-    """Only K8 and the dense K7a with 4-bit codes and the int8 LUT count on
+    """Only K8, K7b, K7a and K11 with 4-bit codes and the int8 LUT count on
     the one-hot route; every launch still counts under its wrapper's name."""
     pq_kernel.reset_launches()
     lut4, ct4 = _pq4_operands(dev, 24, 3000, 33, seed=5)
     lut8, ct8 = _pq_operands(dev, 256, 24, 3000, 33, seed=6)
     kw = dict(n_valid=3000)
+    sel = torch.tensor([2, 0], dtype=torch.int32, device=dev)
     pq_kernel.pq_scores(lut4, ct4, precision="int8", **kw)
     pq_kernel.pq_search(lut4, ct4, k=10, mode="approx", precision="int8", **kw)
-    assert pq_kernel.ONEHOT_LAUNCHES == {"pq_scores": 1, "pq_search_approx": 1}
-    pq_kernel.pq_scores(lut4, ct4, precision="bf16", **kw)
     pq_kernel.pq_search(lut4, ct4, k=10, precision="int8", **kw)
+    pq_kernel.pq_search_indexed(lut4, ct4, sel, k=10, precision="int8")
+    onehot = {"pq_scores": 1, "pq_search_exact": 1, "pq_search_approx": 1,
+              "pq_search_indexed": 1}
+    assert pq_kernel.ONEHOT_LAUNCHES == onehot
+    pq_kernel.pq_scores(lut4, ct4, precision="bf16", **kw)
+    pq_kernel.pq_search(lut4, ct4, k=10, precision="bf16", **kw)
     pq_kernel.pq_search(lut4, ct4, k=10, mode="approx", precision="bf16x2", **kw)
     pq_kernel.pq_scores(lut8, ct8, precision="int8", **kw)
     pq_kernel.pq_search(lut8, ct8, k=10, mode="approx", precision="int8", **kw)
-    sel = torch.tensor([2, 0], dtype=torch.int32, device=dev)
-    pq_kernel.pq_search_indexed(lut4, ct4, sel, k=10, precision="int8")
+    pq_kernel.pq_search(lut8, ct8, k=10, precision="int8", **kw)
+    pq_kernel.pq_search_indexed(lut8, ct8, sel, k=10, precision="int8")
     torch.cuda.synchronize()
-    assert pq_kernel.ONEHOT_LAUNCHES == {"pq_scores": 1, "pq_search_approx": 1}
-    assert pq_kernel.LAUNCHES == {"pq_scores": 3, "pq_search_exact": 1,
-                                  "pq_search_approx": 3, "pq_search_indexed": 1}
+    assert pq_kernel.ONEHOT_LAUNCHES == onehot
+    assert pq_kernel.LAUNCHES == {"pq_scores": 3, "pq_search_exact": 3,
+                                  "pq_search_approx": 3, "pq_search_indexed": 2}
 
 
 def test_pq_kernels_refuse_bad_layouts(dev):
@@ -571,7 +647,9 @@ def _pq_residual(dev, q, npad, blocks, selection, seed):
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
 @pytest.mark.parametrize("kc,m,tile_n,residual", [
     (256, 96, 1024, False), (256, 96, 1024, True), (256, 32, 512, True),
-    (16, 48, 1024, False), (16, 48, 1024, True), (256, 16, 256, False)])
+    (16, 48, 1024, False), (16, 48, 1024, True), (256, 16, 256, False),
+    (256, 2, 512, False), (256, 18, 1024, True), (256, 18, 128, False),
+    (16, 24, 256, False)])
 def test_k11_pq_indexed_equal_plain(dev, kc, m, tile_n, residual, precision):
     n_valid = 24 * 1024
     lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=m + tile_n)
@@ -590,7 +668,7 @@ def test_k11_pq_indexed_equal_plain(dev, kc, m, tile_n, residual, precision):
 
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
-@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48)])
+@pytest.mark.parametrize("kc,m", [(256, 32), (16, 48), (256, 2), (256, 18), (256, 96)])
 def test_k7_pq_residual_equal_plain(dev, kc, m, precision, mode):
     n_valid = 6000
     lut, codes_t = _pq_operands(dev, kc, m, n_valid, 37, seed=m + 1)

@@ -1,5 +1,5 @@
-"""The one-hot route of the port's 4-bit, int8-LUT PQ kernels (K8 and the
-dense K7a on the tensor-core scan body, csrc/pq4_mma_kernels.cu), emulated
+"""The one-hot route of the port's 4-bit, int8-LUT PQ kernels (K8, K7a, K7b
+and K11 on the tensor-core scan body, csrc/pq4_mma_kernels.cu), emulated
 in torch on the CPU: the LUT operand the wrapper builds, the one-hot bytes
 the NibbleRows row source writes, their integer product and the f64 epilogue
 rounded once. The kernel itself runs only on the card (tests/test_torch_cuda.py
@@ -12,7 +12,9 @@ Tolerances, with their causes:
     |score| + |bias|, the int8 tolerance of tests/test_torch_pq_kernels.py:
     the bias is summed in an order that matches XLA's only for m <= 32 or m
     a multiple of 32 (ROADMAP Queue 3, F14).
-  * approx search: values and ids equal; one geometry and one tie rule."""
+  * approx search: values and ids equal; one geometry and one tie rule.
+The exact and indexed searches' emulation is in
+tests/test_torch_pq_exact_onehot.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -137,7 +139,7 @@ def test_onehot_approx_equals_plain(rng, m, n_valid, q, residual):
         rowadd = torch.from_numpy(rng.standard_normal(npad).astype(np.float32) * 5)
         rowadd[::97] = -3.0e38  # the pad mask rides rowadd
         corr = torch.from_numpy(rng.standard_normal((q, npad // 512)).astype(np.float32))
-    voff = rowadd if residual else torch.zeros(npad)
+    voff = pq_kernel.onehot_voff(rowadd, npad, torch.device("cpu"))
     scores = onehot_scores(lut, codes_t, npad) + voff[None, :]
     if residual:
         scores = scores + ktile.expand_corr(corr, False)[:, :npad]
@@ -157,7 +159,7 @@ ROUTE_CASES = [(kc, p, mode) for kc in (pq_kernel.K4, pq_kernel.K)
 
 @pytest.mark.parametrize("kc,precision,mode", ROUTE_CASES)
 def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mode):
-    """Which launches reach the one-hot entry points: K8 and the dense K7a
+    """Which launches reach the one-hot entry points: K8, K7b, K7a and K11
     with 4-bit codes and the int8 LUT, nothing else. The wrappers run their
     kernel path on CPU tensors with the launches recorded, not run."""
     calls = []
@@ -167,7 +169,7 @@ def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mo
         for o in outs:
             o.zero_()
 
-    def onehot(name, lut, codes_t, n_valid, outs, *extra):
+    def onehot(name, lut, codes_t, n_valid, outs, *extra, **kw):
         calls.append(("onehot", name, extra))
         for o in outs:
             o.zero_()
@@ -187,18 +189,23 @@ def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mo
         pq_kernel.pq_search_indexed(lut, codes_t, sel, k=5, **kw)
     else:
         pq_kernel.pq_search(lut, codes_t, n_valid=n_valid, k=5, mode=mode, **kw)
-    want = kc == pq_kernel.K4 and precision == "int8" and mode in ("scores", "approx")
+    want = kc == pq_kernel.K4 and precision == "int8"
     assert len(calls) == 1 and (calls[0][0] == "onehot") == want
     assert pq_kernel.onehot_route(kc, precision, mode) == want
 
 
 def test_onehot_approx_passes_voff_and_corr(rng, monkeypatch):
-    """Without the residual pair the K7a route gets a zero row as voff and a
-    null corr; with it, rowadd itself and corr's pointer and strides."""
+    """Without the residual pair the K7a route gets a row of -0.0 as voff
+    and a null corr; with it, rowadd itself and corr's pointer and strides;
+    dense, with parts of SPAN * TILE_N rows."""
     seen = []
     monkeypatch.setattr(pq_kernel, "use_kernels", lambda t: True)
-    monkeypatch.setattr(pq_kernel, "_launch_onehot",
-                        lambda name, lut, ct, n, outs, *extra: seen.append(extra))
+
+    def onehot(name, lut, ct, n, outs, voff, res, **kw):
+        assert kw == dict(part=ktile.SPAN * pq_kernel.TILE_N)
+        seen.append((voff, *res))
+
+    monkeypatch.setattr(pq_kernel, "_launch_onehot", onehot)
     lut, codes_t = _setup(rng, 16, 3000, 2)
     npad = codes_t.shape[1]
     kw = dict(n_valid=3000, k=5, mode="approx", precision="int8")
@@ -208,5 +215,6 @@ def test_onehot_approx_passes_voff_and_corr(rng, monkeypatch):
     pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
     (voff0, *c0), (voff1, *c1) = seen
     assert tuple(voff0.shape) == (npad,) and not bool(voff0.any()) and c0 == [0, 0, 0]
+    assert bool(torch.signbit(voff0).all())
     assert voff1 is rowadd
     assert c1 == [corr.data_ptr(), *ktile.corr_strides(corr, 2, False)]
