@@ -29,10 +29,12 @@ both corpora, since the clustered one ties far more.
   3. PQ at the repo's PQ target, DOT over 1,000,000 x 768 rows of such a
      neighbourhood corpus, Q = 256, k = 10: 8-bit (96 subquantizers x 256
      centroids) and 4-bit (192 x 16) trained and encoded on the card, exact
-     (K7b) and approx (K7a) top-10 and score_batch (K8), counted per bit
-     width (with 4-bit codes and the int8 LUT, K8, K7b and K7a take the
-     one-hot route on the tensor-core scan body, counted apart and the
-     searches also held against plain with the residual additives); codes
+     (K7b) and approx (K7a) top-10 and score_batch (K8, with the int8 and
+     the bf16 LUT), counted per bit width (with 4-bit codes and the int8
+     LUT, K8, K7b and K7a take the one-hot route on the tensor-core scan
+     body, counted apart and the searches also held against plain with the
+     residual additives; with 4-bit codes and the bf16 LUT, K8 takes the
+     bf16 one-hot route, counted apart too); codes
      against the CPU
      encoder, save/load, then OPQ and an OPQ ->
      f32 two-stage index (R = 40), whose recall@10 is held to the floor of
@@ -126,6 +128,10 @@ KERNELS["pq_search_exact_4bit"] = ("pq4_mma_kernels.cu",
                                    "quantization_tpu/ops/pallas/pq_kernel.py:866")
 KERNELS["pq_search_approx_4bit"] = ("pq4_mma_kernels.cu",
                                     "quantization_tpu/ops/pallas/pq_kernel.py:791")
+# K8 with 4-bit codes and the bf16 LUT: one-hot bf16 products, the sums on
+# the CUDA cores in the plain version's order.
+KERNELS["pq_scores_4bit_bf16"] = ("pq4_mma_kernels.cu",
+                                  "quantization_tpu/ops/pallas/pq_kernel.py:962")
 # K7a again, as the coarse stage of OPQ -> f32 two-stage (k = R).
 KERNELS["pq_search_approx_opq"] = KERNELS["pq_search_approx"]
 # Path 4 (IVF): the indexed scans, and the dense kernels again as the
@@ -187,6 +193,11 @@ INT8_RECALL_SLACK = 0.02
 # lookup, 32 per clock per SM: its floor, printed beside the bound.
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
 SMEM_WORDS_PER_CLOCK_PER_SM = 32
+# f32 adds per clock per SM (128 FP32 lanes; 67 TFLOP/s counts an FMA as
+# two): the floor of the bf16 one-hot K8's own design, whose products land
+# on the tensor cores and whose one add per LUT entry (pairs, groups, the
+# running sum) runs on the CUDA cores, printed beside its bound.
+FADD_PER_CLOCK_PER_SM = 128
 LUT_ENTRY_BYTES = {"int8": 1, "bf16": 2, "bf16x2": 4}
 # The one-hot product's rate on the tensor cores for the LUT's own type: an
 # int8 LUT multiplies as int8, a bf16 LUT as bf16, and bf16x2 is two bf16
@@ -1055,7 +1066,7 @@ def pq_path(dev, smi, do_profile):
         s_ex, i_ex = with_lut("int8", lambda: enc.top_k(eq, K))
         with_lut("int8", lambda: enc.top_k(eq, K, method="approx"))
         scores = with_lut("int8", lambda: enc.score_batch(eq))  # K8a
-        with_lut("bf16", lambda: enc.score_batch(eq))  # K8b: the same kernel, bf16 words
+        with_lut("bf16", lambda: enc.score_batch(eq))  # K8b (4-bit: the bf16 one-hot route)
         torch.cuda.synchronize()
         sfx = "" if label == "8bit" else "_4bit"
         names = ("pq_scores", "pq_search_exact", "pq_search_approx")
@@ -1071,8 +1082,14 @@ def pq_path(dev, smi, do_profile):
             launches.update({name + sfx: n for name, n in onehot.items()})
             require(all(n > 0 for n in onehot.values()),
                     "PQ 4-bit int8 main path launched the one-hot K8, K7b and K7a")
+            launches["pq_scores_4bit_bf16"] = pq_kernel.BF16_ONEHOT_LAUNCHES["pq_scores"]
+            say("pq-main", f"{label}: bf16 K8 on the bf16 one-hot route: "
+                f"{launches['pq_scores_4bit_bf16']}")
+            require(launches["pq_scores_4bit_bf16"] > 0,
+                    "PQ 4-bit bf16 score_batch launched the bf16 one-hot K8")
         else:
-            require(not any(pq_kernel.ONEHOT_LAUNCHES.values()),
+            require(not any(pq_kernel.ONEHOT_LAUNCHES.values())
+                    and not any(pq_kernel.BF16_ONEHOT_LAUNCHES.values()),
                     "PQ 8-bit main path stays on the gather body")
         require(enc.codes_t.is_cuda and tuple(enc.codes_t.shape)
                 == (enc.num_chunks + (-enc.num_chunks) % pq_kernel.M_BLK,
@@ -1224,6 +1241,16 @@ def pq_path(dev, smi, do_profile):
         plain_bf16 = plain_ms(lambda: pq_kernel.pq_scores_plain(lut, ct, precision="bf16",
                                                                  **kw))
         say("time", f"pq_scores {label} bf16 LUT: plain {plain_bf16:.4f} ms on {smi}")
+        if label == "4bit":  # K8b on the bf16 one-hot route: its own kernels-line entry
+            name = "pq_scores_4bit_bf16"
+            ms[name], pms[name], err[name] = other["pq_scores bf16"], plain_bf16, 0.0
+            bounds[name] = pq_bound("scores", Q, PN, m, kc, K, "bf16", props, clock)
+            add_ms = Q * PN * ct.shape[0] / (
+                FADD_PER_CLOCK_PER_SM * props.multi_processor_count * clock) * 1e3
+            design_floor["pq_4bit_bf16_fadd"] = add_ms
+            say("bound", f"{name}: bound {bounds[name][0]:.4f} ms ({bounds[name][1]}, the "
+                f"one-hot product at the bf16 rate); the design's f32-add floor {add_ms:.4f} ms "
+                f"(one add per entry, {FADD_PER_CLOCK_PER_SM} per clock per SM) on {smi}")
         tp = {
             "pq_scores": plain_ms(lambda: pq_kernel.pq_scores_plain(lut, ct, precision="int8",
                                                                     **kw)),
@@ -1248,6 +1275,8 @@ def pq_path(dev, smi, do_profile):
         del bags, table, f32_scores
         say("library", f"{label}: embedding_bag (f32 LUT) {lib_ms['pq_scores' + sfx]:.4f} ms; "
             f"max |f32-LUT - int8-LUT score| {gap:.4f}")
+        if label == "4bit":
+            lib_ms["pq_scores_4bit_bf16"] = lib_ms["pq_scores" + sfx]
         lib_ms["pq_search_exact" + sfx] = lib_ms["pq_search_approx" + sfx] = None
         for name in tk:
             ms[name + sfx], pms[name + sfx] = tk[name], tp[name]
@@ -2351,8 +2380,9 @@ def tensor_core_bodies(funcs):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
     shared scan body (the scores_kernel, approx_parts_kernel and
     search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
-    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b); every one must
-    have some."""
+    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b) and in the bf16
+    one-hot K8 (pq4_bf16_scores_kernel, bf16 HGMMA); every one must have
+    some."""
     import re
 
     found = {}
@@ -2362,22 +2392,51 @@ def tensor_core_bodies(funcs):
         if m:
             key = f"{m.group(1)}<{m.group(2)}>"
             found[key] = found.get(key, 0) + part.count("GMMA")
+        elif re.search(r"\dpq4_bf16_scores_kernel", name):
+            found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
-                           "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>"},
-            f"the scan body's entry functions in the library ({sorted(found)})")
+                           "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
+                           "pq4_bf16_scores_kernel"},
+            f"the tensor-core entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found
 
 
+def bf16_onehot_loop(funcs):
+    """(instructions, HGMMA, FADD, MOV) of the bf16 one-hot K8's main loop,
+    one group of 8 chunks (pq4_bf16_scores_kernel), read from the SASS: the
+    shortest loop (a backward branch) holding 8 bf16 products. A thread
+    sums 32 outputs a chunk, one add each: 256 FADD a group."""
+    import re
+
+    for name, part in funcs.items():
+        if not re.search(r"\dpq4_bf16_scores_kernel", name):
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        best = None
+        for addr, op in ins:
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if not b or int(b.group(1), 16) >= addr:
+                continue
+            body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
+            if sum("HGMMA" in o for o in body) >= 8 and (best is None or len(body) < best[0]):
+                best = (len(body), sum("HGMMA" in o for o in body),
+                        sum(bool(re.match(r"(@!?U?P\w+\s+)?FADD\b", o)) for o in body),
+                        sum(bool(re.match(r"(@!?U?P\w+\s+)?MOV\b", o)) for o in body))
+        require(best is not None, "the bf16 one-hot K8's group loop in the SASS")
+        return best
+    require(False, "pq4_bf16_scores_kernel in the library")
+
+
 def ring_bodies(funcs):
     """The bulk copies (SASS UBLKCP) and mbarrier operations (SYNCS) in each
-    instantiation of the PQ searches' ring kernels (pq_search_exact_kernel,
-    pq_search_approx_kernel: K7b, K7a / K11 on the LUT-gather body, 2 code
-    widths x 3 LUT words each, but K7b 8-bit int8); every one must have
-    both, and the synchronously staged kernels (K8's pq_scores_kernel, the
-    control, and K7b 8-bit int8's pq_search_exact_staged_kernel) neither."""
+    instantiation of the LUT-gather body's ring kernels (pq_search_exact_kernel,
+    pq_search_approx_kernel: K7b, K7a / K11, 2 code widths x 3 LUT words
+    each, but K7b 8-bit int8; pq_scores_kernel: K8 at 8 bits, int8 and bf16
+    words); every one must have both, and the synchronously staged K7b 8-bit
+    int8 (pq_search_exact_staged_kernel, which the ring ran slower) neither."""
     import re
 
     found = {}
@@ -2387,20 +2446,21 @@ def ring_bodies(funcs):
         if m:
             found[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (part.count("UBLKCP"),
                                                                    part.count("SYNCS"))
-    staged = {k: v for k, v in found.items()
-              if k.startswith(("pq_scores", "pq_search_exact_staged"))}
+    staged = {k: v for k, v in found.items() if k.startswith("pq_search_exact_staged")}
     ring = {k: v for k, v in found.items() if k not in staged}
-    require(len(ring) == 11 and "pq_search_exact_staged_kernel<256, 0>" in staged,
+    require(len(ring) == 13 and {"pq_scores_kernel<256, 0>", "pq_scores_kernel<256, 1>"}
+            <= set(ring) and set(staged) == {"pq_search_exact_staged_kernel<256, 0>"},
             f"the ring kernels' instantiations in the library ({sorted(found)})")
     require(all(a > 0 and b > 0 for a, b in ring.values()),
             f"every ring kernel stages by bulk copies on mbarriers ({ring})")
-    require(all(v == (0, 0) for v in staged.values()), f"K8 stages as before ({staged})")
+    require(all(v == (0, 0) for v in staged.values()),
+            f"K7b 8-bit int8 stages synchronously ({staged})")
     return found
 
 
 def lookup_loops(funcs):
     """{kernel: (instructions, LDS)} of the LUT-gather body's lookup loop in
-    the 8-bit kernels (K8's pq_scores_kernel and the ring's
+    the 8-bit kernels (K8's pq_scores_kernel, int8 and bf16, and
     pq_search_approx_kernel, per LUT word), read from the SASS: the
     shortest loop (a backward branch) holding at least 64 shared-memory
     loads, one chunk's lookups for a thread's 64 rows. Its instructions
@@ -2424,7 +2484,7 @@ def lookup_loops(funcs):
             if lds >= 64 and (best is None or len(body) < best[0]):
                 best = (len(body), lds)
         out[f"{m.group(1)}<256, {('int8', 'bf16', 'bf16x2')[int(m.group(2))]}>"] = best
-    require(len(out) == 6 and all(out.values()), f"the lookup loops in the SASS ({out})")
+    require(len(out) == 5 and all(out.values()), f"the lookup loops in the SASS ({out})")
     return out
 
 
@@ -2480,6 +2540,10 @@ def main():
     say("build", "the LUT-gather lookup loop (SASS instructions, LDS; 64 lookups a pass): "
         + ", ".join(f"{k} {n}, {lds} ({n / 64:.2f} a lookup)"
                     for k, (n, lds) in sorted(lookup_loops(funcs).items())))
+    n, hg, fadd, mov = bf16_onehot_loop(funcs)
+    say("build", f"the bf16 one-hot K8's group loop (SASS; 8 chunks x 32 outputs a thread): "
+        f"{n} instructions, {hg} HGMMA, {fadd} FADD, {mov} MOV ({n / 256:.2f} an output "
+        "and chunk)")
 
     # ------------------------------------------------------- 3. the paths
     sq_recs, sq_info = sq_path(dev, smi, do_profile)

@@ -5,7 +5,10 @@
 // s32.s8.s8, both operands K-major in shared memory (mma_segment). K12 (L1)
 // keeps a __dp4a body of its own in sq_kernels.cu: the sum of absolute
 // differences has no tensor-core form. Every other PQ launch (the bf16 /
-// bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh.
+// bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh, but
+// K8 with 4-bit codes and the bf16 LUT, a kernel of its own in
+// pq4_mma_kernels.cu that uses this file's swizzle, cp.async and descriptor
+// helpers and its bf16 wgmma wrapper (A from registers).
 //
 // A block of 256 threads (two warpgroups) scores one 128-row corpus segment
 // against a tile of TQ queries: corpus rows are the M side (warpgroup g owns
@@ -189,12 +192,22 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Returns once at most N of this warpgroup's committed product groups are
+// pending (groups complete in commit order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous products.
 __device__ __forceinline__ void fence_acc(int (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 64] += A[64 x 32] . B[64 x 32]^T, s8 x s8 -> s32, from shared memory.
@@ -217,6 +230,38 @@ __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
         "+r"(d[31])
       : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d[64 x 64] = A[64 x 16] . B[64 x 16]^T, plus d where scale_d is not 0,
+// bf16 x bf16 -> f32, A from registers, B K-major in shared memory (trans-b
+// 0, scale-a and scale-b 1). A k16 step of bf16 is 32 bytes deep, as a k32
+// step of int8 is, so wgmma_desc and the swizzle serve B. a[0 .. 3] is the
+// thread's fragment of the 64 x 16 A tile, as mma.m16n8k16 holds it for the
+// warp's 16 rows (warp w of the warpgroup rows 16w ..; lane l: a[0] row
+// l/4, columns 2 (l%4) and + 1, a[1] row l/4 + 8, a[2] and a[3] the same
+// rows at columns + 8), two bf16 a register, the lower column in the low
+// half. The f32 fragment of d is the s32 one (frag_row, frag_col).
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
       : "memory");
 }
 

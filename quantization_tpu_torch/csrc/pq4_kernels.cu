@@ -1,19 +1,12 @@
-// PQ kernels for 4-bit codes (KC = 16), compiled apart from the 8-bit ones
-// so that nvcc builds the two in parallel. Entered only through the C
-// interface of pq_kernels.cu, which forwards kc = 16 here with the same
-// arguments (less kc).
+// PQ searches for 4-bit codes (KC = 16), compiled apart from the 8-bit
+// kernels so that nvcc builds the two in parallel. Entered only through the
+// C interface of pq_kernels.cu, which forwards kc = 16 here with the same
+// arguments (less kc). K8 with 4-bit codes runs on the tensor cores
+// (pq4_mma_kernels.cu) for both of its LUT words.
 
 #include "pq_kernels.cuh"
 
 extern "C" {
-
-int qtt_pq4_scores(const void* lut, const void* scale, const void* bias,
-                   const void* codes_t, void* out, int Q, int mpad, long long npad,
-                   int n_valid, int kind, void* stream) {
-  const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, nullptr,
-                               nullptr, 0, 0, nullptr, 0, npad, kApproxPart);
-  QTT_PQ_KIND_DISPATCH(launch_scores, 16, a, out, static_cast<cudaStream_t>(stream))
-}
 
 int qtt_pq4_search_exact(const void* lut, const void* scale, const void* bias,
                          const void* codes_t, void* cand_v, void* cand_i, int Q, int mpad,

@@ -1,16 +1,17 @@
 // PQ kernels for 8-bit codes (KC = 256) and the C interface of the
 // LUT-gather body; the kernels themselves are in pq_kernels.cuh, and
-// pq4_kernels.cu holds their 4-bit instantiations, to which the entry points
-// below forward kc = 16. K8 and the dense K7a with 4-bit codes and the int8
-// LUT have entry points of their own, in pq4_mma_kernels.cu.
+// pq4_kernels.cu holds the 4-bit instantiations of the searches, to which
+// the entry points below forward kc = 16. K8 with 4-bit codes, and the
+// searches with 4-bit codes and the int8 LUT, have entry points of their
+// own, in pq4_mma_kernels.cu.
 
 #include "pq_kernels.cuh"
 
 // ------------------------------------------------------------- C interface
 // Every function launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a (kc,
-// kind) pair it does not build. kc: 256 or 16; kind: 0 int8, 1 bf16, 2
-// bf16x2 (searches only). Shapes are checked by the Python wrappers
+// kind) pair it does not build. kc: 256 or 16 (searches only); kind: 0
+// int8, 1 bf16, 2 bf16x2 (searches only). Shapes are checked by the Python wrappers
 // (ops/kernels/pq_kernel.py): contiguous, 16-byte-aligned tensors,
 // mpad % 16 == 0, npad % 1024 == 0. The searches take the residual
 // additives rowadd [npad] and corr (corr_qs, corr_bs: ktile.cuh ScanMap),
@@ -19,8 +20,6 @@
 
 extern "C" {
 
-int qtt_pq4_scores(const void*, const void*, const void*, const void*, void*, int, int,
-                   long long, int, int, void*);
 int qtt_pq4_search_exact(const void*, const void*, const void*, const void*, void*, void*,
                          int, int, long long, int, int, int, const void*, const void*,
                          long long, long long, void*);
@@ -31,13 +30,17 @@ int qtt_pq4_search_approx(const void*, const void*, const void*, const void*, vo
 int qtt_pq_scores(const void* lut, const void* scale, const void* bias,
                   const void* codes_t, void* out, int Q, int mpad, long long npad,
                   int n_valid, int kc, int kind, void* stream) {
-  if (kc == 16)
-    return qtt_pq4_scores(lut, scale, bias, codes_t, out, Q, mpad, npad, n_valid, kind,
-                          stream);
   if (kc != 256) return static_cast<int>(cudaErrorInvalidValue);
+  // The tiles holding rows < n_valid, one a block.
+  const long long ncomp = ((long long)n_valid + kPTR - 1) / kPTR * kPTR;
   const TileArgs a = tile_args(lut, scale, bias, codes_t, Q, mpad, npad, n_valid, nullptr,
-                               nullptr, 0, 0, nullptr, 0, npad, kApproxPart);
-  QTT_PQ_KIND_DISPATCH(launch_scores, 256, a, out, static_cast<cudaStream_t>(stream))
+                               nullptr, 0, 0, nullptr, 0, ncomp, kPTR);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {  // no bf16x2 K8: the wrapper rounds that LUT to bf16
+    case kInt8: return launch_scores<256, kInt8>(a, out, s);
+    case kBf16: return launch_scores<256, kBf16>(a, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int qtt_pq_search_exact(const void* lut, const void* scale, const void* bias,

@@ -14,10 +14,12 @@
 //   K11 qtt_pq_search_approx with a tile selection <- pq_search_indexed /
 //                               _make_pq_topk_kernel_indexed (pq_kernel.py:582)
 // Which launches run here: those with the bf16 or bf16x2 LUT or 8-bit
-// codes. With 4-bit codes and the int8 LUT, K8, K7a, K7b and K11 run as
-// one-hot products on the tensor-core scan body instead (pq4_mma_kernels.cu,
-// dot_scan.cuh NibbleRows); the wrapper (ops/kernels/pq_kernel.py
-// onehot_route) picks the route.
+// codes, but K8 with 4-bit codes. With 4-bit codes and the int8 LUT, K8,
+// K7a, K7b and K11 run as one-hot products on the tensor-core scan body
+// instead (pq4_mma_kernels.cu, dot_scan.cuh NibbleRows), and so does K8 with
+// 4-bit codes and the bf16 LUT (pq4_mma_kernels.cu, one-hot bf16 products
+// summed in this body's order); the wrapper (ops/kernels/pq_kernel.py
+// onehot_route, bf16_onehot_route) picks the route.
 //
 // All compute, for query q and corpus row n,
 //     acc = sum over chunks c in order 0 .. mpad-1 of lut[q][c][codes_t[c][n] & (KC-1)]
@@ -48,12 +50,11 @@
 //     row: no bank conflicts, whatever the codes;
 //   * the codes of the tile are staged chunk-major as bytes; a warp reads four
 //     rows' codes of one chunk as one broadcast word;
-//   * the searches (K7b, K7a, K11) stage both through a ring of bulk copies
-//     completing on mbarriers, each stage refilled by the last warp done
-//     with it (see "the searches' ring" below), but for K7b with 8-bit
-//     codes and the int8 LUT, which it left slower; K8 still stages them
-//     synchronously through registers (score_tile), as the control of that
-//     change, and moves onto the ring later.
+//   * the kernels (K8, K7b, K7a, K11) stage both through a ring of bulk
+//     copies completing on mbarriers, each stage refilled by the last warp
+//     done with it (see "the ring" below), but K7b with 8-bit codes and the
+//     int8 LUT, which the ring leaves slower: it stages them synchronously
+//     through registers (score_tile).
 // What bounds them on the H100, at the main path's 1M rows x 96 chunks and
 // Q = 256: 2.46e10 lookups. Shared memory serves 128 bytes per clock per SM,
 // so one 32-bit load of this layout could read one code's entries for 4
@@ -69,10 +70,10 @@
 // chunk's 64 lookups a thread take ~265 instructions for int8 entries, ~400
 // for bf16 and ~692 for bf16x2 (its lo fold included; chip_smoke.py counts
 // them in the SASS), and with one block of 8 warps per SM (their 64 sums a
-// thread need the registers) the loads' latency shows. Synchronous staging
-// added two barriers a LUT block and no overlap; the searches' ring took
-// K11 bf16x2 from 5.45 to 3.83 ms and the 8-bit bf16 / bf16x2 K7a by a
-// third. Multicasting each stage's LUT over a cluster of 2 blocks halved
+// thread need the registers) the loads' latency shows. The synchronous
+// staging this ring replaced (through registers, two barriers a LUT block,
+// no overlap) ran K11 bf16x2 at 5.45 ms against the ring's 3.83 and the
+// 8-bit bf16 / bf16x2 K7a a third slower. Multicasting each stage's LUT over a cluster of 2 blocks halved
 // the L2 reads and ran slower on every launch (K11 bf16x2 5.06 ms, K7b
 // 8-bit bf16x2 24.36 against 15.95): each stage then waits for the
 // slower block. (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md.)
@@ -106,8 +107,8 @@ constexpr int kPTQ = 32;                         // queries per block, one per l
 constexpr int kPTR = 512;                        // corpus rows per tile
 constexpr int kPRW = kPTR / (kPThreads / 32);    // 64 rows per warp
 constexpr int kMBlk = 16;                        // M_BLK: Mpad alignment, bf16x2 fold
-constexpr int kLutBytes = 65536;                 // one staged LUT block
-constexpr int kStride = kPTR + 1;                // staging row stride in words
+constexpr int kLutBytes = 65536;                 // one staged LUT block (score_tile)
+constexpr int kStride = kPTR + 1;                // score stage row stride in words
 constexpr int kStageBytes = kPTQ * kStride * 4;  // [32][513] f32 scores or keys
 constexpr int kRegionBytes = kStageBytes > kLutBytes ? kStageBytes : kLutBytes;
 constexpr int kCodesBytes = kMBlk * kPTR;        // [<=16 chunks][512 rows] codes
@@ -235,10 +236,9 @@ __device__ __forceinline__ void fold_lo(Accum<KIND>& acc, int c_end) {
 // + 63 (corpus rows through map: 16 consecutive compact rows lie in one
 // selected tile). lut points at this block's query tile, [mpad][KC][32]
 // words. Every thread of the block must call it (it synchronises).
-// K8 still stages through it, synchronously (registers, st.shared, two
-// barriers a LUT block): the control of the searches' ring below, onto
-// which it moves in a later change that then deletes this function; and
-// K7b with 8-bit codes and the int8 LUT, which the ring left slower.
+// Only K7b with 8-bit codes and the int8 LUT stages through it,
+// synchronously (registers, st.shared, two barriers a LUT block): the ring
+// below ran that launch slower (see pq_search_exact_staged_kernel).
 template <int KC, int KIND>
 __device__ __forceinline__ void score_tile(const LutWord<KIND>* __restrict__ lut,
                                            const uint8_t* __restrict__ codes_t,
@@ -362,34 +362,10 @@ __device__ __forceinline__ bool add_residual(const TileArgs& a, float* stage,
   return true;
 }
 
-// ---------------------------------------------------------------- K8 scores
-// grid (ceil(n_valid / 512), ceil(Q / 32)); out f32 [Q, n_valid].
-template <int KC, int KIND>
-__global__ void __launch_bounds__(kPThreads) pq_scores_kernel(TileArgs a, float* out) {
-  extern __shared__ __align__(16) uint8_t smem_p[];
-  uint8_t* region = smem_p;
-  const long long row0 = (long long)blockIdx.x * kPTR;
-  const int q0 = blockIdx.y * kPTQ;
-  Accum<KIND> acc;
-  score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, row0, a.map,
-                       region, smem_p + kRegionBytes, acc);
-  __syncthreads();  // every warp is done with the staged LUT
-  float* stage = reinterpret_cast<float*>(region);
-  stage_scores<KIND>(a, acc, stage, row0, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kPTQ * kPTR; i += kPThreads) {
-    const int j = i / kPTR, e = i % kPTR;
-    const long long row = row0 + e;
-    if (q0 + j < a.Q && row < a.n_valid)
-      out[(long long)(q0 + j) * a.n_valid + row] = stage[j * kStride + e];
-  }
-}
-
-// ------------------------------------------------------- the searches' ring
-// K7b and K7a / K11 stream the LUT through a ring of stages (Ring) in
+// ---------------------------------------------------------------- the ring
+// K8, K7b and K7a / K11 stream the LUT through a ring of stages (Ring) in
 // shared memory, fed by bulk copies (cp.async.bulk, TMA without a tensor
-// map) that complete on an mbarrier, in place of score_tile's synchronous
-// staging through registers. A stage holds Ring::kChunks chunks: their LUT
+// map) that complete on an mbarrier. A stage holds Ring::kChunks chunks: their LUT
 // block of the query tile, [chunks][KC][32] words, contiguous in the
 // kernels' layout and so one copy, and the tile's codes of those chunks,
 // [chunks][512] bytes, one copy per run of consecutive corpus rows (512
@@ -404,10 +380,9 @@ __global__ void __launch_bounds__(kPThreads) pq_scores_kernel(TileArgs a, float*
 // registers, and the bf16x2 and 4-bit searches spilled). Every warp waits on
 // a stage's full barrier, which completes once its bytes have landed. The
 // approx searches' scores go through a stage of their own, so the next
-// tile's LUT arrives while a tile's epilogue runs; K7b's reuse the ring
-// (Ring, kExact). Each thread sums its rows in
-// score_tile's order (add_group, fold_lo), so the sums stay equal to the
-// plain version's to the bit.
+// tile's LUT arrives while a tile's epilogue runs; K8's and K7b's reuse the
+// ring (Ring, kExact). Each thread sums its rows in the plain version's
+// order (add_group, fold_lo), so the sums equal its to the bit.
 constexpr int kRingMaxStages = 4;
 constexpr int kRingBarBytes = 128;            // full barriers and release counts
 constexpr int kHistBytes = sizeof(unsigned) * (kPThreads / 32) * 256;
@@ -415,18 +390,18 @@ constexpr int kHistBytes = sizeof(unsigned) * (kPThreads / 32) * 256;
 // A ring's geometry, chosen by timing the candidates in turns (NVIDIA H100
 // 80GB HBM3, 700 W, scan_ab.py; PERF.md): every stage costs each warp a wait
 // and a release, so 8-bit codes take few, large stages, as many chunks as
-// fit 36 KB (K7b: 3 stages) or 72 KB (K7a / K11: 2 stages; 4 stages of up to
+// fit 36 KB (K8, K7b: 3 stages) or 72 KB (K7a / K11: 2 stages; 4 stages of up to
 // 36 KB ran K11 bf16x2 4.75 against 3.82 ms, K7a 8-bit int8 7.38 against
 // 6.80), and 4-bit codes 4 stages of one group of 8 chunks (16-chunk stages
 // ran K7b 4-bit bf16 19.27 against 15.70 ms).
-// kExact: K7b's, whose score stage reuses the ring once its one tile is
-// summed: a block's shared memory (74-110 KB) lets two blocks share an SM
+// kExact: K8's and K7b's, whose score stage reuses the ring once its one
+// tile is summed: a block's shared memory (74-110 KB) lets two blocks share an SM
 // where the registers allow (every word but bf16x2), and the second
-// block's lookups overlap the first's radix select, as they did with the
-// synchronous staging (one block per SM, with a score stage of its own, took
-// K7b 8-bit int8 from 7.06 to 10.26 ms). Else K7a / K11's, beside a score
-// stage of its own (one block per SM: their registers allow no more), so
-// that the next tile's stages arrive during a tile's epilogue.
+// block's lookups overlap the first's radix select (one block per SM, with
+// a score stage of its own, took K7b 8-bit int8 from 7.06 to 10.26 ms).
+// Else K7a / K11's, beside a score stage of its own (one block per SM:
+// their registers allow no more), so that the next tile's stages arrive
+// during a tile's epilogue.
 template <int KC, int KIND, bool kExact>
 struct Ring {
   static constexpr int kChunkLut = KC * kPTQ * (int)sizeof(LutWord<KIND>);
@@ -591,6 +566,39 @@ __device__ __forceinline__ void ring_tile(const TileArgs& a, const RingWalk<KC, 
   }
 }
 
+// ---------------------------------------------------------------- K8 scores
+// grid (ncomp / 512, ceil(Q / 32)), ncomp = n_valid rounded up to a tile.
+// Block (t, y) sums tile t of its 32 queries through the ring, on K7b's
+// geometry (Ring kExact: 3 stages, the score stage in the ring's memory,
+// two blocks per SM, so one block's stores overlap the other's lookups),
+// and writes the scores out through the score stage, so that a warp stores
+// whole runs of an output row; out f32 [Q, n_valid]. K7a's geometry (2
+// stages of up to 72 KB, a score stage of its own, one block per SM walking
+// 8 tiles) ran K8 slower: int8 7.09 against 5.86 ms, bf16 7.37 against
+// 6.48 at 1M x 96 chunks, Q = 256 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py
+// in turns; PERF.md).
+template <int KC, int KIND>
+__global__ void __launch_bounds__(kPThreads, 2) pq_scores_kernel(TileArgs a, float* out) {
+  using R = Ring<KC, KIND, true>;
+  extern __shared__ __align__(128) uint8_t smem_p[];
+  float* stage = reinterpret_cast<float*>(smem_p + kRingBarBytes);  // the ring's memory
+  const long long row0 = (long long)blockIdx.x * kPTR;
+  const int q0 = blockIdx.y * kPTQ;
+  const RingWalk<KC, KIND, R> ring(smem_p, a, row0, 1);
+  int j = 0;
+  Accum<KIND> acc;
+  ring_tile(a, ring, j, acc);
+  __syncthreads();  // every warp is done with the ring, whose bytes have all landed
+  stage_scores<KIND>(a, acc, stage, row0, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kPTQ * kPTR; i += kPThreads) {
+    const int jq = i / kPTR, e = i % kPTR;
+    const long long row = row0 + e;
+    if (q0 + jq < a.Q && row < a.n_valid)
+      out[(long long)(q0 + jq) * a.n_valid + row] = stage[jq * kStride + e];
+  }
+}
+
 // ----------------------------------------------------------- K7b exact search
 // The tile's scores (the lane's 64 sums in acc) as ordered keys in the
 // score stage, with the residual terms when the launch has them. Every
@@ -658,18 +666,18 @@ __global__ void __launch_bounds__(kPThreads, KIND == kBf16x2 ? 1 : 2)
 }
 
 // K7b with 8-bit codes and the int8 LUT: the same, its LUT staged
-// synchronously by score_tile, as before the ring. The one launch the ring
-// left slower, at every geometry timed: 7.08 against 7.21 ms at 1M x 96
-// chunks, Q = 256 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md), as
-// its int8 lookups are the cheapest (4.25 instructions each, against 8.8
-// for bf16x2) and two blocks per SM already overlap one's staging with the
-// other's work.
+// synchronously by score_tile. The one launch the ring leaves slower, at
+// every geometry timed: 7.08 against 7.21 ms at 1M x 96 chunks, Q = 256,
+// and again 6.97 against 7.31 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py in
+// turns; PERF.md), as its int8 lookups are the cheapest
+// (4.14 instructions each, against 10.8 for bf16x2) and two blocks per SM
+// already overlap one's staging with the other's work.
 template <int KC, int KIND>
 __global__ void __launch_bounds__(kPThreads) pq_search_exact_staged_kernel(TileArgs a,
                                                                             float* cand_v,
                                                                             int* cand_i,
                                                                             int kk) {
-  extern __shared__ __align__(16) uint8_t smem_p[];
+  extern __shared__ __align__(128) uint8_t smem_p[];
   float* stage = reinterpret_cast<float*>(smem_p);
   const long long start = (long long)blockIdx.x * kPTR;
   const int cnt = split_rows(a);
@@ -760,10 +768,10 @@ inline unsigned query_tiles(int Q) { return (unsigned)((Q + kPTQ - 1) / kPTQ); }
 
 template <int KC, int KIND>
 int launch_scores(const TileArgs& a, void* out, cudaStream_t s) {
-  const size_t smem = kRegionBytes + kCodesBytes;
+  const size_t smem = Ring<KC, KIND, true>::kSmem - kHistBytes;  // K8 selects nothing
   cudaError_t err = prepare(pq_scores_kernel<KC, KIND>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((a.n_valid + kPTR - 1) / kPTR), query_tiles(a.Q));
+  const dim3 grid((unsigned)(a.ncomp / kPTR), query_tiles(a.Q));
   pq_scores_kernel<KC, KIND><<<grid, kPThreads, smem, s>>>(a, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -195,6 +195,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         "qtt_pq4_mma_search_approx": [p, p, p, p, p, p, p, i, i, ll, i, i, p, i, ll,
                                       p, ll, ll, p],
         "qtt_pq4_mma_search_exact": [p, p, p, p, p, p, p, i, i, ll, i, i, p, ll, ll, p],
+        # K8 with 4-bit codes and the bf16 LUT: (lut, codes_t, out, Q, mpad,
+        # npad, n_valid, stream)
+        "qtt_pq4_mma_scores_bf16": [p, p, p, i, i, ll, i, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

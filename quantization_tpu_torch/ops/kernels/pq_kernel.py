@@ -3,8 +3,8 @@ each beside its plain PyTorch version.
 
 Twin of ``quantization_tpu/ops/pallas/pq_kernel.py``. The kernels live in
 ``quantization_tpu_torch/csrc/pq_kernels.cu`` (the LUT-gather body) and
-``pq4_mma_kernels.cu`` (4-bit codes with the int8 LUT on the tensor cores,
-see ``onehot_route``):
+``pq4_mma_kernels.cu`` (4-bit codes on the tensor cores, see
+``onehot_route`` and ``bf16_onehot_route``):
 
   * K8  ``pq_scores``          — the [Q, n_valid] f32 score matrix (the JAX
     package's int8-LUT and bf16-LUT ``pq_scores_pallas`` kernels; one
@@ -44,8 +44,12 @@ package does before its ``pallas_call``:
 ``wgmma``, multiplying the LUT flattened to [Q, Mpad * 16]
 (``onehot_operands``) by the codes expanded to one-hot bytes. Its int32 sum
 and f64 epilogue are the gather body's, so both routes equal the same plain
-version to the bit. Every other launch runs the LUT-gather body, whose
-searches stream the LUT through a ring fed by bulk copies
+version to the bit. K8 with 4-bit codes and the bf16 LUT (``pq_scores``
+rounds bf16x2 to bf16) takes a route of its own (``bf16_onehot_route``):
+one-hot bf16 products on ``wgmma``, one chunk each from a zero accumulator,
+so each lands a LUT entry exactly, summed on the CUDA cores in the plain
+version's order (``bf16_onehot_operand``). Every other launch runs the
+LUT-gather body, which streams the LUT through a ring fed by bulk copies
 (``csrc/pq_kernels.cuh``).
 
 The plain versions sum in the kernels' order, so on the card each kernel
@@ -108,13 +112,15 @@ LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0,
             "pq_search_indexed": 0}
 #: Of those, the launches that took the one-hot route (``onehot_route``).
 ONEHOT_LAUNCHES = dict(LAUNCHES)
+#: And those that took the bf16 one-hot route (``bf16_onehot_route``: K8).
+BF16_ONEHOT_LAUNCHES = {"pq_scores": 0}
 # The one-hot approx body's largest part: a part's 128-row segment number
 # must fit a byte (csrc/dot_scan.cuh approx_parts_kernel).
 ONEHOT_PART_MAX = 255 * 128
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ONEHOT_LAUNCHES):
+    for counts in (LAUNCHES, ONEHOT_LAUNCHES, BF16_ONEHOT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -195,6 +201,23 @@ def onehot_route(kc: int, precision: str, mode: str = "scores", tile_n: int = TI
         return False
     return kc == K4 and precision == "int8" and mode in ("scores", "exact", "approx",
                                                          "indexed")
+
+
+def bf16_onehot_route(kc: int, precision: str) -> bool:
+    """Whether K8 runs on the bf16 one-hot route (``csrc/pq4_mma_kernels.cu``
+    ``qtt_pq4_mma_scores_bf16``): with 4-bit codes and the bf16 LUT, which
+    ``pq_scores`` also uses for bf16x2 (``scores_precision``). The 4-bit
+    bf16 / bf16x2 searches and 8-bit codes run the LUT-gather body."""
+    return kc == K4 and precision in ("bf16", "bf16x2")
+
+
+def bf16_onehot_operand(lut: torch.Tensor, mpad: int) -> torch.Tensor:
+    """The bf16 one-hot route's B operand: the LUT rounded to bf16 [Q, mpad
+    * kc], zero past m, flattened with no transposition (the JAX package's
+    bf16 ``lut_flat``, pq_kernel.py:956-961). Element 16c + i of a query's
+    row meets the one-hot 1.0 of code i of chunk c."""
+    q, _, kc = lut.shape
+    return pad_dim_to(lut.to(torch.bfloat16), 1, mpad).reshape(q, mpad * kc).contiguous()
 
 
 def onehot_operands(lut: torch.Tensor, mpad: int
@@ -320,6 +343,21 @@ def _launch_onehot(name, lut, codes_t, n_valid, outs, voff=None, res=(0, 0, 0), 
     ONEHOT_LAUNCHES[name] += 1
 
 
+def _launch_bf16_onehot(lut, codes_t, n_valid, out):
+    """K8 on the bf16 one-hot route (``qtt_pq4_mma_scores_bf16``) on the
+    current stream. Counts the launch in LAUNCHES and BF16_ONEHOT_LAUNCHES;
+    raises on any error."""
+    mpad, npad = codes_t.shape
+    lutb = bf16_onehot_operand(lut, mpad)
+    lib = load_library()
+    err = lib.qtt_pq4_mma_scores_bf16(
+        lutb.data_ptr(), codes_t.data_ptr(), out.data_ptr(), lut.shape[0], mpad, npad, n_valid,
+        torch.cuda.current_stream(codes_t.device).cuda_stream)
+    check(lib, err, "pq_scores")
+    LAUNCHES["pq_scores"] += 1
+    BF16_ONEHOT_LAUNCHES["pq_scores"] += 1
+
+
 def _launch(name, lut, codes_t, precision, n_valid, outs, *extra, fn=None):
     """Put the LUT in the kernels' layout and launch ``qtt_<fn or name>`` on
     the current stream: (lut, scale, bias, codes_t, *outs, Q, mpad, npad,
@@ -375,6 +413,8 @@ def pq_scores(lut, codes_t, *, n_valid, precision=None):
         _check_operands(lut, codes_t, n_valid)
         if onehot_route(lut.shape[2], precision):
             _launch_onehot("pq_scores", lut, codes_t, n_valid, (out,))
+        elif bf16_onehot_route(lut.shape[2], precision):
+            _launch_bf16_onehot(lut, codes_t, n_valid, out)
         else:
             _launch("pq_scores", lut, codes_t, precision, n_valid, (out,))
     return out

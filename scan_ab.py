@@ -17,9 +17,10 @@ of 1,226 tiles of 1024 rows, and K10 over all 1,226 tiles at the serving
 plan's scan width. Then the PQ kernels at chip_smoke.py's path 3 shape
 (1,000,000 rows of 768 dims, Q = 256, k = 10) on random codes and a LUT
 made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
-one-hot route on the scan body), K8b 4-bit (bf16 LUT), at 8 bits K8a, K8b,
-K7b and K7a (int8 LUT, the LUT-gather body), and K7b / K7a at both widths
-with the bf16 and bf16x2 LUTs (the gather body); then path 4's PQ scans
+one-hot route on the scan body), K8b 4-bit (bf16 LUT: the bf16 one-hot
+route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
+ring), and K7b / K7a at both widths with the bf16 and bf16x2 LUTs (the
+gather body); then path 4's PQ scans
 at m = 96 with the residual bf16x2 LUT (rowadd and corr): K11 over 256 of
 1,152 tiles of 1024 rows and the compact K7b / K7a over the README
 geometry's 131,072-row union (k = 20), and K11 of 4-bit IVF-PQ (m = 192,
@@ -187,8 +188,9 @@ def bq_rows(ms, bq_kernel, dot, g, dev):
 
 
 def pq_rows(ms, pq_kernel, g, dev):
-    """PQ: the one-hot route (4-bit, int8 LUT), the LUT-gather body's
-    searches (8-bit) and K8's controls at path 3's shape; path 4's scans."""
+    """PQ at path 3's shape: the one-hot routes (4-bit: the int8 LUT's
+    K8a / K7a / K7b, the bf16 LUT's K8b) and the LUT-gather body (8-bit K8
+    and searches, the 4-bit bf16 / bf16x2 searches); path 4's scans."""
     pnpad = PN + (-PN) % pq_kernel.TILE_N
 
     def pq_operands(m, kc, npad, n=None):

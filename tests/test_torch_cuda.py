@@ -308,20 +308,57 @@ def _pq_operands(dev, kc, m, n_valid, q, seed):
     return lut, codes_t
 
 
-PQ_SHAPES = [(256, 96, 5000, 40), (16, 192, 3000, 33), (256, 7, 2049, 1), (16, 13, 1500, 70)]
+# K8's shapes: n_valid around a 128-row segment, a 512-row tile, a 4096-row
+# part and a run of 8 segments (the 4-bit bf16 route's block); Q around the
+# 32- and 64-query tiles; m odd, below 8, not a multiple of 8.
+PQ_SHAPES = [(256, 96, 5000, 40), (16, 192, 3000, 33), (256, 7, 2049, 1), (16, 13, 1500, 70),
+             (16, 8, 1, 1), (16, 24, 1025, 65), (16, 96, 4097, 129), (256, 13, 513, 33),
+             (16, 40, 9000, 300)]
 PQ_PRECISIONS = ["int8", "bf16", "bf16x2"]
 
 
+def _special_lut(lut, seed):
+    """The LUT with its awkward values: each (query, chunk) scaled by 2^k,
+    |k| <= 40; a tenth of the entries +-0.0, a twentieth bf16 subnormals (j *
+    2^-133), every fifth chunk of query 0 all -0.0, and with Q > 2 the last
+    query of subnormals only and the one before it of -0.0 only. If the
+    tensor cores flushed subnormals, the bf16 one-hot route would score the
+    last query 0.0 and fail."""
+    g = torch.Generator(device=lut.device)
+    g.manual_seed(seed)
+    q, m, kc = lut.shape
+    dev = lut.device
+    lut = lut * torch.exp2(torch.randint(-40, 41, (q, m, 1), generator=g, device=dev).float())
+    r = torch.rand(lut.shape, generator=g, device=dev)
+    sign = torch.where(torch.rand(lut.shape, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    sub = torch.randint(1, 128, lut.shape, generator=g, device=dev).float() * 2.0 ** -133
+    lut = torch.where(r < 0.1, sign * 0.0, lut)
+    lut = torch.where((r >= 0.1) & (r < 0.15), sign * sub, lut)
+    lut[0, ::5] = -0.0
+    if q > 2:
+        lut[-1] = sign[-1] * sub[-1]
+        lut[-2] = -0.0
+    return lut
+
+
+@pytest.mark.parametrize("special", [False, True])
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
 @pytest.mark.parametrize("kc,m,n_valid,q", PQ_SHAPES)
-def test_k8_pq_scores_equal_plain(dev, kc, m, n_valid, q, precision):
+def test_k8_pq_scores_equal_plain(dev, kc, m, n_valid, q, precision, special):
+    """K8 on each of its routes (8 bits: the ring, int8 and bf16 words; 4
+    bits: the int8 and the bf16 one-hot products) equals plain to the bit,
+    on a random LUT and on one with +-0.0, far binades and subnormals."""
     lut, codes_t = _pq_operands(dev, kc, m, n_valid, q, seed=m + q)
+    if special:
+        lut = _special_lut(lut, seed=m + n_valid)
     before = pq_kernel.LAUNCHES["pq_scores"]
     got = pq_kernel.pq_scores(lut, codes_t, n_valid=n_valid, precision=precision)
     assert pq_kernel.LAUNCHES["pq_scores"] == before + 1
     want = pq_kernel.pq_scores_plain(lut, codes_t, n_valid=n_valid, precision=precision)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if special and q > 2 and precision != "int8":
+        assert bool(want[-1].any()), "the subnormal query scores nonzero"
 
 
 # m values that end a stage of the searches' LUT ring partway (a stage holds
@@ -490,7 +527,9 @@ def test_onehot_k11_equal_plain(dev, m, q, tile_n, t, residual):
 
 def test_onehot_launch_counters(dev):
     """Only K8, K7b, K7a and K11 with 4-bit codes and the int8 LUT count on
-    the one-hot route; every launch still counts under its wrapper's name."""
+    the one-hot route, and only K8 with 4-bit codes and the bf16 or bf16x2
+    LUT on the bf16 one-hot route; every launch still counts under its
+    wrapper's name."""
     pq_kernel.reset_launches()
     lut4, ct4 = _pq4_operands(dev, 24, 3000, 33, seed=5)
     lut8, ct8 = _pq_operands(dev, 256, 24, 3000, 33, seed=6)
@@ -503,16 +542,21 @@ def test_onehot_launch_counters(dev):
     onehot = {"pq_scores": 1, "pq_search_exact": 1, "pq_search_approx": 1,
               "pq_search_indexed": 1}
     assert pq_kernel.ONEHOT_LAUNCHES == onehot
+    assert pq_kernel.BF16_ONEHOT_LAUNCHES == {"pq_scores": 0}
     pq_kernel.pq_scores(lut4, ct4, precision="bf16", **kw)
+    pq_kernel.pq_scores(lut4, ct4, precision="bf16x2", **kw)
+    assert pq_kernel.BF16_ONEHOT_LAUNCHES == {"pq_scores": 2}
     pq_kernel.pq_search(lut4, ct4, k=10, precision="bf16", **kw)
     pq_kernel.pq_search(lut4, ct4, k=10, mode="approx", precision="bf16x2", **kw)
     pq_kernel.pq_scores(lut8, ct8, precision="int8", **kw)
     pq_kernel.pq_search(lut8, ct8, k=10, mode="approx", precision="int8", **kw)
     pq_kernel.pq_search(lut8, ct8, k=10, precision="int8", **kw)
     pq_kernel.pq_search_indexed(lut8, ct8, sel, k=10, precision="int8")
+    pq_kernel.pq_scores(lut8, ct8, precision="bf16", **kw)
     torch.cuda.synchronize()
     assert pq_kernel.ONEHOT_LAUNCHES == onehot
-    assert pq_kernel.LAUNCHES == {"pq_scores": 3, "pq_search_exact": 3,
+    assert pq_kernel.BF16_ONEHOT_LAUNCHES == {"pq_scores": 2}
+    assert pq_kernel.LAUNCHES == {"pq_scores": 5, "pq_search_exact": 3,
                                   "pq_search_approx": 3, "pq_search_indexed": 2}
 
 

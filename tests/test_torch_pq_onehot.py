@@ -160,8 +160,10 @@ ROUTE_CASES = [(kc, p, mode) for kc in (pq_kernel.K4, pq_kernel.K)
 @pytest.mark.parametrize("kc,precision,mode", ROUTE_CASES)
 def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mode):
     """Which launches reach the one-hot entry points: K8, K7b, K7a and K11
-    with 4-bit codes and the int8 LUT, nothing else. The wrappers run their
-    kernel path on CPU tensors with the launches recorded, not run."""
+    with 4-bit codes and the int8 LUT; K8 with 4-bit codes and the bf16 /
+    bf16x2 LUT reaches the bf16 one-hot entry point instead; the rest the
+    gather body. The wrappers run their kernel path on CPU tensors with the
+    launches recorded, not run."""
     calls = []
 
     def gather(name, lut, codes_t, prec, n_valid, outs, *extra, fn=None):
@@ -177,6 +179,8 @@ def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mo
     monkeypatch.setattr(pq_kernel, "use_kernels", lambda t: True)
     monkeypatch.setattr(pq_kernel, "_launch", gather)
     monkeypatch.setattr(pq_kernel, "_launch_onehot", onehot)
+    monkeypatch.setattr(pq_kernel, "_launch_bf16_onehot",
+                        lambda lut, codes_t, n_valid, out: calls.append(("bf16",)))
     m, n_valid, q = 24, 2000, 3
     lut = torch.from_numpy(rng.standard_normal((q, m, kc)).astype(np.float32))
     mpad, npad = m + (-m) % pq_kernel.M_BLK, n_valid + (-n_valid) % pq_kernel.TILE_N
@@ -190,7 +194,9 @@ def test_wrappers_route_through_onehot_route(rng, monkeypatch, kc, precision, mo
     else:
         pq_kernel.pq_search(lut, codes_t, n_valid=n_valid, k=5, mode=mode, **kw)
     want = kc == pq_kernel.K4 and precision == "int8"
+    bf16 = kc == pq_kernel.K4 and precision != "int8" and mode == "scores"
     assert len(calls) == 1 and (calls[0][0] == "onehot") == want
+    assert (calls[0][0] == "bf16") == bf16
     assert pq_kernel.onehot_route(kc, precision, mode) == want
 
 
