@@ -7,8 +7,9 @@
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
-every entry function of the int8 scan body runs on wgmma and that the PQ
-searches' LUT ring is fed by bulk copies on mbarriers, and drives the
+every entry function of the int8 scan body runs on wgmma (the BQ
+sign-query searches on its single-bit product) and that the PQ searches'
+LUT ring is fed by bulk copies on mbarriers, and drives the
 port's five main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
@@ -169,10 +170,18 @@ INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989.4e12
 # __popc issue: 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0), times SMs and max clock:
-# the floor of the BQ kernels' own design, printed beside their bound. The
-# bound itself counts the binary dot as +-1 int8 multiply-adds on the
-# tensor cores, the fastest unit the card has for it.
+# the floor of K6's own design (the popcount body), printed beside its bound.
 POPC_PER_CLOCK_PER_SM = 16
+# The single-bit product wgmma m64n64k256 b1.b1.and.popc, the fastest unit
+# the card has for a binary dot: NVIDIA publishes no rate, and it issued at
+# the s8 m64n64k32 instruction rate, 5.5e7 products a second per SM (NVIDIA
+# H100 80GB HBM3 at 700 W, `scan_ab.py --only rate`; PERF.md), each
+# 64 x 64 x 256 AND-popcount bit products. The BQ sign-query bounds count
+# the binary dot at this rate (K5a, K5c and K10 run on it; K6 computes the
+# same function on the popcount body); the +-1 int8 count at the int8 peak,
+# the bound before, is printed beside it.
+B1_PRODUCTS_PER_S_PER_SM = 5.5e7
+B1_BITS_PER_PRODUCT = 64 * 64 * 256
 # Recall@10 floor of the two-stage indexes on the neighbourhood corpus.
 TWO_STAGE_RECALL_MIN = 0.8
 # Path 3 (PQ): the repo's PQ target, 1M x 768 DOT, 96 subquantizers x 256
@@ -297,6 +306,16 @@ def bound(nbytes, ops, ops_per_s):
     operations over their unit's peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bq_bound(nbytes, q, rows, dim):
+    """((bound_ms, bound_by), int8_ms) of a BQ sign-query kernel: the larger
+    of its bytes and its q * rows * dim bit products at the measured b1
+    wgmma rate; and the same dot as +-1 int8 multiply-adds at the int8 peak."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b1_per_s = B1_PRODUCTS_PER_S_PER_SM * sms * B1_BITS_PER_PRODUCT
+    return (bound(nbytes, q * rows * dim, b1_per_s),
+            2 * q * rows * dim / INT8_OPS_PER_S * 1e3)
 
 
 def random_operands(n_valid, d, q, gen, dev):
@@ -830,29 +849,32 @@ def bq_path(dev, smi, do_profile):
                 lambda: torch.topk(pool, R, dim=1))
 
     # Bounds at the timed shapes. BQ: the planes' true words read once,
-    # the output written once; the binary dot as Q * N * dim +-1 int8
-    # multiply-adds (2 ops each) at the int8 tensor-core peak. The popc
-    # issue time of the kernels' own design is printed beside it. K4: the
-    # Q*R gathered rows (what this run's ids need), their offsets and ids,
-    # the queries; Q*R*D int8 multiply-adds.
+    # the output written once; the binary dot as Q * N * dim bit products at
+    # the b1 wgmma rate (bq_bound), the +-1 int8 count printed beside. K6's
+    # popc issue floor (its design) is printed too. K4: the Q*R gathered
+    # rows (what this run's ids need), their offsets and ids, the queries;
+    # Q*R*D int8 multiply-adds.
     props = torch.cuda.get_device_properties(0)
     popc_per_s = POPC_PER_CLOCK_PER_SM * props.multi_processor_count * max_sm_clock_hz()
     wt = bq_kernel.true_words(BD)
     pl_bytes = wt * 4 * BN + Q * wt * 4
-    bq_ops = 2 * Q * BN * BD
     popc_ms = Q * BN * wt / popc_per_s * 1e3
     dl = sq.codes.shape[1]
-    bounds = {
-        "sq_score_candidates": bound(Q * R * (dl + 8) + Q * (dl + 4) + Q * R * 4,
-                                     2 * Q * R * dl, INT8_OPS_PER_S),
-        "bq_search_approx": bound(pl_bytes + Q * R * 8, bq_ops, INT8_OPS_PER_S),
-        "bq_search_exact": bound(pl_bytes + Q * R * 8, bq_ops, INT8_OPS_PER_S),
-        "bq_scores": bound(pl_bytes + Q * BN * 4, bq_ops, INT8_OPS_PER_S),
-    }
+    bounds, int8_ms = {}, {}
+    for kname, out_bytes in (("bq_search_approx", Q * R * 8), ("bq_search_exact", Q * R * 8),
+                             ("bq_scores", Q * BN * 4)):
+        bounds[kname], int8_ms[kname] = bq_bound(pl_bytes + out_bytes, Q, BN, BD)
+    bounds["sq_score_candidates"] = bound(Q * R * (dl + 8) + Q * (dl + 4) + Q * R * 4,
+                                          2 * Q * R * dl, INT8_OPS_PER_S)
     for kname in ("bq_search_approx", "bq_search_exact", "bq_scores"):
-        say("bound", f"{kname}: {ms[kname]:.4f} ms against the __popc issue floor of its "
-            f"design, {popc_ms:.4f} ms ({Q * BN * wt:.3e} popc at {popc_per_s:.3e}/s), "
-            f"{100 * popc_ms / ms[kname]:.1f} % of it")
+        say("bound", f"{kname}: {ms[kname]:.4f} ms against its bound {bounds[kname][0]:.4f} "
+            f"ms ({bounds[kname][1]}; {Q * BN * BD:.3e} bit products at the b1 wgmma rate, "
+            f"{B1_PRODUCTS_PER_S_PER_SM:.3e} products/s/SM; {pl_bytes / 1e6:.1f} MB of planes), "
+            f"{100 * bounds[kname][0] / ms[kname]:.1f} % of it; as +-1 int8 multiply-adds "
+            f"at 1,979 TOPS {int8_ms[kname]:.4f} ms")
+    say("bound", f"bq_scores (K6, the popcount body): the __popc issue floor of its design "
+        f"{popc_ms:.4f} ms ({Q * BN * wt:.3e} popc at {popc_per_s:.3e}/s), "
+        f"{100 * popc_ms / ms['bq_scores']:.1f} % of it")
     recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
                  plain_ms=pms[n], bound=bounds[n], library_ms=None) for n in ms]
     return recs, {"f32_ms": f32_ms, "recall": rec, "batch_ms": batch_ms,
@@ -1680,11 +1702,12 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     require(torch.equal(v, pv) and torch.equal(i, pi), "K10: equal to plain")
     wt = bq_kernel.true_words(PD)
     rows = tiles.shape[0] * itile
+    bnd, i8 = bq_bound(rows * wt * 4 + Q * wt * 4 + tiles.shape[0] * 4 + Q * kk2 * 8, Q,
+                       rows, PD)
     record("bq_search_indexed", 0.0,
            lambda: bq_kernel.bq_search_indexed(qw, planes, tiles, **kw),
-           lambda: bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw),
-           bound(rows * wt * 4 + Q * wt * 4 + tiles.shape[0] * 4 + Q * kk2 * 8,
-                 2 * Q * rows * PD, INT8_OPS_PER_S))
+           lambda: bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw), bnd)
+    say("bound", f"bq_search_indexed: as +-1 int8 multiply-adds at 1,979 TOPS {i8:.4f} ms")
     g = ivf_mod._gather_buckets(planes, union, nb, s, 1)
     g = torch.nn.functional.pad(g, (0, (-g.shape[1]) % bq_kernel.TILE_N)).contiguous()
     width = union.shape[0] * s
@@ -1695,10 +1718,10 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
                                    dim=PD, n_valid=width)
     torch.cuda.synchronize()
     check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K5c compact")
+    bnd, i8 = bq_bound(width * wt * 4 + Q * wt * 4 + Q * kk2 * 8, Q, width, PD)
     record("bq_search_exact_ivf", 0.0, lambda: bq_kernel.bq_search(qw, g, **bkw),
-           lambda: bq_kernel.bq_search_plain(qw, g, **bkw),
-           bound(width * wt * 4 + Q * wt * 4 + Q * kk2 * 8, 2 * Q * width * PD,
-                 INT8_OPS_PER_S))
+           lambda: bq_kernel.bq_search_plain(qw, g, **bkw), bnd)
+    say("bound", f"bq_search_exact_ivf: as +-1 int8 multiply-adds at 1,979 TOPS {i8:.4f} ms")
     say("K10/K5c", f"IVF-BQ: K10 over {tiles.shape[0]} permuted tiles of {itile} rows and "
         f"K5c over the compact {width}-row union: equal to plain")
 
@@ -2380,9 +2403,10 @@ def tensor_core_bodies(funcs):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
     shared scan body (the scores_kernel, approx_parts_kernel and
     search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
-    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b) and in the bf16
-    one-hot K8 (pq4_bf16_scores_kernel, bf16 HGMMA); every one must have
-    some."""
+    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b), in the bf16
+    one-hot K8 (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ
+    sign-query searches (bq_sign_exact_kernel, bq_sign_approx_kernel:
+    single-bit BGMMA); every one must have some."""
     import re
 
     found = {}
@@ -2394,11 +2418,14 @@ def tensor_core_bodies(funcs):
             found[key] = found.get(key, 0) + part.count("GMMA")
         elif re.search(r"\dpq4_bf16_scores_kernel", name):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
+        elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_approx_kernel)", name):
+            found[m.group(1)] = part.count("BGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
-                           "pq4_bf16_scores_kernel"},
+                           "pq4_bf16_scores_kernel", "bq_sign_exact_kernel",
+                           "bq_sign_approx_kernel"},
             f"the tensor-core entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found

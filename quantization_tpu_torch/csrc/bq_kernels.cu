@@ -20,51 +20,75 @@
 //   K10 qtt_bq_search_approx_res with a tile selection <- bq_search_indexed(
 //                               query_affine=) (bq_kernel.py:328)
 //
-// The residual forms score mult[q] * (qs[q] . bits[n]) + qb[q] (+ rowadd[n])
-// (+ corr), qs int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
-// dot_scan.cuh (K1 / K2 / K9a, on the tensor cores) over 0/1 bytes that a
-// PlaneRows loader expands from the planes into the swizzled wgmma tile, with
-// the multiply-add rounded once (F24). They keep the BQ approx geometry
-// (spans of SPAN * mxu_tile_n dense, SPAN * tile_n indexed), so their
-// candidates are the BQ plain versions'. Bound on the H100: 2 * Q * rows *
-// dims int8 operations at 1,979 TOPS (0.05 ms for 256 queries over 262,144
-// rows of 768 dims, 0.25 ms over the serving plan's 1,255,424); K5a / K10
-// run about 10 times that, K5b's radix select several times more (PERF.md).
-//
 // Layout, as in the JAX package: corpus sign bits as bit planes, u32
 // [W8, npad] (word w of row n at planes[w * npad + n], LSB-first bit order),
 // so neighbouring threads — neighbouring rows — read neighbouring words and
-// every load of a warp is one 128-byte line. Queries are u32 [Q, W8].
+// every load of a warp is one 128-byte line. Queries are u32 [Q, W8]. W8 is
+// a multiple of 8 words (256 bits), and bits past dim are zero on both sides.
 //
-// The sign-query kernels (K6, K5c, K5a, K10) compute, for query q and corpus
-// row n, the XOR count over the
-// true words wt = ceil(dim / 32) (bits past dim are zero on both sides)
-//     x = sum_w popc(qwords[q][w] ^ planes[w][n])
-// and the Hamming->metric map of ops/bq.py metric_from_xor:
+// Sign queries score, for query q and corpus row n, with the Hamming
+// distance x over the W8 words and the map of ops/bq.py metric_from_xor:
 //     score = sign * (dim - 2x),  sign = +1 for DOT or inverted L1/L2, else -1.
 // Every value is an integer below 2^24, so the score is exact in f32 and
 // equals the plain PyTorch version, and the JAX kernels' mult*(qs.bits) + qb,
 // to the bit.
 //
-// What bounds the sign-query kernels on the H100: the main path's corpus is
-// 1,000,000 x 1536
-// bits, 192 MB of planes (57 us at 3.35 TB/s), and K6 writes a 1.0 GB score
-// matrix (0.3 ms). The work is 256 x 1M x 48 = 1.2e10 popcounts per
-// 256-query batch; the SM issues 16 popc per clock (the CUDA throughput
-// table for compute capability 9.0), some 4.2e12/s over 132 SMs, so about
-// 3 ms: these kernels are bound by popcount issue, not by memory. What the
-// design does about it:
-//   * a 32-query tile per block keeps the query words in shared memory,
-//     read as 16-byte broadcasts (8 loads per 32 popc), and every corpus
-//     word a thread loads serves 32 queries;
-//   * the loop runs over the true word count, never the W8 padding;
-//   * the searches never write the [Q, N] score matrix: K5c selects the
-//     exact top-k of each 512-row split in shared memory (ktile.cuh), K5a
-//     keeps one running maximum per stride class in registers.
-// The +-1 x bits int8 tensor-core route of the TPU design (~0.4 ms of dense
-// int8 peak at this shape) is later work.
+// The sign-query searches (K5c, K5a, K10) run on the tensor cores: the int8
+// scan body of dot_scan.cuh (mma_segment, the ring, the swizzle and the
+// accumulator fragment) with the single-bit product wgmma m64nNk256
+// b1.b1.and.popc and the BitRows loader, which stores plane words as they
+// are (a 256-bit step is 32 bytes deep, as the s8 k32 step is). The product
+// gives the AND count a = popc(q & c), and
+//     x = pq + pc - 2a,
+// pq the query's popcount (taken when the block starts), pc the row's (taken
+// by the loader, one __popc a word). The epilogue computes sign * (dim - 2x)
+// in integers (hamming_score). K5a / K10 keep the approx body's geometry
+// (approx_parts_kernel: 64 queries a block, two blocks a SM, running maxima
+// per stride class over APPROX_PART-row parts, the JAX approx geometry, so
+// their candidates are the plain approx's to the bit), the maxima kept on
+// the row's integer term, the query's added once at the end. K5c keeps the
+// select geometry of the popcount kernel it replaced (32 queries a block, 4
+// a warp, two blocks a SM; SignExactTile) over 512-row splits of exact
+// per-split top-k in shared memory (ktile.cuh).
+//
+// What bounds them on the H100 at the main path's 1,000,000 x 1536 bits, Q =
+// 256: 192 MB of planes, 57 us at 3.35 TB/s; 3.9e11 bit products, which the
+// b1 wgmma issues at the s8 instruction rate (5.5e7 m64n64k256 products a
+// second per SM, NVIDIA H100 80GB HBM3 at 700 W, scan_ab.py --only rate),
+// 51 us; so bytes, where the +-1 int8 route of the TPU design counts 0.40 ms
+// of int8 operations. The kernels run far above that floor: a 128-row
+// segment's depth is 1.5 chunks, so the ring barely fills and each segment
+// pays its barriers, its query copies and its epilogue; the radix select
+// takes most of K5c's time. Same card (scan_ab.py in turns; PERF.md): K5a
+// 0.80, K5c 3.37, K10 over 262,144 rows of 768 dims 0.25 ms, where the
+// popcount body these replaced (one __popc(q ^ c) per word, query and row on
+// the CUDA cores, ~3 ms of popc issue) ran 3.79, 6.12 and 0.62, and the +-1
+// int8 route on PlaneRows runs 1.75 and 5.98. Also measured: K5c in the exact
+// body's geometry (64 queries, 8 a warp, one block a SM) 4.77; K5a with a
+// float running maximum 0.91 (the integer one below 0.79); K5a with every
+// prologue chunk's loads issued before the first store 0.83 (96 bytes of
+// spills); K5a with no plane loads at all (wrong sums, a timing probe) 0.65.
+// Over 262,144 rows of 768 dims K5c is select-bound, 0.84 ms against the
+// popcount kernel's 0.80.
+//
+// K6 keeps the popcount body: 32 queries a block, the query words in shared
+// memory read as 16-byte broadcasts, one corpus row a thread, bound by
+// __popc issue (1.2e10 popcounts a batch at 16 a clock per SM, ~3 ms) and
+// its 1.0 GB score matrix (0.3 ms).
+//
+// The residual forms score mult[q] * (qs[q] . bits[n]) + qb[q] (+ rowadd[n])
+// (+ corr), qs int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
+// dot_scan.cuh (K1 / K2 / K9a) over 0/1 bytes that a PlaneRows loader
+// expands from the planes into the swizzled wgmma tile, with the
+// multiply-add rounded once (F24). They keep the BQ approx geometry (spans
+// of SPAN * mxu_tile_n dense, SPAN * tile_n indexed), so their candidates are
+// the BQ plain versions'. Bound: 2 * Q * rows * dims int8 operations at
+// 1,979 TOPS (0.05 ms for 256 queries over 262,144 rows of 768 dims, 0.25 ms
+// over the serving plan's 1,255,424); K5a / K10 run about 10 times that, K5b's
+// radix select several times more (PERF.md).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "dot_scan.cuh"
@@ -133,109 +157,161 @@ __global__ void __launch_bounds__(kBThreads) bq_scores_kernel(
   }
 }
 
-// ----------------------------------------------------------- K5c exact search
-// grid (npad / split, ceil(Q / 32)). Block (s, t) scores rows
-// [s*split, s*split + split) of its 32 queries into shared memory as ordered
-// keys; then warp w selects the exact top-kk of queries 4w .. 4w+3 among the
-// split's rows < n_valid and writes them, unordered, to cand_v / cand_i
-// [Q, nsplit*kk] at columns s*kk .. s*kk+kk-1 (NEG / -1 past the valid rows).
-__global__ void __launch_bounds__(kBThreads) bq_search_exact_kernel(
+// ------------------------------------------------ K5c / K5a / K10: b1 products
+
+// qo[j] = sign * (dim - 2 * pq) for query q0 + j of the block's TQ (clamped
+// to Q - 1), pq its popcount over W words: kThreads / TQ threads a query.
+template <int TQ>
+__device__ __forceinline__ void load_hamming_q(int* qo, const uint32_t* __restrict__ qwords,
+                                               int q0, int Q, int W, int dim, int sign) {
+  constexpr int kPer = kThreads / TQ;
+  const int j = threadIdx.x / kPer, part = threadIdx.x % kPer;
+  const uint32_t* qw = qwords + (long long)min(q0 + j, Q - 1) * W;
+  int pq = 0;
+  for (int w = part; w < W; w += kPer) pq += __popc(__ldg(qw + w));
+#pragma unroll
+  for (int o = 1; o < kPer; o <<= 1) pq += __shfl_xor_sync(0xffffffffu, pq, o);
+  if (part == 0) qo[j] = sign * (dim - 2 * pq);
+}
+
+// sign * (dim - 2 * (pq + pc - 2 * acc)) = qo + sign * (4 * acc - 2 * pc): the
+// row's term, then the score in integers (below 2^24, exact in f32, and +0.0
+// for 0 as plain's is).
+__device__ __forceinline__ int hamming_term(int pc, int acc, int sign) {
+  return sign * (4 * acc - 2 * pc);
+}
+__device__ __forceinline__ float hamming_score(int qo, int pc, int acc, int sign) {
+  return __int2float_rn(qo + hamming_term(pc, acc, sign));
+}
+
+// The shared memory after the ring: qo [TQ], the loader's pc [2][kSeg].
+template <class T>
+constexpr size_t hamming_bytes() {
+  return sizeof(int) * (T::TQ + 2 * kSeg);
+}
+
+// K5c's tile: 32 queries a block (n32 products), a ring of two chunks, two
+// blocks a SM, so 16 warps a SM select, 4 queries each, while the other
+// block scans; the popcount kernel it replaced selected in this geometry.
+// The exact body's (64 queries, 8 a warp, one block a SM) selected slower:
+// 4.77 against 3.39 ms at 1M x 1536, 1.21 against 0.80 ms over 262,144 x
+// 768 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md).
+using SignExactTile = Tile<32, 2, 2>;
+
+// K5c. grid nsplit * ceil(Q / 32), the query tiles of a split neighbours in
+// launch order. Block (s, t) scores rows [s*split, s*split + split) of its 32
+// queries into shared memory as ordered keys, then each warp selects the
+// exact top-kk of its 4 queries among the split's rows < n_valid and writes
+// them, unordered, to cand_v / cand_i [Q, nsplit*kk] at columns s*kk ..
+// s*kk+kk-1 (NEG / -1 past the valid rows). The warps' histograms take the
+// ring's memory once the scan is done.
+__global__ void __launch_bounds__(kThreads, SignExactTile::kBlocks) bq_sign_exact_kernel(
     const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
-    float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int W8, int wt,
-    long long npad, int n_valid, int dim, int sign, int split, int kk) {
-  extern __shared__ __align__(16) uint32_t smem_b[];
-  unsigned* keys = smem_b;                   // [32][split]
-  unsigned* hist_all = keys + kBTQ * split;  // [8][256]
-  uint32_t* qs = hist_all + 8 * 256;         // [wt][32]
+    float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int W, long long npad,
+    int n_valid, int dim, int sign, int split, int kk) {
+  using T = SignExactTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  int* qo = reinterpret_cast<int*>(smem + T::kBytes);
+  int* pc = qo + TQ;
+  const int ks = split + kKeyPad;                                  // key row stride
+  unsigned* keys = reinterpret_cast<unsigned*>(pc + 2 * kSeg);     // [TQ][ks]
   const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.y * kBTQ;
-  const long long start = (long long)blockIdx.x * split;
-  load_query_words(qwords, qs, q0, Q, W8, wt);
-  __syncthreads();
+  const int nqt = (Q + TQ - 1) / TQ, nsplit = (int)((npad + split - 1) / split);
+  const int split_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)split_id * split;
+  load_hamming_q<TQ>(qo, qwords, q0, Q, W, dim, sign);
+  const BitRows rows{planes, npad, W, pc};
+  const int8_t* qbytes = reinterpret_cast<const int8_t*>(qwords);
+
+  for (int off = 0; off < split && start + off < n_valid; off += kSeg) {
+    int acc[1][T::kAcc];
+    mma_segment<T>(rows, qbytes, q0, Q, start + off, 4 * W, smem_addr(smem), acc);
+#pragma unroll
+    for (int e = 0; e < T::kAcc; ++e) {
+      const int j = frag_col(e), r = frag_row(e);
+      keys[j * ks + off + r] =
+          float_to_key(hamming_score(qo[j], pc[r] + pc[kSeg + r], acc[0][e], sign));
+    }
+  }
+  __syncthreads();  // the keys of a query come from every warp; the ring is free
 
   const long long valid = (long long)n_valid - start;
   const int cnt = (int)(valid < 0 ? 0 : (valid < split ? valid : split));
-  for (int e = threadIdx.x; e < cnt; e += kBThreads) {
-    int acc[kBTQ];
-    xor_counts<kBTQ>(planes, qs, npad, start + e, wt, 0, acc);
-#pragma unroll
-    for (int j = 0; j < kBTQ; ++j)
-      keys[j * split + e] = float_to_key(metric(acc[j], dim, sign));
-  }
-  __syncthreads();  // every thread wrote keys of every query
-
-  const long long width = (long long)gridDim.x * kk;
-  for (int j = 0; j < 4; ++j) {
-    const int q = q0 + warp * 4 + j;
+  const long long width = (long long)nsplit * kk;
+  unsigned* hist = reinterpret_cast<unsigned*>(smem) + warp * 256;
+  for (int j = warp; j < TQ; j += kThreads / 32) {
+    const int q = q0 + j;
     if (q >= Q) break;
-    const long long o = (long long)q * width + (long long)blockIdx.x * kk;
-    warp_select_topk(keys + (warp * 4 + j) * split, cnt, kk, start, cand_v + o,
-                     cand_i + o, hist_all + warp * 256);
+    const long long o = (long long)q * width + (long long)split_id * kk;
+    warp_select_topk(keys + j * ks, cnt, kk, start, cand_v + o, cand_i + o, hist);
   }
 }
 
-// ---------------------------------------------------------- K5a approx search
-// K10 is the same kernel over selected tiles (map.sel; bq_search_indexed,
-// bq_kernel.py:328 of the JAX package): the IVF probe's plane columns are
-// read in place, and the bound is the selected rows' popcounts.
-// Pass 1, grid (ceil(ncomp / part), ceil(Q / 32)). Thread (l, h) owns stride
-// class l = tid % 128 for queries 16h .. 16h+15 of the tile and keeps, over
-// compact rows p*part + m*128 + l in order, the running maximum and its
-// corpus row (strict ">": the first row wins ties, as the Pallas kernel's
-// compares do). Compact rows >= n_valid score NEG (bq_kernel.py:149).
+// K5a, and K10 over selected tiles (map.sel; bq_search_indexed, bq_kernel.py:328
+// of the JAX package): pass 1, grid ceil(ncomp / part) * ceil(Q / 64), the
+// query tiles of a part neighbours in launch order: approx_parts_kernel's
+// geometry. Block p keeps, for each of its queries and each stride class l
+// (compact rows p*part + m*128 + l), the running maximum and its corpus row
+// (strict ">" in compact order: the first row wins ties, as the Pallas
+// kernel's compares do). Compact rows >= n_valid score NEG (bq_kernel.py:149).
 // part_v / part_i: [Q, nparts*128]. Pass 2 is ktile.cuh's in-order combine
 // per span block.
-__global__ void __launch_bounds__(kBThreads) bq_approx_parts_kernel(
+__global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) bq_sign_approx_kernel(
     const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
-    float* __restrict__ part_v, int* __restrict__ part_i, int Q, int W8, int wt,
-    long long npad, int n_valid, int dim, int sign, int part, long long ncomp,
-    ScanMap map) {
-  constexpr int kHalf = kBTQ / 2;
-  extern __shared__ __align__(16) uint32_t qs_a[];  // [wt][32]
-  const int l = threadIdx.x & (kSlot - 1), h = threadIdx.x / kSlot;
-  const int q0 = blockIdx.y * kBTQ;
-  const long long start = (long long)blockIdx.x * part;
-  load_query_words(qwords, qs_a, q0, Q, W8, wt);
-  __syncthreads();
-  float best[kHalf];
-  int arg[kHalf];
+    float* __restrict__ part_v, int* __restrict__ part_i, int Q, int W, long long npad,
+    long long ncomp, int n_valid, int dim, int sign, int part, ScanMap map) {
+  using T = ApproxTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  int* qo = reinterpret_cast<int*>(smem + T::kBytes);
+  int* pc = qo + TQ;
+  const int nqt = (Q + TQ - 1) / TQ, nparts = (int)((ncomp + part - 1) / part);
+  const int part_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)part_id * part;
+  load_hamming_q<TQ>(qo, qwords, q0, Q, W, dim, sign);
+  const BitRows rows{planes, npad, W, pc};
+  const int8_t* qbytes = reinterpret_cast<const int8_t*>(qwords);
+  // The running maxima as hamming_term, qo[j] being the same for every row
+  // of a (query, class) pair: kNone before the first row, kPad for rows >=
+  // n_valid (NEG), below every real term; the score is formed once at the end.
+  constexpr int kNone = INT_MIN, kPad = INT_MIN + 1;
+  int best[32];
+  unsigned seg[8];  // byte e % 4 of seg[e / 4]: the segment of best[e]; 0xff: none
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    best[j] = -__int_as_float(0x7f800000);  // -inf: any score beats it
-    arg[j] = -1;
-  }
-  for (int off = 0; off < part && start + off < ncomp; off += kSlot) {
-    const long long c = start + off + l, row = map.row(c);
-    if (c < n_valid) {
-      int acc[kHalf];
-      xor_counts<kHalf>(planes, qs_a, npad, row, wt, h * kHalf, acc);
+  for (int e = 0; e < 32; ++e) best[e] = kNone;
 #pragma unroll
-      for (int j = 0; j < kHalf; ++j) {
-        const float s = metric(acc[j], dim, sign);
-        if (s > best[j]) {
-          best[j] = s;
-          arg[j] = (int)row;
-        }
-      }
-    } else {
+  for (int i = 0; i < 8; ++i) seg[i] = 0xffffffffu;
+  int m = 0;
+  for (int off = 0; off < part && start + off < ncomp; off += kSeg, ++m) {
+    int acc[1][32];
+    mma_segment<T>(rows, qbytes, q0, Q, map.row(start + off), 4 * W, smem_addr(smem), acc);
 #pragma unroll
-      for (int j = 0; j < kHalf; ++j) {
-        if (kNeg > best[j]) {
-          best[j] = kNeg;
-          arg[j] = (int)row;
-        }
+    for (int e = 0; e < 32; ++e) {
+      const int r = frag_row(e);
+      const int v = start + off + r < n_valid
+                        ? hamming_term(pc[r] + pc[kSeg + r], acc[0][e], sign)
+                        : kPad;
+      if (v > best[e]) {
+        best[e] = v;
+        const int sh = 8 * (e & 3);
+        seg[e >> 2] = (seg[e >> 2] & ~(0xffu << sh)) | ((unsigned)m << sh);
       }
     }
   }
-  const long long width = (long long)gridDim.x * kSlot;
+  const long long width = (long long)nparts * kSlot;
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    const int q = q0 + h * kHalf + j;
-    if (q < Q) {
-      const long long c = (long long)q * width + (long long)blockIdx.x * kSlot + l;
-      part_v[c] = best[j];
-      part_i[c] = arg[j];
-    }
+  for (int e = 0; e < 32; ++e) {
+    const int j = frag_col(e), q = q0 + j, l = frag_row(e);
+    if (q >= Q) continue;
+    const unsigned sm = (seg[e >> 2] >> (8 * (e & 3))) & 0xffu;
+    const long long c = (long long)q * width + (long long)part_id * kSlot + l;
+    part_v[c] = best[e] == kNone  ? -__int_as_float(0x7f800000)
+                : best[e] == kPad ? kNeg
+                                  : __int2float_rn(qo[j] + best[e]);
+    part_i[c] = sm == 0xffu ? -1 : (int)map.row(start + (long long)sm * kSeg + l);
   }
 }
 
@@ -247,7 +323,8 @@ inline size_t qs_bytes(int wt) { return sizeof(uint32_t) * (size_t)wt * kBTQ; }
 // Every function launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). Shapes are checked by the Python wrappers
 // (ops/kernels/bq_kernel.py): contiguous u32 tensors, npad % 2048 == 0,
-// 1 <= wt <= W8, wt <= 1024.
+// W8 % 8 == 0, the query words 16-byte aligned; K6's wt: 1 <= wt <= W8, wt <=
+// 1024.
 
 extern "C" {
 
@@ -266,19 +343,21 @@ int qtt_bq_scores(const void* qwords, const void* planes, void* out, int Q,
 }
 
 int qtt_bq_search_exact(const void* qwords, const void* planes, void* cand_v,
-                        void* cand_i, int Q, int W8, int wt, long long npad,
-                        int n_valid, int dim, int sign, int split, int kk,
-                        void* stream) {
-  const size_t smem =
-      sizeof(unsigned) * ((size_t)kBTQ * split + 8 * 256) + qs_bytes(wt);
+                        void* cand_i, int Q, int W8, long long npad, int n_valid, int dim,
+                        int sign, int split, int kk, void* stream) {
+  using T = SignExactTile;
+  static_assert(T::kBytes >= sizeof(unsigned) * 256 * (kThreads / 32), "hist in the ring");
+  if (split % kSeg) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kAlign + T::kBytes + hamming_bytes<T>() +
+                      sizeof(unsigned) * (size_t)T::TQ * (split + kKeyPad);
   cudaError_t err = cudaFuncSetAttribute(
-      bq_search_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bq_sign_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((npad + split - 1) / split), (Q + kBTQ - 1) / kBTQ);
-  bq_search_exact_kernel<<<grid, kBThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = (unsigned)((npad + split - 1) / split) * ((Q + T::TQ - 1) / T::TQ);
+  bq_sign_exact_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
-      static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, W8, wt, npad,
-      n_valid, dim, sign, split, kk);
+      static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, W8, npad, n_valid, dim,
+      sign, split, kk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,20 +366,21 @@ int qtt_bq_search_exact(const void* qwords, const void* planes, void* cand_v,
 // (K10; ncomp = T * tile_n).
 int qtt_bq_search_approx(const void* qwords, const void* planes, void* part_v,
                          void* part_i, void* out_v, void* out_i, int Q, int W8,
-                         int wt, long long npad, int n_valid, int dim, int sign,
-                         int part, int span_rows, const void* sel, int tile_n,
-                         long long ncomp, void* stream) {
+                         long long npad, int n_valid, int dim, int sign, int part,
+                         int span_rows, const void* sel, int tile_n, long long ncomp,
+                         void* stream) {
+  if (part % kSeg || part / kSeg > 255) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = qs_bytes(wt);
+  const size_t smem = kAlign + ApproxTile::kBytes + hamming_bytes<ApproxTile>();
   cudaError_t err = cudaFuncSetAttribute(
-      bq_approx_parts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bq_sign_approx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nparts = (int)((ncomp + part - 1) / part);
-  const dim3 grid(nparts, (Q + kBTQ - 1) / kBTQ);
-  bq_approx_parts_kernel<<<grid, kBThreads, smem, s>>>(
+  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
+  bq_sign_approx_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
-      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, W8, wt, npad,
-      n_valid, dim, sign, part, ncomp, scan_map(sel, tile_n, nullptr, 0, 0));
+      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, W8, npad, ncomp, n_valid,
+      dim, sign, part, scan_map(sel, tile_n, nullptr, 0, 0));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_approx_combine(

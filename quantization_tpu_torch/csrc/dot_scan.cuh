@@ -2,7 +2,10 @@
 // bq_kernels.cu (K5b and the value-query forms of K5a / K10) and
 // pq4_mma_kernels.cu (K8, K7a, K7b and K11 with 4-bit codes and the int8
 // LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
-// s32.s8.s8, both operands K-major in shared memory (mma_segment). K12 (L1)
+// s32.s8.s8, both operands K-major in shared memory (mma_segment). The BQ
+// sign-query searches of bq_kernels.cu (K5c, K5a, K10) run the same body
+// with the single-bit product m64nNk256 b1.b1.and.popc (N = 64, or 32 for
+// K5c's 32-query tile) on plane words stored as they are (BitRows). K12 (L1)
 // keeps a __dp4a body of its own in sq_kernels.cu: the sum of absolute
 // differences has no tensor-core form. Every other PQ launch (the bf16 /
 // bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh, but
@@ -32,7 +35,11 @@
 //     16 one-hot bytes per chunk (one swizzle piece), a chunk ahead as
 //     PlaneRows does; the "queries" are then the int8 LUT [Q, mpad * 16],
 //     and the dot is the LUT sum of each row's codes.
-//   * Queries: int8 [Q, D] rows, cp.async with zero fill for rows >= Q.
+//   * BitRows: the bit planes unexpanded, for the b1 product: a 128-byte
+//     chunk is 32 plane words (1024 dims) of each row, and a row's depth
+//     ends on a 256-bit step, not a chunk, so no product runs past it.
+//   * Queries: int8 [Q, D] rows, cp.async with zero fill for rows >= Q
+//     (with BitRows the query words [Q, D / 4]).
 // The rows of a segment come from ScanMap::row (ktile.cuh), so the IVF tile
 // lists (K9a, K9b, K10) stream in place with no tensor map. The sums are
 // exact: SQ codes and queries lie in [0, 127], plane and one-hot bytes are
@@ -73,6 +80,10 @@
 //     histograms: one block per SM; 112 / 102 / 100 (NibbleRows) registers,
 //     no spills. Each warp then radix-selects
 //     8 queries (ktile.cuh), which takes most of the kernel's time.
+//   * the BQ sign searches (BitRows, bq_kernels.cu): K5a / K10 the approx
+//     tile, 128 registers, no spills; K5c a tile of its own, 32 queries
+//     (n32 products) and a ring of two chunks beside the [32][516] keys, two
+//     blocks a SM, 104 registers, no spills.
 // Also measured and dropped (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py): a
 // fourth ring stage with one product group left in flight across the next
 // chunk's barrier, for the approx body and for K3 (no gain, PlaneRows and
@@ -124,12 +135,14 @@ constexpr int kDK = 128;        // bytes of depth per staged chunk: one swizzle 
 constexpr int kKeyPad = 4;      // words after each query's keys in the exact body
 constexpr int kAlign = 1024;    // the swizzle atom: ring stages start on it
 
-// A body's tile: TQ queries (TQ / 64 products of 64), a ring of S chunks
-// filled S - 1 chunks ahead of the products, and the blocks per SM its
-// registers are held to.
+// A body's tile: TQ queries (TQ / 64 products of 64, or one of TQ = 32,
+// the single-bit route only), a ring of S chunks filled S - 1 chunks ahead
+// of the products, and the blocks per SM its registers are held to. kN is
+// a product's query width and kAcc a thread's accumulators for it.
 template <int TQ_, int S_, int kBlocks_>
 struct Tile {
-  static constexpr int TQ = TQ_, S = S_, kBlocks = kBlocks_, kH = TQ / 64;
+  static constexpr int TQ = TQ_, S = S_, kBlocks = kBlocks_;
+  static constexpr int kN = TQ < 64 ? TQ : 64, kH = TQ / kN, kAcc = kN / 2;
   static constexpr int kStage = (kSeg + TQ) * kDK;  // A: kSeg rows, B: TQ rows
   static constexpr int kBytes = S * kStage;
 };
@@ -201,9 +214,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous products.
-__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
@@ -229,6 +243,51 @@ __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64
         "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
         "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d[64 x 64] += popc(A[64 x 256 bits] & B[64 x 256 bits]^T), b1 x b1 -> s32,
+// from shared memory: the single-bit product (its only bit operation is
+// .and). A 256-bit step is 32 bytes deep, as a k32 step of int8 is, so the
+// descriptors, the swizzle and the accumulator fragment are the s8 ones.
+__device__ __forceinline__ void wgmma_m64n64k256_b1(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// The same product against 32 queries (B[32 x 256 bits]): the first 16
+// accumulators of the n64 fragment.
+__device__ __forceinline__ void wgmma_m64n32k256_b1(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
       : "l"(a), "l"(b), "r"(1)
       : "memory");
 }
@@ -280,8 +339,10 @@ __device__ __forceinline__ int frag_col(int e) {
 // A row source moves chunk d0 of segment rows row0 .. row0+127 into the A
 // tile at a in three steps, each a no-op for one of them: prefetch (one
 // chunk ahead: global loads into registers), issue (before the chunk's
-// cp.async group is committed) and put (while the products run).
+// cp.async group is committed) and put (while the products run). kBits
+// names the product: int8 bytes (s8 k32) or bits (b1 k256).
 struct CodeRows {
+  static constexpr bool kBits = false;
   using Elem = int8_t;
   struct Pending {};
   const int8_t* codes;
@@ -313,6 +374,7 @@ struct CodeRows {
 // chunks, Q = 256, K8 2.18-2.22 ms against 2.54-2.55, K7a 3.22-3.27 against
 // 3.95 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py, the two maps in turns).
 struct NibbleRows {
+  static constexpr bool kBits = false;
   using Elem = uint8_t;
   struct Pending {
     uint32_t v;
@@ -340,6 +402,7 @@ struct NibbleRows {
 };
 
 struct PlaneRows {
+  static constexpr bool kBits = false;
   using Elem = uint32_t;
   static constexpr int kWords = kSeg * (kDK / 32) / kThreads;  // plane words a thread moves
   struct Pending {
@@ -369,6 +432,53 @@ struct PlaneRows {
       st_shared_v4(a + swz(r, 2 * w), b[0], b[1], b[2], b[3]);
       st_shared_v4(a + swz(r, 2 * w + 1), b[4], b[5], b[6], b[7]);
     }
+  }
+};
+
+// BQ bit planes as they are, for the single-bit product: bytes 4w .. 4w+3 of
+// A tile row r, depth chunk d0 (bytes), hold plane word d0/4 + w of row r; a
+// chunk is 32 words, 1024 dims. Thread t moves the 16-byte pieces c = t/128
+// + 2i, i < 4, of row r = t % 128: four loads a piece, each of a warp's 32
+// neighbouring rows (one 128-byte line), and one 16-byte store, so a
+// quarter-warp's stores fall on 8 distinct swizzle columns. Words >= W are
+// neither read nor, since the body issues no product past the depth, used.
+// put also counts the row's set bits: pc[h * 128 + r] (h = t / 128) is the
+// popcount of row r's words in this thread's pieces, over the segment's
+// chunks so far (set at chunk 0), read after mma_segment.
+struct BitRows {
+  static constexpr bool kBits = true;
+  using Elem = uint32_t;
+  static constexpr int kPieces = kSeg * (kDK / 16) / kThreads;  // 16-byte pieces a thread
+  struct Pending {
+    uint32_t v[4 * kPieces];
+    int d0;
+  };
+  const uint32_t* planes;
+  long long npad;
+  int W;    // words a row (the planes' W8)
+  int* pc;  // shared [2][kSeg]
+  __device__ __forceinline__ void prefetch(Pending& p, long long row0, int d0) const {
+    const int r = threadIdx.x & (kSeg - 1), h = threadIdx.x >> 7;
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const int w = (d0 >> 2) + 4 * (h + 2 * i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p.v[4 * i + j] = w < W ? __ldg(planes + (long long)(w + j) * npad + row0 + r) : 0u;
+    }
+    p.d0 = d0;
+  }
+  __device__ __forceinline__ void issue(uint32_t, long long, int) const {}
+  __device__ __forceinline__ void put(uint32_t a, const Pending& p) const {
+    const int r = threadIdx.x & (kSeg - 1), h = threadIdx.x >> 7;
+    int s = p.d0 == 0 ? 0 : pc[h * kSeg + r];
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const uint32_t* v = p.v + 4 * i;
+      st_shared_v4(a + swz(r, h + 2 * i), v[0], v[1], v[2], v[3]);
+      s += __popc(v[0]) + __popc(v[1]) + __popc(v[2]) + __popc(v[3]);
+    }
+    pc[h * kSeg + r] = s;
   }
 };
 
@@ -431,21 +541,24 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // acc[h][e] = the int8 dot over the depth of segment row frag_row(e) (corpus
 // row row0 + frag_row(e)) against query q0 + 64h + frag_col(e). Rows row0 ..
 // row0+127 must exist; queries >= Q read as zeros. qcodes is int8 [Q, D], D
-// a multiple of 128. Every thread of the block must call it (it
-// synchronises); ring is the shared address of T::kBytes, 1024-aligned.
+// a multiple of 128. With a bit row source (Rows::kBits) acc is the AND
+// count, qcodes the query words [Q, D / 4] and D a multiple of 32 bytes (a
+// 256-bit step): the last chunk may be partial, and no product reads past
+// D. Every thread of the block must call it (it synchronises); ring is the
+// shared address of T::kBytes, 1024-aligned.
 template <class T, class Rows>
 __device__ __forceinline__ void mma_segment(const Rows& rows,
                                             const int8_t* __restrict__ qcodes, int q0,
                                             int Q, long long row0, int D, uint32_t ring,
-                                            int (&acc)[T::kH][32]) {
+                                            int (&acc)[T::kH][T::kAcc]) {
   constexpr int TQ = T::TQ, S = T::S, kStage = T::kStage, kH = T::kH;
   const int tid = threadIdx.x;
-  const int nk = D / kDK;
+  const int nk = Rows::kBits ? (D + kDK - 1) / kDK : D / kDK;
   const uint32_t a_off = (uint32_t)(tid >> 7) * 64 * kDK;  // this warpgroup's rows
 #pragma unroll
   for (int h = 0; h < kH; ++h) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) acc[h][e] = 0;
+    for (int e = 0; e < T::kAcc; ++e) acc[h][e] = 0;
     fence_acc(acc[h]);
   }
 
@@ -454,8 +567,14 @@ __device__ __forceinline__ void mma_segment(const Rows& rows,
 #pragma unroll
     for (int t = 0; t < TQ * (kDK / 16) / kThreads; ++t) {
       const int idx = tid + t * kThreads, r = idx >> 3, c = idx & 7, q = q0 + r;
-      cp_async16(b + swz(r, c), qcodes + (long long)min(q, Q - 1) * D + d0 + c * 16,
-                 q < Q ? 16 : 0);
+      if constexpr (Rows::kBits) {
+        const bool in = q < Q && d0 + c * 16 < D;  // pieces past D: zero, no read
+        const int8_t* src = qcodes + (long long)min(q, Q - 1) * D + (in ? d0 + c * 16 : 0);
+        cp_async16(b + swz(r, c), src, in ? 16 : 0);
+      } else {
+        cp_async16(b + swz(r, c), qcodes + (long long)min(q, Q - 1) * D + d0 + c * 16,
+                   q < Q ? 16 : 0);
+      }
     }
   };
 
@@ -488,10 +607,25 @@ __device__ __forceinline__ void mma_segment(const Rows& rows,
     const uint64_t da = wgmma_desc(st + a_off), db = wgmma_desc(st + kSeg * kDK);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kDK / 32; ++k)
+    for (int k = 0; k < kDK / 32; ++k) {
+      if constexpr (Rows::kBits) {
+        if (c * kDK + 32 * k < D) {
 #pragma unroll
-      for (int h = 0; h < kH; ++h)
-        wgmma_m64n64k32(acc[h], da + 2 * k, db + (uint64_t)(h * 64 * kDK >> 4) + 2 * k);
+          for (int h = 0; h < kH; ++h) {
+            const uint64_t bh = db + (uint64_t)(h * 64 * kDK >> 4) + 2 * k;
+            if constexpr (T::kN == 32) {
+              wgmma_m64n32k256_b1(acc[h], da + 2 * k, bh);
+            } else {
+              wgmma_m64n64k256_b1(acc[h], da + 2 * k, bh);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < kH; ++h)
+          wgmma_m64n64k32(acc[h], da + 2 * k, db + (uint64_t)(h * 64 * kDK >> 4) + 2 * k);
+      }
+    }
     wgmma_commit();
     if (nc < nk) rows.put(nst, p);  // while the products run
     if (nc + 1 < nk) rows.prefetch(p, row0, (nc + 1) * kDK);

@@ -6,12 +6,16 @@ Twin of ``quantization_tpu/ops/pallas/bq_kernel.py``. The kernels live in
 
   * K6  ``bq_scores``          — the [Q, n_valid] f32 score matrix (the JAX
     package's ``bq_scores_mxu`` and ``bq_scores_pallas`` compute the same
-    function for two TPU units; one kernel here stands for both);
+    function for two TPU units; one kernel here stands for both), by XOR
+    and ``__popc`` on the CUDA cores;
   * K5c ``bq_search`` exact    — scores fused with an exact per-split top-k;
   * K5a ``bq_search`` approx   — scores fused with the stride-class maxima
     of the JAX approx kernel, over spans of ``SPAN * mxu_tile_n`` rows;
   * K10 ``bq_search_indexed``  — the K5a body walking a selected list of
-    corpus tiles in place (the IVF probe scan), for packed sign queries;
+    corpus tiles in place (the IVF probe scan), for packed sign queries.
+    With sign queries K5c, K5a and K10 run on the tensor cores: single-bit
+    AND-popcount products (``wgmma`` b1) on the int8 scan body of
+    ``csrc/dot_scan.cuh``, Hamming = popc(q) + popc(c) - 2 popc(q & c);
   * the residual-BQ forms, with ``query_affine=(qs, mult, qb)`` — an int8
     VALUE query [Q, W8*32] scored ``mult * (qs . bits) + qb`` against the
     sign bits — a per-row additive ``rowadd`` and the bucket additive
@@ -122,11 +126,13 @@ def _check_planes(planes, n_valid):
         raise ArgumentsError(f"n_valid={n_valid} outside [0, {npad}]")
 
 
-def _check_operands(qwords, planes, dim, n_valid):
+def _check_operands(qwords, planes, dim, n_valid, search=False):
     """A sign query's operands (a value query's: ``_check_planes`` and
-    ``_launch_res``)."""
+    ``_launch_res``). The searches' single-bit products copy the query
+    words in 16-byte pieces, so ``search`` asks them 16-byte aligned."""
     w8 = planes.shape[0]
-    check_tensors(planes.device, (("qwords", qwords, torch.int32, (qwords.shape[0], w8)),))
+    check_tensors(planes.device, (("qwords", qwords, torch.int32, (qwords.shape[0], w8)),),
+                  align=16 if search else 1)
     _check_planes(planes, n_valid)
     if not 1 <= true_words(dim) <= min(w8, MAX_WORDS):
         raise ArgumentsError(f"dim={dim} needs 1..{min(w8, MAX_WORDS)} words")
@@ -255,18 +261,17 @@ def bq_search(
         return _launch_res(query_affine, planes, corr, rowadd, None, 0, npad, n_valid, k,
                            mode, SPAN * mxu_tile_n(w8 * 32, npad),
                            "bq_search_" + mode + "_res")
-    _check_operands(qwords, planes, dim, n_valid)
+    _check_operands(qwords, planes, dim, n_valid, search=True)
     q = qwords.shape[0]
     dev = planes.device
-    args = (q, w8, true_words(dim), npad, n_valid, dim,
-            metric_sign(distance_type, invert))
-    lib = load_library()
+    args = (q, w8, npad, n_valid, dim, metric_sign(distance_type, invert))
     if mode == "exact":
         kk = min(k, EXACT_SPLIT)
         width = (npad // EXACT_SPLIT) * kk
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q:
+            lib = load_library()
             err = lib.qtt_bq_search_exact(
                 qwords.data_ptr(), planes.data_ptr(), vals.data_ptr(), ids.data_ptr(),
                 *args, EXACT_SPLIT, kk, _stream(planes),
@@ -386,7 +391,7 @@ def bq_search_indexed(qwords, planes, tile_sel, corr=None, *, distance_type, inv
         return bq_search_indexed_plain(qwords, planes, tile_sel, corr, k=k, tile_n=tile_n,
                                        query_affine=query_affine, rowadd=rowadd, **kw)
     if query_affine is None:
-        _check_operands(qwords, planes, dim, npad)
+        _check_operands(qwords, planes, dim, npad, search=True)
     else:
         _check_planes(planes, npad)
     if tile_n % MXU_TILE_N or npad % tile_n:
@@ -397,7 +402,7 @@ def bq_search_indexed(qwords, planes, tile_sel, corr=None, *, distance_type, inv
     if query_affine is not None:
         return _launch_res(query_affine, planes, corr, rowadd, tile_sel, tile_n, ncomp, ncomp,
                            k, "approx", SPAN * tile_n, "bq_search_indexed_res")
-    args = (qwords.shape[0], qwords.shape[1], true_words(dim), npad, ncomp, dim,
+    args = (qwords.shape[0], qwords.shape[1], npad, ncomp, dim,
             metric_sign(distance_type, invert))
     return _launch_approx(qwords, planes, args, tile_sel, tile_n, ncomp, SPAN * tile_n, k,
                           "bq_search_indexed")

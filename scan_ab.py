@@ -4,7 +4,7 @@ comparing two checkouts in turns on the same card.
 
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
-    python3 scan_ab.py --only pq,api    # some sections: sq, bq, pq, api
+    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -14,8 +14,13 @@ K9a / K9b over 256 tiles of 1024 rows of a 1,179,648 x 768 corpus and K1 / K2
 with corr over the 262,144-row compact union; residual BQ at 768 dims — K5b
 and the value-query K5a over 262,144 rows with rowadd and corr, K10 over 256
 of 1,226 tiles of 1024 rows, and K10 over all 1,226 tiles at the serving
-plan's scan width. Then the PQ kernels at chip_smoke.py's path 3 shape
-(1,000,000 rows of 768 dims, Q = 256, k = 10) on random codes and a LUT
+plan's scan width. Then sign-query BQ (bqsign): K5a, K5c and K6 at
+chip_smoke.py's path 2 shape (1,000,000 x 1536, Q = 256, k = 40) and
+the same searches on the +-1 int8 route (the residual forms), K10 over
+256 of 1,152 tiles of 1024 rows of 768 dims and K5c over their
+262,144-row union (k = 20, path 4's IVF-BQ). Then the PQ kernels at
+chip_smoke.py's path 3 shape (1,000,000 rows of 768 dims, Q = 256, k = 10)
+on random codes and a LUT
 made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
 one-hot route on the scan body), K8b 4-bit (bf16 LUT: the bf16 one-hot
 route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
@@ -29,8 +34,11 @@ int8 LUT) over 256 tiles; then the 4-bit width through the public API
 walls of score_batch and of approx and exact top_k, and of residual
 IVF-OPQ's approx top_k (nprobe 32 over 256 buckets), medians of 7 calls.
 Kernel times are CUDA-event medians of 7 runs of 10 calls, in ms per
-batch. Prints one JSON object: the card (nvidia-smi name and power limit),
-the package's directory and the times. Needs a CUDA card; the kernels are
+batch. The rate section builds and runs this checkout's
+quantization_tpu_torch/csrc/probe/wgmma_rate.cu: the issue rate of the
+single-bit wgmma product against the int8 one, in turns. Prints one JSON
+object: the card (nvidia-smi name and power limit), the package's
+directory, the times and the rates. Needs a CUDA card; the kernels are
 built from the checkout's sources on first use.
 """
 
@@ -89,8 +97,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory holding the quantization_tpu_torch package to time")
-    ap.add_argument("--only", default="sq,bq,pq,api",
-                    help="comma-separated sections to time: sq, bq, pq, api (default all)")
+    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate",
+                    help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate "
+                         "(default all)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -99,7 +108,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     from quantization_tpu_torch import IVFIndex, ProductQuantizer, VectorParameters
     from quantization_tpu_torch.core.types import DistanceType
-    from quantization_tpu_torch.ops.kernels import bq_kernel, pq_kernel, sq_kernel
+    from quantization_tpu_torch.ops.kernels import bq_kernel, build, pq_kernel, sq_kernel
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -121,11 +130,15 @@ def main():
         sq_rows(ms, sq_kernel, sq_operands, dot, g, dev)
     if "bq" in only:
         bq_rows(ms, bq_kernel, dot, g, dev)
+    if "bqsign" in only:
+        bqsign_rows(ms, bq_kernel, dot, g, dev)
     if "pq" in only:
         pq_rows(ms, pq_kernel, g, dev)
     if "api" in only:
         api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
-    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms}), flush=True)
+    rate = wgmma_rate(build.find_nvcc()) if "rate" in only else None
+    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate}),
+          flush=True)
     return 0
 
 
@@ -185,6 +198,64 @@ def bq_rows(ms, bq_kernel, dot, g, dev):
         ms[name] = timed_ms(lambda: bq_kernel.bq_search_indexed(
             None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
     del planes, rowadd, cplanes, crow
+
+
+def bqsign_rows(ms, bq_kernel, dot, g, dev):
+    """Sign-query BQ: K5a, K5c and K6 at path 2's 1M x 1536, k = 40; K10
+    over 256 tiles and the compact K5c over their union at 768 dims, k = 20."""
+    from quantization_tpu_torch.ops.kernels.ktile import SPAN, tile_rows
+
+    def operands(dim, n, npad):
+        w8 = dim // 32
+        planes = torch.randint(-2**31, 2**31 - 1, (w8, npad), generator=g, device=dev,
+                               dtype=torch.int32)
+        planes[:, n:] = 0
+        return torch.randint(-2**31, 2**31 - 1, (Q, w8), generator=g, device=dev,
+                             dtype=torch.int32), planes
+
+    n, dim, r = 1_000_000, 1536, 40
+    qw, planes = operands(dim, n, n + (-n) % bq_kernel.TILE_N)
+    kw = dict(distance_type=dot, invert=False, dim=dim, n_valid=n)
+    for mode in ("exact", "approx"):
+        ms[f"bq_sign_search_{mode}"] = timed_ms(
+            lambda md=mode: bq_kernel.bq_search(qw, planes, k=r, mode=md, **kw))
+    ms["bq_sign_scores"] = timed_ms(lambda: bq_kernel.bq_scores(qw, planes, **kw))
+    # The same searches on the +-1 int8 route of the JAX design (the value-
+    # query bodies, PlaneRows): qs = 2 * bit - 1, hamming = pq - qs . bits,
+    # score = 2 (qs . bits) + dim - 2 pq (bq_kernel.py:367-402 of the JAX
+    # package).
+    bits = (qw[:, :, None] >> torch.arange(32, device=dev, dtype=torch.int32)) & 1
+    qs = (2 * bits - 1).reshape(Q, dim).to(torch.int8)
+    pq = bits.reshape(Q, dim).sum(1)
+    aff = (qs, torch.full((1,), 2.0, device=dev), (dim - 2 * pq).float().reshape(Q, 1))
+    zeros = torch.zeros(planes.shape[1], device=dev)
+    span = SPAN * bq_kernel.mxu_tile_n(dim, planes.shape[1])
+    for mode in ("exact", "approx"):
+        ms[f"bq_pm1_search_{mode}"] = timed_ms(lambda md=mode: bq_kernel._launch_res(
+            aff, planes, None, zeros, None, 0, planes.shape[1], n, r, md, span,
+            f"bq_search_{md}_res"))
+    del planes
+    qw, planes = operands(IVF_D, IVF_TILES * TILE, IVF_TILES * TILE)
+    sel = torch.randperm(IVF_TILES, generator=g, device=dev)[:UNION_TILES].to(torch.int32)
+    ms["bq_sign_search_indexed"] = timed_ms(lambda: bq_kernel.bq_search_indexed(
+        qw, planes, sel, distance_type=dot, invert=False, dim=IVF_D, k=KK2, tile_n=TILE))
+    union = planes[:, tile_rows(sel, TILE)].contiguous()
+    ms["bq_sign_search_exact_ivf"] = timed_ms(lambda: bq_kernel.bq_search(
+        qw, union, distance_type=dot, invert=False, dim=IVF_D, n_valid=union.shape[1], k=KK2))
+    del planes, union
+
+
+def wgmma_rate(nvcc):
+    """The b1 and s8 wgmma products a second per SM (csrc/probe/wgmma_rate.cu
+    of this checkout, built into its _build/): one dict a line it prints."""
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
+    exe = os.path.join(pkg, "_build", "wgmma_rate")
+    os.makedirs(os.path.dirname(exe), exist_ok=True)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-o", exe, os.path.join(pkg, "csrc", "probe", "wgmma_rate.cu")],
+                   check=True, timeout=600)
+    out = subprocess.run([exe], capture_output=True, text=True, check=True, timeout=600).stdout
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
 
 
 def pq_rows(ms, pq_kernel, g, dev):

@@ -223,6 +223,84 @@ def test_k5a_bq_approx_equal_plain(dev, n_valid, dim):
     _check_topk(v, i, pv, scores, n_valid)
 
 
+# The sign-query searches on the single-bit wgmma body (K5c, K5a, K10):
+# depths of a partial 256-bit step, a partial 128-byte chunk and several
+# chunks; Q around the 64-query tile; n_valid off every segment and split.
+SIGN_DIMS = [1, 100, 257, 1000, 1536, 2100]
+SIGN_QS = [1, 37, 65, 300]
+
+
+@pytest.mark.parametrize("dt,invert", BQ_CASES)
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("dim", SIGN_DIMS)
+@pytest.mark.parametrize("q", SIGN_QS)
+def test_b1_sign_search_equal_plain(dev, q, dim, mode, dt, invert):
+    n_valid = 4100
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=q * 13 + dim)
+    kw = dict(distance_type=dt, invert=invert, dim=dim, n_valid=n_valid, k=40, mode=mode)
+    name = "bq_search_" + mode
+    before = bq_kernel.LAUNCHES[name]
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    assert bq_kernel.LAUNCHES[name] == before + 1
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    scores = bq_kernel.bq_scores_plain(qw, planes, distance_type=dt, invert=invert, dim=dim,
+                                       n_valid=n_valid)
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("k", [1, 40, 512, 513])
+@pytest.mark.parametrize("n_valid", [1, 511, 3000, 9000])
+def test_b1_sign_exact_k_and_ragged_n_valid(dev, k, n_valid):
+    qw, planes = _bq_operands(dev, n_valid, 300, 65, seed=k + n_valid)
+    kw = dict(distance_type=DistanceType.L2, invert=False, dim=300, n_valid=n_valid, k=k)
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    pv, _ = bq_kernel.bq_search_plain(qw, planes, **kw)
+    scores = bq_kernel.bq_scores_plain(qw, planes, distance_type=DistanceType.L2, invert=False,
+                                       dim=300, n_valid=n_valid)
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+    if k > n_valid:
+        assert bool((i[:, n_valid:] == -1).all()) and bool(torch.isneginf(v[:, n_valid:]).all())
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("q", [1, 65, 300])
+def test_b1_sign_all_ties_first_row_wins(dev, q, mode):
+    """Every valid row is the same: exact takes each 512-row split's first
+    rows, approx the first row of each stride class, as the plain version."""
+    n_valid = 4100
+    qw, planes = _bq_operands(dev, n_valid, 1536, q, seed=q)
+    planes[:, :n_valid] = planes[:, :1]
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=1536, n_valid=n_valid, k=20,
+              mode=mode)
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv)
+    if mode == "approx":
+        assert torch.equal(i, pi)
+    else:
+        assert _first_rows_of_splits(i, 20)
+
+
+@pytest.mark.parametrize("dim", [100, 768, 2100])
+@pytest.mark.parametrize("q", SIGN_QS)
+def test_b1_sign_k10_permuted_tiles_equal_plain(dev, q, dim):
+    npad, tile_n = 16384, 1024
+    qw, planes = _bq_operands(dev, npad, dim, q, seed=q + dim)
+    sel = _selection(dev, npad // tile_n, 6, seed=q)
+    kw = dict(distance_type=DistanceType.L1, invert=True, dim=dim, k=40, tile_n=tile_n)
+    before = bq_kernel.LAUNCHES["bq_search_indexed"]
+    v, i = bq_kernel.bq_search_indexed(qw, planes, sel, **kw)
+    assert bq_kernel.LAUNCHES["bq_search_indexed"] == before + 1
+    pv, pi = bq_kernel.bq_search_indexed_plain(qw, planes, sel, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 @pytest.mark.parametrize("per_query", [True, False])
 @pytest.mark.parametrize("dt", [DistanceType.DOT, DistanceType.L2, DistanceType.L1])
 @pytest.mark.parametrize("d,r", [(1536, 40), (128, 7), (256, 1000)])
@@ -359,6 +437,35 @@ def test_k8_pq_scores_equal_plain(dev, kc, m, n_valid, q, precision, special):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     if special and q > 2 and precision != "int8":
         assert bool(want[-1].any()), "the subnormal query scores nonzero"
+
+
+@pytest.mark.parametrize("m", [8, 13, 192])
+def test_k8_bf16_onehot_nonfinite_lut_is_nan_in_its_chunk(dev, m):
+    """ROADMAP Queue 3, F28, pinned as it is: the 4-bit bf16 K8 (one-hot
+    products) scores NaN in every row whose code misses an entry that is not
+    finite in bf16 (0.0 times it in the product), and that entry's infinity
+    in the rows whose code is it; +inf and -inf in one chunk make every row
+    NaN. Query 0 holds +inf and an f32 entry that rounds to -inf in bf16 in
+    one chunk, query 1 a +inf, query 2 a -inf; the finite queries equal
+    plain to the bit. (The plain version gives the infinities to the rows
+    with those codes only; tests/test_torch_pq_onehot_bf16.py holds the
+    same pattern against the JAX package's one-hot matmul.)"""
+    q, n_valid = 5, 1100
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=m)
+    lut[0, 3, 5], lut[0, 3, 9] = float("inf"), -torch.finfo(torch.float32).max
+    lut[1, m - 1, 2] = float("inf")
+    lut[2, 0, 11] = -float("inf")
+    code = codes_t[:, :n_valid].long() & 15
+    before = pq_kernel.BF16_ONEHOT_LAUNCHES["pq_scores"]
+    got = pq_kernel.pq_scores(lut, codes_t, n_valid=n_valid, precision="bf16")
+    assert pq_kernel.BF16_ONEHOT_LAUNCHES["pq_scores"] == before + 1
+    want = pq_kernel.pq_scores_plain(lut, codes_t, n_valid=n_valid, precision="bf16")
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0]).all())
+    for j, hit, inf in ((1, code[m - 1] == 2, float("inf")), (2, code[0] == 11, -float("inf"))):
+        assert bool(hit.any()) and not bool(hit.all())
+        assert bool((got[j][hit] == inf).all()) and bool(torch.isnan(got[j][~hit]).all())
+    assert torch.equal(got[3:].view(torch.int32), want[3:].view(torch.int32))
 
 
 # m values that end a stage of the searches' LUT ring partway (a stage holds

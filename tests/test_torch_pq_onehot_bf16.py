@@ -131,6 +131,54 @@ def test_bf16_onehot_product_equals_pallas(rng, m, zeros):
     assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
 
 
+def _nonfinite_lut(rng, m, n_valid, q):
+    """``_setup``'s LUT and codes with entries that are not finite in bf16:
+    query 0 +inf and an f32 entry below bf16's range (it rounds to -inf) in
+    one chunk, query 1 one +inf, query 2 one -inf; the rest finite. Returns
+    (lut, codes_t, hits): hits[j] bool [n_valid], the rows whose code meets
+    query j's single infinite entry (1, 2)."""
+    lut, codes_t = _setup(rng, m, n_valid, q)
+    lut[0, 3, 5], lut[0, 3, 9] = float("inf"), -torch.finfo(torch.float32).max
+    lut[1, m - 1, 2] = float("inf")
+    lut[2, 0, 11] = -float("inf")
+    code = codes_t[:, :n_valid].long() & 15
+    return lut, codes_t, {1: code[m - 1] == 2, 2: code[0] == 11}
+
+
+@pytest.mark.parametrize("m", [8, 13])
+def test_bf16_onehot_product_of_a_nonfinite_lut_is_nan_in_its_chunk(rng, m):
+    """ROADMAP Queue 3, F28, pinned as it is: an entry that is not finite
+    in bf16 meets 0.0 in the one-hot product of every row whose code is
+    another, so those rows score NaN, as in the JAX package's one-hot matmul
+    (interpret mode: the same NaN rows, the same infinities). A row whose
+    code is the infinite entry scores that infinity; with +inf and -inf in
+    one chunk every row meets one of them times 0.0 and scores NaN. The
+    plain version gives the infinity to the rows with that code only and
+    stays finite elsewhere. Finite queries are untouched, to the bit."""
+    q, n_valid = 5, 1100
+    lut, codes_t, hits = _nonfinite_lut(rng, m, n_valid, q)
+    got = emulate(lut, codes_t, n_valid)
+    assert bool(torch.isnan(got[0]).all())
+    for j, inf in ((1, float("inf")), (2, -float("inf"))):
+        assert bool(hits[j].any()) and not bool(hits[j].all())
+        assert bool((got[j][hits[j]] == inf).all())
+        assert bool(torch.isnan(got[j][~hits[j]]).all())
+    plain = pq_kernel.pq_scores_plain(lut, codes_t, n_valid=n_valid, precision="bf16")
+    assert torch.equal(_bits(got[3:]), _bits(plain[3:]))
+    assert bool(torch.isfinite(plain[1][~hits[1]]).all())
+    assert bool((plain[1][hits[1]] == float("inf")).all())
+
+    want = np.asarray(j_kernel.pq_scores_pallas(
+        jnp.asarray(lut.numpy()), jnp.asarray(codes_t.numpy()), n_valid=n_valid,
+        interpret=True, precision="bf16"))
+    g = got.numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(g), np.isinf(want))
+    fin = np.isfinite(want)
+    assert (np.abs(g[fin] - want[fin]) <= np.spacing(np.abs(want[fin]))).all()
+    np.testing.assert_array_equal(g[np.isinf(want)], want[np.isinf(want)])
+
+
 @pytest.mark.parametrize("m", [8, 13, 96])
 def test_bf16_onehot_operand_is_the_jax_lut_flat(rng, m):
     """[Q, Mpad * 16] bf16, zero past m: the JAX package's bf16 operand
