@@ -8,7 +8,7 @@
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
-sign-query searches on its single-bit product) and that the PQ searches'
+sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
 LUT ring is fed by bulk copies on mbarriers, and drives the
 port's five main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
@@ -168,20 +168,27 @@ Q_SMALL = 32
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989.4e12
-# __popc issue: 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0), times SMs and max clock:
-# the floor of K6's own design (the popcount body), printed beside its bound.
-POPC_PER_CLOCK_PER_SM = 16
 # The single-bit product wgmma m64n64k256 b1.b1.and.popc, the fastest unit
 # the card has for a binary dot: NVIDIA publishes no rate, and it issued at
 # the s8 m64n64k32 instruction rate, 5.5e7 products a second per SM (NVIDIA
 # H100 80GB HBM3 at 700 W, `scan_ab.py --only rate`; PERF.md), each
 # 64 x 64 x 256 AND-popcount bit products. The BQ sign-query bounds count
-# the binary dot at this rate (K5a, K5c and K10 run on it; K6 computes the
-# same function on the popcount body); the +-1 int8 count at the int8 peak,
-# the bound before, is printed beside it.
+# the binary dot at this rate (K6, K5a, K5c and K10 run on it); the +-1
+# int8 count at the int8 peak, the bound before, is printed beside it.
 B1_PRODUCTS_PER_S_PER_SM = 5.5e7
 B1_BITS_PER_PRODUCT = 64 * 64 * 256
+# K12 (L1): the tensor cores have no absolute-difference product, so its
+# operations run on one of two units, and its bound takes the faster: the
+# __vabsdiffu4 + __dp4a pair of its own design (four byte pairs a pair of
+# instructions), at the rate csrc/probe/absdiff_rate.cu measured
+# (`scan_ab.py --only rate`; NVIDIA H100 80GB HBM3 at 700 W; PERF.md); or
+# thermometer codes through the b1 product, sum |q - c| = sum q + sum c -
+# 2 sum_d sum_t [q_d > t][c_d > t] over the 127 levels t of a [0, 127]
+# code, Q * N * D * 127 bit products at the b1 rate. Its int8 count (2 Q N D
+# at the int8 peak, a unit that cannot compute L1), the bound before, is
+# printed beside.
+ABSDIFF_PAIRS_PER_S_PER_SM = 1.21e11
+L1_LEVELS = 127
 # Recall@10 floor of the two-stage indexes on the neighbourhood corpus.
 TWO_STAGE_RECALL_MIN = 0.8
 # Path 3 (PQ): the repo's PQ target, 1M x 768 DOT, 96 subquantizers x 256
@@ -316,6 +323,36 @@ def bq_bound(nbytes, q, rows, dim):
     b1_per_s = B1_PRODUCTS_PER_S_PER_SM * sms * B1_BITS_PER_PRODUCT
     return (bound(nbytes, q * rows * dim, b1_per_s),
             2 * q * rows * dim / INT8_OPS_PER_S * 1e3)
+
+
+def l1_bound(nbytes, q, rows, d):
+    """((bound_ms, bound_by), int8_ms, pairs_ms, thermo_ms) of K12: the
+    larger of its bytes and the cheaper of its two operation floors, the
+    absolute-difference pairs (q * rows * d / 4) at the measured pair rate
+    and the thermometer bit products (q * rows * d * 127) at the b1 rate;
+    and the int8 count of the bound before."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pairs_ms = q * rows * d / 4 / (ABSDIFF_PAIRS_PER_S_PER_SM * sms) * 1e3
+    thermo_ms = q * rows * d * L1_LEVELS / (
+        B1_PRODUCTS_PER_S_PER_SM * sms * B1_BITS_PER_PRODUCT) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(pairs_ms, thermo_ms)
+    bnd = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bnd, 2 * q * rows * d / INT8_OPS_PER_S * 1e3, pairs_ms, thermo_ms
+
+
+def pm1_rows(words, dim, chunk=65_536):
+    """int8 [N, W*32]: the sign bits of words int32 [N, W] (LSB first) as
+    +1 / -1 on the first dim dims and 0 past them, so that a dot of two such
+    rows is dim - 2 * Hamming; expanded in chunks of rows."""
+    n, w = words.shape
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    out = torch.empty((n, w * 32), dtype=torch.int8, device=words.device)
+    for r0 in range(0, n, chunk):
+        bits = (words[r0:r0 + chunk, :, None] >> shifts) & 1
+        out[r0:r0 + chunk] = (2 * bits - 1).reshape(-1, w * 32).to(torch.int8)
+    out[:, dim:] = 0
+    return out
 
 
 def random_operands(n_valid, d, q, gen, dev):
@@ -758,9 +795,44 @@ def bq_path(dev, smi, do_profile):
     got = bq_kernel.bq_scores(qw, planes, **kw)
     torch.cuda.synchronize()
     require(torch.equal(got, plain), "K6 equals plain to the bit")
+    require(torch.equal(torch.signbit(got), torch.signbit(plain)),
+            "K6: the sign of every score, zeros included, as plain's")
     err["bq_scores"] = float((got - plain).abs().max())
-    say("K6", f"bq_scores [{Q}, {BN}] x dim={BD}: equal to plain to the bit")
-    del got
+    zeros = int((plain == 0).sum())
+    say("K6", f"bq_scores [{Q}, {BN}] x dim={BD}: equal to plain to the bit, sign bits "
+        f"too ({zeros} zero scores, every one +0.0)")
+    # The library yardstick of K6: torch._int_mm of the +-1 int8 query and row
+    # signs (0 past dim), times the sign, as f32; the rows are expanded once,
+    # outside the timed call. The port never calls it.
+    sign = bq_kernel.metric_sign(DistanceType.DOT, False)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    cpm = pm1_rows(planes[:, :BN].t(), BD)
+    qpm = pm1_rows(qw, BD)
+    ev1.record()
+    ev1.synchronize()
+    expand_ms = ev0.elapsed_time(ev1)
+
+    def int_mm_bq():
+        acc = torch._int_mm(qpm, cpm.t())
+        return (acc if sign > 0 else acc.neg_()).float()
+
+    lib_bq = None
+    try:
+        lib_out = int_mm_bq()
+        require(torch.equal(lib_out, got) and torch.equal(torch.signbit(lib_out),
+                                                          torch.signbit(got)),
+                "torch._int_mm of the +-1 signs equals K6's scores")
+        del lib_out
+        lib_bq = timed_ms(int_mm_bq)
+        say("library", f"torch._int_mm of the +-1 signs, times the sign, as f32, equals "
+            f"K6's scores: {lib_bq:.4f} ms per {Q}-query batch, beside the rows' expansion "
+            f"to +-1 int8 [{BN}, {cpm.shape[1]}] once, {expand_ms:.4f} ms, on {smi}")
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        if "check failed" in str(e):
+            raise
+        say("library", f"torch._int_mm not timed: {e}")
+    del got, cpm, qpm
     tied = ties_at(plain, R)
     err["bq_search_exact"] = 0.0
     ids_all = torch.arange(BN, device=dev, dtype=torch.int32).expand(Q, BN)
@@ -826,6 +898,7 @@ def bq_path(dev, smi, do_profile):
     }
     f32_ms = timed_ms(lambda: torch.topk(queries_dev @ data_dev.T, K, dim=1), iters=3)
     batch_ms = batch_walls(two, two_e, two_x, queries)
+    score_batch_ms = wall_ms(lambda: bq.score_batch(beq), reps=21)
     for kname in ms:
         say("time", f"{kname}: kernel {ms[kname]:.4f} ms, plain {pms[kname]:.4f} ms per "
             f"{Q}-query batch at N={BN} dim={BD} (k={R} for the searches) on {smi}")
@@ -834,6 +907,8 @@ def bq_path(dev, smi, do_profile):
     say("time", f"f32 matmul + topk baseline: {f32_ms:.4f} ms per batch at N={BN} "
         f"D={BD} on {smi}")
     say_batches("clustered", batch_ms, rec, smi)
+    say("time", f"BQ score_batch (K6): {score_batch_ms:.4f} ms host wall per {Q}-query batch "
+        f"(the [{Q}, {BN}] f32 matrix on the card, median of 21), on {smi}")
     say("ties", f"clustered: {tied:.1f} rows per query score the {R}-th best BQ score")
     if do_profile:
         eqs = two.encode_query(queries)
@@ -850,15 +925,11 @@ def bq_path(dev, smi, do_profile):
 
     # Bounds at the timed shapes. BQ: the planes' true words read once,
     # the output written once; the binary dot as Q * N * dim bit products at
-    # the b1 wgmma rate (bq_bound), the +-1 int8 count printed beside. K6's
-    # popc issue floor (its design) is printed too. K4: the Q*R gathered
-    # rows (what this run's ids need), their offsets and ids, the queries;
-    # Q*R*D int8 multiply-adds.
-    props = torch.cuda.get_device_properties(0)
-    popc_per_s = POPC_PER_CLOCK_PER_SM * props.multi_processor_count * max_sm_clock_hz()
+    # the b1 wgmma rate (bq_bound), the +-1 int8 count printed beside. K4:
+    # the Q*R gathered rows (what this run's ids need), their offsets and
+    # ids, the queries; Q*R*D int8 multiply-adds.
     wt = bq_kernel.true_words(BD)
     pl_bytes = wt * 4 * BN + Q * wt * 4
-    popc_ms = Q * BN * wt / popc_per_s * 1e3
     dl = sq.codes.shape[1]
     bounds, int8_ms = {}, {}
     for kname, out_bytes in (("bq_search_approx", Q * R * 8), ("bq_search_exact", Q * R * 8),
@@ -872,13 +943,15 @@ def bq_path(dev, smi, do_profile):
             f"{B1_PRODUCTS_PER_S_PER_SM:.3e} products/s/SM; {pl_bytes / 1e6:.1f} MB of planes), "
             f"{100 * bounds[kname][0] / ms[kname]:.1f} % of it; as +-1 int8 multiply-adds "
             f"at 1,979 TOPS {int8_ms[kname]:.4f} ms")
-    say("bound", f"bq_scores (K6, the popcount body): the __popc issue floor of its design "
-        f"{popc_ms:.4f} ms ({Q * BN * wt:.3e} popc at {popc_per_s:.3e}/s), "
-        f"{100 * popc_ms / ms['bq_scores']:.1f} % of it")
+    if lib_bq:
+        say("time", f"bq_scores: kernel {ms['bq_scores']:.4f} ms against torch._int_mm "
+            f"{lib_bq:.4f} ms ({lib_bq / ms['bq_scores']:.2f}x the kernel's time) on {smi}")
     recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
-                 plain_ms=pms[n], bound=bounds[n], library_ms=None) for n in ms]
+                 plain_ms=pms[n], bound=bounds[n],
+                 library_ms=lib_bq if n == "bq_scores" else None) for n in ms]
     return recs, {"f32_ms": f32_ms, "recall": rec, "batch_ms": batch_ms,
-                  "popc_ms": popc_ms, "ties_at_r": tied,
+                  "bq_scores_pm1_expand_ms": expand_ms, "score_batch_ms": score_batch_ms,
+                  "ties_at_r": tied,
                   "k4_wrapper_ms": k4_wrapper_ms}
 
 
@@ -2215,17 +2288,22 @@ def rbq_path(dev, smi, do_profile):
         return enc._mult * d + eq1.offsets[:, None] + enc.voffsets[None, :N]
 
     lib = timed_ms(cdist_l1, warmup=1, iters=3, reps=3)
+    l1_bnd, l1_int8, l1_pairs, l1_thermo = l1_bound(
+        N * D + N * 4 + Q * D + Q * 8 + Q * N * 4, Q, N, D)
     recs.append(dict(name="sq_scores_l1", launches=l1_launches["sq_scores_l1"],
                      max_abs_err=0.0,
                      ms=timed_ms(lambda: sq_kernel.sq_scores(*args, **l1_kw)),
                      plain_ms=plain_ms(lambda: sq_kernel.sq_scores_plain(*args, **l1_kw)),
-                     bound=bound(N * D + N * 4 + Q * D + Q * 8 + Q * N * 4, 2 * Q * N * D,
-                                 INT8_OPS_PER_S),
-                     library_ms=lib))
+                     bound=l1_bnd, library_ms=lib))
     r = recs[-1]
     say("time", f"sq_scores_l1: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"torch.cdist(p=1) + epilogue {lib:.4f} ms, bound {r['bound'][0]:.4f} ms "
-        f"({r['bound'][1]}) per {Q}-query batch at N={N} D={D} on {smi}")
+        f"({r['bound'][1]}: the cheaper of {Q * N * D / 4:.3e} __vabsdiffu4 + __dp4a pairs "
+        f"at {ABSDIFF_PAIRS_PER_S_PER_SM:.3e} pairs/s/SM, {l1_pairs:.4f} ms, and "
+        f"{Q * N * D * L1_LEVELS:.3e} thermometer bit products at the b1 rate, "
+        f"{l1_thermo:.4f} ms; {100 * r['bound'][0] / r['ms']:.1f} % of it) "
+        f"[as int8 multiply-adds at 1,979 TOPS {l1_int8:.4f} ms] per {Q}-query batch at "
+        f"N={N} D={D} on {smi}")
     del scores, pscores, l1_dev
 
     # ------------------------------------------------------------- serving
@@ -2405,8 +2483,8 @@ def tensor_core_bodies(funcs):
     search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
     one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b), in the bf16
     one-hot K8 (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ
-    sign-query searches (bq_sign_exact_kernel, bq_sign_approx_kernel:
-    single-bit BGMMA); every one must have some."""
+    sign-query kernels (K6's bq_sign_scores_kernel, bq_sign_exact_kernel,
+    bq_sign_approx_kernel: single-bit BGMMA); every one must have some."""
     import re
 
     found = {}
@@ -2418,14 +2496,15 @@ def tensor_core_bodies(funcs):
             found[key] = found.get(key, 0) + part.count("GMMA")
         elif re.search(r"\dpq4_bf16_scores_kernel", name):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
-        elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_approx_kernel)", name):
+        elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_approx_kernel|"
+                            r"bq_sign_scores_kernel)", name):
             found[m.group(1)] = part.count("BGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
                            "pq4_bf16_scores_kernel", "bq_sign_exact_kernel",
-                           "bq_sign_approx_kernel"},
+                           "bq_sign_approx_kernel", "bq_sign_scores_kernel"},
             f"the tensor-core entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found
@@ -2608,7 +2687,8 @@ def main():
         "recall_at_10": {"sq_exact": sq_info["recall_exact"],
                          "sq_approx": sq_info["recall_approx"], **bq_info["recall"]},
         "two_stage_batch_ms": bq_info["batch_ms"],
-        "bq_popc_floor_ms": bq_info["popc_ms"],
+        "bq_scores_pm1_expand_ms": bq_info["bq_scores_pm1_expand_ms"],
+        "bq_score_batch_ms": bq_info["score_batch_ms"],
         "k4_wrapper_ms": bq_info["k4_wrapper_ms"],
         "ties_at_r": bq_info["ties_at_r"],
         "neighbourhoods": neigh,

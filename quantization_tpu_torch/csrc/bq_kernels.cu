@@ -33,7 +33,7 @@
 // equals the plain PyTorch version, and the JAX kernels' mult*(qs.bits) + qb,
 // to the bit.
 //
-// The sign-query searches (K5c, K5a, K10) run on the tensor cores: the int8
+// The sign-query kernels (K6, K5c, K5a, K10) run on the tensor cores: the int8
 // scan body of dot_scan.cuh (mma_segment, the ring, the swizzle and the
 // accumulator fragment) with the single-bit product wgmma m64nNk256
 // b1.b1.and.popc and the BitRows loader, which stores plane words as they
@@ -42,14 +42,18 @@
 //     x = pq + pc - 2a,
 // pq the query's popcount (taken when the block starts), pc the row's (taken
 // by the loader, one __popc a word). The epilogue computes sign * (dim - 2x)
-// in integers (hamming_score). K5a / K10 keep the approx body's geometry
+// in integers (hamming_score), so a zero score is +0.0, as plain's is (an
+// f32 epilogue could give -0.0). K5a / K10 keep the approx body's geometry
 // (approx_parts_kernel: 64 queries a block, two blocks a SM, running maxima
 // per stride class over APPROX_PART-row parts, the JAX approx geometry, so
 // their candidates are the plain approx's to the bit), the maxima kept on
 // the row's integer term, the query's added once at the end. K5c keeps the
 // select geometry of the popcount kernel it replaced (32 queries a block, 4
 // a warp, two blocks a SM; SignExactTile) over 512-row splits of exact
-// per-split top-k in shared memory (ktile.cuh).
+// per-split top-k in shared memory (ktile.cuh). K6 is persistent, two
+// blocks a SM, each holding a 128-query tile and its popcounts and walking
+// 128-row segments; a segment's [128 x 128] f32 scores leave in two halves
+// by cp.async.bulk stores (bq_sign_scores_kernel, below).
 //
 // What bounds them on the H100 at the main path's 1,000,000 x 1536 bits, Q =
 // 256: 192 MB of planes, 57 us at 3.35 TB/s; 3.9e11 bit products, which the
@@ -71,10 +75,18 @@
 // Over 262,144 rows of 768 dims K5c is select-bound, 0.84 ms against the
 // popcount kernel's 0.80.
 //
-// K6 keeps the popcount body: 32 queries a block, the query words in shared
-// memory read as 16-byte broadcasts, one corpus row a thread, bound by
-// __popc issue (1.2e10 popcounts a batch at 16 a clock per SM, ~3 ms) and
-// its 1.0 GB score matrix (0.3 ms).
+// K6 writes a 1.024 GB score matrix at that shape, 0.306 ms of its 0.363 ms
+// bound (bytes). The popcount body it replaced (32 queries a block, one row
+// a thread, one __popc(q ^ c) a word) was bound by __popc issue at 3.42 ms.
+// On the b1 products (same card, scan_ab.py in turns; PERF.md): in
+// scores_kernel's shape (a 128-row segment against 128 queries a block, the
+// int tile through the ring, 16-byte thread stores) 0.74 ms, 0.90 with 256
+// queries a block (one block a SM, the planes read once); persistent with
+// the bulk stores as below 0.64; the same with two half tiles in turn at one
+// block a SM 0.87-0.95 (a ring of two or three chunks), 0.75 with 256
+// queries. A block of the first shape takes its query popcounts and two
+// chunk loads for every 128 x 128 tile it writes; the persistent one takes
+// the popcounts once and leaves the stores to the copy engine.
 //
 // The residual forms score mult[q] * (qs[q] . bits[n]) + qb[q] (+ rowadd[n])
 // (+ corr), qs int8 [Q, W8*32] with 0 on the pad dims: the SQ scan bodies of
@@ -93,69 +105,8 @@
 
 #include "dot_scan.cuh"
 
+
 namespace {
-
-constexpr int kBThreads = 256;  // 8 warps
-constexpr int kBTQ = 32;        // queries per block
-
-// qs[w * 32 + j] = word w of query q0 + j (0 for queries >= Q).
-__device__ __forceinline__ void load_query_words(const uint32_t* __restrict__ qwords,
-                                                 uint32_t* qs, int q0, int Q, int W8,
-                                                 int wt) {
-  for (int i = threadIdx.x; i < wt * kBTQ; i += blockDim.x) {
-    const int w = i / kBTQ, j = i % kBTQ, q = q0 + j;
-    qs[i] = q < Q ? qwords[(long long)q * W8 + w] : 0u;
-  }
-}
-
-// acc[j] = XOR count of corpus row `row` against queries j0 .. j0+NQ-1 of
-// the tile, over the wt true words.
-template <int NQ>
-__device__ __forceinline__ void xor_counts(const uint32_t* __restrict__ planes,
-                                           const uint32_t* qs, long long npad,
-                                           long long row, int wt, int j0,
-                                           int acc[NQ]) {
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) acc[j] = 0;
-  for (int w = 0; w < wt; ++w) {
-    const uint32_t v = __ldg(planes + (long long)w * npad + row);
-    const uint4* qv = reinterpret_cast<const uint4*>(qs + w * kBTQ + j0);
-#pragma unroll
-    for (int j4 = 0; j4 < NQ / 4; ++j4) {
-      const uint4 a = qv[j4];
-      acc[4 * j4 + 0] += __popc(a.x ^ v);
-      acc[4 * j4 + 1] += __popc(a.y ^ v);
-      acc[4 * j4 + 2] += __popc(a.z ^ v);
-      acc[4 * j4 + 3] += __popc(a.w ^ v);
-    }
-  }
-}
-
-__device__ __forceinline__ float metric(int x, int dim, int sign) {
-  return __int2float_rn(sign * (dim - 2 * x));
-}
-
-// ---------------------------------------------------------------- K6 scores
-// grid (ceil(n_valid / 256), ceil(Q / 32)); one thread per corpus row.
-// out f32 [Q, n_valid].
-__global__ void __launch_bounds__(kBThreads) bq_scores_kernel(
-    const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
-    float* __restrict__ out, int Q, int W8, int wt, long long npad, int n_valid,
-    int dim, int sign) {
-  extern __shared__ __align__(16) uint32_t qs[];  // [wt][32]
-  const int q0 = blockIdx.y * kBTQ;
-  load_query_words(qwords, qs, q0, Q, W8, wt);
-  __syncthreads();
-  const long long row = (long long)blockIdx.x * kBThreads + threadIdx.x;
-  if (row >= n_valid) return;
-  int acc[kBTQ];
-  xor_counts<kBTQ>(planes, qs, npad, row, wt, 0, acc);
-#pragma unroll
-  for (int j = 0; j < kBTQ; ++j) {
-    const int q = q0 + j;
-    if (q < Q) out[(long long)q * n_valid + row] = metric(acc[j], dim, sign);
-  }
-}
 
 // ------------------------------------------------ K5c / K5a / K10: b1 products
 
@@ -315,7 +266,90 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) bq_sign_approx_
   }
 }
 
-inline size_t qs_bytes(int wt) { return sizeof(uint32_t) * (size_t)wt * kBTQ; }
+// ---------------------------------------------------------------- K6 scores
+
+// Bulk stores of shared memory to device memory (the async proxy): one
+// group a thread, committed and waited on by the thread that issued it.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Returns once this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Returns once this thread's bulk stores are done.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// K6, the [Q, n_valid] score matrix, persistent: grid bpt * ceil(Q / 128),
+// block b holding query tile b % nqt (its qo taken once) and walking
+// segments b / nqt, + bpt, ..., two blocks a SM. Each 128-row segment's b1
+// products run on a ring of two chunks (mma_segment with BitRows); its
+// scores, sign * (dim - 2x) formed in integers (+0.0 for a zero, as
+// plain's), leave as f32 in two halves of 64 queries through a [64][kTS]
+// tile after the ring: where n_valid % 4 == 0, thread i < 64 stores query
+// row i of a half with one cp.async.bulk (512 bytes, fewer for the last
+// segment), which drains while the block goes on, and the tile is rewritten
+// once those stores have read it; else the warps store the half by
+// store_tile. out f32 [Q, n_valid], 16-byte aligned.
+using SignScoresTile = Tile<128, 2, 2>;
+constexpr int kHalfQ = 64;
+
+__global__ void __launch_bounds__(kThreads, SignScoresTile::kBlocks) bq_sign_scores_kernel(
+    const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
+    float* __restrict__ out, int Q, int W, long long npad, int n_valid, int dim, int sign,
+    int bpt) {
+  using T = SignScoresTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  int* half = reinterpret_cast<int*>(smem + T::kBytes);  // [kHalfQ][kTS], f32 bits
+  int* qo = half + kHalfQ * kTS;
+  int* pc = qo + TQ;
+  const int tid = threadIdx.x;
+  const int nqt = (Q + TQ - 1) / TQ, nseg = (n_valid + kSeg - 1) / kSeg;
+  const int q0 = (blockIdx.x % nqt) * TQ;
+  const bool bulk = (n_valid & 3) == 0;
+  load_hamming_q<TQ>(qo, qwords, q0, Q, W, dim, sign);
+  const BitRows rows{planes, npad, W, pc};
+  for (int seg = blockIdx.x / nqt; seg < nseg; seg += bpt) {
+    const long long row0 = (long long)seg * kSeg;
+    const int cnt = (int)min((long long)kSeg, n_valid - row0);  // the segment's valid rows
+    int acc[T::kH][T::kAcc];
+    mma_segment<T>(rows, reinterpret_cast<const int8_t*>(qwords), q0, Q, row0, 4 * W,
+                   smem_addr(smem), acc);
+#pragma unroll
+    for (int h = 0; h < T::kH; ++h) {
+      if (bulk && tid < kHalfQ) bulk_wait_read();
+      __syncthreads();  // the tile is free: its stores have read it
+#pragma unroll
+      for (int e = 0; e < T::kAcc; ++e) {
+        const int j = frag_col(e), r = frag_row(e);
+        half[j * kTS + r] = __float_as_int(
+            __int2float_rn(qo[64 * h + j] + hamming_term(pc[r] + pc[kSeg + r], acc[h][e], sign)));
+      }
+      if (bulk) fence_proxy_async();  // the tile's writes, seen by the bulk stores
+      __syncthreads();
+      const int hq0 = q0 + 64 * h;
+      if (!bulk) {
+        store_tile<kHalfQ>(
+            half, [](int) { return [](int a, long long) { return __int_as_float(a); }; }, out,
+            hq0, Q, row0, n_valid);
+      } else if (tid < kHalfQ && hq0 + tid < Q) {
+        bulk_store(out + (long long)(hq0 + tid) * n_valid + row0, smem_addr(half + tid * kTS),
+                   4 * cnt);
+        bulk_commit();
+      }
+    }
+  }
+  if (bulk && tid < kHalfQ) bulk_wait();
+}
 
 }  // namespace
 
@@ -323,22 +357,28 @@ inline size_t qs_bytes(int wt) { return sizeof(uint32_t) * (size_t)wt * kBTQ; }
 // Every function launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). Shapes are checked by the Python wrappers
 // (ops/kernels/bq_kernel.py): contiguous u32 tensors, npad % 2048 == 0,
-// W8 % 8 == 0, the query words 16-byte aligned; K6's wt: 1 <= wt <= W8, wt <=
-// 1024.
+// W8 % 8 == 0, the query words 16-byte aligned.
 
 extern "C" {
 
-int qtt_bq_scores(const void* qwords, const void* planes, void* out, int Q,
-                  int W8, int wt, long long npad, int n_valid, int dim, int sign,
-                  void* stream) {
-  const size_t smem = qs_bytes(wt);
-  cudaError_t err = cudaFuncSetAttribute(
-      bq_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int qtt_bq_scores(const void* qwords, const void* planes, void* out, int Q, int W8,
+                  long long npad, int n_valid, int dim, int sign, void* stream) {
+  using T = SignScoresTile;
+  if (reinterpret_cast<uintptr_t>(out) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = kAlign + T::kBytes + sizeof(int) * kHalfQ * kTS + hamming_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(bq_sign_scores_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_valid + kBThreads - 1) / kBThreads, (Q + kBTQ - 1) / kBTQ);
-  bq_scores_kernel<<<grid, kBThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int nqt = (Q + T::TQ - 1) / T::TQ, nseg = (n_valid + kSeg - 1) / kSeg;
+  const int per = T::kBlocks * sms / nqt;  // blocks a query tile: the card full, or nseg
+  const int bpt = per < 1 ? 1 : (per < nseg ? per : nseg);
+  bq_sign_scores_kernel<<<(unsigned)(bpt * nqt), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
-      static_cast<float*>(out), Q, W8, wt, npad, n_valid, dim, sign);
+      static_cast<float*>(out), Q, W8, npad, n_valid, dim, sign, bpt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,12 +3,14 @@
 // pq4_mma_kernels.cu (K8, K7a, K7b and K11 with 4-bit codes and the int8
 // LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
 // s32.s8.s8, both operands K-major in shared memory (mma_segment). The BQ
-// sign-query searches of bq_kernels.cu (K5c, K5a, K10) run the same body
+// sign-query kernels of bq_kernels.cu (K6, K5c, K5a, K10) run the same body
 // with the single-bit product m64nNk256 b1.b1.and.popc (N = 64, or 32 for
 // K5c's 32-query tile) on plane words stored as they are (BitRows). K12 (L1)
-// keeps a __dp4a body of its own in sq_kernels.cu: the sum of absolute
-// differences has no tensor-core form. Every other PQ launch (the bf16 /
-// bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh, but
+// keeps a __dp4a body of its own in sq_kernels.cu: the tensor cores have no
+// absolute-difference product, and L1's one tensor-core form, thermometer
+// codes through the b1 product, needs more time than the __vabsdiffu4 +
+// __dp4a pairs (sq_kernels.cu gives both floors). Every other PQ launch (the
+// bf16 / bf16x2 LUTs, 8-bit codes) runs the LUT-gather body of pq_kernels.cuh, but
 // K8 with 4-bit codes and the bf16 LUT, a kernel of its own in
 // pq4_mma_kernels.cu that uses this file's swizzle, cp.async and descriptor
 // helpers and its bf16 wgmma wrapper (A from registers).
@@ -66,7 +68,14 @@
 //     128, a 96 KB ring, two blocks per SM; 108 / 94 registers, no spills.
 //     The [128 query][128 row] int32 tile goes through the ring's memory
 //     after the scan, so whole output rows leave as coalesced (16-byte
-//     where n_valid % 4 == 0) stores, with the epilogue applied there.
+//     where n_valid % 4 == 0) stores (store_tile), with the epilogue
+//     applied there.
+//   * K6, the BQ sign-query score matrix (BitRows, bq_kernels.cu): TQ =
+//     128, a 64 KB ring of two chunks and a [64][132] f32 half tile after
+//     it, two blocks per SM, persistent (a block walks segments with its
+//     query tile); each half tile leaves by cp.async.bulk stores, one query
+//     row a thread, that drain under the next half's and segment's work
+//     (store_tile where n_valid % 4 != 0).
 //   * approx (K2, K9a, K10 / K5a value; K7a and K11 4-bit int8): TQ = 64,
 //     a 72 KB ring, two blocks per SM (128 registers; 88 bytes of spills
 //     for CodeRows, 68 for PlaneRows; NibbleRows, 4096-row parts: 64 bytes
@@ -649,12 +658,47 @@ __device__ __forceinline__ void load_qparams(P* qm, P* qo, const float* __restri
 }
 
 // ------------------------------------------------------------ score matrix
+
+// Query rows 0 .. NQ-1 of an int [NQ][kTS] tile in shared memory to out (f32
+// [Q, n_valid]), tile row i holding query q0 + i against corpus rows row0 ..
+// row0+127 (scores_kernel; K6's thread stores in bq_kernels.cu): warp w
+// writes tile rows w, w + 8, ...: lane l the corpus rows row0 + 4l .. + 3, as
+// one coalesced 16-byte store where n_valid % 4 == 0, each value through
+// score_of(q)(value, row). The row stride kTS puts the accumulator
+// fragment's writes to the tile on distinct banks.
+constexpr int kTS = kSeg + 4;
+template <int NQ, class ScoreOf>
+__device__ __forceinline__ void store_tile(const int* tile, ScoreOf score_of,
+                                           float* __restrict__ out, int q0, int Q,
+                                           long long row0, int n_valid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = row0 + 4 * lane;
+  const bool vec = (n_valid & 3) == 0 && r + 3 < n_valid;
+  for (int i = warp; i < NQ; i += kThreads / 32) {
+    const int q = q0 + i;
+    if (q >= Q) break;
+    const auto score = score_of(q);
+    const int4 a = *reinterpret_cast<const int4*>(tile + i * kTS + 4 * lane);
+    float* o = out + (long long)q * n_valid + r;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(score(a.x, r), score(a.y, r + 1), score(a.z, r + 2), score(a.w, r + 3));
+    } else {
+      const int v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (r + j < n_valid) o[j] = score(v[j], r + j);
+    }
+  }
+}
+
 // K3 (CodeRows, kOnce false: (mult * acc + qoff) + voff, step by step) and
 // K8 with the int8 LUT and 4-bit codes (NibbleRows, kOnce true: mult * acc
 // + qoff in f64 rounded once, with no row additive: voff is not read and may
 // be null, since x + 0.0 would turn a -0.0 into +0.0). grid ceil(n_valid /
 // 128) * ceil(Q / 128), the query tiles of a segment neighbours; out f32
-// [Q, n_valid].
+// [Q, n_valid]. The [128 query][128 row] int tile goes through the ring's
+// memory once the products are done, and leaves by store_tile.
 template <class Rows, bool kOnce>
 __global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
     const typename Rows::Elem* __restrict__ base, long long stride,
@@ -662,7 +706,8 @@ __global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
     const float* __restrict__ mult, const float* __restrict__ voff, float* __restrict__ out,
     int Q, int n_valid, int D, int mstride) {
   using T = ScoresTile;
-  constexpr int TQ = T::TQ, kTS = kSeg + 4;  // int tile [TQ][kTS]
+  constexpr int TQ = T::TQ;
+  static_assert(TQ * kTS * sizeof(int) <= T::kBytes, "the int tile in the ring");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const int nqt = (Q + TQ - 1) / TQ;
@@ -677,33 +722,19 @@ __global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
 #pragma unroll
     for (int e = 0; e < 32; ++e) tile[(64 * h + frag_col(e)) * kTS + frag_row(e)] = acc[h][e];
   __syncthreads();
-  // Warp w writes query rows w, w + 8, ...: lane l the rows 4l .. 4l+3.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long r = row0 + 4 * lane;
-  const bool vec = (n_valid & 3) == 0 && r + 3 < n_valid;
-  for (int i = warp; i < TQ; i += kThreads / 32) {
-    const int q = q0 + i;
-    if (q >= Q) break;
-    const typename QParam<kOnce>::T m = mult[q * mstride], qo = qoff[q];
-    auto score = [&](int a, long long row) {
-      if constexpr (kOnce) {
-        return affine_once(m, a, qo);
-      } else {
-        return epilogue<false>(m, a, qo, voff, row);
-      }
-    };
-    const int4 a = *reinterpret_cast<const int4*>(tile + i * kTS + 4 * lane);
-    float* o = out + (long long)q * n_valid + r;
-    if (vec) {
-      *reinterpret_cast<float4*>(o) =
-          make_float4(score(a.x, r), score(a.y, r + 1), score(a.z, r + 2), score(a.w, r + 3));
-    } else {
-      const int v[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (r + j < n_valid) o[j] = score(v[j], r + j);
-    }
-  }
+  store_tile<TQ>(
+      tile,
+      [&](int q) {
+        const typename QParam<kOnce>::T m = mult[q * mstride], qo = qoff[q];
+        return [=](int a, long long row) {
+          if constexpr (kOnce) {
+            return affine_once(m, a, qo);
+          } else {
+            return epilogue<false>(m, a, qo, voff, row);
+          }
+        };
+      },
+      out, q0, Q, row0, n_valid);
 }
 
 // ----------------------------------------------------------- exact search

@@ -45,9 +45,15 @@
 //     exact top-k of each 512-row split inside the block (radix select in
 //     shared memory, ktile.cuh), K2 keeps one running maximum per stride
 //     class in registers, and only candidates reach device memory.
-// K12 has no tensor-core form and keeps a __dp4a body of its own (below),
-// bound by instruction issue: the same bytes as K3, 0.06 ms at 100k x 1024,
-// and about 0.6 ms of __dp4a issue.
+// K12 keeps a __dp4a body of its own (below): the tensor cores have no
+// absolute-difference product. Its operations bind it, not its bytes (the
+// same as K3's, 0.06 ms at 100k x 1024): 6.6e9 __vabsdiffu4 + __dp4a pairs
+// a 256-query batch, which issue at 1.21e11 pairs a second per SM (61 a
+// clock, csrc/probe/absdiff_rate.cu), 0.41 ms. The one tensor-core form of
+// L1, thermometer codes through the b1 product (sum |q - c| = sum q + sum c
+// - 2 sum_t [q > t][c > t] over the 127 levels of a code), would need 127
+// bit products a byte pair, 0.44 ms at the b1 rate. K12 runs 0.60-0.61 ms,
+// 65-67 % of the pairs' floor (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // The C functions below are the SQ entry points. qtt_error_string, shared
 // by every kernel source of the library, is defined here too.

@@ -17,7 +17,9 @@ encoded_vectors_binary.rs and its xor-popcnt loops, cpp/sse.c:49-106):
 
 torch has no popcount either: ``popcount32`` counts bits with the SWAR
 method on int64, so the plain versions need nothing beyond torch. The
-hand-written kernels (``ops/kernels/bq_kernel.py``) use ``__popc``.
+hand-written kernels (``ops/kernels/bq_kernel.py``) count a sign query's
+Hamming distances as popc(q) + popc(c) - 2 popc(q & c), the AND counts from
+the tensor cores' single-bit products.
 
 Metric mapping from the XOR count x with true dimension d
 (encoded_vectors_binary.rs:219-253):

@@ -6,15 +6,14 @@ Twin of ``quantization_tpu/ops/pallas/bq_kernel.py``. The kernels live in
 
   * K6  ``bq_scores``          — the [Q, n_valid] f32 score matrix (the JAX
     package's ``bq_scores_mxu`` and ``bq_scores_pallas`` compute the same
-    function for two TPU units; one kernel here stands for both), by XOR
-    and ``__popc`` on the CUDA cores;
+    function for two TPU units; one kernel here stands for both);
   * K5c ``bq_search`` exact    — scores fused with an exact per-split top-k;
   * K5a ``bq_search`` approx   — scores fused with the stride-class maxima
     of the JAX approx kernel, over spans of ``SPAN * mxu_tile_n`` rows;
   * K10 ``bq_search_indexed``  — the K5a body walking a selected list of
     corpus tiles in place (the IVF probe scan), for packed sign queries.
-    With sign queries K5c, K5a and K10 run on the tensor cores: single-bit
-    AND-popcount products (``wgmma`` b1) on the int8 scan body of
+    With sign queries K6, K5c, K5a and K10 run on the tensor cores:
+    single-bit AND-popcount products (``wgmma`` b1) on the int8 scan body of
     ``csrc/dot_scan.cuh``, Hamming = popc(q) + popc(c) - 2 popc(q & c);
   * the residual-BQ forms, with ``query_affine=(qs, mult, qb)`` — an int8
     VALUE query [Q, W8*32] scored ``mult * (qs . bits) + qb`` against the
@@ -72,8 +71,6 @@ W_ALIGN = 8
 EXACT_SPLIT = 512
 # Corpus rows per K5a pass-1 block; divides every approx span.
 APPROX_PART = 2048
-# True words per query the kernels hold in shared memory (dim <= 32768).
-MAX_WORDS = 1024
 # Narrowest approx tile of the JAX package (its MXU_TILE_N); see mxu_tile_n.
 MXU_TILE_N = 512
 
@@ -126,16 +123,16 @@ def _check_planes(planes, n_valid):
         raise ArgumentsError(f"n_valid={n_valid} outside [0, {npad}]")
 
 
-def _check_operands(qwords, planes, dim, n_valid, search=False):
+def _check_operands(qwords, planes, dim, n_valid):
     """A sign query's operands (a value query's: ``_check_planes`` and
-    ``_launch_res``). The searches' single-bit products copy the query
-    words in 16-byte pieces, so ``search`` asks them 16-byte aligned."""
+    ``_launch_res``). The single-bit products copy the query words in
+    16-byte pieces, so they must be 16-byte aligned."""
     w8 = planes.shape[0]
     check_tensors(planes.device, (("qwords", qwords, torch.int32, (qwords.shape[0], w8)),),
-                  align=16 if search else 1)
+                  align=16)
     _check_planes(planes, n_valid)
-    if not 1 <= true_words(dim) <= min(w8, MAX_WORDS):
-        raise ArgumentsError(f"dim={dim} needs 1..{min(w8, MAX_WORDS)} words")
+    if not 1 <= true_words(dim) <= w8:
+        raise ArgumentsError(f"dim={dim} needs 1..{w8} words")
 
 
 def _stream(t):
@@ -167,9 +164,8 @@ def bq_scores(qwords, planes, *, distance_type, invert, dim, n_valid):
         return out
     lib = load_library()
     err = lib.qtt_bq_scores(
-        qwords.data_ptr(), planes.data_ptr(), out.data_ptr(), q, w8, true_words(dim),
-        planes.shape[1], n_valid, dim, metric_sign(distance_type, invert),
-        _stream(planes),
+        qwords.data_ptr(), planes.data_ptr(), out.data_ptr(), q, w8, planes.shape[1],
+        n_valid, dim, metric_sign(distance_type, invert), _stream(planes),
     )
     check(lib, err, "bq_scores")
     LAUNCHES["bq_scores"] += 1
@@ -261,7 +257,7 @@ def bq_search(
         return _launch_res(query_affine, planes, corr, rowadd, None, 0, npad, n_valid, k,
                            mode, SPAN * mxu_tile_n(w8 * 32, npad),
                            "bq_search_" + mode + "_res")
-    _check_operands(qwords, planes, dim, n_valid, search=True)
+    _check_operands(qwords, planes, dim, n_valid)
     q = qwords.shape[0]
     dev = planes.device
     args = (q, w8, npad, n_valid, dim, metric_sign(distance_type, invert))
@@ -391,7 +387,7 @@ def bq_search_indexed(qwords, planes, tile_sel, corr=None, *, distance_type, inv
         return bq_search_indexed_plain(qwords, planes, tile_sel, corr, k=k, tile_n=tile_n,
                                        query_affine=query_affine, rowadd=rowadd, **kw)
     if query_affine is None:
-        _check_operands(qwords, planes, dim, npad, search=True)
+        _check_operands(qwords, planes, dim, npad)
     else:
         _check_planes(planes, npad)
     if tile_n % MXU_TILE_N or npad % tile_n:

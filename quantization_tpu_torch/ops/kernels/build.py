@@ -173,7 +173,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "qtt_sq_rescore": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         # (qwords, planes, ..., Q, W8, wt, npad, n_valid, dim, sign, ...,
         #  [sel, tile_n, ncomp,] stream)
-        "qtt_bq_scores": [p, p, p, i, i, i, ll, i, i, i, p],
+        "qtt_bq_scores": [p, p, p, i, i, ll, i, i, i, p],
         "qtt_bq_search_exact": [p, p, p, p, i, i, ll, i, i, i, i, i, p],
         "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, i, i, p, i, ll, p],
         # (qs, qb, mult, planes, rowadd, outputs..., Q, W8, npad, ncomp, n_valid,

@@ -34,9 +34,10 @@ int8 LUT) over 256 tiles; then the 4-bit width through the public API
 walls of score_batch and of approx and exact top_k, and of residual
 IVF-OPQ's approx top_k (nprobe 32 over 256 buckets), medians of 7 calls.
 Kernel times are CUDA-event medians of 7 runs of 10 calls, in ms per
-batch. The rate section builds and runs this checkout's
-quantization_tpu_torch/csrc/probe/wgmma_rate.cu: the issue rate of the
-single-bit wgmma product against the int8 one, in turns. Prints one JSON
+batch. The rate section builds and runs this checkout's probes,
+quantization_tpu_torch/csrc/probe/wgmma_rate.cu (the issue rate of the
+single-bit wgmma product against the int8 one, in turns) and
+absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pair rate). Prints one JSON
 object: the card (nvidia-smi name and power limit), the package's
 directory, the times and the rates. Needs a CUDA card; the kernels are
 built from the checkout's sources on first use.
@@ -136,7 +137,7 @@ def main():
         pq_rows(ms, pq_kernel, g, dev)
     if "api" in only:
         api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
-    rate = wgmma_rate(build.find_nvcc()) if "rate" in only else None
+    rate = probe_rates(build.find_nvcc()) if "rate" in only else None
     print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate}),
           flush=True)
     return 0
@@ -245,17 +246,28 @@ def bqsign_rows(ms, bq_kernel, dot, g, dev):
     del planes, union
 
 
-def wgmma_rate(nvcc):
-    """The b1 and s8 wgmma products a second per SM (csrc/probe/wgmma_rate.cu
-    of this checkout, built into its _build/): one dict a line it prints."""
+def probe_rates(nvcc):
+    """The probes of csrc/probe/ of this checkout, built into its _build/:
+    wgmma_rate.cu (b1 and s8 wgmma products a second per SM) and
+    absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pairs a second per SM,
+    with the SASS VABSDIFF4 and IDP4A counts of its kernel). One dict a
+    line each prints, by probe."""
     pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
-    exe = os.path.join(pkg, "_build", "wgmma_rate")
-    os.makedirs(os.path.dirname(exe), exist_ok=True)
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-o", exe, os.path.join(pkg, "csrc", "probe", "wgmma_rate.cu")],
-                   check=True, timeout=600)
-    out = subprocess.run([exe], capture_output=True, text=True, check=True, timeout=600).stdout
-    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
+    rates = {}
+    for probe in ("wgmma_rate", "absdiff_rate"):
+        exe = os.path.join(pkg, "_build", probe)
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-o", exe, os.path.join(pkg, "csrc", "probe", probe + ".cu")],
+                       check=True, timeout=600)
+        out = subprocess.run([exe], capture_output=True, text=True, check=True,
+                             timeout=600).stdout
+        rates[probe] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                           os.path.join(pkg, "_build", "absdiff_rate")],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    rates["absdiff_rate_sass"] = {op: sass.count(op) for op in ("VABSDIFF4", "IDP.4A")}
+    return rates
 
 
 def pq_rows(ms, pq_kernel, g, dev):

@@ -1,5 +1,5 @@
-"""The single-bit tensor-core route of the port's BQ sign-query searches
-(K5c, K5a, K10: csrc/bq_kernels.cu on the wgmma body of csrc/dot_scan.cuh),
+"""The single-bit tensor-core route of the port's BQ sign-query kernels
+(K6, K5c, K5a, K10: csrc/bq_kernels.cu on the wgmma body of csrc/dot_scan.cuh),
 emulated in torch on the CPU: the AND counts of
 ``wgmma m64n64k256 b1.b1.and.popc``, one 256-bit (8-word) depth step at a
 time over the padded planes, in 128-byte chunks with no step past the
@@ -98,6 +98,22 @@ def test_andpopc_scores_equal_pallas(rng, dim, dt, invert):
 
 
 @pytest.mark.parametrize("dt,invert", CONVENTIONS)
+@pytest.mark.parametrize("dim", DIMS)
+def test_andpopc_scores_equal_bq_scores_pallas(rng, dim, dt, invert):
+    """Against the JAX package's other K6 entry point, bq_scores_pallas
+    (XOR + popcount on the VPU, interpret mode), with more plane words than
+    the query's true words."""
+    n_valid = 300
+    tq, tp, qwords, planes = _case(rng, dim, n_valid, w_extra=8)
+    want = np.asarray(j_kernel.bq_scores_pallas(
+        jnp.asarray(qwords), jnp.asarray(planes), distance_type=_jdt(dt), invert=invert,
+        dim=dim, n_valid=n_valid, interpret=True))
+    got = emulate_scores(tq, tp, distance_type=DistanceType.from_json(dt), invert=invert,
+                         dim=dim)[:, :n_valid]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dt,invert", CONVENTIONS)
 @pytest.mark.parametrize("dim", [33, 257, 1536])
 def test_andpopc_searches_equal_pallas(rng, dim, dt, invert):
     """The exact top-k of the route's scores has bq_search_mxu's exact
@@ -144,10 +160,11 @@ def _buf(ptr, n, ctype, dtype):
 
 
 class _EmulatedLib:
-    """The C entry points of the sign-query searches, computing what the
-    kernels compute (emulate_scores, then each split's exact top-kk with
-    the equal keys in row order, or the approx candidates per span block)
-    into the wrapper's buffers, from the arguments the wrapper passes."""
+    """The C entry points of the sign-query kernels, computing what the
+    kernels compute (emulate_scores; for the searches then each split's
+    exact top-kk with the equal keys in row order, or the approx candidates
+    per span block) into the wrapper's buffers, from the arguments the
+    wrapper passes."""
 
     def __init__(self, qwords, planes, distance_type, invert):
         self.qwords, self.planes = qwords, planes
@@ -158,6 +175,14 @@ class _EmulatedLib:
         assert (q, w8) == tuple(self.qwords.shape)
         assert sign == bq_kernel.metric_sign(**self.kw)
         return emulate_scores(self.qwords, self.planes[:, rows], dim=dim, **self.kw)
+
+    def qtt_bq_scores(self, qw, pl, out, q, w8, npad, n_valid, dim, sign, stream):
+        self.calls.append("scores")
+        assert (qw, pl) == (self.qwords.data_ptr(), self.planes.data_ptr())
+        assert npad == self.planes.shape[1] and 0 < n_valid <= npad
+        scores = self._scores(q, w8, torch.arange(n_valid), dim, sign)
+        _buf(out, q * n_valid, ctypes.c_float, torch.float32).copy_(scores.reshape(-1))
+        return 0
 
     def qtt_bq_search_exact(self, qw, pl, cv, ci, q, w8, npad, n_valid, dim, sign, split, kk,
                             stream):
@@ -264,3 +289,43 @@ def test_search_wrappers_refuse_unaligned_query_words(rng, kernel_path):
     with pytest.raises(Exception, match="aligned"):
         bq_kernel.bq_search(odd, tp, distance_type=DistanceType.DOT, invert=False, dim=256,
                             n_valid=3000, k=5)
+
+
+@pytest.mark.parametrize("dt,invert", CONVENTIONS)
+@pytest.mark.parametrize("dim", [33, 100, 1536])
+def test_scores_wrapper_launches_the_route(rng, kernel_path, dim, dt, invert):
+    """bq_scores hands K6 Q, W8 (here 8 words more than the true ones),
+    Npad, a ragged n_valid (neither a multiple of 4 nor of a 128-row
+    segment), dim and the sign that make the route's scores the plain
+    version's to the bit, the sign of a zero score included (+0.0, as
+    plain's; torch.equal would take -0.0 for it). Counted once under
+    bq_scores."""
+    n_valid = 2501
+    tq, tp, _, _ = _case(rng, dim, n_valid, q=7, w_extra=8)
+    dtype = DistanceType.from_json(dt)
+    kernel_path.lib = _EmulatedLib(tq, tp, dtype, invert)
+    kw = dict(distance_type=dtype, invert=invert, dim=dim, n_valid=n_valid)
+    before = bq_kernel.LAUNCHES["bq_scores"]
+    got = bq_kernel.bq_scores(tq, tp, **kw)
+    assert kernel_path.lib.calls == ["scores"]
+    assert bq_kernel.LAUNCHES["bq_scores"] == before + 1
+    want = bq_kernel.bq_scores_plain(tq, tp, **kw)
+    assert got.shape == (7, n_valid)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    if dim % 2 == 0:
+        assert bool((want == 0).any()), "a zero score to hold the sign of"
+
+
+def test_scores_wrapper_refuses_unaligned_query_words(rng, kernel_path):
+    """K6's products copy query words in 16-byte pieces, as the searches'
+    do: a view that starts off a 16-byte boundary is refused, not read."""
+    tq, tp, _, _ = _case(rng, 256, 3000, q=4)
+    kernel_path.lib = _EmulatedLib(tq, tp, DistanceType.DOT, False)
+    flat = torch.zeros(tq.numel() + 1, dtype=torch.int32)
+    odd = flat[1:].view(tq.shape)
+    odd.copy_(tq)
+    with pytest.raises(Exception, match="aligned"):
+        bq_kernel.bq_scores(odd, tp, distance_type=DistanceType.DOT, invert=False, dim=256,
+                            n_valid=3000)
+    assert kernel_path.lib.calls == []

@@ -171,10 +171,28 @@ def _bq_operands(dev, n_valid, dim, q, seed, w8=None):
 BQ_CASES = [(DistanceType.DOT, False), (DistanceType.L2, True), (DistanceType.L1, False)]
 
 
+def _half_mask(w8, bits):
+    """int32 [W8] words with bits 0 .. bits-1 set."""
+    m = np.zeros(w8, np.uint32)
+    m[: bits // 32] = 0xFFFFFFFF
+    if bits % 32:
+        m[bits // 32] = (1 << (bits % 32)) - 1
+    return torch.from_numpy(m.view(np.int32))
+
+
+# K6 on the single-bit wgmma body: Q around the 128-query tile; n_valid a
+# multiple of 4 (the bulk stores) or not (the warps' stores), off the
+# 128-row segment; W8 past the true words; at even dims rows 0 .. 15 lie at
+# Hamming distance dim / 2 from query 0, a zero score that must be +0.0.
 @pytest.mark.parametrize("dt,invert", BQ_CASES)
-@pytest.mark.parametrize("n_valid,dim,q", [(5000, 1536, 40), (2049, 100, 1), (7000, 33, 33)])
-def test_k6_bq_scores_equal_plain(dev, dt, invert, n_valid, dim, q):
-    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=n_valid + q)
+@pytest.mark.parametrize("n_valid,dim,w8", [(5000, 1536, None), (4100, 100, 16),
+                                            (2049, 100, 16), (7001, 1536, 56),
+                                            (2501, 33, None)])
+@pytest.mark.parametrize("q", [1, 127, 128, 129, 300])
+def test_k6_bq_scores_equal_plain(dev, q, n_valid, dim, w8, dt, invert):
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=n_valid + q, w8=w8)
+    if dim % 2 == 0:
+        planes[:, :16] = (qw[0] ^ _half_mask(planes.shape[0], dim // 2).to(dev))[:, None]
     kw = dict(distance_type=dt, invert=invert, dim=dim, n_valid=n_valid)
     before = bq_kernel.LAUNCHES["bq_scores"]
     got = bq_kernel.bq_scores(qw, planes, **kw)
@@ -182,6 +200,9 @@ def test_k6_bq_scores_equal_plain(dev, dt, invert, n_valid, dim, q):
     want = bq_kernel.bq_scores_plain(qw, planes, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    if dim % 2 == 0:
+        assert bool((got[0, :16] == 0).all()) and not bool(torch.signbit(got[0, :16]).any())
 
 
 @pytest.mark.parametrize("k", [1, 10, 40, 512, 513, 1024])
