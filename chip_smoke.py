@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 5 minutes
+    python3 chip_smoke.py             # the checks and times, about 6 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
+    python3 chip_smoke.py --rehearse ann  # path 6's recall on the CPU, 20k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
 LUT ring is fed by bulk copies on mbarriers, and drives the
-port's five main paths through the public API, each with the kernel launch
+port's six main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -69,6 +70,20 @@ both corpora, since the clustered one ties far more.
      searches' K10 (value query, every bucket) is held against its plain
      version and timed at the plan's width as its own kernels-line entry.
 
+  6. The harness, the entry points a user runs: the ann-benchmarks CLI
+     (bench/ann_benchmark.py) on deep-image-96-angular's synthetic corpus at
+     its published 9,990,000 x 96, made once: u8 exact (with the f32
+     baseline), u8 approx, u8-f32, bq, bq-u8 and pq through the CLI's own
+     functions, each with recall@10/20/30, latency percentiles over 25
+     batches of 4 queries, encode wall and q/s of all 100 queries at once;
+     ivf-sq-f32 through main() on glove-100-angular at 1,183,514 x 100.
+     Every kernel a method launched is held against its plain version on
+     the inputs of its last launch there (the [100, 9,990,000] score
+     matrices included). The same methods at 20,000 rows are held to the
+     CPU rehearsal (``--rehearse ann``); the native host encoders at 1M x
+     768 on 8 threads against the device encoders; micro; cpu_baseline; the
+     five examples. Its wall is held to 180 s.
+
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
 kernels, their plain versions, the PyTorch library call that computes the
@@ -82,6 +97,8 @@ device, or without the rest of the repository beside it, the script fails
 before it prints a result.
 """
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -243,6 +260,54 @@ RBQ_LIFT_REHEARSAL = 0.1648  # plain 0.0457 -> residual 0.2105, 34 buckets
 # below the calibrated one.
 SERVE_TARGET, SERVE_BATCHES, SERVE_DEPTH, SERVE_RECALL_SLACK = 0.9, 16, 8, 0.05
 SERVE_IDLE_WINDOWS = 3  # unprofiled pipelined loops the idle share is read from
+# Path 6 (harness): the ann-benchmarks CLI on deep-image-96-angular at its
+# published size (9,990,000 x 96, angular: DOT on normalised rows; the
+# registry entry of bench/ann_data.py) on its seeded synthetic corpus, and
+# ivf-sq-f32 on glove-100-angular at its published 1,183,514 x 100.
+ANN_DATASET, ANN_COUNT = "deep-image-96-angular", 9_990_000
+ANN_IVF_DATASET, ANN_IVF_COUNT = "glove-100-angular", 1_183_514
+ANN_FLAGS = ["--test-acc", "--bench", "--query-batch", "256", "--json"]
+# test_knn's batches: 25 of 4 of the 100 queries, so the latency percentiles
+# come from 25 samples (p99 is the largest); --bench scores or searches all
+# 100 queries at once (ivf-sq-f32, through main(), 4 at a time).
+ANN_KNN_BATCH = 4
+ANN_QUERIES = 100  # the synthetic corpus's queries (AnnBenchmarkData.load's default)
+# The deep-image methods, label -> CLI flags, each through the CLI's own
+# functions on one loaded corpus (u8 exact with --bench-f32), at 9.99M and
+# at 20,000 rows.
+ANN_METHODS = {
+    "u8": ["--method", "u8"],
+    "u8-approx": ["--method", "u8", "--topk-method", "approx"],
+    "u8-f32": ["--method", "u8-f32"],
+    "bq": ["--method", "bq"],
+    "bq-u8": ["--method", "bq-u8"],
+    "pq": ["--method", "pq", "--chunk-size", "2"],
+}
+# The wrappers each method must launch on the card (test_knn searches exact;
+# --bench scores, or searches approx through PipelinedSearcher).
+ANN_LAUNCHES = {
+    "u8": ("sq_search_exact", "sq_scores"),
+    "u8-approx": ("sq_search_approx", "sq_scores"),
+    "u8-f32": ("sq_search_exact", "sq_search_approx"),
+    "bq": ("bq_search_exact", "bq_scores"),
+    "bq-u8": ("bq_search_exact", "bq_search_approx", "sq_score_candidates"),
+    "pq": ("pq_search_exact", "pq_scores"),
+    "ivf-sq-f32": ("sq_search_indexed_exact", "sq_search_indexed_approx"),
+}
+# The rehearsal: the same methods at 20,000 rows, recall@10 on the CPU
+# (python3 chip_smoke.py --rehearse ann; rerun it and update these when the
+# CLI, the codecs or the corpus change); the card's run at 20,000 rows is
+# held to each within ANN_REHEARSAL_SLACK.
+ANN_REHEARSAL_COUNT = 20_000
+ANN_RECALL_REHEARSAL = {"u8": 0.7630, "u8-approx": 0.7620, "u8-f32": 0.9990, "bq": 0.1050,
+                        "bq-u8": 0.6400, "pq": 0.4200, "ivf-sq-f32": 0.9990}
+ANN_REHEARSAL_SLACK = 0.02
+# Native host encode (b) at 1,000,000 x 768 on 8 threads.
+NATIVE_N, NATIVE_D, NATIVE_THREADS = 1_000_000, 768, 8
+# streaming_ingest runs at 1M rows (its default is 10M: cut, PERF.md §4).
+STREAMING_N = 1_000_000
+# The whole of path 6 keeps to this many seconds of card wall.
+HARNESS_WALL_LIMIT_S = 180.0
 
 
 def say(phase, msg):
@@ -2437,6 +2502,374 @@ def rbq_path(dev, smi, do_profile):
                   "syncs_per_search": {k_: v / SERVE_BATCHES for k_, v in syncs.items()}}
 
 
+class Tee(io.TextIOBase):
+    """A stdout that also keeps what it was given, for the lines an entry
+    point prints (the CLI's encode wall, the examples' recall lines)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.buf.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed), printed as it goes."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args)
+    return out, tee.buf.getvalue()
+
+
+@contextlib.contextmanager
+def recorded(*modules):
+    """Every kernel wrapper of ``modules`` (a function ``f`` beside its plain
+    version ``f_plain``) wrapped to keep, for each launch counter it moved,
+    its last such call and that call's result; yields {counter: (module,
+    name, args, kwargs, result)} and puts the wrappers back on exit. The
+    models reach the wrappers through their modules, so they call these."""
+    calls, saved = {}, []
+    for m in modules:
+        for pname in [n for n in vars(m) if n.endswith("_plain")]:
+            name = pname[: -len("_plain")]
+            fn = getattr(m, name, None)
+            if fn is None:
+                continue
+
+            def rec(*a, _m=m, _name=name, _fn=fn, **kw):
+                before = dict(_m.LAUNCHES)
+                out = _fn(*a, **kw)
+                for c, n in _m.LAUNCHES.items():
+                    if n != before[c]:
+                        calls[c] = (_m, _name, a, kw, out)
+                return out
+
+            saved.append((m, name, fn))
+            setattr(m, name, rec)
+    try:
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def plain_row_scores(m, bound):
+    """[Q, Npad] plain scores of every corpus row that a search of module
+    ``m`` selects from, given its bound arguments; path 6 runs no residual
+    additive, so none is taken."""
+    from quantization_tpu_torch.ops.kernels import bq_kernel, pq_kernel, sq_kernel
+
+    require(all(bound.get(x) is None for x in ("corr", "rowadd", "query_affine")),
+            "path 6's searches take no residual additive")
+    if m is sq_kernel:
+        codes = bound["codes"]
+        return sq_kernel.sq_scores_plain(
+            bound["qcodes"], bound["qoff"], codes, bound["voff"], bound["multiplier"],
+            distance_type=bound["distance_type"], n_valid=codes.shape[0])
+    if m is bq_kernel:
+        planes = bound["planes"]
+        return bq_kernel.bq_scores_plain(
+            bound["qwords"], planes, distance_type=bound["distance_type"],
+            invert=bound["invert"], dim=bound["dim"], n_valid=planes.shape[1])
+    require(m is pq_kernel, f"plain row scores for {m.__name__}")
+    codes_t = bound["codes_t"]
+    return pq_kernel.lut_scores_plain(bound["lut"], codes_t, n_valid=codes_t.shape[1],
+                                      precision=bound.get("precision"))
+
+
+def hold_to_plain(calls, launches, what):
+    """Each launch counter that ``launches`` shows moved, held on its last
+    recorded call (``recorded``): the wrapper's result against its plain
+    version on the same inputs on the card. Score matrices and candidate
+    scores equal plain to the bit; a search's values equal the plain
+    search's and each id is a distinct row of its scan whose plain score is
+    its value (ids differ only among ties; ``check_topk``). Returns
+    {counter: (shape of the result, max |error|)}."""
+    import inspect
+
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    require(set(launches) <= set(calls), f"{what}: a recorded call of every launched "
+            f"kernel ({sorted(launches)} against {sorted(calls)})")
+    torch.cuda.synchronize()
+    held = {}
+    for counter in sorted(launches):
+        m, name, a, kw, got = calls[counter]
+        plain_fn = getattr(m, name + "_plain")
+        plain = plain_fn(*a, **kw)
+        tag = f"{what}: {counter}"
+        if not isinstance(got, tuple):
+            require(torch.equal(got, plain), f"{tag} {list(got.shape)} equals plain to the bit")
+            held[counter] = (list(got.shape), 0.0)
+            continue
+        bound = inspect.signature(plain_fn).bind(*a, **kw)
+        bound.apply_defaults()
+        bound = bound.arguments
+        scores = plain_row_scores(m, bound)
+        vals, ids = got
+        if "tile_sel" in bound:  # an indexed scan: ids are rows of its tiles
+            scanned = torch.zeros(scores.shape[1], dtype=torch.bool, device=ids.device)
+            scanned[ktile.tile_rows(bound["tile_sel"], bound["tile_n"]).long()] = True
+            live = ids >= 0
+            require(bool(scanned[ids[live].long()].all()), f"{tag}: ids are rows of the scan")
+        err = check_topk(vals, ids, plain[0], scores, bound.get("n_valid", scores.shape[1]),
+                         tag)
+        held[counter] = ([*vals.shape, scores.shape[1]], err)
+        del scores, plain
+    return held
+
+
+def ann_method(data, flags, dev, knn_batch=None):
+    """One method of the CLI through its own functions on a loaded corpus:
+    build_index, test_knn (in batches of ``knn_batch`` queries, else
+    --query-batch), with --bench bench_scoring and with --bench-f32
+    bench_f32. On the card every kernel it launched is then held against
+    its plain version on its inputs (``hold_to_plain``). Returns (entry,
+    encode seconds, launches by wrapper, {counter: (shape, max |error|)})."""
+    from quantization_tpu_torch.bench import ann_benchmark as cli
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    args = cli.parser().parse_args(flags + (["--device", "cpu"] if dev.type == "cpu" else []))
+    reset_all(*mods)
+    with recorded(*mods) as calls:
+        t0 = time.perf_counter()
+        index = cli.build_index(args.method, data, args)
+        encode_s = time.perf_counter() - t0
+        res = cli.test_knn(data, index, query_batch=knn_batch or args.query_batch,
+                           topk_method=args.topk_method, recall_target=args.recall_target)
+        entry = {"same_10": res.same_10, "same_20": res.same_20, "same_30": res.same_30,
+                 **res.timings(), "batches": len(res.latencies_us)}
+        if args.bench:
+            entry["qps"] = cli.bench_scoring(data, index, args, args.method)
+        if args.bench_f32:
+            entry["f32_qps"] = cli.bench_f32(data, args)
+    launches = {k_: v for k_, v in counts(*mods).items() if v}
+    what = f"{args.method} {args.topk_method}"
+    held = hold_to_plain(calls, launches, what) if dev.type == "cuda" else {}
+    del index, calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return entry, encode_s, launches, held
+
+
+def ann_recalls(dev, count):
+    """recall@10 of every path-6 method at ``count`` rows on ``dev``: the
+    deep-image methods on one corpus, ivf-sq-f32 on glove-100."""
+    from quantization_tpu_torch.bench.ann_data import DATASETS, AnnBenchmarkData
+
+    out = {}
+    for name, labels in ((ANN_DATASET, list(ANN_METHODS)), (ANN_IVF_DATASET, ["ivf-sq-f32"])):
+        data = AnnBenchmarkData.load(DATASETS[name], synthetic_count=count, device=dev)
+        data.preprocess_cosine()
+        for label in labels:
+            flags = ANN_METHODS.get(label, ["--method", label])
+            entry, *_ = ann_method(data, flags + ["--test-acc", "--query-batch", "256"], dev)
+            out[label] = entry["same_10"]
+    return out
+
+
+def offsets_agree(a, b, rtol=1e-5, atol=1e-2):
+    """Whether two SQ-u8 encodings of one corpus (DOT) hold the same row
+    offsets within the JAX native test's tolerance (tests/test_native.py),
+    once the difference their codes make is taken out: a code one apart
+    (ROADMAP F7) moves its row's offset by alpha * offset."""
+    m = a.metadata
+    dsum = (a.codes.to(torch.int32).sum(1) - b.codes.to(torch.int32).sum(1)).double()
+    want = b.voffsets.double() + dsum * (float(m.alpha) * float(m.offset))
+    return bool(((a.voffsets.double() - want).abs()
+                 <= atol + rtol * b.voffsets.double().abs()).all())
+
+
+def harness_path(dev, smi):
+    """Path 6: the port's user-facing harness on the card. (a) the
+    ann-benchmarks CLI at deep-image-96-angular's 9,990,000 rows (every
+    method through the CLI's functions on one corpus; ivf-sq-f32 through
+    main() on glove-100 at 1,183,514 rows), each kernel launched held
+    against plain on its inputs, and the 20,000-row run held to the CPU
+    rehearsal;
+    (b) the native host encoders at 1M x 768 on 8 threads against the
+    device encoders; (c) micro; (d) cpu_baseline; (e) the five examples."""
+    import re
+
+    from quantization_tpu_torch import BinaryQuantizer, DistanceType, ScalarQuantizerU8
+    from quantization_tpu_torch import VectorParameters
+    from quantization_tpu_torch.bench import ann_benchmark as cli
+    from quantization_tpu_torch.bench import cpu_baseline, micro
+    from quantization_tpu_torch.bench.ann_data import DATASETS, AnnBenchmarkData
+    from quantization_tpu_torch.examples import (
+        basic, ivf_serving, pipelined_serving, serving_two_stage, streaming_ingest,
+    )
+    from quantization_tpu_torch.native import loader
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    t_path = time.perf_counter()
+    info = {"ann": {}}
+
+    def say_entry(label, n, entry, encode_s, launches, held):
+        say("harness", f"{label} on {n:,} rows: recall@10/20/30 {entry['same_10']:.4f} / "
+            f"{entry['same_20']:.4f} / {entry['same_30']:.4f}; latency/query us over "
+            f"{entry['batches']} batches min {entry['min_us']:.1f} avg {entry['avg_us']:.1f} "
+            f"p95 {entry['p95_us']:.1f} p99 {entry['p99_us']:.1f} max {entry['max_us']:.1f}; "
+            f"encode {encode_s:.4f} s ({n / encode_s:,.0f} vectors/s); "
+            f"{entry.get('qps', float('nan')):,.1f} q/s; launches {launches}; on {smi}")
+        figures = [entry[k_] for k_ in ("same_10", "same_20", "same_30", "min_us", "avg_us",
+                                        "p95_us", "p99_us", "max_us", "qps")] + [encode_s]
+        require(all(np.isfinite(x) for x in figures), f"{label}: every figure finite")
+        require(all(launches.get(w, 0) > 0 for w in ANN_LAUNCHES[label]),
+                f"{label} launched {ANN_LAUNCHES[label]} ({launches})")
+        say("harness", f"{label} on {n:,} rows, each kernel's last launch against plain on "
+            "its inputs: " + ", ".join(f"{c} {shape} max |err| {e:g}"
+                                        for c, (shape, e) in held.items()))
+        info["ann"][label] = {**entry, "encode_s": encode_s, "rows": n, "launches": launches,
+                              "held_max_abs_err": {c: e for c, (_, e) in held.items()}}
+
+    # ---------------------------------------------- (a) the CLI at 9.99M rows
+    t0 = time.perf_counter()
+    data = AnnBenchmarkData.load(DATASETS[ANN_DATASET], synthetic_count=ANN_COUNT, device=dev)
+    data.preprocess_cosine()
+    info["load_s"] = time.perf_counter() - t0
+    say("harness", f"{data.name} made and its exact neighbours found: "
+        f"{data.train.shape[0]:,} x {data.train.shape[1]} ({data.train.nbytes / 1e9:.2f} GB "
+        f"f32) in {info['load_s']:.1f} s")
+    for label, flags in ANN_METHODS.items():
+        extra = ["--bench-f32"] if label == "u8" else []
+        entry, encode_s, launches, held = ann_method(
+            data, ["--dataset", ANN_DATASET] + flags + extra + ANN_FLAGS, dev, ANN_KNN_BATCH)
+        say_entry(label, ANN_COUNT, entry, encode_s, launches, held)
+    del data
+    ann = info["ann"]
+    require(np.isfinite(ann["u8"]["f32_qps"]), "the f32 baseline's q/s is finite")
+    say("harness", f"f32 baseline (matmul + top-10, Q = 100) {ann['u8']['f32_qps']:,.1f} q/s; "
+        f"u8 scoring {ann['u8']['qps']:,.1f} q/s, on {smi}")
+    require(ann["u8-f32"]["same_10"] >= ann["u8-approx"]["same_10"],
+            "u8-f32 recall@10 >= u8 approx's")
+    require(ann["bq-u8"]["same_10"] >= ann["bq"]["same_10"], "bq-u8 recall@10 >= bq's")
+
+    # ivf-sq-f32 through main(): --query-batch sets test_knn's batches and --bench's alike.
+    argv = ["--dataset", ANN_IVF_DATASET, "--synthetic-count", str(ANN_IVF_COUNT),
+            "--method", "ivf-sq-f32", "--test-acc", "--bench", "--query-batch",
+            str(ANN_KNN_BATCH), "--json"]
+    reset_all(*mods)
+    t0 = time.perf_counter()
+    with recorded(*mods) as calls:
+        (res,), printed = captured(cli.main, argv)
+    info["main_ivf_s"] = time.perf_counter() - t0
+    launches = {k_: v for k_, v in counts(*mods).items() if v}
+    held = hold_to_plain(calls, launches, "ivf-sq-f32")
+    del calls
+    require(json.loads(printed.strip().splitlines()[-1])[0] == res, "--json prints the results")
+    encode_s = float(re.search(r"\] ivf-sq-f32 encode: ([0-9.]+)s", printed).group(1))
+    res["batches"] = -(-ANN_QUERIES // ANN_KNN_BATCH)
+    say_entry("ivf-sq-f32", ANN_IVF_COUNT, res, encode_s, launches, held)
+    say("harness", f"main() for ivf-sq-f32 in {info['main_ivf_s']:.1f} s (corpus made and "
+        f"its exact neighbours found in it); q/s at Q = {ANN_KNN_BATCH}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    card = ann_recalls(dev, ANN_REHEARSAL_COUNT)
+    for label, r in card.items():
+        want = ANN_RECALL_REHEARSAL[label]
+        say("harness", f"{label} at {ANN_REHEARSAL_COUNT:,} rows: recall@10 {r:.4f} on the "
+            f"card, {want:.4f} in the CPU rehearsal (--rehearse ann)")
+        require(abs(r - want) <= ANN_REHEARSAL_SLACK,
+                f"{label}: the card's recall@10 at {ANN_REHEARSAL_COUNT} rows within "
+                f"{ANN_REHEARSAL_SLACK} of the CPU rehearsal's")
+    info["rehearsal_recall_at_10"] = card
+    info["rehearsal_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- (b) native host encode
+    t0 = time.perf_counter()
+    loader.get_lib()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    x = (torch.rand(NATIVE_N, NATIVE_D, generator=gen, device=dev) * 2 - 1).cpu().numpy()
+    params = VectorParameters(NATIVE_D, NATIVE_N, DistanceType.DOT, False)
+
+    def build(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sq_n, sq_n_s = build(lambda: ScalarQuantizerU8.encode(
+        x, params, use_native=True, max_threads=NATIVE_THREADS))
+    sq_d, sq_d_s = build(lambda: ScalarQuantizerU8.encode(x, params))
+    diff = (sq_n.codes.to(torch.int16) - sq_d.codes.to(torch.int16)).abs()
+    differ = float((diff != 0).double().mean())
+    require(int(diff.max()) <= 1 and differ < 0.01,
+            f"native SQ codes within one of the device's on under 1 % of entries (F7; "
+            f"max {int(diff.max())}, {100 * differ:.4f} %)")
+    require(offsets_agree(sq_n, sq_d), "native SQ offsets within rtol 1e-5 / atol 1e-2 of the "
+            "device's, less the DOT term of the codes one apart (F7)")
+    bq_n, bq_n_s = build(lambda: BinaryQuantizer.encode(
+        x, params, use_native=True, max_threads=NATIVE_THREADS))
+    bq_d, bq_d_s = build(lambda: BinaryQuantizer.encode(x, params))
+    require(torch.equal(bq_n.planes, bq_d.planes), "native BQ planes byte-equal the default's")
+    per_m = 1e6 / NATIVE_N
+    info["native"] = {"g++_s": build_s, "sq_native_s_per_1m": sq_n_s * per_m,
+                      "sq_device_s_per_1m": sq_d_s * per_m, "bq_native_s_per_1m": bq_n_s * per_m,
+                      "bq_numpy_s_per_1m": bq_d_s * per_m, "sq_codes_differ": differ}
+    say("harness", f"native encode at {NATIVE_N:,} x {NATIVE_D}, {NATIVE_THREADS} threads "
+        f"(library built in {build_s:.2f} s): SQ {sq_n_s * per_m:.3f} s per 1M rows native, "
+        f"{sq_d_s * per_m:.3f} on the device ({100 * differ:.4f} % of codes one apart, F7); "
+        f"BQ {bq_n_s * per_m:.3f} native, {bq_d_s * per_m:.3f} numpy packer (planes equal); "
+        f"codes on the card, on {smi}")
+    del x, sq_n, sq_d, bq_n, bq_d, diff
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ (c) micro
+    rows = micro.main([])
+    for row in rows:
+        require(np.isfinite(row["ms_per_batch"]) and row["ms_per_batch"] > 0,
+                f"micro {row['bench']}: time finite and positive")
+    info["micro"] = rows
+    say("harness", "micro (100k x 1024, Q = 256, top-10): " + ", ".join(
+        f"{r['bench']} {r['ms_per_batch']:.4f} ms" for r in rows) + f", on {smi}")
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- (d) cpu_baseline
+    cpu = cpu_baseline.measure(100_000, 1024)
+    require(cpu["cpu_sq_u8_scan_qps"] > 0 and cpu["cpu_f32_scan_qps"] > 0,
+            "cpu_baseline q/s positive")
+    info["cpu_baseline"] = cpu
+    say("harness", f"cpu_baseline at 100,000 x 1024 (one host core, native scans; not a "
+        f"device number): SQ u8 {cpu['cpu_sq_u8_scan_qps']:,.1f} q/s, f32 "
+        f"{cpu['cpu_f32_scan_qps']:,.1f} q/s")
+
+    # --------------------------------------------------------- (e) examples
+    info["examples_s"] = {}
+    for mod, argv, line in [
+        (basic, [], "u8 dot scores within"),
+        (serving_two_stage, [], "recall@10 vs exact f32"),
+        (pipelined_serving, [], "recall@10 on the last batch"),
+        (ivf_serving, [], "recall@10 vs exact f32"),
+        (streaming_ingest, ["--n", str(STREAMING_N)], "recall@10 vs exact ="),
+    ]:
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        _, printed = captured(mod.main, argv)
+        info["examples_s"][name] = time.perf_counter() - t0
+        require(line in printed, f"example {name} printed its result lines")
+        torch.cuda.empty_cache()
+    say("harness", "examples: " + ", ".join(
+        f"{k_} {v:.1f} s" for k_, v in info["examples_s"].items()) + f", on {smi}")
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("harness", f"path 6 wall {wall:.1f} s (limit {HARNESS_WALL_LIMIT_S:.0f} s) on {smi}")
+    require(wall <= HARNESS_WALL_LIMIT_S, f"path 6 within {HARNESS_WALL_LIMIT_S:.0f} s")
+    return info
+
+
 def rehearse(which, n=30_000):
     """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
     recalls ("pq"), path 4's IVF-SQ -> f32 ("ivf") and path 5's residual
@@ -2444,6 +2877,12 @@ def rehearse(which, n=30_000):
     device numbers)."""
     torch.set_num_threads(4)
     cpu = torch.device("cpu")
+    if "ann" in which:
+        t0 = time.perf_counter()
+        rec = ann_recalls(cpu, ANN_REHEARSAL_COUNT)
+        say("rehearsal", f"CPU, the path-6 methods at {ANN_REHEARSAL_COUNT} rows, "
+            f"{time.perf_counter() - t0:.0f} s (not a device number); recall@10: "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in rec.items()))
     if "pq" in which:
         t0 = time.perf_counter()
         rec, _ = pq_recalls(cpu, n, PD, SEED + 3)
@@ -2663,6 +3102,8 @@ def main():
     ivf_recs, ivf_info = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
     torch.cuda.empty_cache()
     rbq_recs, rbq_info = rbq_path(dev, smi, do_profile)
+    torch.cuda.empty_cache()
+    harness_info = harness_path(dev, smi)
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -2695,6 +3136,7 @@ def main():
         "pq": pq_info,
         "ivf": ivf_info,
         "residual_bq_l1_serving": rbq_info,
+        "harness": harness_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """quantization_tpu_torch — the PyTorch + CUDA port of quantization_tpu.
 
-Five slices so far. SQ-u8: calibrate, encode corpus and queries into int8
+Six slices so far. SQ-u8: calibrate, encode corpus and queries into int8
 codes with per-row f32 corrections, and search them. BQ and two-stage
 retrieval: sign-bit planes scored by XOR + popcount, whose oversampled
 candidates are rescored by SQ-u8 or by the f32 vectors (``TwoStageIndex``).
@@ -11,7 +11,9 @@ batch union of buckets and scanning it in place or gathered, with residual
 SQ, PQ and BQ (value queries against residual sign bits). Serving:
 ``recommend`` calibrates a ``ServingPlan`` against the exact f32 oracle, and
 ``plan.serve`` runs it in a ``PipelinedSearcher`` that keeps several
-searches in flight on the card.
+searches in flight on the card. The harness: the ann-benchmarks CLI, micro
+and CPU baselines (``bench/``), the examples (``examples/``) and the native
+host encoders (``encode(use_native=True)``, ``native/``).
 Every kernel is hand-written for Hopper (``csrc/``); CPU tensors take their
 plain PyTorch versions. Entry points place data on the CUDA card unless the
 caller names another device. The JAX package ``quantization_tpu`` stays the

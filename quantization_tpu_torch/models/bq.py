@@ -15,9 +15,8 @@ arrays of the two packages compare whole:
 
 Scores and searches go through the hand-written kernels on a CUDA device
 (``ops/kernels/bq_kernel.py``: K6 scores, K5c exact and K5a approx search)
-and through their plain versions on the CPU. The host packer is numpy on
-every device; ``use_native`` / ``max_threads`` of the JAX ``encode`` are not
-ported yet.
+and through their plain versions on the CPU. The host packer is numpy, or
+the native library with ``use_native=True``, on every device.
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from ..core.types import (
     VectorParameters,
     check_stop,
 )
+from ..native import loader as native_loader
 from ..ops import bq as bq_ops
 from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import bq_kernel
@@ -52,6 +52,7 @@ from ..ops.kernels.bq_kernel import TILE_N, W_ALIGN
 from ..ops.kernels.ktile import APPROX_K_MAX, FUSED_K_MAX
 from ..ops.topk import BLOCK_ROWS, blocked_topk
 from ..utils.padding import pad_dim_to
+from ..utils.parallel_encode import ordered_parallel_map
 
 
 @dataclass
@@ -110,27 +111,39 @@ class BinaryQuantizer(EncodedVectors):
         stop_condition=None,
         batch_size: int = 65536,
         store_type: str = "u128",
+        use_native: bool = False,
+        max_threads: int = 1,
+        *,
         device=None,
     ) -> "BinaryQuantizer":
         """Pack sign bits batch by batch on the host
         (encoded_vectors_binary.rs:165-191) with a cancellation check between
         batches, then move the planes to ``device`` (default: the CUDA
-        card)."""
+        card). The packer, numpy or with ``use_native=True`` the native
+        library (``native/loader.py``), runs on an ordered pool of
+        ``max_threads`` threads; both give the same bytes. ``use_native=True`` raises
+        ``NativeBuildError`` where the library cannot be built (ROADMAP
+        F30)."""
         device = resolve_device(device)
+        if use_native:
+            native_loader.get_lib()  # raises where the library cannot be built
         if not callable(data):
             validate_vector_parameters(data, params)
         row_bytes = bq_ops.storage_bytes(params.dim, store_type)
-        chunks = []
-        total = 0
-        for batch in iter_batches(data, batch_size):
-            check_stop(stop_condition)
+
+        def pack_one(batch):
             if batch.shape[1] != params.dim:
                 raise ArgumentsError(
                     f"Vector length {batch.shape[1]} does not match vector "
                     f"parameters dim {params.dim}"
                 )
-            chunks.append(bq_ops.pack_rows(batch, row_bytes))
-            total += batch.shape[0]
+            if use_native and row_bytes > 0:
+                return native_loader.pack_bits(batch, row_bytes)
+            return bq_ops.pack_rows(batch, row_bytes)
+
+        chunks = list(ordered_parallel_map(pack_one, iter_batches(data, batch_size),
+                                           max_threads, stop_condition))
+        total = sum(c.shape[0] for c in chunks)
         if total != params.count:
             raise ArgumentsError(
                 f"Vector count {total} does not match vector parameters count "

@@ -51,6 +51,7 @@ from ..core.types import (
     VectorParameters,
     check_stop,
 )
+from ..native import loader as native_loader
 from ..ops import sq as sq_ops
 from ..ops.dispatch import resolve_device, upload
 from ..ops.kernels import gather, sq_kernel
@@ -62,7 +63,7 @@ from ..ops.quantile import (
     sample_rows,
 )
 from ..ops.topk import blocked_topk
-from ..utils.device_store import DeviceAppender
+from ..utils.parallel_encode import ordered_parallel_map
 from ..utils.padding import pad_dim_to
 
 # Corpus rows per score-then-select block (see top_k_device): bounds the
@@ -165,15 +166,26 @@ class ScalarQuantizerU8(EncodedVectors):
         stop_condition=None,
         batch_size: int = 65536,
         seed: int = 0,
+        use_native: bool = False,
+        max_threads: int = 1,
+        *,
         device=None,
     ) -> "ScalarQuantizerU8":
         """Calibrate + encode (reference encode, encoded_vectors_u8.rs:34-140).
 
         Two passes over ``data`` (which may be a re-iterable batch stream):
         pass 1 scans min/max (+ optional quantile sample) on the host, pass 2
-        quantizes batch by batch on ``device`` (default: the CUDA card) with
-        a cancellation check between batches."""
+        quantizes batch by batch with a cancellation check between batches,
+        on ``device`` (default: the CUDA card), or with ``use_native=True``
+        on the host by the native library (``native/loader.py``) on an
+        ordered pool of ``max_threads`` threads, whose codes go up to
+        ``device`` once. Native codes may differ by one from the device's at
+        exact boundaries (ROADMAP F7). ``use_native=True`` raises
+        ``NativeBuildError`` where the library cannot be built (ROADMAP
+        F30)."""
         device = resolve_device(device)
+        if use_native:
+            native_loader.get_lib()  # raises where the library cannot be built
         if not callable(data):
             validate_vector_parameters(data, params)
         actual = sq_ops.actual_dim(params.dim)
@@ -192,40 +204,64 @@ class ScalarQuantizerU8(EncodedVectors):
 
         alpha, offset = calibrate_sq(batches, params, quantile, stop_condition, seed)
         dt, inv = params.distance_type, params.invert
-        # Only the f32 batch crosses to the device; the codes stay there.
-        npad = params.count + (-params.count) % sq_kernel.TILE_N
-        codes_app = DeviceAppender((npad, lane), torch.int8, device)
-        voff_app = DeviceAppender((npad,), torch.float32, device)
-        for batch in batches():
-            check_stop(stop_condition)
+        multiplier = sq_ops.multiplier_for(dt, inv, alpha)
+        meta = SQMetadata(actual, alpha, offset, multiplier, params)
+
+        def check_dim(batch):
             if batch.shape[1] != params.dim:
                 raise ArgumentsError(
                     f"Vector length {batch.shape[1]} does not match vector "
                     f"parameters dim {params.dim}"
                 )
-            if codes_app.pos + batch.shape[0] > params.count:
+
+        npad = params.count + (-params.count) % sq_kernel.TILE_N
+        if use_native:
+            dt_index = [DistanceType.DOT, DistanceType.L1, DistanceType.L2].index(dt)
+            pad = sq_ops.pad_code(dt, alpha, offset)
+
+            def encode_one(batch):
+                check_dim(batch)
+                codes, voff = native_loader.quantize_u8(batch, actual, alpha, offset, pad,
+                                                        dt_index, inv)
+                return codes.view(np.int8), voff
+
+            encoded = ordered_parallel_map(encode_one, batches(), max_threads, stop_condition)
+            codes_all = np.zeros((npad, lane), np.int8)
+            voff_all = np.zeros((npad,), np.float32)
+        else:
+
+            def encode_all():
+                for batch in batches():
+                    check_stop(stop_condition)
+                    check_dim(batch)
+                    # Only the f32 batch crosses to the device; the codes stay there.
+                    yield sq_ops.quantize_batch(
+                        torch.from_numpy(np.ascontiguousarray(batch)).to(device),
+                        alpha=alpha, offset=offset, distance_type=dt, invert=inv,
+                        dpad=actual, lane=lane,
+                    )
+
+            encoded = encode_all()
+            codes_all = torch.zeros((npad, lane), dtype=torch.int8, device=device)
+            voff_all = torch.zeros((npad,), dtype=torch.float32, device=device)
+        total = 0
+        for codes, voff in encoded:
+            n = codes.shape[0]
+            if total + n > params.count:
                 raise ArgumentsError(
                     f"Vector count exceeds vector parameters count {params.count}"
                 )
-            codes, voff = sq_ops.quantize_batch(
-                torch.from_numpy(np.ascontiguousarray(batch)).to(device),
-                alpha=alpha,
-                offset=offset,
-                distance_type=dt,
-                invert=inv,
-                dpad=actual,
-                lane=lane,
-            )
-            codes_app.append(codes)
-            voff_app.append(voff)
-        if codes_app.pos != params.count:
+            codes_all[total : total + n, : codes.shape[1]] = codes
+            voff_all[total : total + n] = voff
+            total += n
+        if total != params.count:
             raise ArgumentsError(
-                f"Vector count {codes_app.pos} does not match vector parameters "
-                f"count {params.count}"
+                f"Vector count {total} does not match vector parameters count "
+                f"{params.count}"
             )
-        multiplier = sq_ops.multiplier_for(dt, inv, alpha)
-        meta = SQMetadata(actual, alpha, offset, multiplier, params)
-        return cls(codes_app.finish(), voff_app.finish(), meta)
+        if use_native:  # the host codes go up to the device once
+            codes_all, voff_all = upload(codes_all, device), upload(voff_all, device)
+        return cls(codes_all, voff_all, meta)
 
     # ------------------------------------------------------------------ query
     def encode_query(self, queries) -> EncodedQueryU8:

@@ -1148,3 +1148,62 @@ def test_mma_k10_value_indexed_equal_plain(dev, q):
     pv, pi = bq_kernel.bq_search_indexed_plain(None, planes, sel, corr, **kw)
     torch.cuda.synchronize()
     assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+# ------------------------------------------------------------ the harness
+@pytest.mark.parametrize("dt", [qt.DistanceType.DOT, qt.DistanceType.L1, qt.DistanceType.L2])
+def test_native_encode_on_the_card_equals_the_device_encode(dev, dt):
+    """use_native=True on an ordered pool: the host codes uploaded to the
+    card equal the device encoder's, SQ within one code on under 1 % of the
+    entries (ROADMAP F7), BQ planes byte-equal."""
+    rng = np.random.default_rng(11)
+    data = rng.random((20_000, 300), dtype=np.float32) * 3 - 1
+    params = qt.VectorParameters(300, 20_000, dt, False)
+    nat = qt.ScalarQuantizerU8.encode(data, params, None, None, 4096, 0, True, 4)
+    ref = qt.ScalarQuantizerU8.encode(data, params)
+    assert nat.codes.is_cuda and nat.codes.shape == ref.codes.shape
+    diff = (nat.codes.to(torch.int16) - ref.codes.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).double().mean()) < 0.01
+    # a code one apart moves its row's offset by its term in the metric's sum
+    m = ref.metadata
+    a, b = nat.codes.double(), ref.codes.double()
+    delta = {qt.DistanceType.DOT: (a.sum(1) - b.sum(1)) * (m.alpha * m.offset),
+             qt.DistanceType.L1: torch.zeros_like(a[:, 0]),
+             qt.DistanceType.L2: ((a * a).sum(1) - (b * b).sum(1)) * m.alpha * m.alpha}[dt]
+    err = (nat.voffsets.double() - ref.voffsets.double() - delta).abs()
+    assert bool((err <= 1e-2 + 1e-5 * ref.voffsets.double().abs()).all())
+    bq_nat = qt.BinaryQuantizer.encode(data, params, batch_size=4096, use_native=True,
+                                       max_threads=4)
+    assert torch.equal(bq_nat.planes, qt.BinaryQuantizer.encode(data, params).planes)
+
+
+@pytest.mark.parametrize("method", ["u8", "bq-u8"])
+def test_cli_on_the_card_equals_its_cpu_run(dev, method):
+    """The ann-benchmarks CLI at 20,000 rows: recall@10 on the card within
+    0.02 of the port's CPU run on the same corpus."""
+    from quantization_tpu_torch.bench import ann_benchmark
+
+    argv = ["--dataset", "deep-image-96-angular", "--method", method, "--test-acc",
+            "--synthetic-count", "20000", "--query-batch", "64"]
+    card = ann_benchmark.main(argv)
+    cpu = ann_benchmark.main(argv + ["--device", "cpu"])
+    assert abs(card[0]["same_10"] - cpu[0]["same_10"]) <= 0.02, (card, cpu)
+    assert np.isfinite(card[0]["avg_us"])
+
+
+def test_timed_takes_cuda_event_times(dev, monkeypatch):
+    """profiling.timed times work on the card between CUDA events."""
+    from quantization_tpu_torch.utils import profiling
+
+    made = []
+
+    class Event(torch.cuda.Event):
+        def __new__(cls, *args, **kwargs):
+            made.append(kwargs)
+            return super().__new__(cls, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    x = torch.randn(2048, 2048, device=dev)
+    dt = profiling.timed(torch.matmul, x, x, iters=5, warmup=1)
+    assert made and all(kw.get("enable_timing") for kw in made)
+    assert np.isfinite(dt) and 0 < dt < 1.0
