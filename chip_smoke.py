@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 6 minutes
+    python3 chip_smoke.py             # the checks and times, about 7 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
     python3 chip_smoke.py --rehearse ann  # path 6's recall on the CPU, 20k rows
@@ -11,7 +11,7 @@ nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
 LUT ring is fed by bulk copies on mbarriers, and drives the
-port's six main paths through the public API, each with the kernel launch
+port's seven main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -83,6 +83,21 @@ both corpora, since the clustered one ties far more.
      CPU rehearsal (``--rehearse ann``); the native host encoders at 1M x
      768 on 8 threads against the device encoders; micro; cpu_baseline; the
      five examples. Its wall is held to 180 s.
+
+  7. The sharded engines (parallel/sharded.py) on a mesh of 4 shards of the
+     one card: path 2's neighbourhood corpus (1,000,000 x 1536) encoded by
+     the single-device and the sharded-native streaming encoders (codes
+     byte-equal; the last shard ragged, 248,896 of its 250,368 SQ rows
+     valid), path 3's PQ 8-bit / 4-bit quantizers wrapped; SQ / BQ / PQ
+     exact, approx and past the fused caps (K3, K6, K8 per shard), K4
+     rescoring, BQ -> SQ / f32 two-stage over sharded stages, counted per
+     search (one launch a shard) and held against plain on the last shard's
+     last launch; each exact search equal to the single-device one (values
+     to the bit, ids where untied), approx overlap, two-stage recall,
+     score_candidates (-inf for ids no shard owns), score_internal_batch;
+     files both ways; the streaming PQ encode at 100,000 rows; 5,000 rows
+     on 8 shards, some holding none; per-batch device time sharded against
+     single-device. Its wall is held to 120 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -308,6 +323,22 @@ NATIVE_N, NATIVE_D, NATIVE_THREADS = 1_000_000, 768, 8
 STREAMING_N = 1_000_000
 # The whole of path 6 keeps to this many seconds of card wall.
 HARNESS_WALL_LIMIT_S = 180.0
+# Path 7 (sharded engines): a mesh of SHARDS shards on the one card at path
+# 2's and path 3's shapes; the streaming PQ encode on path 3's first
+# SHARD_PQ_ENCODE_N rows; the score-matrix path at k = SHARD_K_SCORES (past
+# the fused caps); the empty-shard phase, EMPTY_N rows on EMPTY_SHARDS
+# shards (SQ and PQ: shards 5-7 hold no row, BQ: 3-7); the path's wall
+# limit in seconds.
+SHARDS = 4
+SHARD_PQ_ENCODE_N = 100_000
+SHARD_K_SCORES = 1100
+EMPTY_SHARDS, EMPTY_N = 8, 5_000
+# Path 7's exact-coarse two-stage equals the single-device one on the queries
+# whose R coarse candidates agree; they may differ only by a tie across the
+# R-th BQ score (ROADMAP F32). All 256 agreed on the H100 runs of this path,
+# so at most this many may differ.
+TWO_STAGE_DISAGREE_MAX = 8
+SHARDED_WALL_LIMIT_S = 120.0
 
 
 def say(phase, msg):
@@ -1488,8 +1519,11 @@ def pq_path(dev, smi, do_profile):
         f"f32 matmul + topk baseline {f32_ms:.4f} ms at N={PN} D={PD}, on {smi}")
     recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
                  plain_ms=pms[n], bound=bounds[n], library_ms=lib_ms[n]) for n in ms]
+    # Path 7 wraps the trained quantizers and encodes the corpus's first rows.
+    keep = {"8bit": st["8bit"], "4bit": st["4bit"], "queries": st["queries"],
+            "data": st["data"][:SHARD_PQ_ENCODE_N].copy()}
     return recs, {"recall_at_10": rec, "f32_ms": f32_ms, "opq_f32_batch_ms": two_ms,
-                  "train_encode_s": st["times"], "lookup_floor_ms": design_floor}
+                  "train_encode_s": st["times"], "lookup_floor_ms": design_floor}, keep
 
 
 IVF_SPECS = {  # name -> IVFIndex.encode arguments beyond (data, params)
@@ -2870,6 +2904,402 @@ def harness_path(dev, smi):
     return info
 
 
+def shards_equal(sharded, whole, dim, count):
+    """Whether a ShardedArray holds the first ``count`` entries of ``whole``
+    along ``dim`` (shard s its entries from s * n_local on) and zeros past
+    them."""
+    nl = sharded.n_local
+    for s, t in enumerate(sharded.shards):
+        nv = max(0, min(count - s * nl, nl))
+        if not torch.equal(t.narrow(dim, 0, nv), whole.narrow(dim, s * nl, nv).to(t.device)):
+            return False
+        if bool(t.narrow(dim, nv, nl - nv).any()):
+            return False
+    return True
+
+
+def live_shards(arr, count):
+    """Shards of a ShardedArray that hold rows of a ``count``-row corpus."""
+    return min(arr.n_shards, -(-count // arr.n_local))
+
+
+def tie_recall(vals, exact_vals):
+    """Mean share of each row's k values that reach the exact k-th value: an
+    approx search's overlap with the exact top-k, ties counted as hits
+    (each value is its id's true score; the holds check that)."""
+    return float(np.mean(vals >= exact_vals[:, -1:]))
+
+
+def same_as_single(got, want, what):
+    """Values equal to the bit, ids equal where the values are untied."""
+    gs, gi = (t.cpu().numpy() for t in got)
+    ws, wi = (t.cpu().numpy() for t in want)
+    require(np.array_equal(gs, ws), f"{what}: values equal the single-device search's")
+    ids_equal_where_untied(gs, gi, ws, wi, what)
+
+
+def sharded_path(dev, smi, pq_keep):
+    """Path 7: the sharded engines (parallel/sharded.py) on a mesh of SHARDS
+    shards of the one card. (a) Path 2's neighbourhood corpus (1M x 1536)
+    encoded by the single-device and the sharded-native streaming encoders,
+    codes byte-equal, the last shard ragged; path 3's PQ quantizers (1M x
+    768, 8- and 4-bit) wrapped. (b) The main path, counted per search: the
+    sharded SQ / BQ / PQ searches (fused, and past the fused caps the score
+    matrices), K4 rescoring and BQ -> SQ / f32 two-stage over sharded
+    stages, every kernel held against plain on its last launch's inputs (the
+    last shard's). (c) Each equal to the single-device search; approx
+    overlap, two-stage recall, score_candidates (-inf for ids no shard
+    owns), score_internal_batch. (d) Files both ways. (e) The streaming PQ
+    encode. (f) Empty shards. (g) Per-batch device times. Wall limited to
+    SHARDED_WALL_LIMIT_S."""
+    from quantization_tpu_torch import (
+        BinaryQuantizer, DistanceType, ExactRescorer, ProductQuantizer, ScalarQuantizerU8,
+        TwoStageIndex, VectorParameters,
+    )
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+    from quantization_tpu_torch.parallel.sharded import (
+        ShardedBinaryQuantizer, ShardedExactRescorer, ShardedProductQuantizer,
+        ShardedScalarQuantizer, make_mesh,
+    )
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    t_path = time.perf_counter()
+    info = {"launches": {}, "held_max_abs_err": {}, "batch_ms": {}}
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    require(mesh.shape["shard"] == SHARDS and mesh.first_device == dev,
+            f"a {SHARDS}-shard mesh of the one card")
+
+    # ------------------------------- (a) path 2's corpus, encoded both ways
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    data_dev, queries_dev = neighbourhoods(BN, Q, BD, gen, dev)
+    data, queries = data_dev.cpu().numpy(), queries_dev.cpu().numpy()
+    params = VectorParameters(BD, BN, DistanceType.DOT, False)
+    t0 = time.perf_counter()
+    bq1, sq1 = BinaryQuantizer.encode(data, params), ScalarQuantizerU8.encode(data, params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sbq = ShardedBinaryQuantizer.encode(data, params, mesh)
+    ssq = ShardedScalarQuantizer.encode(data, params, mesh)
+    torch.cuda.synchronize()
+    info["encode_s"] = {"single": t1 - t0, "sharded_streaming": time.perf_counter() - t1}
+    require(shards_equal(ssq.codes, sq1.codes, 0, BN)
+            and shards_equal(ssq.voffsets, sq1.voffsets, 0, BN),
+            "the streamed sharded SQ codes and offsets byte-equal the single-device encode's")
+    require(shards_equal(sbq.planes, bq1.planes, 1, BN),
+            "the streamed sharded BQ planes byte-equal the single-device encode's")
+    for name, arr in (("SQ", ssq.codes), ("BQ", sbq.planes)):
+        nl = arr.n_local
+        last = BN - (SHARDS - 1) * nl
+        require(arr.n_shards == SHARDS and 0 < last < nl
+                and all(t.device == dev for t in arr.shards),
+                f"{name}: {SHARDS} shards on the card, the last one ragged")
+        info[name.lower() + "_rows_per_shard"] = {"n_local": nl, "last_valid": last}
+        say("sharded", f"{name}: {SHARDS} shards of {nl:,} rows; the last holds {last:,} "
+            f"valid rows (ragged)")
+    sx = ShardedExactRescorer(data_dev, DistanceType.DOT, False, mesh)
+    x1 = ExactRescorer(data_dev, DistanceType.DOT, False)
+    _, oracle = torch.topk(queries_dev @ data_dev.T, K, dim=1)
+    oracle = oracle.cpu().numpy()
+    spq = {label: ShardedProductQuantizer(pq_keep[label], mesh) for label in ("8bit", "4bit")}
+    peq = {label: pq_keep[label].encode_query(pq_keep["queries"]) for label in spq}
+    say("sharded", f"{BN:,} x {BD} neighbourhood corpus (path 2's): BQ + SQ encoded "
+        f"single-device in {info['encode_s']['single']:.2f} s, sharded-native streaming in "
+        f"{info['encode_s']['sharded_streaming']:.2f} s, codes byte-equal; path 3's PQ "
+        f"8-bit / 4-bit wrapped")
+
+    seq, sbeq = ssq.encode_query(queries), sbq.encode_query(queries)
+    eq1, beq1 = sq1.encode_query(queries), bq1.encode_query(queries)
+    require(torch.equal(seq.codes, eq1.codes) and torch.equal(seq.offsets, eq1.offsets)
+            and torch.equal(sbeq.planes, beq1.planes),
+            "queries encoded from the sharded metadata equal the single-device encoding")
+    stages = {"bq_sq_approx": ("sq", "approx"), "bq_sq_exact": ("sq", "exact"),
+              "bq_f32": ("f32", "approx")}
+    two = {n: TwoStageIndex(sbq, ssq if f == "sq" else sx, OVERSAMPLING, coarse_method=m)
+           for n, (f, m) in stages.items()}
+    two1 = {n: TwoStageIndex(bq1, sq1 if f == "sq" else x1, OVERSAMPLING, coarse_method=m)
+            for n, (f, m) in stages.items()}
+    teq = {n: t.encode_query(queries) for n, t in two.items()}
+    teq1 = {n: t.encode_query(queries) for n, t in two1.items()}
+    _, cand = bq1.top_k_device(beq1, R)
+    cand = cand.clone()
+    cand[:, 0], cand[:, 1] = -1, BN + 5  # ids no shard owns
+
+    # ------------------------------- (b) the main path, counted per search
+    def search(fn, **kw):
+        return lambda: with_lut("int8", lambda: fn(**kw))
+
+    # Launches per search: one per shard holding rows (every shard here).
+    live = {"sq": live_shards(ssq.codes, BN), "bq": live_shards(sbq.planes, BN),
+            **{label: live_shards(spq[label].codes_t, PN) for label in spq}}
+    groups = {
+        "sq_bq_two_stage": [
+            ("sq exact", search(ssq.top_k_device, equery=seq, k=K),
+             {"sq_search_exact": live["sq"]}),
+            ("sq approx", search(ssq.top_k_device, equery=seq, k=K, method="approx"),
+             {"sq_search_approx": live["sq"]}),
+            ("sq scores", search(ssq.top_k_device, equery=seq, k=SHARD_K_SCORES),
+             {"sq_scores": live["sq"]}),
+            ("bq exact", search(sbq.top_k_device, equery=sbeq, k=R),
+             {"bq_search_exact": live["bq"]}),
+            ("bq approx", search(sbq.top_k_device, equery=sbeq, k=R, method="approx"),
+             {"bq_search_approx": live["bq"]}),
+            ("bq scores", search(sbq.top_k_device, equery=sbeq, k=SHARD_K_SCORES),
+             {"bq_scores": live["bq"]}),
+            ("sq candidates", search(ssq.score_candidates, equery=seq, cand=cand),
+             {"sq_score_candidates": live["sq"]}),
+        ] + [(n, search(two[n].top_k_device, equery=teq[n], k=K),
+              {"bq_search_" + stages[n][1]: live["bq"],
+               **({"sq_score_candidates": live["sq"]} if stages[n][0] == "sq" else {})})
+             for n in stages],
+    }
+    for label in spq:
+        groups["pq_" + label] = [
+            (f"pq {label} exact", search(spq[label].top_k_device, equery=peq[label], k=K),
+             {"pq_search_exact": live[label]}),
+            (f"pq {label} approx", search(spq[label].top_k_device, equery=peq[label], k=K,
+                                          method="approx"), {"pq_search_approx": live[label]}),
+            (f"pq {label} scores", search(spq[label].top_k_device, equery=peq[label],
+                                          k=SHARD_K_SCORES), {"pq_scores": live[label]}),
+        ]
+    res = {}
+    for group, runs in groups.items():
+        with recorded(*mods) as calls:
+            moved = {}
+            for label, fn, want in runs:
+                reset_all(*mods)
+                res[label] = fn()
+                torch.cuda.synchronize()
+                got = {c: n for c, n in counts(*mods).items() if n}
+                require(got == want, f"sharded {label}: one launch a live shard, {want} "
+                        f"(got {got})")
+                if label.startswith("pq 4bit"):
+                    onehot = {c: n for c, n in pq_kernel.ONEHOT_LAUNCHES.items() if n}
+                    require(onehot == got, f"sharded {label}: on the one-hot route ({onehot})")
+                info["launches"][label] = got
+                for c, n in got.items():
+                    moved[c] = moved.get(c, 0) + n
+        held = hold_to_plain(calls, moved, f"sharded {group}")
+        del calls
+        info["held_max_abs_err"][group] = {c: e for c, (_, e) in held.items()}
+        say("sharded", f"{group}: launches {moved}; each kernel's last launch (the last "
+            "shard's) against plain on its inputs: " + ", ".join(
+                f"{c} {shape} max |err| {e:g}" for c, (shape, e) in held.items()))
+
+    # ------------------------------- (c) against the single-device searches
+    same_as_single(res["sq exact"], sq1.top_k_device(eq1, K), "sharded SQ exact top-10")
+    same_as_single(res["sq scores"], sq1.top_k_device(eq1, SHARD_K_SCORES),
+                   f"sharded SQ top-{SHARD_K_SCORES} (K3)")
+    same_as_single(res["bq exact"], bq1.top_k_device(beq1, R), f"sharded BQ exact top-{R}")
+    same_as_single(res["bq scores"], bq1.top_k_device(beq1, SHARD_K_SCORES),
+                   f"sharded BQ top-{SHARD_K_SCORES} (K6)")
+    # Two-stage with the exact coarse stage: the rescoring ranks the sharded
+    # coarse candidates as the single-device SQ does, and where both coarse
+    # searches pick the same R candidates (they differ only by a tie across
+    # the R-th BQ score) the results equal the single-device two-stage's.
+    got = res["bq_sq_exact"]
+    want = two1["bq_sq_exact"].top_k_device(teq1["bq_sq_exact"], K)
+    sh_c, one_c = res["bq exact"][1], bq1.top_k_device(beq1, R)[1]
+    require(torch.equal(got[0], torch.topk(sq1.score_candidates(eq1, sh_c), K, dim=1).values),
+            "sharded BQ -> SQ two-stage, exact coarse: the SQ rescoring of its candidates")
+    agree = (torch.sort(sh_c, dim=1).values == torch.sort(one_c, dim=1).values).all(dim=1)
+    require(int(agree.sum()) >= Q - TWO_STAGE_DISAGREE_MAX,
+            f"sharded BQ -> SQ two-stage, exact coarse: the coarse candidates agree on at least "
+            f"{Q - TWO_STAGE_DISAGREE_MAX} of {Q} queries (got {int(agree.sum())}); the "
+            f"coarse top-{R} values are equal on all of them (sharded BQ exact top-{R} above)")
+    same_as_single((got[0][agree], got[1][agree]), (want[0][agree], want[1][agree]),
+                   "sharded BQ -> SQ two-stage, exact coarse, where the candidates agree")
+    info["two_stage_exact_candidates_agree"] = int(agree.sum())
+    for label in spq:
+        one = pq_keep[label]
+        same_as_single(res[f"pq {label} exact"],
+                       with_lut("int8", lambda: one.top_k_device(peq[label], K)),
+                       f"sharded PQ {label} exact top-10")
+        sc = with_lut("int8", lambda: one.score_batch(peq[label]))
+        want = torch.topk(sc, SHARD_K_SCORES, dim=1)
+        require(torch.equal(res[f"pq {label} scores"][0], want.values),
+                f"sharded PQ {label} top-{SHARD_K_SCORES} (K8) values equal the top-k of the "
+                "single-device score_batch")
+        del sc, want
+    overlap = {
+        "sq": tie_recall(res["sq approx"][0].cpu().numpy(), res["sq exact"][0].cpu().numpy()),
+        "bq": tie_recall(res["bq approx"][0].cpu().numpy(), res["bq exact"][0].cpu().numpy()),
+        **{f"pq_{label}": tie_recall(res[f"pq {label} approx"][0].cpu().numpy(),
+                                     res[f"pq {label} exact"][0].cpu().numpy())
+           for label in spq},
+    }
+    info["approx_overlap"] = overlap
+    require(all(v >= 0.8 for v in overlap.values()),
+            f"sharded approx overlap with the exact top-k >= 0.8 (F6): {overlap}")
+    rec = {n: recall(res[n][1].cpu().numpy(), oracle, K) for n in stages}
+    info["two_stage_recall_at_10"] = rec
+    require(all(v >= TWO_STAGE_RECALL_MIN for v in rec.values()),
+            f"sharded two-stage recall@{K} >= {TWO_STAGE_RECALL_MIN}: {rec}")
+    require(torch.equal(res["sq candidates"], sq1.score_candidates(eq1, cand)),
+            "sharded SQ score_candidates equal the single-device K4's (-inf where unowned)")
+    owned = (cand >= 0) & (cand < BN)
+    cand_x = torch.where(owned, cand, -1)
+    checks = {
+        "bq": (sbq.score_candidates(sbeq, cand), bq1.score_candidates(beq1, cand)),
+        "f32": (sx.score_candidates(sx.encode_query(queries), cand),
+                x1.score_candidates(x1.encode_query(queries), cand_x)),
+    }
+    candp = res["pq 8bit exact"][1].clone()
+    candp[:, 0], candp[:, 1] = -1, PN + 5
+    ownedp = (candp >= 0) & (candp < PN)
+    for label in spq:
+        checks[f"pq_{label}"] = (spq[label].score_candidates(peq[label], candp),
+                                 pq_keep[label].score_candidates(peq[label],
+                                                                 candp.clamp(0, PN - 1)))
+    for name, (got, want) in checks.items():
+        ow = ownedp if name.startswith("pq") else owned
+        require(torch.equal(got[ow], want[ow]) and bool(torch.isneginf(got[~ow]).all()),
+                f"sharded {name} score_candidates equal the single-device's on owned ids, "
+                "-inf on ids no shard owns")
+    for name, sh, one, n in [("sq", ssq, sq1, BN), ("bq", sbq, bq1, BN)] + [
+            (f"pq_{label}", spq[label], pq_keep[label], PN) for label in spq]:
+        ia = torch.randint(0, n, (4096,), generator=gen, device=dev)
+        ib = torch.randint(0, n, (4096,), generator=gen, device=dev)
+        require(torch.equal(sh.score_internal_batch(ia, ib), one.score_internal_batch(ia, ib)),
+                f"sharded {name} score_internal_batch equals the single-device's")
+    say("sharded", f"exact searches equal the single-device ones (values to the bit, ids "
+        f"where untied), at k = {SHARD_K_SCORES} too; BQ -> SQ exact-coarse two-stage equal "
+        f"on the {int(agree.sum())} of {Q} queries whose coarse candidates agree; approx "
+        f"overlap with exact {overlap}; two-stage recall@{K} {rec}; score_candidates and "
+        f"score_internal_batch equal")
+
+    # ------------------------------- (d) files, both ways
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def paths(tag):
+            return os.path.join(tmp, tag + ".bin"), os.path.join(tmp, tag + ".json")
+
+        ssq.save(*paths("sq_sharded"))
+        back = ScalarQuantizerU8.load(*paths("sq_sharded"), params)
+        require(torch.equal(back.codes[:BN], sq1.codes[:BN])
+                and torch.equal(back.voffsets[:BN], sq1.voffsets[:BN]),
+                "sharded SQ save -> single-device load equals the original")
+        sq1.save(*paths("sq_single"))
+        back = ShardedScalarQuantizer.load(*paths("sq_single"), params, mesh)
+        require(shards_equal(back.codes, sq1.codes, 0, BN)
+                and shards_equal(back.voffsets, sq1.voffsets, 0, BN),
+                "single-device SQ save -> sharded load equals the original")
+        same_as_single(back.top_k_device(seq, K), res["sq exact"], "SQ sharded load search")
+        sbq.save(*paths("bq_sharded"))
+        back = BinaryQuantizer.load(*paths("bq_sharded"), params)
+        require(torch.equal(back.planes[:, :BN], bq1.planes[:, :BN]),
+                "sharded BQ save -> single-device load equals the original")
+        bq1.save(*paths("bq_single"))
+        back = ShardedBinaryQuantizer.load(*paths("bq_single"), params, mesh)
+        require(shards_equal(back.planes, bq1.planes, 1, BN),
+                "single-device BQ save -> sharded load equals the original")
+        for label in spq:
+            one, pparams = pq_keep[label], pq_keep[label].params
+            spq[label].save(*paths("pq_sharded" + label))
+            back = ProductQuantizer.load(*paths("pq_sharded" + label), pparams)
+            require(torch.equal(back.codes_t[:, :PN], one.codes_t[:, :PN]),
+                    f"sharded PQ {label} save -> single-device load equals the original")
+            one.save(*paths("pq_single" + label))
+            back = ShardedProductQuantizer.load(*paths("pq_single" + label), pparams, mesh)
+            require(shards_equal(back.codes_t, one.codes_t, 1, PN),
+                    f"single-device PQ {label} save -> sharded load equals the original")
+            del back
+    info["files_s"] = time.perf_counter() - t0
+    say("sharded", f"files both ways (SQ {BN * (sq1.metadata.actual_dim + 4) / 1e9:.2f} GB, "
+        f"BQ, PQ 8-bit and 4-bit): sharded save -> single-device load and single-device "
+        f"save -> sharded load equal the originals, in {info['files_s']:.1f} s")
+
+    # ------------------------------- (e) the streaming PQ encode
+    rows = pq_keep["data"]
+    p100 = VectorParameters(PD, rows.shape[0], DistanceType.DOT, False)
+    t0 = time.perf_counter()
+    pe1 = ProductQuantizer.encode(rows, p100, chunk_size=PQ_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    spe = ShardedProductQuantizer.encode(rows, p100, chunk_size=PQ_CHUNK, mesh=mesh)
+    torch.cuda.synchronize()
+    info["pq_encode_s"] = {"single": t1 - t0, "sharded_streaming": time.perf_counter() - t1}
+    require(np.array_equal(spe.metadata.centroids, pe1.metadata.centroids)
+            and shards_equal(spe.codes_t, pe1.codes_t, 1, rows.shape[0]),
+            "streamed sharded PQ centroids and codes equal the single-device encode's")
+    say("sharded", f"PQ 8-bit streaming encode at {rows.shape[0]:,} x {PD}: centroids and "
+        f"codes equal the single-device encode's (single {info['pq_encode_s']['single']:.2f} "
+        f"s, sharded {info['pq_encode_s']['sharded_streaming']:.2f} s; last shard "
+        f"{rows.shape[0] - (SHARDS - 1) * spe.codes_t.n_local:,} of "
+        f"{spe.codes_t.n_local:,} rows)")
+    del pe1, spe
+
+    # ------------------------------- (f) empty shards
+    mesh8 = make_mesh(devices=[dev] * EMPTY_SHARDS)
+    ps = VectorParameters(BD, EMPTY_N, DistanceType.DOT, False)
+    pps = VectorParameters(PD, EMPTY_N, DistanceType.DOT, False)
+    small, psmall = data[:EMPTY_N], rows[:EMPTY_N]
+    e_pq = ProductQuantizer.encode(psmall, pps, chunk_size=PQ_CHUNK, device=dev)
+    empties = {
+        "sq": (ShardedScalarQuantizer.encode(small, ps, mesh8),
+               ScalarQuantizerU8.encode(small, ps), "sq_search_exact"),
+        "bq": (ShardedBinaryQuantizer.encode(small, ps, mesh8),
+               BinaryQuantizer.encode(small, ps), "bq_search_exact"),
+        "pq": (ShardedProductQuantizer(e_pq, mesh8), e_pq, "pq_search_exact"),
+    }
+    info["empty_shards"] = {}
+    for name, (sh, one, kname) in empties.items():
+        qs = pq_keep["queries"] if name == "pq" else queries
+        eqs, eqo = sh.encode_query(qs), one.encode_query(qs)
+        arr = {"sq": "codes", "bq": "planes", "pq": "codes_t"}[name]
+        n_local = getattr(sh, arr).n_local
+        live = -(-EMPTY_N // n_local)
+        reset_all(*mods)
+        got = with_lut("int8", lambda: sh.top_k_device(eqs, K))
+        torch.cuda.synchronize()
+        n = counts(*mods)[kname]
+        require(live < EMPTY_SHARDS and n == live,
+                f"empty shards, {name}: {live} of {EMPTY_SHARDS} shards hold rows and launch "
+                f"{kname} ({n} launches)")
+        same_as_single(got, with_lut("int8", lambda: one.top_k_device(eqo, K)),
+                       f"empty shards, {name} exact top-10")
+        ids = torch.tensor([[0, EMPTY_N - 1, EMPTY_N, live * n_local + 3, -1]] * Q,
+                           dtype=torch.int64, device=dev)
+        sc = sh.score_candidates(eqs, ids)
+        require(bool(torch.isfinite(sc[:, :2]).all()) and bool(torch.isneginf(sc[:, 2:]).all()),
+                f"empty shards, {name}: ids past count and in empty shards score -inf")
+        info["empty_shards"][name] = {"n_local": n_local, "live_shards": live, "launches": n}
+    say("sharded", f"empty shards: {EMPTY_N:,} rows on {EMPTY_SHARDS} shards, exact top-10 "
+        f"equal the single-device searches; live shards and launches "
+        f"{info['empty_shards']}")
+    del empties, e_pq, mesh8
+
+    # ------------------------------- (g) per-batch device time
+    pairs = {
+        "sq exact top-10": (lambda: ssq.top_k_device(seq, K), lambda: sq1.top_k_device(eq1, K)),
+        "sq approx top-10": (lambda: ssq.top_k_device(seq, K, method="approx"),
+                             lambda: sq1.top_k_device(eq1, K, method="approx")),
+        f"bq exact top-{R}": (lambda: sbq.top_k_device(sbeq, R),
+                              lambda: bq1.top_k_device(beq1, R)),
+        f"bq approx top-{R}": (lambda: sbq.top_k_device(sbeq, R, method="approx"),
+                               lambda: bq1.top_k_device(beq1, R, method="approx")),
+        "bq -> sq two-stage": (lambda: two["bq_sq_approx"].top_k_device(teq["bq_sq_approx"], K),
+                               lambda: two1["bq_sq_approx"].top_k_device(
+                                   teq1["bq_sq_approx"], K)),
+        **{f"pq {label} exact top-10": (
+            lambda label=label: with_lut("int8", lambda: spq[label].top_k_device(peq[label], K)),
+            lambda label=label: with_lut("int8", lambda: pq_keep[label].top_k_device(
+                peq[label], K))) for label in spq},
+    }
+    for name, (fs, f1) in pairs.items():
+        ms_s, ms_1 = timed_ms(fs, warmup=2, iters=5, reps=5), timed_ms(f1, warmup=2, iters=5,
+                                                                         reps=5)
+        info["batch_ms"][name] = {"sharded": ms_s, "single": ms_1}
+        say("time", f"sharded {name}: {ms_s:.4f} ms per {Q}-query batch on {SHARDS} shards "
+            f"of one card, single-device {ms_1:.4f} ms ({ms_s / ms_1:.2f}x), CUDA events, "
+            f"on {smi}")
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("sharded", f"path 7 wall {wall:.1f} s (limit {SHARDED_WALL_LIMIT_S:.0f} s) on {smi}")
+    require(wall <= SHARDED_WALL_LIMIT_S, f"path 7 within {SHARDED_WALL_LIMIT_S:.0f} s")
+    return info
+
 def rehearse(which, n=30_000):
     """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
     recalls ("pq"), path 4's IVF-SQ -> f32 ("ivf") and path 5's residual
@@ -3097,13 +3527,16 @@ def main():
     torch.cuda.empty_cache()
     neigh = bq_neighbour_path(dev, smi)
     torch.cuda.empty_cache()
-    pq_recs, pq_info = pq_path(dev, smi, do_profile)
+    pq_recs, pq_info, pq_keep = pq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
     ivf_recs, ivf_info = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
     torch.cuda.empty_cache()
     rbq_recs, rbq_info = rbq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
     harness_info = harness_path(dev, smi)
+    torch.cuda.empty_cache()
+    sharded_info = sharded_path(dev, smi, pq_keep)
+    del pq_keep
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -3137,6 +3570,7 @@ def main():
         "ivf": ivf_info,
         "residual_bq_l1_serving": rbq_info,
         "harness": harness_info,
+        "sharded": sharded_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,10 @@ more, ``--device``:
 
 Datasets load from --data-dir when the ann-benchmarks HDF5 file exists there,
 else from a seeded synthetic corpus of the same shape (the JAX package's
-generator, byte for byte). ``--sharded`` waits for the sharded engines
-(ROADMAP Queue 1, item 10) and raises.
+generator, byte for byte). ``--sharded`` lays the index over a device
+mesh (``parallel/sharded.py``): every CUDA card, or with ``--device cpu``
+a one-shard CPU mesh; the IVF methods wait for the sharded IVF engine
+(ROADMAP Queue 1, item 10b) and raise.
 
     python -m quantization_tpu_torch.bench.ann_benchmark --dataset sift \\
         --method u8 --test-acc --synthetic-count 3000 [--device cpu]
@@ -51,11 +53,11 @@ METHODS = ["u8", "pq", "bq", "bq-u8", "bq-exact", "u8-f32", "ivf-sq", "ivf-pq", 
            "ivf-sq-f32", "ivf-pq-f32", "ivf-bq-f32"]
 
 
-def _refuse_sharded(args) -> None:
-    if args.sharded:
+def _check_sharded(args) -> None:
+    if args.sharded and args.method.startswith("ivf-"):
         raise ArgumentsError(
-            "--sharded is not ported yet: it waits for the sharded engines "
-            "(ROADMAP Queue 1, item 10)")
+            f"--sharded with {args.method} is not ported yet: it waits for the sharded "
+            "IVF engine (ROADMAP Queue 1, item 10b)")
 
 
 def build_index(method: str, data: AnnBenchmarkData, args):
@@ -66,7 +68,7 @@ def build_index(method: str, data: AnnBenchmarkData, args):
     from ..models.pq import ProductQuantizer
     from ..models.sq import ScalarQuantizerU8
 
-    _refuse_sharded(args)
+    _check_sharded(args)
     dev = resolve_device(args.device)
     n, dim = data.train.shape
     invert = data.distance_type != DistanceType.DOT
@@ -119,12 +121,53 @@ def build_index(method: str, data: AnnBenchmarkData, args):
                               coarse_method="approx")
     else:
         raise SystemExit(f"unknown method {method!r}")
+    if args.sharded:
+        index = _shard_index(index, data, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     encode_s = time.perf_counter() - t0
     print(f"[{data.name}] {method} encode: {encode_s:.4f}s "
           f"({n / max(encode_s, 1e-9):,.0f} vectors/s)", flush=True)
     return index
+
+
+def _shard_index(index, data: AnnBenchmarkData, dev):
+    """The index re-laid over a device mesh (--sharded): every CUDA card, or
+    a one-shard mesh of ``dev`` off the card. Each shard searches its rows
+    and one merge per query batch combines them; a one-device mesh is the
+    single-device search with a merge behind it. A two-stage index has both
+    stages sharded, the f32 rescorer as ``ShardedExactRescorer``."""
+    from ..models.bq import BinaryQuantizer
+    from ..models.pipeline import ExactRescorer, TwoStageIndex
+    from ..models.pq import ProductQuantizer
+    from ..models.sq import ScalarQuantizerU8
+    from ..parallel.sharded import (
+        ShardedBinaryQuantizer,
+        ShardedExactRescorer,
+        ShardedProductQuantizer,
+        ShardedScalarQuantizer,
+        make_mesh,
+    )
+
+    mesh = make_mesh() if dev.type == "cuda" else make_mesh(devices=[dev])
+
+    def wrap(ix):
+        if isinstance(ix, ScalarQuantizerU8):
+            return ShardedScalarQuantizer(ix, mesh)
+        if isinstance(ix, BinaryQuantizer):
+            return ShardedBinaryQuantizer(ix, mesh)
+        if isinstance(ix, ProductQuantizer):
+            return ShardedProductQuantizer(ix, mesh)
+        if isinstance(ix, ExactRescorer):
+            invert = data.distance_type != DistanceType.DOT
+            return ShardedExactRescorer(data.train, data.distance_type, invert, mesh)
+        return ix
+
+    if isinstance(index, TwoStageIndex):
+        return TwoStageIndex(wrap(index.coarse), wrap(index.fine),
+                             oversampling=index.oversampling,
+                             coarse_method=index.coarse_method)
+    return wrap(index)
 
 
 def bench_scoring(data: AnnBenchmarkData, index, args, label: str):
@@ -228,8 +271,9 @@ def parser() -> argparse.ArgumentParser:
                    "dial; accepted and checked, and ignored by the port, "
                    "whose approx merge is exact (ROADMAP F9)")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the corpus over all devices (not ported yet: "
-                   "raises, ROADMAP Queue 1 item 10)")
+                   help="shard the corpus over every CUDA card (a one-shard "
+                   "mesh with --device cpu); not for the ivf-* methods yet "
+                   "(raises, ROADMAP Queue 1 item 10b)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs the "
                    "plain PyTorch versions)")
@@ -277,7 +321,7 @@ def run(data: AnnBenchmarkData, args) -> dict:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    _refuse_sharded(args)
+    _check_sharded(args)
     resolve_device(args.device)  # NoDeviceError before any data is made
     results = []
     for name, spec in DATASETS.items():

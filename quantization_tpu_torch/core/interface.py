@@ -67,6 +67,34 @@ def iter_batches(
             yield arr[start : start + batch_size]
 
 
+def checked_batches(
+    batches: Iterable[np.ndarray], params: VectorParameters
+) -> Iterator[np.ndarray]:
+    """The batches of an encode pass, each checked as it comes: its dim,
+    the running count, and after the last one the total count
+    (encoded_vectors.rs:47-70; the overflow message is
+    encoded_vectors_u8.rs's). One check for every encode loop, single-device
+    and sharded."""
+    total = 0
+    for batch in batches:
+        if batch.shape[1] != params.dim:
+            raise ArgumentsError(
+                f"Vector length {batch.shape[1]} does not match vector "
+                f"parameters dim {params.dim}"
+            )
+        total += batch.shape[0]
+        if total > params.count:
+            raise ArgumentsError(
+                f"Vector count exceeds vector parameters count {params.count}"
+            )
+        yield batch
+    if total != params.count:
+        raise ArgumentsError(
+            f"Vector count {total} does not match vector parameters count "
+            f"{params.count}"
+        )
+
+
 def as_ids(ids, device, dtype=torch.int64) -> torch.Tensor:
     """Point ids (a tensor, array or list) as a ``dtype`` tensor on ``device``."""
     if isinstance(ids, torch.Tensor):

@@ -34,6 +34,7 @@ from ..core.interface import (
     EncodedVectors,
     as_ids,
     check_recall_target,
+    checked_batches,
     iter_batches,
     validate_vector_parameters,
 )
@@ -42,7 +43,6 @@ from ..core.types import (
     ArgumentsError,
     StorageIOError,
     VectorParameters,
-    check_stop,
 )
 from ..native import loader as native_loader
 from ..ops import bq as bq_ops
@@ -75,6 +75,39 @@ class EncodedQueryBin:
     """Bit-packed query batch: int32 words [Q, W8] holding uint32 bits."""
 
     planes: torch.Tensor
+
+
+def packed_batches(data: DataLike, params: VectorParameters, batch_size: int, row_bytes: int,
+                   stop_condition, use_native: bool = False, max_threads: int = 1):
+    """The BQ encode's pass, for the single-device and the sharded encoders:
+    each checked batch's sign bits packed into [b, row_bytes] rows
+    (encoded_vectors_binary.rs:165-191), in order, by numpy or with
+    ``use_native=True`` the native library (both give the same bytes), on
+    an ordered pool of ``max_threads`` threads with a cancellation check
+    between batches."""
+
+    def pack_one(batch):
+        if use_native and row_bytes > 0:
+            return native_loader.pack_bits(batch, row_bytes)
+        return bq_ops.pack_rows(batch, row_bytes)
+
+    return ordered_parallel_map(pack_one, checked_batches(iter_batches(data, batch_size), params),
+                                max_threads, stop_condition)
+
+
+def encode_queries(queries, dim: int, store_type: str, w8: int, device) -> EncodedQueryBin:
+    """A [D] or [Q, D] query batch packed as int32 words [Q, w8] on
+    ``device``, padded to the stored planes' word count: the single-device
+    and the sharded quantizers' ``encode_query``."""
+    q = np.asarray(queries, dtype=np.float32)
+    if q.ndim == 1:
+        q = q[None, :]
+    if q.shape[1] != dim:
+        raise ArgumentsError(f"query dim {q.shape[1]} != corpus dim {dim}")
+    words = bq_ops.rows_to_planes(bq_ops.pack_rows(q, bq_ops.storage_bytes(dim, store_type))).T
+    if words.shape[1] < w8:
+        words = np.pad(words, ((0, 0), (0, w8 - words.shape[1])))
+    return EncodedQueryBin(upload(np.asarray(words, np.uint32).view(np.int32), device))
 
 
 class BinaryQuantizer(EncodedVectors):
@@ -130,25 +163,8 @@ class BinaryQuantizer(EncodedVectors):
         if not callable(data):
             validate_vector_parameters(data, params)
         row_bytes = bq_ops.storage_bytes(params.dim, store_type)
-
-        def pack_one(batch):
-            if batch.shape[1] != params.dim:
-                raise ArgumentsError(
-                    f"Vector length {batch.shape[1]} does not match vector "
-                    f"parameters dim {params.dim}"
-                )
-            if use_native and row_bytes > 0:
-                return native_loader.pack_bits(batch, row_bytes)
-            return bq_ops.pack_rows(batch, row_bytes)
-
-        chunks = list(ordered_parallel_map(pack_one, iter_batches(data, batch_size),
-                                           max_threads, stop_condition))
-        total = sum(c.shape[0] for c in chunks)
-        if total != params.count:
-            raise ArgumentsError(
-                f"Vector count {total} does not match vector parameters count "
-                f"{params.count}"
-            )
+        chunks = list(packed_batches(data, params, batch_size, row_bytes, stop_condition,
+                                     use_native, max_threads))
         rows = (
             np.concatenate(chunks, axis=0)
             if chunks
@@ -171,19 +187,8 @@ class BinaryQuantizer(EncodedVectors):
 
     # ------------------------------------------------------------------ query
     def encode_query(self, queries) -> EncodedQueryBin:
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.params.dim:
-            raise ArgumentsError(
-                f"query dim {q.shape[1]} != corpus dim {self.params.dim}"
-            )
-        row_bytes = bq_ops.storage_bytes(self.params.dim, self.store_type)
-        words = bq_ops.rows_to_planes(bq_ops.pack_rows(q, row_bytes)).T  # [Q, W]
-        w8 = self.planes.shape[0]
-        if words.shape[1] < w8:  # match the stored planes' padded word count
-            words = np.pad(words, ((0, 0), (0, w8 - words.shape[1])))
-        return EncodedQueryBin(upload(np.asarray(words, np.uint32).view(np.int32), self.device))
+        return encode_queries(queries, self.params.dim, self.store_type, self.planes.shape[0],
+                              self.device)
 
     # ------------------------------------------------------------------ score
     def _kw(self) -> dict:

@@ -44,6 +44,7 @@ from ..core.interface import (
     EncodedVectors,
     as_ids,
     check_recall_target,
+    checked_batches,
     iter_batches,
     validate_vector_parameters,
 )
@@ -111,6 +112,45 @@ class EncodedQueryPQ:
     (reference EncodedQueryPQ, encoded_vectors_pq.rs:35-37)."""
 
     lut: torch.Tensor
+
+
+def encoded_batches(batches, metadata: PQMetadata, c_chunks, rot_t, stop_condition, device):
+    """Pass 2 of the encode on ``device``, for the single-device and the
+    sharded encoders: each checked batch's nearest-centroid codes u8 [b, m]
+    (after the rotation, at full f32, where there is one), with a
+    cancellation check between batches."""
+    division = metadata.vector_division
+    for batch in checked_batches(batches, metadata.vector_parameters):
+        check_stop(stop_condition)
+        x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32)).to(device)
+        if rot_t is not None:
+            with pq_ops.full_f32():
+                x = x @ rot_t
+        yield pq_ops.encode_batch(pq_ops.chunk_rows_device(x, division), c_chunks)
+
+
+def encode_queries(queries, metadata: PQMetadata, c_chunks, rot, device) -> EncodedQueryPQ:
+    """A [D] or [Q, D] query batch as its f32 LUT on ``device``: the
+    single-device and the sharded quantizers' ``encode_query``."""
+    p = metadata.vector_parameters
+    q = np.asarray(queries, dtype=np.float32)
+    if q.ndim == 1:
+        q = q[None, :]
+    if q.shape[1] != p.dim:
+        raise ArgumentsError(f"query dim {q.shape[1]} != corpus dim {p.dim}")
+    x = upload(q, device)
+    if rot is not None:
+        # OPQ: queries rotate into code space at full f32 (a rotation at
+        # reduced precision shifts every LUT entry coherently).
+        with pq_ops.full_f32():
+            x = x @ rot
+    lut = pq_ops.build_lut(
+        pq_ops.chunk_rows_device(x, metadata.vector_division),
+        c_chunks,
+        distance_type=p.distance_type,
+        invert=p.invert,
+    )
+    return EncodedQueryPQ(lut)
 
 
 class ProductQuantizer(EncodedVectors):
@@ -199,48 +239,40 @@ class ProductQuantizer(EncodedVectors):
         ``x @ R``; DOT and L2 scores are unchanged by the rotation, L1 is not
         and is rejected."""
         device = resolve_device(device)
-        if bits not in (4, 8):
-            raise ArgumentsError(f"bits must be 4 or 8, got {bits}")
-        if rotation is not None and params.distance_type == DistanceType.L1:
-            raise ArgumentsError("OPQ rotation does not preserve L1 distances; use DOT or L2")
         if not callable(data):
             validate_vector_parameters(data, params)
-        division = pq_ops.get_vector_division(params.dim, chunk_size)
-        k = pq_ops.CENTROIDS_COUNT if bits == 8 else pq_ops.CENTROIDS_COUNT4
 
         def batches():
             return iter_batches(data, batch_size)
 
+        meta, c_chunks, rot_t = cls._codebook(batches, params, chunk_size, stop_condition, seed,
+                                              bits, rotation, device)
+        parts = list(encoded_batches(batches(), meta, c_chunks, rot_t, stop_condition, device))
+        codes = (
+            torch.cat(parts, dim=0) if parts
+            else torch.zeros((0, len(meta.vector_division)), dtype=torch.uint8, device=device)
+        )
+        return cls(codes, meta)
+
+    @classmethod
+    def _codebook(cls, batches, params, chunk_size, stop_condition, seed, bits, rotation,
+                  device):
+        """Pass 1 of the encode, for the single-device and the sharded
+        encoders: the chunking, the centroids (and an OPQ rotation) trained
+        on ``device``. Returns (metadata, the centroids as f32 [m, k, dmax]
+        chunks on ``device``, the rotation on ``device`` or None)."""
+        if bits not in (4, 8):
+            raise ArgumentsError(f"bits must be 4 or 8, got {bits}")
+        if rotation is not None and params.distance_type == DistanceType.L1:
+            raise ArgumentsError("OPQ rotation does not preserve L1 distances; use DOT or L2")
+        division = pq_ops.get_vector_division(params.dim, chunk_size)
+        k = pq_ops.CENTROIDS_COUNT if bits == 8 else pq_ops.CENTROIDS_COUNT4
         centroids, rot = cls._find_centroids(
             batches, division, params, stop_condition, seed, k, rotation, device
         )
         c_chunks = torch.from_numpy(pq_ops.centroids_to_chunks(centroids, division)).to(device)
         rot_t = None if rot is None else torch.from_numpy(rot).to(device)
-        parts = []
-        total = 0
-        for batch in batches():
-            check_stop(stop_condition)
-            if batch.shape[1] != params.dim:
-                raise ArgumentsError(
-                    f"Vector length {batch.shape[1]} does not match vector "
-                    f"parameters dim {params.dim}"
-                )
-            x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32)).to(device)
-            if rot_t is not None:
-                with pq_ops.full_f32():
-                    x = x @ rot_t
-            parts.append(pq_ops.encode_batch(pq_ops.chunk_rows_device(x, division), c_chunks))
-            total += batch.shape[0]
-        if total != params.count:
-            raise ArgumentsError(
-                f"Vector count {total} does not match vector parameters count "
-                f"{params.count}"
-            )
-        codes = (
-            torch.cat(parts, dim=0) if parts
-            else torch.zeros((0, len(division)), dtype=torch.uint8, device=device)
-        )
-        return cls(codes, PQMetadata(centroids, division, params, bits=bits, rotation=rot))
+        return PQMetadata(centroids, division, params, bits=bits, rotation=rot), c_chunks, rot_t
 
     @classmethod
     def _find_centroids(cls, batches, division, params, stop_condition, seed, k, rotation,
@@ -303,24 +335,7 @@ class ProductQuantizer(EncodedVectors):
 
     # ------------------------------------------------------------------ query
     def encode_query(self, queries) -> EncodedQueryPQ:
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.params.dim:
-            raise ArgumentsError(f"query dim {q.shape[1]} != corpus dim {self.params.dim}")
-        x = upload(q, self.device)
-        if self._rot is not None:
-            # OPQ: queries rotate into code space at full f32 (a rotation at
-            # reduced precision shifts every LUT entry coherently).
-            with pq_ops.full_f32():
-                x = x @ self._rot
-        lut = pq_ops.build_lut(
-            pq_ops.chunk_rows_device(x, self.metadata.vector_division),
-            self._c_chunks,
-            distance_type=self.params.distance_type,
-            invert=self.params.invert,
-        )
-        return EncodedQueryPQ(lut)
+        return encode_queries(queries, self.metadata, self._c_chunks, self._rot, self.device)
 
     # ------------------------------------------------------------------ score
     def _rows(self) -> torch.Tensor:

@@ -40,6 +40,7 @@ from ..core.interface import (
     EncodedVectors,
     as_ids,
     check_recall_target,
+    checked_batches,
     iter_batches,
     validate_vector_parameters,
 )
@@ -114,13 +115,18 @@ def _lane_pad(n: int) -> int:
     return n + (-n) % sq_ops.LANE
 
 
-def calibrate_sq(
+def sq_metadata(
     batches_fn, params: VectorParameters, quantile, stop_condition, seed: int
-):
-    """Two-pass SQ calibration (encoded_vectors_u8.rs:57-71): full min/max
-    scan, then an optional quantile interval over a <=100k-row sample.
-    ``batches_fn`` is a zero-arg callable returning a fresh batch iterator.
-    Returns (alpha, offset)."""
+) -> SQMetadata:
+    """Pass 1 of the SQ encode, for the single-device and the sharded
+    encoders: two-pass calibration (encoded_vectors_u8.rs:57-71), a full
+    min/max scan, then an optional quantile interval over a <=100k-row
+    sample; zeroed metadata for an empty corpus (rs:43-54).
+    ``batches_fn`` is a zero-arg callable returning a fresh batch
+    iterator."""
+    actual = sq_ops.actual_dim(params.dim)
+    if params.count == 0:
+        return SQMetadata(actual, 0.0, 0.0, 0.0, params)
     mn, mx = find_min_max_batches(batches_fn())
     alpha, offset = sq_ops.alpha_offset_from_min_max(mn, mx)
     if quantile is not None:
@@ -129,7 +135,46 @@ def calibrate_sq(
         interval = find_quantile_interval(sample, params.count, float(quantile))
         if interval is not None:
             alpha, offset = sq_ops.alpha_offset_from_min_max(*interval)
-    return alpha, offset
+    multiplier = sq_ops.multiplier_for(params.distance_type, params.invert, alpha)
+    return SQMetadata(actual, alpha, offset, multiplier, params)
+
+
+def quantized_batches(batches, metadata: SQMetadata, stop_condition, device):
+    """Pass 2 of the SQ encode on ``device``: each checked batch as (int8
+    codes [b, lane], f32 offsets [b]), with a cancellation check between
+    batches (encoded_vectors_u8.rs:74). Only the f32 batch crosses to the
+    device. The single-device and the sharded encoders commit these to
+    their buffers."""
+    p = metadata.vector_parameters
+    for batch in checked_batches(batches, p):
+        check_stop(stop_condition)
+        yield sq_ops.quantize_batch(
+            torch.from_numpy(np.ascontiguousarray(batch)).to(device),
+            alpha=metadata.alpha, offset=metadata.offset, distance_type=p.distance_type,
+            invert=p.invert, dpad=metadata.actual_dim, lane=_lane_pad(metadata.actual_dim),
+        )
+
+
+def encode_queries(queries, metadata: SQMetadata, lane: int, device) -> EncodedQueryU8:
+    """A [D] or [Q, D] query batch encoded with an SQ corpus's metadata on
+    ``device``, its codes padded to ``lane``: the single-device and the
+    sharded quantizers' ``encode_query``."""
+    p = metadata.vector_parameters
+    q = np.asarray(queries, dtype=np.float32)
+    if q.ndim == 1:
+        q = q[None, :]
+    if q.shape[1] != p.dim:
+        raise ArgumentsError(f"query dim {q.shape[1]} != corpus dim {p.dim}")
+    codes, qoff = sq_ops.encode_query_batch(
+        upload(q, device),
+        alpha=metadata.alpha,
+        offset=metadata.offset,
+        distance_type=p.distance_type,
+        invert=p.invert,
+        dpad=metadata.actual_dim,
+        lane=lane,
+    )
+    return EncodedQueryU8(codes, qoff)
 
 
 class ScalarQuantizerU8(EncodedVectors):
@@ -188,101 +233,50 @@ class ScalarQuantizerU8(EncodedVectors):
             native_loader.get_lib()  # raises where the library cannot be built
         if not callable(data):
             validate_vector_parameters(data, params)
-        actual = sq_ops.actual_dim(params.dim)
-        lane = _lane_pad(actual)
+
+        def batches():
+            return iter_batches(data, batch_size)
+
+        meta = sq_metadata(batches, params, quantile, stop_condition, seed)
+        actual, lane = meta.actual_dim, _lane_pad(meta.actual_dim)
         if params.count == 0:
-            # Early-out with zeroed metadata (encoded_vectors_u8.rs:43-54).
-            meta = SQMetadata(actual, 0.0, 0.0, 0.0, params)
             return cls(
                 torch.zeros((0, lane), dtype=torch.int8, device=device),
                 torch.zeros((0,), dtype=torch.float32, device=device),
                 meta,
             )
-
-        def batches():
-            return iter_batches(data, batch_size)
-
-        alpha, offset = calibrate_sq(batches, params, quantile, stop_condition, seed)
-        dt, inv = params.distance_type, params.invert
-        multiplier = sq_ops.multiplier_for(dt, inv, alpha)
-        meta = SQMetadata(actual, alpha, offset, multiplier, params)
-
-        def check_dim(batch):
-            if batch.shape[1] != params.dim:
-                raise ArgumentsError(
-                    f"Vector length {batch.shape[1]} does not match vector "
-                    f"parameters dim {params.dim}"
-                )
-
         npad = params.count + (-params.count) % sq_kernel.TILE_N
         if use_native:
+            dt = params.distance_type
             dt_index = [DistanceType.DOT, DistanceType.L1, DistanceType.L2].index(dt)
-            pad = sq_ops.pad_code(dt, alpha, offset)
+            pad = sq_ops.pad_code(dt, meta.alpha, meta.offset)
 
             def encode_one(batch):
-                check_dim(batch)
-                codes, voff = native_loader.quantize_u8(batch, actual, alpha, offset, pad,
-                                                        dt_index, inv)
+                codes, voff = native_loader.quantize_u8(batch, actual, meta.alpha, meta.offset,
+                                                        pad, dt_index, params.invert)
                 return codes.view(np.int8), voff
 
-            encoded = ordered_parallel_map(encode_one, batches(), max_threads, stop_condition)
+            encoded = ordered_parallel_map(encode_one, checked_batches(batches(), params),
+                                           max_threads, stop_condition)
             codes_all = np.zeros((npad, lane), np.int8)
             voff_all = np.zeros((npad,), np.float32)
         else:
-
-            def encode_all():
-                for batch in batches():
-                    check_stop(stop_condition)
-                    check_dim(batch)
-                    # Only the f32 batch crosses to the device; the codes stay there.
-                    yield sq_ops.quantize_batch(
-                        torch.from_numpy(np.ascontiguousarray(batch)).to(device),
-                        alpha=alpha, offset=offset, distance_type=dt, invert=inv,
-                        dpad=actual, lane=lane,
-                    )
-
-            encoded = encode_all()
+            encoded = quantized_batches(batches(), meta, stop_condition, device)
             codes_all = torch.zeros((npad, lane), dtype=torch.int8, device=device)
             voff_all = torch.zeros((npad,), dtype=torch.float32, device=device)
         total = 0
         for codes, voff in encoded:
             n = codes.shape[0]
-            if total + n > params.count:
-                raise ArgumentsError(
-                    f"Vector count exceeds vector parameters count {params.count}"
-                )
             codes_all[total : total + n, : codes.shape[1]] = codes
             voff_all[total : total + n] = voff
             total += n
-        if total != params.count:
-            raise ArgumentsError(
-                f"Vector count {total} does not match vector parameters count "
-                f"{params.count}"
-            )
         if use_native:  # the host codes go up to the device once
             codes_all, voff_all = upload(codes_all, device), upload(voff_all, device)
         return cls(codes_all, voff_all, meta)
 
     # ------------------------------------------------------------------ query
     def encode_query(self, queries) -> EncodedQueryU8:
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.params.dim:
-            raise ArgumentsError(
-                f"query dim {q.shape[1]} != corpus dim {self.params.dim}"
-            )
-        m = self.metadata
-        codes, qoff = sq_ops.encode_query_batch(
-            upload(q, self.device),
-            alpha=m.alpha,
-            offset=m.offset,
-            distance_type=self.params.distance_type,
-            invert=self.params.invert,
-            dpad=m.actual_dim,
-            lane=self.codes.shape[1],
-        )
-        return EncodedQueryU8(codes, qoff)
+        return encode_queries(queries, self.metadata, self.codes.shape[1], self.device)
 
     # ------------------------------------------------------------------ score
     def _fused_ok(self) -> bool:

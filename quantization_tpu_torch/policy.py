@@ -18,8 +18,8 @@ Twin of ``quantization_tpu/policy.py``, with the same rules and constants:
 
 The seed tables are the JAX package's TPU measurements of recall against
 scanned fraction; they are recall numbers, which hold for the port, whose
-searches equal the JAX package's. The sharded rescorer waits for the
-sharded engines (ROADMAP Queue 1, item 10).
+searches equal the JAX package's. A sharded index (one that carries a
+device mesh) gets the sharded f32 rescorer over its own mesh.
 """
 
 from __future__ import annotations
@@ -126,14 +126,18 @@ class ServingPlan:
 
 
 def _make_rescorer(index, data, dt, invert):
-    """The f32 rescorer of a plan: ``ExactRescorer`` on the index's device,
-    host-resident for a memmap corpus (a card tensor is used in place). An
-    index carrying a device mesh needs the sharded rescorer, which waits for
-    the sharded engines."""
-    if getattr(index, "mesh", None) is not None:
-        raise ArgumentsError(
-            "a sharded index's f32 rescorer is not ported yet: it waits for the sharded "
-            "engines (ROADMAP Queue 1, item 10)")
+    """The f32 rescorer of a plan, matched to the index's engine: an index
+    that carries a device mesh (the sharded quantizers) gets a
+    ``ShardedExactRescorer`` over the same mesh and axis, so a rescored plan
+    never funnels the whole f32 corpus through one device when the coarse
+    stage is sharded. Otherwise ``ExactRescorer`` on the index's device,
+    host-resident for a memmap corpus (a card tensor is used in place)."""
+    mesh = getattr(index, "mesh", None)
+    if mesh is not None:
+        from .parallel.sharded import ShardedExactRescorer
+
+        return ShardedExactRescorer(data, dt, invert, mesh=mesh,
+                                    axis=getattr(index, "axis", "shard"))
     device = getattr(index, "device", None)
     if device is None and isinstance(data, torch.Tensor):
         device = data.device

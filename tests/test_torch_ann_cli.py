@@ -12,9 +12,12 @@ whose k-means takes about a minute each on one CPU thread, have files of
 their own (test_torch_ann_cli_pq.py, test_torch_ann_cli_ivfpq.py) so that
 ``--dist loadfile`` runs them on workers of their own.
 
-Then the JSON lines carry the JAX CLI's keys, ``--sharded`` raises
-``ArgumentsError`` (the sharded engines are ROADMAP Queue 1 item 10), and
-without a card and without ``--device`` the CLI raises ``NoDeviceError``."""
+The ``--sharded`` cases of tests/test_ann_cli.py run the port on a
+one-shard CPU mesh (``--device cpu``) against the JAX CLI on its 8 virtual
+devices, recall@10 within the same 0.02; an IVF method with ``--sharded``
+raises ``ArgumentsError`` (the sharded IVF engine is ROADMAP Queue 1 item
+10b). Then the JSON lines carry the JAX CLI's keys, and without a card and
+without ``--device`` the CLI raises ``NoDeviceError``."""
 
 import json
 
@@ -69,7 +72,7 @@ CASES = {
 
 
 def check_case(case, monkeypatch):
-    argv, floor = CASES[case]
+    argv, floor = CASES[case] if case in CASES else SHARDED_CASES[case]
     got = t_cli.main(argv + ["--device", "cpu"])
     if argv[argv.index("--method") + 1] == "pq":
         monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
@@ -83,10 +86,29 @@ def check_case(case, monkeypatch):
 
 SLOW = ("pq_opq_rotation", "ivf_pq_f32_two_stage")  # their own files
 
+# The --sharded cases of tests/test_ann_cli.py: case -> (argv, floor).
+SHARDED_CASES = {
+    "sharded_two_stage": (["--dataset", "sift", "--method", "bq-u8", "--sharded",
+                           "--test-acc", "--synthetic-count", "3000", "--query-batch", "64"],
+                          0.5),
+    "sharded_exact_rescorer": (["--dataset", "sift", "--method", "bq-exact", "--sharded",
+                                "--test-acc", "--synthetic-count", "3000", "--query-batch",
+                                "64"], 0.6),
+    "recall_target_sharded": (["--dataset", "sift", "--method", "u8", "--sharded",
+                               "--test-acc", "--synthetic-count", "3000", "--query-batch",
+                               "64", "--topk-method", "approx", "--recall-target", "0.8"],
+                              0.4),
+}
+
 
 @pytest.mark.filterwarnings("ignore:residual=True with quantizer='bq'")
 @pytest.mark.parametrize("case", [c for c in CASES if c not in SLOW])
 def test_cli_recall_equals_the_jax_cli(case, monkeypatch):
+    check_case(case, monkeypatch)
+
+
+@pytest.mark.parametrize("case", list(SHARDED_CASES))
+def test_cli_sharded_recall_equals_the_jax_cli(case, monkeypatch):
     check_case(case, monkeypatch)
 
 
@@ -110,9 +132,29 @@ def test_cli_bench_search_path():
     assert res[0]["qps"] > 0
 
 
+def test_cli_sharded_bench_search_path():
+    """--bench on a sharded index (no dense score_batch) measures the
+    search path, as tests/test_ann_cli.py's case does; the index is the
+    sharded engine on a one-shard CPU mesh."""
+    from quantization_tpu_torch.parallel.sharded import ShardedScalarQuantizer
+
+    argv = ["--dataset", "sift", "--method", "u8", "--sharded", "--bench",
+            "--synthetic-count", "3000", "--query-batch", "64", "--iters", "2",
+            "--device", "cpu"]
+    res = t_cli.main(argv)
+    assert res[0]["qps"] > 0
+    data = t_cli.AnnBenchmarkData.load(t_cli.DATASETS["sift-128-euclidean"],
+                                       synthetic_count=500, device="cpu")
+    index = t_cli.build_index("u8", data, t_cli.parser().parse_args(argv))
+    assert isinstance(index, ShardedScalarQuantizer)
+    assert index.mesh.shape == {"shard": 1} and index.device == torch.device("cpu")
+
+
 def test_cli_sharded_raises():
-    with pytest.raises(qt.ArgumentsError, match="item 10"):
-        t_cli.main(["--dataset", "sift", "--method", "bq-u8", "--sharded", "--test-acc",
+    """Only the IVF methods refuse --sharded: they wait for the sharded IVF
+    engine, ROADMAP Queue 1 item 10b."""
+    with pytest.raises(qt.ArgumentsError, match="item 10b"):
+        t_cli.main(["--dataset", "sift", "--method", "ivf-sq-f32", "--sharded", "--test-acc",
                     "--synthetic-count", "3000", "--device", "cpu"])
 
 

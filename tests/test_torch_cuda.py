@@ -1191,6 +1191,67 @@ def test_cli_on_the_card_equals_its_cpu_run(dev, method):
     assert np.isfinite(card[0]["avg_us"])
 
 
+@pytest.mark.parametrize("method", ["u8", "bq-exact"])
+def test_cli_sharded_on_the_card_equals_its_cpu_run(dev, method):
+    """--sharded on every card (a one-shard CPU mesh with --device cpu):
+    recall@10 within 0.02 of the CPU run on the same corpus."""
+    from quantization_tpu_torch.bench import ann_benchmark
+
+    argv = ["--dataset", "deep-image-96-angular", "--method", method, "--sharded",
+            "--test-acc", "--synthetic-count", "20000", "--query-batch", "64"]
+    card = ann_benchmark.main(argv)
+    cpu = ann_benchmark.main(argv + ["--device", "cpu"])
+    assert abs(card[0]["same_10"] - cpu[0]["same_10"]) <= 0.02, (card, cpu)
+
+
+# --------------------------------------------------------- sharded engines
+@pytest.mark.parametrize("shards", [1, 3, 8])
+@pytest.mark.parametrize("family", ["sq", "bq", "pq8", "pq4"])
+def test_sharded_searches_equal_the_single_device_ones(dev, family, shards):
+    """parallel/sharded.py on a mesh of the one card repeated: one launch
+    per shard that holds rows (at 5,000 rows on 8 shards some hold none);
+    exact values equal the single-device search to the bit, at k past the
+    fused caps too (K3 / K6 / K8); approx values are their ids' true
+    scores; ids no shard owns score -inf."""
+    from quantization_tpu_torch.parallel import sharded
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(shards)
+    n, dim, q = 5000, 256, 33
+    data = (torch.rand(n, dim, generator=g, device=dev) * 2 - 1).cpu().numpy()
+    queries = (torch.rand(q, dim, generator=g, device=dev) * 2 - 1).cpu().numpy()
+    params = qt.VectorParameters(dim, n, qt.DistanceType.DOT, False)
+    mesh = sharded.make_mesh(devices=[dev] * shards)
+    if family == "sq":
+        one = qt.ScalarQuantizerU8.encode(data, params)
+        sh, arr, mod = sharded.ShardedScalarQuantizer.encode(data, params, mesh), "codes", sq_kernel
+    elif family == "bq":
+        one = qt.BinaryQuantizer.encode(data, params)
+        sh, arr, mod = sharded.ShardedBinaryQuantizer.encode(data, params, mesh), "planes", bq_kernel
+    else:
+        one = qt.ProductQuantizer.encode(data, params, chunk_size=8 if family == "pq8" else 4,
+                                         bits=8 if family == "pq8" else 4)
+        sh, arr, mod = sharded.ShardedProductQuantizer(one, mesh), "codes_t", pq_kernel
+    n_local = getattr(sh, arr).n_local
+    live = min(shards, -(-n // n_local))
+    eq = sh.encode_query(queries)
+    for k in (10, 1100):  # past the fused cap a shard of > 1024 rows scores, then selects
+        name = "search_exact" if min(k, n_local) <= 1024 else "scores"
+        mod.reset_launches()
+        got = sh.top_k_device(eq, k)
+        assert mod.LAUNCHES[family[:2] + "_" + name] == live
+        want = one.top_k_device(one.encode_query(queries), 10) if k == 10 else None
+        if want is None:
+            want = torch.topk(one.score_batch(one.encode_query(queries)), k, dim=1)
+        assert torch.equal(got[0], want[0])
+    v, i = sh.top_k_device(eq, 10, method="approx")
+    scores = one.score_batch(one.encode_query(queries))
+    assert torch.equal(torch.gather(scores, 1, i.long()), v)
+    cand = torch.tensor([[0, n - 1, -1, n, live * n_local]] * q, device=dev)
+    sc = sh.score_candidates(eq, cand)
+    assert bool(torch.isfinite(sc[:, :2]).all()) and bool(torch.isneginf(sc[:, 2:]).all())
+
+
 def test_timed_takes_cuda_event_times(dev, monkeypatch):
     """profiling.timed times work on the card between CUDA events."""
     from quantization_tpu_torch.utils import profiling

@@ -4,7 +4,7 @@ seed plans equal field for field, the calibration sweep's knob ladder equal
 step for step on indexes carried across (recalls within 0.02), the seed
 curve and its constants, replay, unreachable targets, coarse-only plans on
 full-scan quantizers, the rescorer rules, the f32 oracle and recall@k. The
-sharded cases wait for the sharded engines.
+sharded cases are in tests/test_torch_sharded_hooks.py.
 
 The JAX side runs its fused kernels in Pallas interpret mode
 (QTPU_FORCE_PALLAS=1) so both packages search with the same approx
@@ -175,7 +175,7 @@ def test_recommend_does_not_mutate_index(rng):
 
 def test_rescorer_rules(rng, tmp_path):
     """Host-resident for a memmap, the index's device otherwise; an index
-    carrying a mesh waits for the sharded engines."""
+    carrying a mesh gets the sharded rescorer over its mesh and axis."""
     data = clustered(rng, 500)
     sq = qt.ScalarQuantizerU8.encode(data, _tparams(500), device="cpu")
     mm = np.memmap(tmp_path / "d.f32", np.float32, "w+", shape=data.shape)
@@ -184,11 +184,15 @@ def test_rescorer_rules(rng, tmp_path):
     assert r._host and r.device == sq.device
     assert not t_policy._make_rescorer(sq, data, qt.DistanceType.DOT, False)._host
 
-    class Meshed:
-        mesh = object()
+    from quantization_tpu_torch.parallel.sharded import ShardedExactRescorer, make_mesh
 
-    with pytest.raises(qt.ArgumentsError, match="item 10"):
-        t_policy._make_rescorer(Meshed(), data, qt.DistanceType.DOT, False)
+    class Meshed:
+        mesh = make_mesh(axis_names=("shard", "qdp"), shape=(2, 1), devices=["cpu"] * 2)
+        axis = "shard"
+
+    r = t_policy._make_rescorer(Meshed(), data, qt.DistanceType.DOT, False)
+    assert isinstance(r, ShardedExactRescorer)
+    assert r.mesh is Meshed.mesh and r.axis == "shard" and r.count == 500
 
 
 def test_exact_topk_and_recall_equal_jax(rng, tmp_path):

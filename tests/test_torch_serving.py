@@ -3,7 +3,9 @@ tests/test_serving.py and the JAX package's searcher, on the CPU: FIFO depth
 semantics, the generator form, the blocking one-shot and warmup, knobs
 passed through to IVF, plan-built and two-stage searchables, device results
 with ``materialize=False``, ``sync`` keeping results queued, and the
-argument errors. The sharded cases wait for the sharded engines.
+argument errors. A searcher over a sharded engine is in
+tests/test_torch_sharded_hooks.py; over a sharded IVF index it waits for
+ROADMAP Queue 1 item 10b.
 
 Results are compared with the same searchable's direct ``top_k`` (equal to
 the bit), and with the JAX package's searcher over the same index (carried
