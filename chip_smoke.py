@@ -11,7 +11,7 @@ nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
 LUT ring is fed by bulk copies on mbarriers, and drives the
-port's seven main paths through the public API, each with the kernel launch
+port's eight main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -98,6 +98,20 @@ both corpora, since the clustered one ties far more.
      files both ways; the streaming PQ encode at 100,000 rows; 5,000 rows
      on 8 shards, some holding none; per-batch device time sharded against
      single-device. Its wall is held to 120 s.
+
+  8. The sharded IVF engine (parallel/sharded_ivf.py) on path 7's mesh:
+     path 4's IVF-SQ, residual IVF-SQ, IVF-BQ, 4-bit IVF-PQ and residual
+     IVF-OPQ (README geometry) and path 5's residual IVF-BQ and IVF-SQ L1
+     wrapped (round-robin buckets; 1,139 buckets are 285 a shard and one pad
+     bucket); exact and approx at nprobe 32 over 256 / 512 buckets,
+     indexed and compact, IVF-SQ at k = 600 (K3), counted per search (one
+     launch a shard) and held against plain on the last shard's last launch;
+     every bucket equal to the single-device search (plain to the bit,
+     residual within rtol 1e-5 / atol 1e-4), indexed == compact, recall;
+     ShardedIVF.encode of IVF-SQ and residual IVF-SQ from path 4's corpus
+     and their files both ways; a PipelinedSearcher over the sharded IVF-SQ
+     rescored to f32; 5,000 rows in 4 buckets on 8 shards; per-batch device
+     time sharded against single-device. Its wall is held to 120 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -339,6 +353,35 @@ EMPTY_SHARDS, EMPTY_N = 8, 5_000
 # so at most this many may differ.
 TWO_STAGE_DISAGREE_MAX = 8
 SHARDED_WALL_LIMIT_S = 120.0
+# Path 8 (the sharded IVF engine) on path 7's mesh: path 4's indexes it
+# wraps (path 5's residual IVF-BQ and IVF-SQ L1 beside them), and the
+# searches of each at nprobe 32 over 256 / 512 buckets, (method, scan, the
+# kernel each shard launches); IVF-SQ exact at k = 600 passes the fused cap
+# (kk2 = k * max_dup > 1,024), so each shard scores with K3.
+SHARDED_IVF_WRAPPED = ("sq", "sq_res", "bq", "pq4", "opq_res_512")
+_SQ_SCANS = [("exact", "indexed", "sq_search_indexed_exact"),
+             ("approx", "indexed", "sq_search_indexed_approx"),
+             ("exact", "compact", "sq_search_exact"), ("approx", "compact", "sq_search_approx")]
+SHARDED_IVF_SEARCHES = {
+    "sq": _SQ_SCANS,
+    "sq_res": _SQ_SCANS,
+    "bq": [("exact", "compact", "bq_search_exact"), ("approx", "indexed", "bq_search_indexed"),
+           ("approx", "compact", "bq_search_approx")],
+    "pq4": [("exact", "compact", "pq_search_exact"), ("approx", "compact", "pq_search_approx")],
+    "opq_res_512": [("exact", "compact", "pq_search_exact"),
+                    ("approx", "compact", "pq_search_approx")],
+    "rbq": [("exact", "compact", "bq_search_exact_res"),
+            ("approx", "indexed", "bq_search_indexed_res"),
+            ("approx", "compact", "bq_search_approx_res")],
+    "l1": [("exact", "compact", "sq_scores_l1")],
+}
+SHARDED_IVF_K_SCORES = 600
+# The pipelined searcher over the sharded IVF-SQ -> f32: batches, depth.
+SHARDED_IVF_SERVE_BATCHES, SHARDED_IVF_SERVE_DEPTH = 8, 8
+# The searches timed sharded against single-device, (index, method).
+SHARDED_IVF_TIMED = [("sq", "exact"), ("sq", "approx"), ("sq_res", "approx"), ("bq", "approx"),
+                     ("pq4", "approx"), ("opq_res_512", "approx"), ("rbq", "approx")]
+SHARDED_IVF_WALL_LIMIT_S = 120.0
 
 
 def say(phase, msg):
@@ -2045,9 +2088,11 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
         if do_profile:
             profile(f"IVF {name} approx top_k_device", lambda ivf=ivf, eqn=eqn: ivf.top_k_device(
                 eqn, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+    keep = {"idx": idx, "data": data, "data_dev": data_dev, "queries": queries,
+            "oracle": oracle, "rec": rec}
     return recs, {"recall_at_10": rec, "build_s": build_s, "batch_ms": batch,
                   "breakdown_ms": breakdown,
-                  "nbuckets": {n: i.metadata.nbuckets for n, i in idx.items()}}
+                  "nbuckets": {n: i.metadata.nbuckets for n, i in idx.items()}}, keep
 
 
 def res_corpus(n, q, dim, gen, dev, chunk=100_000):
@@ -2092,6 +2137,20 @@ def ids_equal_where_untied(s, i, ws, wi, what):
         vals, cnt = np.unique(ws[r], return_counts=True)
         untied = np.isin(ws[r], vals[cnt == 1]) & (ws[r] != ws[r][-1])
         require(np.array_equal(i[r][untied], wi[r][untied]), f"{what}: ids equal where untied")
+
+
+def ids_equal_where_apart(s, i, ws, wi, what, rtol=1e-5, atol=1e-4):
+    """Ids equal wherever the reference's value stands further than the
+    tolerance from its neighbours in the row (a residual search's values
+    agree only to that tolerance, so closer ones may swap)."""
+    for r in range(s.shape[0]):
+        tol = atol + rtol * np.abs(ws[r])
+        gaps = np.abs(np.diff(ws[r]))
+        apart = np.ones(ws.shape[1], bool)
+        apart[:-1] &= gaps > tol[:-1]
+        apart[1:] &= gaps > tol[1:]
+        apart[-1] = False  # the k-th may tie with rows past k
+        require(np.array_equal(i[r][apart], wi[r][apart]), f"{what}: ids equal where apart")
 
 
 def sync_counts(prof):
@@ -2523,6 +2582,7 @@ def rbq_path(dev, smi, do_profile):
     if do_profile:
         profile("residual IVF-BQ approx top_k_device", lambda: rbq.top_k_device(
             eq, K, method="approx", nprobe=IVF_NPROBE, nscan=nscan))
+    keep = {"rbq": rbq, "queries": queries, "l1": ivf_l1, "l1_queries": l1_queries}
     return recs, {"recall_at_10": rec, "build_s": build_s, "lift": lift,
                   "score_err": err, "score_spread": spread,
                   "plan": {"nscan": plan.nscan, "oversampling": plan.oversampling,
@@ -2533,7 +2593,7 @@ def rbq_path(dev, smi, do_profile):
                   "pinned_growth": grow,
                   "idle_windows": idle_windows, "idle_share": idle,
                   "profiled_windows": prof_windows,
-                  "syncs_per_search": {k_: v / SERVE_BATCHES for k_, v in syncs.items()}}
+                  "syncs_per_search": {k_: v / SERVE_BATCHES for k_, v in syncs.items()}}, keep
 
 
 class Tee(io.TextIOBase):
@@ -3300,6 +3360,299 @@ def sharded_path(dev, smi, pq_keep):
     require(wall <= SHARDED_WALL_LIMIT_S, f"path 7 within {SHARDED_WALL_LIMIT_S:.0f} s")
     return info
 
+
+def hold_searches(calls, launches, what):
+    """Each launch counter that ``launches`` shows moved, held on its last
+    recorded call (``recorded``) against its plain version on the same
+    inputs, the residual additives included (PERF.md §2's kernel rule):
+    score matrices to the bit; exact searches' values equal, ids equal
+    where untied and distinct; approx searches' values and ids equal.
+    Returns {counter: (shape of the result, max |error|)}."""
+    require(set(launches) <= set(calls), f"{what}: a recorded call of every launched "
+            f"kernel ({sorted(launches)} against {sorted(calls)})")
+    torch.cuda.synchronize()
+    held = {}
+    for counter in sorted(launches):
+        m, name, a, kw, got = calls[counter]
+        plain = getattr(m, name + "_plain")(*a, **kw)
+        tag = f"{what}: {counter}"
+        if not isinstance(got, tuple):
+            require(torch.equal(got, plain), f"{tag} {list(got.shape)} equals plain to the bit")
+            held[counter] = (list(got.shape), 0.0)
+            continue
+        (v, i), (pv, pi) = got, plain
+        require(torch.equal(v, pv), f"{tag}: values equal plain")
+        if kw.get("mode", "approx") == "exact":
+            s, ids, ws, wi = (t.cpu().numpy() for t in (v, i, pv, pi))
+            ids_equal_where_untied(s, ids, ws, wi, tag)
+            srt = torch.sort(i, dim=1).values
+            require(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()),
+                    f"{tag}: distinct ids")
+        else:
+            require(torch.equal(i, pi), f"{tag}: ids equal plain")
+        held[counter] = (list(v.shape), 0.0)
+    return held
+
+
+def sharded_ivf_path(dev, smi, ivf_keep, rbq_keep):
+    """Path 8: the sharded IVF engine (parallel/sharded_ivf.py) on a mesh of
+    SHARDS shards of the one card. (a) Path 4's indexes (IVF-SQ, residual
+    IVF-SQ, IVF-BQ, 4-bit IVF-PQ at the automatic geometry, residual
+    IVF-OPQ at the README geometry) and path 5's (residual IVF-BQ, IVF-SQ
+    L1) wrapped, no build repeated. (b) The main path, counted per search:
+    exact and approx at nprobe 32 over 256 / 512 buckets, indexed and
+    compact where the family allows, k = 600 past the fused cap, every
+    kernel held against plain on its last launch's inputs (the last
+    shard's). (c) The full union against the single-device search, indexed
+    == compact, recall. (d) The streaming builds of IVF-SQ and residual
+    IVF-SQ from path 4's corpus, and their files both ways. (e) A pipelined
+    searcher over the sharded IVF-SQ rescored to f32. (f) Fewer buckets
+    than shards. (g) Per-batch device times. Wall limited to
+    SHARDED_IVF_WALL_LIMIT_S."""
+    from quantization_tpu_torch import (
+        DistanceType, IVFIndex, PipelinedSearcher, ScalarQuantizerU8, TwoStageIndex,
+        VectorParameters,
+    )
+    from quantization_tpu_torch.ops.kernels import bq_kernel, pq_kernel, sq_kernel
+    from quantization_tpu_torch.parallel.sharded import ShardedExactRescorer, make_mesh
+    from quantization_tpu_torch.parallel.sharded_ivf import ShardedIVF
+
+    mods = (sq_kernel, bq_kernel, pq_kernel)
+    t_path = time.perf_counter()
+    info = {"launches": {}, "held_max_abs_err": {}, "batch_ms": {}, "recall_at_10": {}}
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    data, data_dev = ivf_keep["data"], ivf_keep["data_dev"]
+    queries, oracle = ivf_keep["queries"], ivf_keep["oracle"]
+    params = VectorParameters(PD, PN, DistanceType.DOT, False)
+
+    # ------------------------------------------------ (a) wrap, no rebuild
+    single = {n: ivf_keep["idx"][n] for n in SHARDED_IVF_WRAPPED}
+    single["rbq"], single["l1"] = rbq_keep["rbq"], rbq_keep["l1"]
+    qsets = {n: queries for n in SHARDED_IVF_WRAPPED}
+    qsets["rbq"], qsets["l1"] = rbq_keep["queries"], rbq_keep["l1_queries"]
+    t0 = time.perf_counter()
+    sh = {n: ShardedIVF(ivf, mesh) for n, ivf in single.items()}
+    torch.cuda.synchronize()
+    info["wrap_s"] = time.perf_counter() - t0
+    for n, x in sh.items():
+        m = x.metadata
+        require(len(x._slot_ids.shards) == SHARDS
+                and all(t.device == dev for t in x._slot_ids.shards),
+                f"{n}: {SHARDS} shards on the card")
+        say("sharded-ivf", f"{n}: {m.nbuckets} buckets of {m.bucket_size} -> {SHARDS} shards "
+            f"of {x._b_loc} ({x._b_pad - m.nbuckets} pad bucket(s)), kind {m.kind}"
+            f"{', residual' if m.residual else ''}")
+    require(sh["sq"].metadata.nbuckets == 1139 and sh["sq"]._b_loc == 285
+            and sh["sq"]._b_pad == 1140, "IVF-SQ at auto geometry: b_loc 285, one pad bucket")
+    say("sharded-ivf", f"path 4's and path 5's indexes wrapped in {info['wrap_s']:.2f} s")
+    seq = {n: x.encode_query(qsets[n]) for n, x in sh.items()}
+    eq1 = {n: ivf.encode_query(qsets[n]) for n, ivf in single.items()}
+    for n in sh:
+        require(all(torch.equal(a, b) for a, b in zip(
+            [seq[n][0], *vars(seq[n][1]).values()], [eq1[n][0], *vars(eq1[n][1]).values()])),
+            f"{n}: queries encoded from the sharded metadata equal the single-device ones")
+
+    # ------------------------------------------- (b) the main path, counted
+    groups = {}
+    for nscan in IVF_NSCANS:
+        for n, plan in SHARDED_IVF_SEARCHES.items():
+            for method, scan, want in plan:
+                groups.setdefault(n, []).append((f"{n} {method} {scan} nscan {nscan}", K,
+                                                 dict(method=method, scan=scan, nscan=nscan),
+                                                 want))
+    groups["sq"].append((f"sq exact k = {SHARDED_IVF_K_SCORES}", SHARDED_IVF_K_SCORES,
+                         dict(nscan=IVF_NSCANS[0]), "sq_scores"))
+    res = {}
+    for n, group in groups.items():
+        with recorded(*mods) as calls:
+            moved = {}
+            for label, k, kw, want in group:
+                reset_all(*mods)
+                res[label] = sh[n].top_k(seq[n], k, nprobe=IVF_NPROBE, **kw)
+                torch.cuda.synchronize()
+                got = {c: v for c, v in counts(*mods).items() if v}
+                require(got == {want: SHARDS}, f"sharded IVF {label}: {want} once a shard "
+                        f"({SHARDS}; got {got})")
+                if n == "pq4":
+                    onehot = {c: v for c, v in pq_kernel.ONEHOT_LAUNCHES.items() if v}
+                    require(onehot == got, f"sharded IVF {label}: on the one-hot route")
+                info["launches"][label] = got
+                moved[want] = moved.get(want, 0) + SHARDS
+        held = hold_searches(calls, moved, f"sharded IVF {n}")
+        del calls
+        info["held_max_abs_err"][n] = {c: e for c, (_, e) in held.items()}
+        say("sharded-ivf", f"{n}: launches {moved} over {len(group)} searches ({SHARDS} a "
+            "search); each kernel's last launch (the last shard's) against plain on its "
+            "inputs: " + ", ".join(f"{c} {shape}" for c, (shape, _) in held.items()))
+
+    # --------------------------------- (c) against the single-device index
+    for n, x in sh.items():
+        nb = x.metadata.nbuckets
+        got = x.top_k(seq[n], K, nprobe=nb, nscan=nb)
+        want = single[n].top_k(eq1[n], K, nprobe=nb, nscan=nb)
+        what = f"sharded IVF {n}, every bucket"
+        if x.metadata.residual:
+            require(np.allclose(got[0], want[0], rtol=1e-5, atol=1e-4),
+                    f"{what}: values within rtol 1e-5 / atol 1e-4 of the single-device ones")
+            ids_equal_where_apart(got[0], got[1], want[0], want[1], what)
+        else:
+            require(np.array_equal(got[0], want[0]), f"{what}: values equal the single-device "
+                    "search's")
+            ids_equal_where_untied(got[0], got[1], want[0], want[1], what)
+        require(all(len(set(r[r >= 0].tolist())) == int((r >= 0).sum()) for r in got[1]),
+                f"{what}: no id twice")
+        res[f"{n} full"] = got
+    for n in ("sq", "sq_res"):
+        for nscan in IVF_NSCANS:
+            a = res[f"{n} exact indexed nscan {nscan}"][0]
+            b = res[f"{n} exact compact nscan {nscan}"][0]
+            require(np.array_equal(a, b), f"sharded {n} nscan {nscan}: indexed == compact exact")
+    rec = info["recall_at_10"]
+    for nscan in IVF_NSCANS:
+        rec[f"sq/{nscan}"] = recall(res[f"sq exact indexed nscan {nscan}"][1], oracle, K)
+    rec["sq/full"] = recall(res["sq full"][1], oracle, K)
+    rec["sq/single/256"] = ivf_keep["rec"][f"sq/exact/{IVF_NSCANS[0]}"]
+    require(rec[f"sq/{IVF_NSCANS[0]}"] >= rec["sq/single/256"] - 0.05,
+            f"sharded IVF-SQ recall@{K} at nscan {IVF_NSCANS[0]} >= the single-device one - 0.05")
+    require(rec["sq/full"] >= rec[f"sq/{IVF_NSCANS[0]}"], "recall at the full union >= at 256")
+    say("sharded-ivf", f"every bucket: plain indexes equal the single-device search to the "
+        f"bit (ids where untied), residual within rtol 1e-5 / atol 1e-4 (ids where further "
+        f"apart than that), none twice; "
+        f"indexed == compact; recall@{K} {rec}")
+
+    # ---------------------------------- (d) streaming builds and their files
+    sm = {}
+    for n, residual in (("sq_stream", False), ("sq_res_stream", True)):
+        t0 = time.perf_counter()
+        sm[n] = ShardedIVF.encode(data, params, mesh=mesh, quantizer="sq", residual=residual)
+        torch.cuda.synchronize()
+        info.setdefault("build_s", {})[n] = time.perf_counter() - t0
+        x = sm[n]
+        nsl = x._b_loc * x.metadata.bucket_size
+        require(all(t.shape[0] == nsl for t in x._inner[0].shards),
+                f"{n}: each shard holds its b_loc * S = {nsl} rows, no more")
+        say("sharded-ivf", f"{n}: ShardedIVF.encode of path 4's {PN:,} x {PD} corpus on "
+            f"{SHARDS} shards in {info['build_s'][n]:.2f} s: {x.metadata.nbuckets} buckets of "
+            f"{x.metadata.bucket_size}, {nsl:,} rows a shard")
+    eqs = sm["sq_stream"].encode_query(queries)
+    _, i_s = sm["sq_stream"].top_k(eqs, K, nprobe=IVF_NPROBE, nscan=IVF_NSCANS[0])
+    rec["sq_stream/256"] = recall(i_s, oracle, K)
+    require(rec["sq_stream/256"] >= rec["sq/single/256"] - 0.02,
+            f"streamed sharded IVF-SQ recall@{K} at nscan {IVF_NSCANS[0]} >= path 4's "
+            "single-device IVF-SQ - 0.02")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, x in sm.items():
+            nb = x.metadata.nbuckets
+            full = dict(nprobe=nb, nscan=nb)
+            want = x.top_k(x.encode_query(queries), K, **full)
+            d1, m1 = os.path.join(tmp, n + ".bin"), os.path.join(tmp, n + ".json")
+            x.save(d1, m1)
+            one = IVFIndex.load(d1, m1, params, device=dev)
+            got1 = one.top_k(one.encode_query(queries), K, **full)
+            d2, m2 = os.path.join(tmp, n + "_1.bin"), os.path.join(tmp, n + "_1.json")
+            one.save(d2, m2)
+            del one
+            back = ShardedIVF.load(d2, m2, params, mesh=mesh)
+            got2 = back.top_k(back.encode_query(queries), K, **full)
+            del back
+            for what, got in (("save -> IVFIndex.load", got1),
+                              ("IVFIndex.save -> ShardedIVF.load", got2)):
+                tag = f"{n} {what}"
+                if x.metadata.residual:
+                    require(np.allclose(got[0], want[0], rtol=1e-5, atol=1e-4),
+                            f"{tag}: full-union values within rtol 1e-5 / atol 1e-4")
+                    ids_equal_where_apart(got[0], got[1], want[0], want[1], tag)
+                else:
+                    require(np.array_equal(got[0], want[0]), f"{tag}: full-union values equal")
+                    ids_equal_where_untied(got[0], got[1], want[0], want[1], tag)
+    info["files_s"] = time.perf_counter() - t0
+    say("sharded-ivf", f"streamed IVF-SQ recall@{K} at nscan {IVF_NSCANS[0]} "
+        f"{rec['sq_stream/256']:.4f} (path 4's single-device {rec['sq/single/256']:.4f}); "
+        f"files both ways (sharded save -> IVFIndex.load, IVFIndex.save -> ShardedIVF.load) "
+        f"equal at the full union, in {info['files_s']:.1f} s")
+    del sm, eqs
+
+    # ------------------------------------------- (e) serving over the engine
+    fine = ShardedExactRescorer(data_dev, DistanceType.DOT, False, mesh)
+    two = TwoStageIndex(sh["sq"], fine, oversampling=OVERSAMPLING)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    batches = []
+    for _ in range(SHARDED_IVF_SERVE_BATCHES):
+        pick = torch.randint(0, PN, (Q,), generator=gen, device=dev)
+        batches.append((data_dev[pick] + 0.05 * torch.randn(Q, PD, generator=gen, device=dev))
+                       .cpu().numpy())
+    searcher = PipelinedSearcher(two, k=K, depth=SHARDED_IVF_SERVE_DEPTH)
+    t0 = time.perf_counter()
+    served = list(searcher.search_stream(batches))
+    info["serve_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    for j, (b, (gs, gi)) in enumerate(zip(batches, served)):
+        ds, di = two.top_k(two.encode_query(b), K)
+        require(np.array_equal(gs, ds) and np.array_equal(gi, di),
+                f"pipelined batch {j} equals the blocking search (FIFO)")
+    say("sharded-ivf", f"PipelinedSearcher(depth {SHARDED_IVF_SERVE_DEPTH}) over the sharded "
+        f"IVF-SQ (path 4's serving defaults: nprobe {sh['sq'].metadata.nprobe}, nscan "
+        f"{sh['sq'].metadata.nscan}) rescored by ShardedExactRescorer (R = {R}): "
+        f"{len(batches)} batches equal the blocking "
+        f"search in order, {info['serve_ms_per_batch']:.2f} ms a batch (host wall), on {smi}")
+    del searcher, served, two, fine
+
+    # ------------------------------------------- (f) fewer buckets than shards
+    mesh8 = make_mesh(devices=[dev] * EMPTY_SHARDS)
+    small = np.ascontiguousarray(data[:EMPTY_N])
+    ps = VectorParameters(PD, EMPTY_N, DistanceType.DOT, False)
+    one = IVFIndex.encode(small, ps, quantizer="sq", nlist=2, bucket_size=2048, device=dev)
+    x8 = ShardedIVF(one, mesh8)
+    x8s = ShardedIVF.encode(small, ps, mesh=mesh8, quantizer="sq", nlist=2, bucket_size=2048)
+    nb = one.metadata.nbuckets
+    require(nb < EMPTY_SHARDS and x8._b_loc == 1, f"small case: {nb} buckets on "
+            f"{EMPTY_SHARDS} shards, {EMPTY_SHARDS - nb} holding only pad buckets")
+    full_sq = ScalarQuantizerU8.encode(small, ps, device=dev)
+    want = full_sq.top_k(full_sq.encode_query(queries), K)
+    for what, x in (("wrapped", x8), ("streamed", x8s)):
+        got = x.top_k(x.encode_query(queries), K, nprobe=nb, nscan=nb)
+        require(np.array_equal(got[0], want[0]), f"small case {what}: every bucket equals the "
+                "single-device full SQ scan")
+        ids_equal_where_untied(got[0], got[1], want[0], want[1], f"small case {what}")
+    say("sharded-ivf", f"{EMPTY_N:,} rows, nlist 2, buckets of 2048: {nb} buckets on "
+        f"{EMPTY_SHARDS} shards ({EMPTY_SHARDS - nb} hold only pad buckets), wrapped and "
+        "streamed: every bucket equals the single-device full scan")
+    del x8, x8s, one, full_sq, mesh8
+
+    # ------------------------------------------- (g) per-batch device time
+    for n, method in SHARDED_IVF_TIMED:
+        def fs(n=n, method=method):
+            return sh[n].top_k_device(seq[n], K, method=method, nprobe=IVF_NPROBE,
+                                      nscan=IVF_NSCANS[0])
+
+        def f1(n=n, method=method, scan="auto"):
+            return single[n].top_k_device(eq1[n], K, method=method, nprobe=IVF_NPROBE,
+                                          nscan=IVF_NSCANS[0], scan=scan)
+
+        ms = {"sharded": timed_ms(fs, warmup=2, iters=5, reps=5),
+              "single": timed_ms(f1, warmup=2, iters=5, reps=5)}
+        extra = ""
+        if sh[n].metadata.kind == "pq" and method == "approx":
+            # The sharded PQ scan is compact; the single-device one indexed.
+            ms["single_compact"] = timed_ms(lambda f1=f1: f1(scan="compact"), warmup=2,
+                                            iters=5, reps=5)
+            extra = (f", single-device compact {ms['single_compact']:.4f} ms "
+                     f"({ms['sharded'] / ms['single_compact']:.2f}x)")
+        info["batch_ms"][f"{n} {method}"] = ms
+        say("time", f"sharded IVF {n} {method} top-{K}, nprobe {IVF_NPROBE}, nscan "
+            f"{IVF_NSCANS[0]}: {ms['sharded']:.4f} ms per {Q}-query batch on {SHARDS} shards "
+            f"of one card, single-device {ms['single']:.4f} ms "
+            f"({ms['sharded'] / ms['single']:.2f}x){extra}, CUDA events, on {smi}")
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("sharded-ivf", f"path 8 wall {wall:.1f} s (limit {SHARDED_IVF_WALL_LIMIT_S:.0f} s; "
+        f"wrap {info['wrap_s']:.1f}, builds {sum(info['build_s'].values()):.1f}, files "
+        f"{info['files_s']:.1f}) on {smi}")
+    require(wall <= SHARDED_IVF_WALL_LIMIT_S, f"path 8 within {SHARDED_IVF_WALL_LIMIT_S:.0f} s")
+    return info
+
 def rehearse(which, n=30_000):
     """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
     recalls ("pq"), path 4's IVF-SQ -> f32 ("ivf") and path 5's residual
@@ -3529,14 +3882,17 @@ def main():
     torch.cuda.empty_cache()
     pq_recs, pq_info, pq_keep = pq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
-    ivf_recs, ivf_info = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
+    ivf_recs, ivf_info, ivf_keep = ivf_path(dev, smi, do_profile, pq_info["opq_f32_batch_ms"])
     torch.cuda.empty_cache()
-    rbq_recs, rbq_info = rbq_path(dev, smi, do_profile)
+    rbq_recs, rbq_info, rbq_keep = rbq_path(dev, smi, do_profile)
     torch.cuda.empty_cache()
     harness_info = harness_path(dev, smi)
     torch.cuda.empty_cache()
     sharded_info = sharded_path(dev, smi, pq_keep)
     del pq_keep
+    torch.cuda.empty_cache()
+    sharded_ivf_info = sharded_ivf_path(dev, smi, ivf_keep, rbq_keep)
+    del ivf_keep, rbq_keep
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -3571,6 +3927,7 @@ def main():
         "residual_bq_l1_serving": rbq_info,
         "harness": harness_info,
         "sharded": sharded_info,
+        "sharded_ivf": sharded_ivf_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

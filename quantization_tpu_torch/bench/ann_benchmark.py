@@ -27,9 +27,8 @@ more, ``--device``:
 Datasets load from --data-dir when the ann-benchmarks HDF5 file exists there,
 else from a seeded synthetic corpus of the same shape (the JAX package's
 generator, byte for byte). ``--sharded`` lays the index over a device
-mesh (``parallel/sharded.py``): every CUDA card, or with ``--device cpu``
-a one-shard CPU mesh; the IVF methods wait for the sharded IVF engine
-(ROADMAP Queue 1, item 10b) and raise.
+mesh (``parallel/sharded.py``; the IVF methods ``parallel/sharded_ivf.py``):
+every CUDA card, or with ``--device cpu`` a one-shard CPU mesh.
 
     python -m quantization_tpu_torch.bench.ann_benchmark --dataset sift \\
         --method u8 --test-acc --synthetic-count 3000 [--device cpu]
@@ -44,20 +43,13 @@ import time
 import torch
 
 from ..core.distances import pairwise_score
-from ..core.types import ArgumentsError, DistanceType, VectorParameters
+from ..core.types import DistanceType, VectorParameters
 from ..ops.dispatch import resolve_device, upload
 from ..utils.profiling import timed
 from .ann_data import DATASETS, AnnBenchmarkData, test_knn
 
 METHODS = ["u8", "pq", "bq", "bq-u8", "bq-exact", "u8-f32", "ivf-sq", "ivf-pq", "ivf-bq",
            "ivf-sq-f32", "ivf-pq-f32", "ivf-bq-f32"]
-
-
-def _check_sharded(args) -> None:
-    if args.sharded and args.method.startswith("ivf-"):
-        raise ArgumentsError(
-            f"--sharded with {args.method} is not ported yet: it waits for the sharded "
-            "IVF engine (ROADMAP Queue 1, item 10b)")
 
 
 def build_index(method: str, data: AnnBenchmarkData, args):
@@ -68,7 +60,6 @@ def build_index(method: str, data: AnnBenchmarkData, args):
     from ..models.pq import ProductQuantizer
     from ..models.sq import ScalarQuantizerU8
 
-    _check_sharded(args)
     dev = resolve_device(args.device)
     n, dim = data.train.shape
     invert = data.distance_type != DistanceType.DOT
@@ -135,9 +126,12 @@ def _shard_index(index, data: AnnBenchmarkData, dev):
     """The index re-laid over a device mesh (--sharded): every CUDA card, or
     a one-shard mesh of ``dev`` off the card. Each shard searches its rows
     and one merge per query batch combines them; a one-device mesh is the
-    single-device search with a merge behind it. A two-stage index has both
-    stages sharded, the f32 rescorer as ``ShardedExactRescorer``."""
+    single-device search with a merge behind it. An IVF index becomes a
+    ``ShardedIVF`` (its buckets round-robin over the shards). A two-stage
+    index has both stages sharded, the f32 rescorer as
+    ``ShardedExactRescorer``."""
     from ..models.bq import BinaryQuantizer
+    from ..models.ivf import IVFIndex
     from ..models.pipeline import ExactRescorer, TwoStageIndex
     from ..models.pq import ProductQuantizer
     from ..models.sq import ScalarQuantizerU8
@@ -148,10 +142,13 @@ def _shard_index(index, data: AnnBenchmarkData, dev):
         ShardedScalarQuantizer,
         make_mesh,
     )
+    from ..parallel.sharded_ivf import ShardedIVF
 
     mesh = make_mesh() if dev.type == "cuda" else make_mesh(devices=[dev])
 
     def wrap(ix):
+        if isinstance(ix, IVFIndex):
+            return ShardedIVF(ix, mesh)
         if isinstance(ix, ScalarQuantizerU8):
             return ShardedScalarQuantizer(ix, mesh)
         if isinstance(ix, BinaryQuantizer):
@@ -272,8 +269,8 @@ def parser() -> argparse.ArgumentParser:
                    "whose approx merge is exact (ROADMAP F9)")
     p.add_argument("--sharded", action="store_true",
                    help="shard the corpus over every CUDA card (a one-shard "
-                   "mesh with --device cpu); not for the ivf-* methods yet "
-                   "(raises, ROADMAP Queue 1 item 10b)")
+                   "mesh with --device cpu); the ivf-* methods shard their "
+                   "buckets (ShardedIVF)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs the "
                    "plain PyTorch versions)")
@@ -321,7 +318,6 @@ def run(data: AnnBenchmarkData, args) -> dict:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    _check_sharded(args)
     resolve_device(args.device)  # NoDeviceError before any data is made
     results = []
     for name, spec in DATASETS.items():

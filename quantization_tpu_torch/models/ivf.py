@@ -78,6 +78,9 @@ from ..ops.kernels.ktile import APPROX_K_MAX, CORR_BLK, FUSED_K_MAX, SLOT, merge
 from ..ops.pq import full_f32
 from ..utils.fallback import warn_unfused
 from ..utils.padding import pad_dim_to
+from . import bq as bq_model
+from . import pq as pq_model
+from . import sq as sq_model
 from .pq import EncodedQueryPQ
 
 # Score of a masked candidate (the JAX package's models/ivf.py NEG, as f32).
@@ -229,6 +232,37 @@ def _residual_query_pq(lut, a) -> EncodedQueryPQ:
     return EncodedQueryPQ(a * lut)
 
 
+def encode_ivf_query(queries, metadata: IVFMetadata, inner_meta, device, *, width=None,
+                     store_type: str = "u128", c_chunks=None, rot=None):
+    """(f32 queries [Q, D] on ``device``, the inner family's encoded queries,
+    or for a residual index their residual form): ``encode_query`` of the
+    single-device and the sharded IVF indexes, from the inner quantizer's
+    metadata and its query-side operands: ``width`` the SQ code lane or the
+    BQ word count of the stored codes; ``store_type`` BQ's; ``c_chunks`` /
+    ``rot`` PQ's centroids and OPQ rotation on ``device``."""
+    params = metadata.vector_parameters
+    qh = np.asarray(queries, np.float32)
+    if qh.ndim == 1:
+        qh = qh[None, :]
+    if qh.shape[1] != params.dim:
+        raise ArgumentsError(f"query dim {qh.shape[1]} != corpus dim {params.dim}")
+    q = upload(qh, device)
+    kind = metadata.kind
+    if not metadata.residual:
+        if kind == "sq":
+            return q, sq_model.encode_queries(qh, inner_meta, width, device)
+        if kind == "bq":
+            return q, bq_model.encode_queries(qh, params.dim, store_type, width, device)
+        return q, pq_model.encode_queries(qh, inner_meta, c_chunks, rot, device)
+    a, rc = _residual_coeffs(params.distance_type, params.invert)
+    if kind == "bq":
+        return q, _residual_query_bq(q, width * 32, a, metadata.residual_scale)
+    if kind == "sq":
+        return q, _residual_query_sq(q, inner_meta.alpha, inner_meta.offset, width, a, rc)
+    return q, _residual_query_pq(
+        pq_model.encode_queries(qh, inner_meta, c_chunks, rot, device).lut, a)
+
+
 def auto_geometry(count: int, residual: bool = False):
     """``(nlist, bucket_size)`` from the JAX package's geometry rules:
     bucket_size the widest indexed tile (1024), halved for small corpora so
@@ -302,9 +336,12 @@ def _scan_buckets_compact(kind, eq, inner, union, *, nb, s, dt, invert, dim, use
     select). Returns (sv [Q, kk2], loc [Q, kk2]) with ``loc`` a position in
     union-slot space [0, U*s), or -1 / past it for an empty slot.
 
-    ``corr`` [Q, U] (residual indexes): the bucket term of each union
-    bucket, expanded here to one column per 512 rows; ``rowadd`` a per-slot
-    additive [>= nb*s] (PQ, BQ; SQ's rides its voff)."""
+    ``inner``: SQ (codes, voff, mult), BQ (planes,), PQ (codes,
+    transposed), the codes u8 [Npad, Mpad] rows or with ``transposed`` the
+    kernels' [Mpad, Npad] layout, whichever the caller holds (no second
+    copy is made). ``corr`` [Q, U] (residual indexes): the bucket term of
+    each union bucket, expanded here to one column per 512 rows; ``rowadd``
+    a per-slot additive [>= nb*s] (PQ, BQ; SQ's rides its voff)."""
     width = union.shape[0] * s
     mode = "approx" if method == "approx" else "exact"
     corr_c = None if corr is None else torch.repeat_interleave(corr, s // CORR_BLK, dim=1)
@@ -345,11 +382,11 @@ def _scan_buckets_compact(kind, eq, inner, union, *, nb, s, dt, invert, dim, use
             scores = scores + ra[None, :]
         if corr_c is not None:
             scores = scores + torch.repeat_interleave(corr_c, CORR_BLK, dim=1)
-    else:  # pq: inner is the quantizer, read in whichever layout it holds
+    else:  # pq: the codes in either layout, rows [Npad, Mpad] or transposed
         (lut,) = eq
-        (qz,) = inner
+        codes, transposed = inner
         rows = (union[:, None] * s + torch.arange(s, device=union.device)).reshape(-1)
-        ct = qz._codes[rows].T if qz._codes is not None else qz._codes_t[:, rows]
+        ct = codes[:, rows] if transposed else codes[rows].T
         ra = None if rowadd is None else _gather_buckets(rowadd, union, nb, s, 0)
         if use_fused:
             npadc = width + (-width) % pq_kernel.TILE_N
@@ -416,13 +453,14 @@ def _scan_buckets_indexed(kind, eq, inner, union, *, s, itile, dt, invert, dim, 
     return merge_chunks(parts, kk2, neg=NEG)
 
 
-def _indexed_tile(kind, s, method, scan, *, dp=None):
+def _indexed_tile(kind, s, method, scan, *, dp=None, allow_pq=True):
     """Tile width of an indexed probed scan, or 0 when the family or the
     geometry cannot take it: SQ (exact and approx) the widest multiple of
     512 up to 2048 dividing the bucket; BQ and PQ approx only, BQ at
     ``indexed_tile_n``, PQ at 1024 halved down to 256 to divide the bucket
     (under scan="auto" only the full 1024 tile, as the JAX package
-    measured a derated PQ tile losing to the compact scan)."""
+    measured a derated PQ tile losing to the compact scan). ``allow_pq``
+    False (the sharded index, which scans PQ compact) gives PQ 0."""
     if kind == "sq":
         if s % sq_kernel.TILE_N:
             return 0
@@ -434,6 +472,8 @@ def _indexed_tile(kind, s, method, scan, *, dp=None):
         return 0
     if kind == "bq":
         return bq_kernel.indexed_tile_n(dp, s)
+    if not allow_pq:
+        return 0
     t = pq_kernel.TILE_N
     while t > SLOT and s % t:
         t //= 2
@@ -466,45 +506,109 @@ def _dedupe_select(sv, out_ids, nq, k, kk2):
     return sv2, out.to(torch.int32)
 
 
+def _search_plan(meta, max_dup, k, nprobe, nscan, method, scan, recall_target, *,
+                 n_shards=1, b_loc=None, dp=None, allow_pq=True):
+    """The argument checks and the plan of one IVF search, for ``IVFIndex``
+    and ``ShardedIVF``: ``(p, u, kk2, use_fused, precision, itile)``.
+
+    ``u`` is the buckets each device scans: the batch union on one device,
+    and on a mesh of ``n_shards`` the top ceil(u / n_shards) of a shard's
+    ``b_loc``. ``precision`` is PQ's fused LUT precision (None off the fused
+    path). ``itile`` is the indexed scan's tile, 0 for a compact scan; the
+    single-device PQ's ``scan="auto"`` budget is its caller's. ``dp``: BQ's
+    plane width in bits; ``allow_pq`` False (the sharded index) scans PQ
+    compact. A search that leaves the fused path over >= 1M rows warns."""
+    check_recall_target(recall_target)
+    if method not in ("exact", "approx"):
+        raise ArgumentsError(f"unknown search method {method!r}")
+    if scan not in ("auto", "indexed", "compact"):
+        raise ArgumentsError(f"unknown scan strategy {scan!r}")
+    nb, s, kind = meta.nbuckets, meta.bucket_size, meta.kind
+    params = meta.vector_parameters
+    p = min(int(nprobe or meta.nprobe), nb)
+    if p < 1 or nb == 0:
+        raise ArgumentsError("empty index or nprobe < 1")
+    if nscan is None:
+        nscan = meta.nscan
+    u = max(min(int(nscan) if nscan else 4 * p, nb), p)
+    u = min(-(-u // n_shards), nb if b_loc is None else b_loc)
+    k = int(k)
+    kk2 = min(max(2 * k, k * max_dup), u * s)
+    cap = APPROX_K_MAX if method == "approx" else FUSED_K_MAX
+    precision = pq_kernel.lut_precision(residual=meta.residual) if kind == "pq" else None
+    use_fused = bool(
+        kk2 <= cap
+        and not (kind == "sq" and params.distance_type == DistanceType.L1)
+        # Exact residual PQ selects over the additive-corrected scores;
+        # the JAX package's int8 exact kernel cannot take the additives,
+        # so QTPU_PQ_LUT=int8 sends it to the unfused branch there.
+        and not (meta.residual and kind == "pq" and method != "approx"
+                 and precision == "int8")
+    )
+    if not use_fused:
+        warn_unfused("IVF", n_shards * u * s, k, method)
+        precision = None
+    itile = 0
+    if use_fused and scan != "compact":
+        itile = _indexed_tile(kind, s, method, scan, dp=dp, allow_pq=allow_pq)
+    if scan == "indexed" and not itile:
+        raise ArgumentsError(
+            "scan='indexed' needs the fused kernel path, bucket_size divisible by the "
+            "family's kernel tile, and SQ or method='approx'"
+            + ("" if allow_pq else " with BQ (sharded PQ scans compact)"))
+    return p, u, kk2, use_fused, precision, itile
+
+
+def _scan_union(kind, eq, inner, union, slot_ids, qc_u=None, rowadd=None, *, nb, s, itile,
+                dt, invert, dim, use_fused, kk2, method, precision):
+    """One device's scan of its union of buckets: the indexed scan when
+    ``itile``, else the compact one. Returns (sv [Q, kk2], ids [Q, kk2]),
+    the ids through ``slot_ids`` [nb, s] (-1 for an empty slot).
+
+    ``qc_u`` [U, Q] (residual indexes): the union's bucket term
+    (``_bucket_term``), added in the kernel before selection; ``rowadd``:
+    a per-slot additive (residual PQ and BQ), NEG past its length."""
+    if itile:
+        corr = None
+        if qc_u is not None:
+            corr = torch.repeat_interleave(qc_u, s // CORR_BLK, dim=0).contiguous()
+        if rowadd is not None and rowadd.shape[0] < inner[0].shape[1]:
+            rowadd = pad_dim_to(rowadd, 0, inner[0].shape[1], value=NEG)
+        sv, loc = _scan_buckets_indexed(
+            kind, eq, inner, union, s=s, itile=itile, dt=dt, invert=invert, dim=dim,
+            kk2=kk2, method=method, corr=corr, rowadd=rowadd, precision=precision)
+        gids = slot_ids.reshape(-1)  # loc is an inner row
+    else:
+        sv, loc = _scan_buckets_compact(
+            kind, eq, inner, union, nb=nb, s=s, dt=dt, invert=invert, dim=dim,
+            use_fused=use_fused, kk2=kk2, method=method,
+            corr=None if qc_u is None else qc_u.T.contiguous(), rowadd=rowadd,
+            precision=precision)
+        gids = slot_ids[union].reshape(-1)  # loc is a union slot
+    live = (loc >= 0) & (loc < gids.shape[0])
+    return sv, torch.where(live, gids[loc.clamp(0, gids.shape[0] - 1).long()], -1)
+
+
 def _ivf_search(q, eq, means, slot_ids, inner, resid=None, *, kind, k, p, u, method, dt,
-                invert, s, dim, use_fused, indexed, kk2, itile, precision):
+                invert, s, dim, use_fused, kk2, itile, precision):
     """One batch-union IVF search: probe priority, union, the family's scan
-    (indexed or compact), ids through the slot map, dedupe and select.
+    (``_scan_union``), dedupe and select.
 
     ``resid`` (residual indexes): ``(a,)`` for SQ or ``(a, rowadd)`` for PQ
     and BQ; the bucket term (``_bucket_term``) is added in the kernel before
     selection."""
     nq, nb = q.shape[0], means.shape[0]
     union = _union(q, means, dt, invert, p, u)
-
     qc_u = rowadd = None
     if resid is not None:
         rc = _residual_coeffs(dt, invert)[1] if kind == "pq" else 0.0
         qc_u = _bucket_term(q, means, union, resid[0], rc)  # [U, Q]
         if len(resid) > 1:
             rowadd = resid[1]
-
-    if indexed:
-        corr_t = None
-        if qc_u is not None:
-            corr_t = torch.repeat_interleave(qc_u, s // CORR_BLK, dim=0).contiguous()
-        if rowadd is not None and rowadd.shape[0] < inner[0].shape[1]:
-            rowadd = pad_dim_to(rowadd, 0, inner[0].shape[1], value=NEG)
-        sv, gloc = _scan_buckets_indexed(
-            kind, eq, inner, union, s=s, itile=itile, dt=dt, invert=invert, dim=dim,
-            kk2=kk2, method=method, corr=corr_t, rowadd=rowadd, precision=precision)
-        flat = slot_ids.reshape(-1)
-        out_ids = torch.where(gloc >= 0, flat[gloc.clamp(min=0).long()], -1)
-        return _dedupe_select(sv, out_ids, nq, k, kk2)
-
-    sv, loc = _scan_buckets_compact(
-        kind, eq, inner, union, nb=nb, s=s, dt=dt, invert=invert, dim=dim,
-        use_fused=use_fused, kk2=kk2, method=method,
-        corr=None if qc_u is None else qc_u.T.contiguous(), rowadd=rowadd,
+    sv, out_ids = _scan_union(
+        kind, eq, inner, union, slot_ids, qc_u, rowadd, nb=nb, s=s, itile=itile, dt=dt,
+        invert=invert, dim=dim, use_fused=use_fused, kk2=kk2, method=method,
         precision=precision)
-    gids = slot_ids[union].reshape(-1)  # [U*S]
-    live = (loc >= 0) & (loc < gids.shape[0])
-    out_ids = torch.where(live, gids[loc.clamp(0, gids.shape[0] - 1).long()], -1)
     return _dedupe_select(sv, out_ids, nq, k, kk2)
 
 
@@ -595,14 +699,13 @@ class IVFIndex:
                     qz.codes, meta.alpha, meta.offset, self._means_dev, s, self.params.dim)
             self._resid_sq = self._mask_pads(extra, pad, nslots)
         else:
-            transposed = qz._codes is None
-            nrows = qz._codes_t.shape[1] if transposed else qz._codes.shape[0]
-            extra = torch.zeros(nrows, device=self.device)
+            codes, transposed = qz.resident_codes
+            extra = torch.zeros(codes.shape[1 if transposed else 0], device=self.device)
             if rowcoef != 0.0:
                 extra[:nslots] = rowcoef * ivf_ops.pq_decoded_rowterm(
-                    None if transposed else qz._codes, qz._c_chunks, qz._rot,
+                    None if transposed else codes, qz._c_chunks, qz._rot,
                     self._means_dev, s, qz.metadata.vector_division,
-                    codes_t=qz._codes_t if transposed else None)
+                    codes_t=codes if transposed else None)
             self._resid_pq = self._mask_pads(extra, pad, nslots)
 
     @staticmethod
@@ -730,23 +833,14 @@ class IVFIndex:
     def encode_query(self, queries):
         """(f32 queries [Q, D] on the device, the inner quantizer's encoded
         queries, or for a residual index its residual form)."""
-        qh = np.asarray(queries, np.float32)
-        if qh.ndim == 1:
-            qh = qh[None, :]
-        if qh.shape[1] != self.params.dim:
-            raise ArgumentsError(f"query dim {qh.shape[1]} != corpus dim {self.params.dim}")
-        q = upload(qh, self.device)
-        if not self.metadata.residual:
-            return q, self.quantizer.encode_query(qh)
-        a, rc = self._res_a, self._res_rowcoef
-        if self.metadata.kind == "bq":
-            return q, _residual_query_bq(q, self.quantizer.planes.shape[0] * 32, a,
-                                         self.metadata.residual_scale)
-        if self.metadata.kind == "sq":
-            meta = self.quantizer.metadata
-            return q, _residual_query_sq(q, meta.alpha, meta.offset,
-                                         self.quantizer.codes.shape[1], a, rc)
-        return q, _residual_query_pq(self.quantizer.encode_query(qh).lut, a)
+        qz, kind = self.quantizer, self.metadata.kind
+        if kind == "pq":
+            return encode_ivf_query(queries, self.metadata, qz.metadata, self.device,
+                                    c_chunks=qz._c_chunks, rot=qz._rot)
+        return encode_ivf_query(
+            queries, self.metadata, qz.metadata, self.device,
+            width=qz.codes.shape[1] if kind == "sq" else qz.planes.shape[0],
+            store_type=getattr(qz, "store_type", "u128"))
 
     def _family_arrays(self, eq_inner) -> Tuple[tuple, Optional[tuple]]:
         kind = self.metadata.kind
@@ -777,49 +871,18 @@ class IVFIndex:
         size the family's tile divides), "compact" gathers them first,
         "auto" prefers indexed where it is available. ``recall_target``:
         checked and ignored (``check_recall_target``)."""
-        check_recall_target(recall_target)
-        if method not in ("exact", "approx"):
-            raise ArgumentsError(f"unknown search method {method!r}")
-        if scan not in ("auto", "indexed", "compact"):
-            raise ArgumentsError(f"unknown scan strategy {scan!r}")
         q, eq_inner = equery
-        meta = self.metadata
-        nb, s, kind = meta.nbuckets, meta.bucket_size, meta.kind
-        p = min(int(nprobe or meta.nprobe), nb)
-        if p < 1 or nb == 0:
-            raise ArgumentsError("empty index or nprobe < 1")
-        if nscan is None:
-            nscan = meta.nscan
-        u = max(min(int(nscan) if nscan else 4 * p, nb), p)
-        kk2 = min(max(2 * int(k), int(k) * self._max_dup), u * s)
-        cap = APPROX_K_MAX if method == "approx" else FUSED_K_MAX
-        precision = pq_kernel.lut_precision(residual=meta.residual) if kind == "pq" else None
-        use_fused = bool(
-            kk2 <= cap
-            and not (kind == "sq" and self.params.distance_type == DistanceType.L1)
-            # Exact residual PQ selects over the additive-corrected scores;
-            # the JAX package's int8 exact kernel cannot take the additives,
-            # so QTPU_PQ_LUT=int8 sends it to the unfused branch there.
-            and not (meta.residual and kind == "pq" and method != "approx"
-                     and precision == "int8")
-        )
-        if not use_fused and u * s >= 1_000_000:
-            warn_unfused("IVF", u * s, k, method)
-        qz = self.quantizer
-        itile = _indexed_tile(kind, s, method, scan,
-                              dp=qz.planes.shape[0] * 32 if kind == "bq" else None)
-        indexed = bool(scan != "compact" and use_fused and itile)
-        if indexed and kind == "pq" and scan == "auto" and qz._codes_t is None:
-            indexed = qz._codes.numel() <= _PQ_T_BYTES_CAP
-        if scan == "indexed" and not indexed:
-            raise ArgumentsError(
-                "scan='indexed' needs the fused kernel path, bucket_size divisible by the "
-                "family's kernel tile, and (for BQ/PQ) method='approx'")
+        meta, qz = self.metadata, self.quantizer
+        kind = meta.kind
+        p, u, kk2, use_fused, precision, itile = _search_plan(
+            meta, self._max_dup, k, nprobe, nscan, method, scan, recall_target,
+            dp=qz.planes.shape[0] * 32 if kind == "bq" else None)
+        if (itile and kind == "pq" and scan == "auto" and qz._codes_t is None
+                and qz._codes.numel() > _PQ_T_BYTES_CAP):
+            itile = 0  # the transposed layout it would build is past its budget
         eq, inner = self._family_arrays(eq_inner)
         if kind == "pq":
-            inner = (qz.codes_t,) if indexed else (qz,)
-        if not use_fused:
-            precision = None
+            inner = (qz.codes_t, True) if itile else qz.resident_codes
         resid = None
         if meta.residual:
             rowadd = {"pq": self._resid_pq, "bq": self._resid_bq}.get(kind)
@@ -827,7 +890,7 @@ class IVFIndex:
         return _ivf_search(
             q, eq, self._means_dev, self._slot_ids_dev, inner, resid, kind=kind, k=int(k),
             p=p, u=u, method=method, dt=self.params.distance_type, invert=self.params.invert,
-            s=s, dim=self.params.dim, use_fused=use_fused, indexed=indexed, kk2=kk2,
+            s=meta.bucket_size, dim=self.params.dim, use_fused=use_fused, kk2=kk2,
             itile=itile, precision=precision,
         )
 

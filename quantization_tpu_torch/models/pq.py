@@ -207,6 +207,15 @@ class ProductQuantizer(EncodedVectors):
         return self._codes
 
     @property
+    def resident_codes(self) -> Tuple[torch.Tensor, bool]:
+        """(the code layout the quantizer holds, whether it is the
+        transposed [Mpad, Npad] one): for readers of a few rows, which need
+        neither layout built."""
+        if self._codes is not None:
+            return self._codes, False
+        return self._codes_t, True
+
+    @property
     def codes_t(self) -> torch.Tensor:
         """The kernels' [Mpad, Npad] copy, built on first use and kept: it
         doubles the resident code bytes, so consumers that never scan the

@@ -134,12 +134,31 @@ def assign_clusters(data, centers, *, stop_condition=None, device=None) -> np.nd
     return out
 
 
+def add_onehot_sums(sums, x, idx, counts=None) -> None:
+    """sums[j] += the rows of x [n, D] whose ``idx`` is j (and counts[j] +=
+    their number), for j over sums' rows: one-hot products in full f32, in
+    row blocks of ASSIGN_BLOCK / 8 and target blocks of ``_center_blocks``
+    (a [rows, cb] transient of <= 256 MB). Deterministic on the card, where
+    ``index_add_`` would sum in atomic order."""
+    nt = sums.shape[0]
+    cb = _center_blocks(nt)[1]
+    rb = ASSIGN_BLOCK // 8
+    for r0 in range(0, x.shape[0], rb):
+        xr, ir = x[r0 : r0 + rb], idx[r0 : r0 + rb]
+        for j0 in range(0, nt, cb):
+            j1 = min(j0 + cb, nt)
+            onehot = (ir[:, None] == torch.arange(j0, j1, device=x.device)).to(torch.float32)
+            with full_f32():
+                sums[j0:j1] += onehot.T @ xr
+            if counts is not None:
+                counts[j0:j1] += onehot.sum(dim=0)
+
+
 def _lloyd_streamed_iter(sample, centers, reseed, *, rb: int, nlist: int):
     """One Lloyd iteration over the sample in row blocks of ``rb`` (the last
     one partial): assign against the center blocks, accumulate per-center
-    sums and counts (one-hot products per center block, deterministic on
-    the card, where ``index_add_`` would sum in atomic order). Empty centers
-    reseed from the sample rows ``reseed``. Returns (new_centers, diff)."""
+    sums and counts (``add_onehot_sums``). Empty centers reseed from the
+    sample rows ``reseed``. Returns (new_centers, diff)."""
     n, d = sample.shape
     cblk, ccblk = _pad_centers(centers, nlist)
     ncb, cb = ccblk.shape
@@ -147,13 +166,7 @@ def _lloyd_streamed_iter(sample, centers, reseed, *, rb: int, nlist: int):
     counts = torch.zeros((ncb * cb,), device=sample.device)
     for r0 in range(0, n, rb):
         x = sample[r0 : r0 + rb]
-        idx = _assign_blocked(x, cblk, ccblk)
-        for i in range(ncb):
-            onehot = (idx[:, None] == torch.arange(i * cb, (i + 1) * cb, device=x.device)
-                      ).to(torch.float32)  # [rows, cb]
-            with full_f32():
-                sums[i * cb : (i + 1) * cb] += onehot.T @ x
-            counts[i * cb : (i + 1) * cb] += onehot.sum(dim=0)
+        add_onehot_sums(sums, x, _assign_blocked(x, cblk, ccblk), counts)
     sums, counts = sums[:nlist], counts[:nlist]
     mean = sums / torch.clamp(counts, min=1.0)[:, None]
     new_c = torch.where((counts == 0)[:, None], sample[reseed], mean)

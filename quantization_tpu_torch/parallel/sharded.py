@@ -124,7 +124,7 @@ def make_mesh(
                 "no CUDA device: make_mesh() takes every card; pass devices=[...] "
                 "(e.g. [torch.device('cpu')] * 8) to build a mesh of other devices")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    devices = [_indexed(torch.device(d)) for d in devices]
     if n_devices is None:
         n_devices = len(devices)
     if not 1 <= n_devices <= len(devices):
@@ -141,6 +141,15 @@ def make_mesh(
     if int(np.prod(shape)) != n_devices:
         raise ArgumentsError(f"mesh shape {tuple(shape)} does not hold {n_devices} devices")
     return Mesh(grid.reshape(tuple(shape)), tuple(axis_names))
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """``d`` with its index: a bare "cuda" is the current card, as its
+    tensors report it, so a shard's tensors and its mesh slot name one
+    device (per-device copies are keyed by device)."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 # ------------------------------------------------------------- shard helpers
@@ -200,6 +209,15 @@ def _load_shards(fill, n: int, n_local: int, devices, dim: int) -> ShardedArray:
     to ``devices[s]``."""
     return ShardedArray([torch.from_numpy(fill(s * n_local, max(0, min(n - s * n_local, n_local))))
                          .to(d) for s, d in enumerate(devices)], dim)
+
+
+def plane_words(rows: np.ndarray, wpad: int) -> torch.Tensor:
+    """Packed BQ rows [b, row_bytes] as the kernels' int32 bit planes
+    [wpad, b], zero words past the row's."""
+    planes = bq_ops.rows_to_planes(rows)
+    if planes.shape[0] < wpad:
+        planes = np.pad(planes, ((0, wpad - planes.shape[0]), (0, 0)))
+    return torch.from_numpy(np.ascontiguousarray(planes).view(np.int32))
 
 
 def _write_meta(meta_path, metadata) -> None:
@@ -651,10 +669,7 @@ class ShardedBinaryQuantizer(_ShardedBase):
         npad = cls._shard_dim_for(mesh, axis, params.count, bq_kernel.TILE_N)
         app = DeviceAppender((wpad, npad), torch.int32, mesh=mesh, mesh_axis=axis, axis=1)
         for rows in bq_model.packed_batches(data, params, batch_size, row_bytes, stop_condition):
-            planes = bq_ops.rows_to_planes(rows)  # [w, B]
-            if planes.shape[0] < wpad:
-                planes = np.pad(planes, ((0, wpad - planes.shape[0]), (0, 0)))
-            app.append(torch.from_numpy(np.ascontiguousarray(planes).view(np.int32)))
+            app.append(plane_words(rows, wpad))
         return cls._from_parts(app.finish(), BQMetadata(params), mesh, axis, store_type)
 
     def encode_query(self, queries) -> EncodedQueryBin:

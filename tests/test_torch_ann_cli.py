@@ -14,9 +14,10 @@ their own (test_torch_ann_cli_pq.py, test_torch_ann_cli_ivfpq.py) so that
 
 The ``--sharded`` cases of tests/test_ann_cli.py run the port on a
 one-shard CPU mesh (``--device cpu``) against the JAX CLI on its 8 virtual
-devices, recall@10 within the same 0.02; an IVF method with ``--sharded``
-raises ``ArgumentsError`` (the sharded IVF engine is ROADMAP Queue 1 item
-10b). Then the JSON lines carry the JAX CLI's keys, and without a card and
+devices, recall@10 within the same 0.02; the IVF methods' per-shard union
+quota depends on the shard count, so their cases (ivf-sq-f32, the JAX
+test's, and ivf-bq-f32) give the port's CLI a mesh of 8 CPU shards too.
+Then the JSON lines carry the JAX CLI's keys, and without a card and
 without ``--device`` the CLI raises ``NoDeviceError``."""
 
 import json
@@ -28,6 +29,7 @@ import torch
 from quantization_tpu.bench import ann_benchmark as j_cli
 import quantization_tpu_torch as qt
 from quantization_tpu_torch.bench import ann_benchmark as t_cli
+from quantization_tpu_torch.parallel import sharded as t_sharded
 
 torch.set_num_threads(1)
 
@@ -73,6 +75,11 @@ CASES = {
 
 def check_case(case, monkeypatch):
     argv, floor = CASES[case] if case in CASES else SHARDED_CASES[case]
+    if "--sharded" in argv and argv[argv.index("--method") + 1].startswith("ivf-"):
+        # The JAX CLI's mesh: the 8 virtual devices of tests/conftest.py.
+        make_mesh = t_sharded.make_mesh
+        monkeypatch.setattr(t_sharded, "make_mesh",
+                            lambda *a, **kw: make_mesh(devices=[torch.device("cpu")] * 8))
     got = t_cli.main(argv + ["--device", "cpu"])
     if argv[argv.index("--method") + 1] == "pq":
         monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
@@ -98,6 +105,14 @@ SHARDED_CASES = {
                                "--test-acc", "--synthetic-count", "3000", "--query-batch",
                                "64", "--topk-method", "approx", "--recall-target", "0.8"],
                               0.4),
+    "ivf_sq_f32_sharded": (["--dataset", "sift", "--method", "ivf-sq-f32", "--sharded",
+                            "--test-acc", "--synthetic-count", "3000", "--query-batch", "64",
+                            "--nlist", "16", "--bucket-size", "64", "--nprobe", "8",
+                            "--oversampling", "8"], 0.6),
+    "ivf_bq_f32_sharded": (["--dataset", "sift", "--method", "ivf-bq-f32", "--sharded",
+                            "--test-acc", "--synthetic-count", "3000", "--query-batch", "64",
+                            "--nlist", "16", "--bucket-size", "64", "--nprobe", "16",
+                            "--oversampling", "8"], 0.9),
 }
 
 
@@ -148,14 +163,6 @@ def test_cli_sharded_bench_search_path():
     index = t_cli.build_index("u8", data, t_cli.parser().parse_args(argv))
     assert isinstance(index, ShardedScalarQuantizer)
     assert index.mesh.shape == {"shard": 1} and index.device == torch.device("cpu")
-
-
-def test_cli_sharded_raises():
-    """Only the IVF methods refuse --sharded: they wait for the sharded IVF
-    engine, ROADMAP Queue 1 item 10b."""
-    with pytest.raises(qt.ArgumentsError, match="item 10b"):
-        t_cli.main(["--dataset", "sift", "--method", "ivf-sq-f32", "--sharded", "--test-acc",
-                    "--synthetic-count", "3000", "--device", "cpu"])
 
 
 def test_cli_without_a_card_needs_device_cpu():

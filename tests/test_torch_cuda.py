@@ -13,6 +13,8 @@ order, round each step alike, and compute the int8 epilogue in f64 rounded
 once, as the plain version does; K12 and the residual-BQ forms (K5b and the
 value-query K5a / K10) round their multiply-add once in f64, as theirs do."""
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -1250,6 +1252,63 @@ def test_sharded_searches_equal_the_single_device_ones(dev, family, shards):
     cand = torch.tensor([[0, n - 1, -1, n, live * n_local]] * q, device=dev)
     sc = sh.score_candidates(eq, cand)
     assert bool(torch.isfinite(sc[:, :2]).all()) and bool(torch.isneginf(sc[:, 2:]).all())
+
+
+@pytest.mark.parametrize("shards", [1, 3, 8])
+@pytest.mark.parametrize("kind,residual", [("sq", False), ("sq", True), ("bq", False),
+                                           ("bq", True), ("pq", False)])
+def test_sharded_ivf_equals_the_single_device_index(dev, kind, residual, shards):
+    """parallel/sharded_ivf.py on a mesh of the one card repeated: a probe-
+    limited search launches its scan kernel once a shard; over every bucket
+    the values equal the single-device search's (to the bit for a plain
+    index, within rtol 1e-5 / atol 1e-4 for a residual one); the streamed
+    build repeats its bucket means to the bit (one-hot sums, no atomic
+    order), and its file loads into IVFIndex and searches alike."""
+    from quantization_tpu_torch.parallel import sharded, sharded_ivf
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(shards)
+    n, dim, q, k = 6000, 128, 33, 10
+    centers = torch.randn(12, dim, generator=g, device=dev) * 3
+    pick = torch.randint(0, 12, (n,), generator=g, device=dev)
+    data = (centers[pick] + 0.3 * torch.randn(n, dim, generator=g, device=dev)).cpu().numpy()
+    queries = data[:q] + 0.01
+    params = qt.VectorParameters(dim, n, qt.DistanceType.DOT, False)
+    kw = dict(quantizer=kind, residual=residual, nlist=6, bucket_size=512,
+              **({"chunk_size": 8, "bits": 4} if kind == "pq" else {}))
+    one = qt.IVFIndex.encode(data, params, **kw)
+    mesh = sharded.make_mesh(devices=[dev] * shards)
+    sh = sharded_ivf.ShardedIVF(one, mesh)
+    nb = one.metadata.nbuckets
+    mods = (sq_kernel, bq_kernel, pq_kernel)
+    for m in mods:
+        m.reset_launches()
+    sh.top_k_device(sh.encode_query(queries), k, nprobe=2, nscan=2)
+    assert sum(v for m in mods for v in m.LAUNCHES.values()) == shards
+    got = sh.top_k(sh.encode_query(queries), k, nprobe=nb, nscan=nb)
+    want = one.top_k(one.encode_query(queries), k, nprobe=nb, nscan=nb)
+    if residual:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+    streamed = sharded_ivf.ShardedIVF.encode(data, params, mesh=mesh, **kw)
+    again = sharded_ivf.ShardedIVF.encode(data, params, mesh=mesh, **kw)
+    np.testing.assert_array_equal(again.bucket_means, streamed.bucket_means)
+    nb = streamed.metadata.nbuckets  # its own sample, so its own bucket count
+    sv, _ = streamed.top_k(streamed.encode_query(queries), k, nprobe=nb, nscan=nb)
+    with tempfile.TemporaryDirectory() as tmp:
+        streamed.save(f"{tmp}/d.bin", f"{tmp}/m.json")
+        back = qt.IVFIndex.load(f"{tmp}/d.bin", f"{tmp}/m.json", params)
+        bv, _ = back.top_k(back.encode_query(queries), k, nprobe=nb, nscan=nb)
+    np.testing.assert_allclose(bv, sv, rtol=1e-5, atol=1e-4)
+
+
+def test_dryrun_takes_the_card_by_default(dev):
+    """quantization_tpu_torch/dryrun.py names no device: its 8 shards lie on
+    the card, and every sharded path runs there."""
+    from quantization_tpu_torch import dryrun
+
+    assert len(dryrun.dryrun_multichip(8)) == 9
 
 
 def test_timed_takes_cuda_event_times(dev, monkeypatch):

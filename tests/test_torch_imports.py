@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import quantization_tpu_torch
+from quantization_tpu_torch import dryrun
 from quantization_tpu_torch.ops.kernels import build, sq_kernel
 
 torch.set_num_threads(1)
@@ -172,6 +173,7 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch, rng, tmp_path):
         lambda: qt.BinaryQuantizer.load(tmp_path / "bq.bin", tmp_path / "bq.json", params),
         lambda: qt.bq_from_numpy(*qt.bq_to_numpy(bq)),
         lambda: qt.ExactRescorer(data, qt.DistanceType.DOT, False),
+        lambda: dryrun.dryrun_multichip(2),
     ]
     for call in calls:
         with pytest.raises(qt.NoDeviceError, match="device='cpu'"):

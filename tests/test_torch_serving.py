@@ -4,8 +4,8 @@ semantics, the generator form, the blocking one-shot and warmup, knobs
 passed through to IVF, plan-built and two-stage searchables, device results
 with ``materialize=False``, ``sync`` keeping results queued, and the
 argument errors. A searcher over a sharded engine is in
-tests/test_torch_sharded_hooks.py; over a sharded IVF index it waits for
-ROADMAP Queue 1 item 10b.
+tests/test_torch_sharded_hooks.py, over a sharded IVF index (the case of
+tests/test_serving.py:133) in tests/test_torch_sharded_ivf_hooks.py.
 
 Results are compared with the same searchable's direct ``top_k`` (equal to
 the bit), and with the JAX package's searcher over the same index (carried

@@ -27,6 +27,7 @@ from torch_sharded_cases import (
     close,
     host,
     ids_up_to_ties,
+    jax_pallas,
     lut_close,
     meshes,
     params,
@@ -73,8 +74,7 @@ def test_sharded_bq_matches_single_device(rng, s):
 
 
 @pytest.mark.parametrize("s", SHARDS)
-def test_sharded_pq_matches_single_device(rng, s, monkeypatch):
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+def test_sharded_pq_matches_single_device(rng, s, jax_pallas):
     n, dim, k = 300, 32, 7
     data = rng.random((n, dim), dtype=np.float32)
     queries = rng.random((2, dim), dtype=np.float32)
@@ -143,6 +143,16 @@ def test_make_mesh_devices_and_errors():
     with pytest.raises(qt.ArgumentsError, match="no axis"):
         t_sharded.ShardedExactRescorer(np.zeros((4, 2), np.float32), qt.DistanceType.DOT,
                                        False, mesh, axis="qdp")
+
+
+def test_make_mesh_gives_a_bare_cuda_device_its_index(monkeypatch):
+    """A tensor on the card reports its index, so the mesh names the card
+    the same way: per-device copies (a residual ShardedIVF's means) are
+    looked up by a shard tensor's device."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = t_sharded.make_mesh(devices=["cuda"] * 2 + ["cuda:1", "cpu"])
+    assert list(mesh.devices.flat) == [torch.device("cuda", 0)] * 2 + [
+        torch.device("cuda", 1), CPU]
 
 
 @pytest.mark.parametrize("s", SHARDS)

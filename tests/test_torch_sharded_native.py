@@ -27,6 +27,7 @@ from torch_sharded_cases import (
     bit_equal,
     close,
     ids_up_to_ties,
+    jax_pallas,
     meshes,
     params,
     wrapped,
@@ -68,8 +69,7 @@ def test_sharded_bq_index_exact(rng, s):
 
 
 @pytest.mark.parametrize("s", SHARDS)
-def test_sharded_pq_index_exact(rng, s, monkeypatch):
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+def test_sharded_pq_index_exact(rng, s, jax_pallas):
     n, dim, k = 80, 16, 6
     data = tie_free_data(n, dim, rng)
     queries = 0.5 + 0.5 * rng.random((2, dim), dtype=np.float32)

@@ -20,15 +20,16 @@ import quantization_tpu.parallel.sharded as j_sharded
 import quantization_tpu_torch as qt
 from quantization_tpu_torch.parallel import sharded as t_sharded
 from test_opq import lowrank_data
-from torch_sharded_cases import SHARDS, bit_equal, host, ids_up_to_ties, meshes, params, wrapped
+from torch_sharded_cases import (
+    SHARDS, bit_equal, host, ids_up_to_ties, jax_pallas, meshes, params, wrapped,
+)
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("s", SHARDS)
 @pytest.mark.parametrize("bits", [8, 4])
-def test_sharded_pq_encode_matches_single_device(rng, s, bits, monkeypatch):
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+def test_sharded_pq_encode_matches_single_device(rng, s, bits, jax_pallas):
     n, dim, k = 300, 32, 7
     data = rng.random((n, dim), dtype=np.float32)
     queries = rng.random((2, dim), dtype=np.float32)
@@ -50,10 +51,9 @@ def test_sharded_pq_encode_matches_single_device(rng, s, bits, monkeypatch):
 
 @pytest.mark.parametrize("s", SHARDS)
 @pytest.mark.parametrize("bits", [8, 4])
-def test_sharded_pq_save_load_roundtrip(rng, s, bits, tmp_path, monkeypatch):
+def test_sharded_pq_save_load_roundtrip(rng, s, bits, tmp_path, jax_pallas):
     """8-bit and 4-bit (two codes per byte on disk, the single-device
     format) files across packages and layouts."""
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
     n, dim, k = 160, 16, 5
     data = rng.random((n, dim), dtype=np.float32)
     queries = rng.random((2, dim), dtype=np.float32)

@@ -10,7 +10,9 @@ ragged last shard, and S = 8 whole shards with no row. The JAX state is
 carried across by ``interop.*_from_numpy`` and wrapped by each package's
 sharded class, so both search the same codes."""
 
+import jax
 import numpy as np
+import pytest
 import torch
 
 import quantization_tpu.core.types as j_types
@@ -24,6 +26,18 @@ SHARDS = [1, 3, 8]
 CPU = torch.device("cpu")
 # SQ scores: the single-device SQ parity test's tolerance.
 RTOL, ATOL = 1e-6, 1e-4
+
+
+@pytest.fixture
+def jax_pallas(monkeypatch):
+    """The JAX side in Pallas interpret mode (QTPU_FORCE_PALLAS=1) for one
+    test, and its compiled programs dropped after it: the JAX package's
+    sharded searches read that switch while they trace, so a cached Pallas
+    program would serve a later test of the same shapes that runs without
+    it (tests/test_sharded.py's PQ case, scored with the f32 LUT there)."""
+    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+    yield
+    jax.clear_caches()
 
 
 def meshes(s):
