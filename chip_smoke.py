@@ -5,13 +5,14 @@
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
     python3 chip_smoke.py --rehearse ann  # path 6's recall on the CPU, 20k rows
+    python3 chip_smoke.py --rehearse 10m  # path 9's recall on the CPU, 30k rows
 
 Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
 LUT ring is fed by bulk copies on mbarriers, and drives the
-port's eight main paths through the public API, each with the kernel launch
+port's nine main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -112,6 +113,18 @@ both corpora, since the clustered one ties far more.
      and their files both ways; a PipelinedSearcher over the sharded IVF-SQ
      rescored to f32; 5,000 rows in 4 buckets on 8 shards; per-batch device
      time sharded against single-device. Its wall is held to 120 s.
+
+  9. The 10M anchor harness (bench/bench_10m.py, the twin of the JAX
+     package's tools/bench_10m.py) through its main() at 10,000,000 x 768
+     of the JAX harness's realistic corpus (--dist realistic --normalize
+     --opq --ivf --ivf-residual; Q = 256, k = 10, S = 1024, nlist 3,255),
+     its rows made on the card by id (the row kernel, held against plain
+     threefry first): every leg present, none FAILED, recall figures in
+     [0, 1], each rescored leg at least its coarse leg, the IVF-SQ ladder
+     non-decreasing, each TPU kernel it launched held against plain on its
+     last launch (the full scans in row blocks), a breakdown of its deepest
+     IVF-SQ search, and the same flags at 30,000 rows held to the CPU
+     rehearsal (``--rehearse 10m``). Its wall is held to 240 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path, checks the results against an f32 oracle, and times the
@@ -2621,12 +2634,15 @@ def captured(fn, *args):
 
 
 @contextlib.contextmanager
-def recorded(*modules):
+def recorded(*modules, body=None):
     """Every kernel wrapper of ``modules`` (a function ``f`` beside its plain
     version ``f_plain``) wrapped to keep, for each launch counter it moved,
     its last such call and that call's result; yields {counter: (module,
     name, args, kwargs, result)} and puts the wrappers back on exit. The
-    models reach the wrappers through their modules, so they call these."""
+    models reach the wrappers through their modules, so they call these.
+    ``body(module, name, args, kwargs)``, where given, names the kernel
+    body a call ran when one counter counts several: such a call is kept
+    as "counter (body)", the last of each body."""
     calls, saved = {}, []
     for m in modules:
         for pname in [n for n in vars(m) if n.endswith("_plain")]:
@@ -2638,9 +2654,10 @@ def recorded(*modules):
             def rec(*a, _m=m, _name=name, _fn=fn, **kw):
                 before = dict(_m.LAUNCHES)
                 out = _fn(*a, **kw)
+                tag = body and body(_m, _name, a, kw)
                 for c, n in _m.LAUNCHES.items():
                     if n != before[c]:
-                        calls[c] = (_m, _name, a, kw, out)
+                        calls[f"{c} ({tag})" if tag else c] = (_m, _name, a, kw, out)
                 return out
 
             saved.append((m, name, fn))
@@ -3653,6 +3670,472 @@ def sharded_ivf_path(dev, smi, ivf_keep, rbq_keep):
     require(wall <= SHARDED_IVF_WALL_LIMIT_S, f"path 8 within {SHARDED_IVF_WALL_LIMIT_S:.0f} s")
     return info
 
+
+# Path 9 (the 10M anchor harness): bench_10m.main at BASELINE.md's anchor,
+# 10,000,000 x 768 of the JAX harness's realistic corpus (tools/bench_10m.py
+# --dist realistic --normalize; BASELINE.md:261-300), Q = 256, k = 10, the
+# automatic IVF geometry (S = 1024, nlist = 3,255), on one card.
+BENCH10M_ARGV = ["--n", "10000000", "--d", "768", "--dist", "realistic", "--normalize",
+                 "--opq", "--ivf", "--ivf-residual"]
+# The legs those flags define, by family (a ladder's nscans at 10M are 4
+# or 3 distinct values): 21 full-scan legs and 40 IVF legs.
+BENCH10M_LEGS = {
+    "BQ fused ": 2, "PQ fused ": 2, "PQ4 fused ": 2, "OPQ fused ": 2, "2s OPQ->f32 ": 3,
+    "SQ fused ": 2, "2s SQ->f32 ": 3, "two-stage ": 3, "2s BQ->f32 ": 2,
+    "IVF-SQ p=": 4, "2s IVF-SQ->f32 ": 5, "IVF-BQ p=": 3, "2s IVF-BQ->f32 ": 4,
+    "IVF-OPQ p=": 3, "2s IVF-OPQ->f32 ": 3, "IVF-BQr p=": 3, "2s IVF-BQr->f32 ": 4,
+    "IVF-SQr p=": 3, "2s IVF-SQr->f32 ": 2, "IVF-OPQr p=": 3, "2s IVF-OPQr->f32 ": 3,
+}
+# The same flags at 30,000 rows (3 batches of 10,000) on the card, held to
+# the CPU rehearsal's recall@10 of every leg within BENCH10M_REHEARSAL_SLACK
+# (python3 chip_smoke.py --rehearse 10m, 2,062 s on the CPU; rerun it and
+# update these when the harness, the codecs or the corpus change).
+BENCH10M_REHEARSAL_ARGV = BENCH10M_ARGV + ["--n", "30000", "--batch", "10000"]
+BENCH10M_RECALL_REHEARSAL = {
+    "BQ fused exact": 0.853, "BQ fused approx": 0.848, "PQ fused exact": 0.784,
+    "PQ fused approx": 0.783, "PQ4 fused exact": 0.732, "PQ4 fused approx": 0.732,
+    "OPQ fused exact": 0.855, "OPQ fused approx": 0.853, "2s OPQ->f32 ov=4": 0.988,
+    "2s OPQ->f32 ov=16": 0.995, "2s OPQ->f32 ov=64": 0.995, "SQ fused exact": 0.991,
+    "SQ fused approx": 0.989, "2s SQ->f32 ov=4": 0.998, "2s SQ->f32 ov=8": 0.998,
+    "2s SQ->f32 ov=16": 0.998, "two-stage ov=8": 0.982, "two-stage ov=32": 0.983,
+    "two-stage ov=128": 0.983, "2s BQ->f32 ov=16": 0.991, "2s BQ->f32 ov=64": 0.991,
+    "IVF-SQ p=64 nscan=256": 0.980, "2s IVF-SQ->f32 R=40 p=64 nscan=256": 0.987,
+    "IVF-BQ p=64 nscan=256": 0.848, "2s IVF-BQ->f32 R=160 p=64 nscan=256": 0.984,
+    "2s IVF-BQ->f32 R=320 p=64 nscan=256": 0.984, "IVF-OPQ p=64 nscan=256": 0.846,
+    "2s IVF-OPQ->f32 R=80 p=64 nscan=256": 0.983, "2s IVF-OPQ->f32 R=160 p=64 nscan=256": 0.984,
+    "IVF-BQr p=64 nscan=256": 0.574, "2s IVF-BQr->f32 R=160 p=64 nscan=256": 0.932,
+    "2s IVF-BQr->f32 R=320 p=64 nscan=256": 0.958, "IVF-SQr p=64 nscan=256": 0.980,
+    "2s IVF-SQr->f32 R=40 p=64 nscan=256": 0.986, "IVF-OPQr p=64 nscan=256": 0.895,
+    "2s IVF-OPQr->f32 R=40 p=64 nscan=256": 0.984,
+    "2s IVF-OPQr->f32 R=160 p=64 nscan=256": 0.984,
+}
+BENCH10M_REHEARSAL_SLACK = 0.02
+# The row kernel is held against plain threefry on the harness's batch of
+# this many ids from each of these first ids (the corpus's last batch, and
+# one across 2^24), and timed on the first.
+BENCH10M_ROWGEN_IDS = 250_000
+BENCH10M_ROWGEN_FROM = (10_000_000 - 250_000, 2**24 - 125_000)
+BENCH10M_ROWGEN_MAX_ULPS = 2.0
+# Its bound: one Threefry-2x32 hash a value, ~75 32-bit integer operations
+# (20 add-rotate-xor rounds, the key injections, the words' xor and the
+# mantissa's shift-or; csrc/rowgen_kernels.cu), at the 64 INT32 lanes an SM
+# has (NVIDIA's Hopper white paper) at the card's top SM clock; 9 hashes a
+# row more for its draws.
+ROWGEN_INT_OPS_PER_HASH = 75
+INT32_LANES_PER_SM = 64
+ROWGEN_ROW_HASHES = 9
+# Path 9 keeps to this many seconds of card wall.
+BENCH10M_WALL_LIMIT_S = 240.0
+# recall@10 of the same legs on one TPU v5e chip (BASELINE.md:268-279 and
+# :315-328, :397-408, older JAX code at nlist 4096 / S 512, whose nscan
+# 256 / 1024 / 2560 / 5120 are the ladders' fractions 0.0119 / 0.0475 /
+# 0.1186 / 0.2372): printed beside the card's as a figure, not a bound.
+BENCH10M_LADDER = {0.0119: 256, 0.0475: 1024, 0.1186: 2560, 0.2372: 5120}
+BENCH10M_TPU_RECALL = {
+    "SQ fused exact": 0.880, "SQ fused approx": 0.875, "BQ fused approx": 0.336,
+    "PQ fused approx": 0.004, "OPQ fused approx": 0.188, "PQ4 fused approx": 0.002,
+    "2s SQ->f32 ov=4": 0.983, "two-stage ov=8": 0.762, "2s BQ->f32 ov=64": 0.979,
+    "2s OPQ->f32 ov=4": 0.393, "2s OPQ->f32 ov=16": 0.634, "2s OPQ->f32 ov=64": 0.833,
+    "IVF-SQ nscan=256": 0.162, "IVF-SQ nscan=1024": 0.525, "IVF-SQ nscan=2560": 0.814,
+    "IVF-SQ nscan=5120": 0.868, "2s IVF-SQ->f32 R=40 nscan=2560": 0.896,
+    "2s IVF-SQ->f32 R=40 nscan=5120": 0.979, "2s IVF-SQ->f32 R=80 nscan=5120": 0.980,
+    "IVF-BQ nscan=5120": 0.330, "2s IVF-BQ->f32 R=160 nscan=5120": 0.886,
+    "2s IVF-BQ->f32 R=320 nscan=5120": 0.935, "IVF-OPQ nscan=2560": 0.178,
+    "2s IVF-OPQ->f32 R=160 nscan=5120": 0.623, "IVF-SQr nscan=2560": 0.859,
+    "IVF-SQr nscan=5120": 0.928, "2s IVF-SQr->f32 R=40 nscan=2560": 0.896,
+    "2s IVF-SQr->f32 R=40 nscan=5120": 0.979, "IVF-OPQr nscan=5120": 0.604,
+    "2s IVF-OPQr->f32 R=40 nscan=5120": 0.918, "2s IVF-OPQr->f32 R=160 nscan=5120": 0.972,
+    "IVF-BQr nscan=5120": 0.277, "2s IVF-BQr->f32 R=320 nscan=2560": 0.857,
+    "2s IVF-BQr->f32 R=320 nscan=5120": 0.918,
+}
+# Full-scan searches whose last launch is held against a plain version
+# computed in blocks of this many rows (a multiple of every approx span,
+# SPAN x 2048): at 10M rows a plain [256, N] score matrix and its f64
+# product (61 GB for SQ) do not fit beside the resident codes.
+DENSE_HOLD_BLOCK_ROWS = 1 << 20
+DENSE_SEARCHES = ("sq_search_exact", "sq_search_approx", "bq_search_exact",
+                  "bq_search_approx", "pq_search_exact", "pq_search_approx")
+
+
+def ulps_apart(got, want):
+    """max |got - want| in units of the last place of want."""
+    step = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    return float(((got - want).abs() / step).max())
+
+
+def leg_recalls(printed):
+    """{leg: recall@10} of the harness's lines, and the FAILED legs."""
+    import re
+
+    rec, failed = {}, []
+    for line in printed.splitlines():
+        m = re.match(r"(\S.*?)\s*: .* recall@\d+ vs exact = ([0-9.naif]+)", line)
+        if m:
+            rec[m.group(1)] = float(m.group(2))
+        elif re.match(r"\S.*?\s*: FAILED ", line):
+            failed.append(line)
+    return rec, failed
+
+
+def tpu_key(leg, nbk):
+    """The BASELINE.md label of a leg: its nscan as the TPU run's at the
+    same fraction of the buckets."""
+    import re
+
+    m = re.match(r"(.*?) p=\d+ nscan=(\d+)$", leg)
+    if not m:
+        return leg
+    head = m.group(1).replace(" R=", "\0R=").split("\0")
+    frac = int(m.group(2)) / nbk
+    near = min(BENCH10M_LADDER, key=lambda f: abs(f - frac))
+    label = head[0] + ("" if len(head) == 1 else " " + head[1])
+    return f"{label} nscan={BENCH10M_LADDER[near]}"
+
+
+def dense_plain_blocked(m, name, a, kw):
+    """The plain version of a full-scan search (K1 / K2, K5c / K5a, K7b /
+    K7a, no residual additive) on its recorded inputs, in row blocks of
+    DENSE_HOLD_BLOCK_ROWS: each block's plain scores (the module's own),
+    exact top-k or the approx stride-class candidates of the whole corpus's
+    geometry, then the exact merge. Equal to the unblocked plain version:
+    approx candidates of whole spans, in the same order; exact values (ids
+    among ties in torch.topk's order)."""
+    from quantization_tpu_torch.ops import sq as sq_ops
+    from quantization_tpu_torch.ops.kernels import bq_kernel, ktile, pq_kernel, sq_kernel
+
+    b = bound_args(m, name, a, kw)
+    require(all(b.get(x) is None for x in ("corr", "rowadd", "query_affine")),
+            f"{name}: a full-scan search with no residual additive")
+    if m is sq_kernel:
+        codes = b["codes"]
+        npad, tile = codes.shape[0], sq_kernel.approx_tile_n(codes.shape[0])
+
+        def scores(r0, r1):
+            return sq_ops.score_batch(b["qcodes"], b["qoff"], codes[r0:r1], b["voff"][r0:r1],
+                                      b["multiplier"], distance_type=b["distance_type"])
+    elif m is bq_kernel:
+        planes = b["planes"]
+        npad = planes.shape[1]
+        tile = bq_kernel.mxu_tile_n(planes.shape[0] * 32, npad)
+
+        def scores(r0, r1):
+            return bq_kernel._plain_scores(b["qwords"], planes[:, r0:r1], None, None,
+                                           distance_type=b["distance_type"],
+                                           invert=b["invert"], dim=b["dim"])
+    else:
+        require(m is pq_kernel, f"a blocked plain version for {m.__name__}")
+        codes_t = b["codes_t"]
+        npad, tile = codes_t.shape[1], pq_kernel.TILE_N
+        words, scale, bias = pq_kernel._operands(
+            b["lut"], b["precision"] or pq_kernel.lut_precision())
+
+        def scores(r0, r1):
+            return pq_kernel._plain_scores(words, scale, bias, codes_t[:, r0:r1], r1 - r0)
+
+    require(DENSE_HOLD_BLOCK_ROWS % (ktile.SPAN * tile) == 0, "blocks of whole spans")
+    exact, k, n_valid = b["mode"] == "exact", b["k"], b["n_valid"]
+    end = n_valid if exact else npad
+    vals, ids = [], []
+    for r0 in range(0, end, DENSE_HOLD_BLOCK_ROWS):
+        r1 = min(r0 + DENSE_HOLD_BLOCK_ROWS, end)
+        s = scores(r0, r1)
+        if exact:
+            v, i = torch.topk(s, min(k, r1 - r0), dim=1)
+        else:
+            s[:, max(0, n_valid - r0):] = ktile.NEG
+            v, i = ktile.approx_candidates(s, tile)
+        vals.append(v)
+        ids.append(i.to(torch.int32) + r0)
+        del s
+    v, i = torch.cat(vals, dim=1), torch.cat(ids, dim=1)
+    return ktile.merge_exact(v, i, k) if exact else ktile.merge_candidates(v, i, k)
+
+
+def bound_args(m, name, a, kw):
+    """The arguments of a recorded call by name, defaults applied."""
+    import inspect
+
+    b = inspect.signature(getattr(m, name + "_plain")).bind(*a, **kw)
+    b.apply_defaults()
+    return b.arguments
+
+
+def pq_body(m, name, a, kw):
+    """The body a PQ search ran (``recorded``'s ``body``): the anchor's 4-bit
+    searches take the one-hot body and its 8-bit ones the LUT gather, under
+    one counter each for exact and approx."""
+    from quantization_tpu_torch.ops.kernels import pq_kernel
+
+    if m is not pq_kernel or name != "pq_search":
+        return None
+    b = bound_args(m, name, a, kw)
+    onehot = pq_kernel.onehot_route(b["lut"].shape[2], b["precision"] or
+                                    pq_kernel.lut_precision(), b["mode"])
+    return "one-hot" if onehot else "lut-gather"
+
+
+def hold_at_scale(calls, launches, what):
+    """Path 9's holds, on the last call of each launched counter and body
+    (``recorded`` with ``pq_body``): the full-scan searches against
+    ``dense_plain_blocked`` (values equal; exact ids equal where untied and
+    distinct, approx ids equal), every other launched kernel through
+    ``hold_searches`` (the indexed scans and the residual additives
+    included)."""
+    keys = {key: launches[key.split(" ")[0]] for key in calls
+            if key.split(" ")[0] in launches}
+    require(set(launches) <= {key.split(" ")[0] for key in keys},
+            f"{what}: a recorded call of every launched kernel")
+    dense = {c for c in keys if c.split(" ")[0] in DENSE_SEARCHES and all(
+        bound_args(*calls[c][:4]).get(x) is None for x in ("corr", "rowadd", "query_affine"))}
+    held = hold_searches(calls, {c: n for c, n in keys.items() if c not in dense}, what)
+    for counter in sorted(dense):
+        m, name, a, kw, (v, i) = calls[counter]
+        torch.cuda.synchronize()
+        pv, pi = dense_plain_blocked(m, name, a, kw)
+        tag = f"{what}: {counter}"
+        require(torch.equal(v, pv), f"{tag}: values equal plain")
+        if bound_args(m, name, a, kw)["mode"] == "exact":
+            ids_equal_where_untied(*(t.cpu().numpy() for t in (v, i, pv, pi)), tag)
+            srt = torch.sort(i, dim=1).values
+            require(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()),
+                    f"{tag}: distinct ids")
+        else:
+            require(torch.equal(i, pi), f"{tag}: ids equal plain")
+        held[counter] = (list(v.shape), 0.0)
+        del pv, pi
+        torch.cuda.empty_cache()
+    return held
+
+
+def rowgen_check(dev, smi):
+    """The row kernel against plain threefry on the anchor's corpus at the
+    harness's batch (250,000 x 768): clusters equal, rows within
+    BENCH10M_ROWGEN_MAX_ULPS, both distributions, on the corpus's last
+    batch and on one across 2^24; then timed on the first of them beside
+    its plain version and its bound. Returns its kernels-line-shaped
+    record."""
+    from quantization_tpu_torch.bench import bench_10m, threefry
+
+    rows = bench_10m.RowSource(bench_10m.parser().parse_args(BENCH10M_ARGV), dev)
+    worst = 0.0
+    for first in BENCH10M_ROWGEN_FROM:
+        ids = torch.arange(first, first + BENCH10M_ROWGEN_IDS, device=dev)
+        for spectrum in (rows.spectrum, None):
+            got, gc = threefry.latent_rows(ids, rows.centers, spectrum, rows.sigma, rows.base,
+                                           return_clusters=True)
+            want, wc = threefry.latent_rows_plain(ids, rows.centers, spectrum, rows.sigma,
+                                                  rows.base, return_clusters=True)
+            dist = "realistic" if spectrum is not None else "clustered"
+            require(torch.equal(gc, wc), f"row kernel: clusters of ids {first}.. ({dist}) "
+                    "equal plain threefry's")
+            ulps = ulps_apart(got, want)
+            require(ulps <= BENCH10M_ROWGEN_MAX_ULPS, f"row kernel: rows of ids {first}.. "
+                    f"({dist}) within {BENCH10M_ROWGEN_MAX_ULPS} ulp of plain ({ulps})")
+            worst = max(worst, float((got - want).abs().max()))
+            say("bench10m", f"row kernel, {BENCH10M_ROWGEN_IDS:,} ids from {first:,} "
+                f"({dist}): clusters equal, max {ulps:g} ulp from plain threefry, "
+                f"{100 * float((got == want).float().mean()):.4f} % equal to the bit")
+    n, d = BENCH10M_ROWGEN_IDS, rows.centers.shape[1]
+    ids = torch.arange(BENCH10M_ROWGEN_FROM[0], BENCH10M_ROWGEN_FROM[0] + n, device=dev)
+
+    def kernel():
+        return threefry.latent_rows(ids, rows.centers, rows.spectrum, rows.sigma, rows.base)
+
+    ms = timed_ms(kernel)
+    p_ms = plain_ms(lambda: threefry.latent_rows_plain(ids, rows.centers, rows.spectrum,
+                                                       rows.sigma, rows.base))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops = n * (d + ROWGEN_ROW_HASHES) * ROWGEN_INT_OPS_PER_HASH
+    nbytes = 4 * (n * d + n) + rows.centers.numel() * 4 + d * 4
+    bnd = bound(nbytes, int_ops, INT32_LANES_PER_SM * sms * max_sm_clock_hz())
+    say("bench10m", f"row kernel at {n:,} x {d} (realistic): {ms:.4f} ms, plain threefry "
+        f"{p_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}: {int_ops:.3e} int32 operations), "
+        f"{100 * bnd[0] / ms:.1f} % of it; a 10M pass {ms * 40:.1f} ms; on {smi}")
+    return {"name": "latent_rows", "route": "cuda", "source": SRC + "rowgen_kernels.cu",
+            "replaces": "none (tools/bench_10m.py:164-222 draws with jax.random)",
+            "max_abs_err": worst, "ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
+def ivf_breakdown(ivf, eq, nprobe, nscan, smi):
+    """One IVF-SQ search of the harness's deepest coarse leg, split as path
+    4 splits it (probe + union, the indexed scan, dedupe, the device span
+    and the host wall), and torch.profiler's kernel times of it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from quantization_tpu_torch import DistanceType
+    from quantization_tpu_torch.models import ivf as ivf_mod
+    from quantization_tpu_torch.ops.kernels import sq_kernel
+
+    q_dev, eqi = eq
+    meta = ivf.metadata
+    _, _, kk2, _, _, itile = ivf_mod._search_plan(meta, ivf._max_dup, K, nprobe, nscan,
+                                                  "approx", "auto", None)
+    require(itile > 0, "the deepest IVF-SQ leg scans indexed")
+    a, inner = ivf._family_arrays(eqi)
+    union = ivf_union(ivf, q_dev, nprobe, nscan)
+    tiles = tiles_of(union, meta.bucket_size, itile)
+
+    def scan():
+        return sq_kernel.sq_search_indexed(*a, *inner, tiles, distance_type=DistanceType.DOT,
+                                           k=kk2, mode="approx", tile_n=itile)
+
+    parts = {"probe_union_ms": timed_ms(lambda: ivf_union(ivf, q_dev, nprobe, nscan)),
+             "kernel_ms": timed_ms(scan)}
+    sv, loc = scan()
+    ids = ivf._slot_ids_dev.reshape(-1)[loc.clamp(min=0).long()]
+    parts["dedupe_ms"] = timed_ms(lambda: ivf_mod._dedupe_select(sv, ids, Q, K, kk2))
+
+    def search():
+        return ivf.top_k_device(eq, K, method="approx", nprobe=nprobe, nscan=nscan)
+
+    parts["span_ms"] = timed_ms(search)
+    parts["wall_ms"] = wall_ms(lambda: ivf.top_k(eq, K, method="approx", nprobe=nprobe,
+                                                 nscan=nscan))
+    parts["host_ms"] = parts["wall_ms"] - parts["span_ms"]
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        search()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                      if e.device_type.name == "CUDA"), key=lambda kv: -kv[1])
+    parts["profiler_kernel_ms"] = sum(t for _, t in kernels)
+    say("breakdown", f"10M IVF-SQ approx top_k, nprobe {nprobe}, nscan {nscan} "
+        f"({tiles.shape[0]} tiles of {itile} rows, {tiles.shape[0] * itile:,} rows): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in parts.items()) + f", on {smi}")
+    say("breakdown", "  profiler, by kernel: " + ", ".join(
+        f"{k_[:48]} {t:.4f} ms" for k_, t in kernels[:6]))
+    return parts
+
+
+def bench10m_path(dev, smi):
+    """Path 9: the 10M anchor harness (bench/bench_10m.py) in process at
+    BENCH10M_ARGV. The row kernel held against plain threefry; every leg
+    present, none FAILED, exit 0, recall figures finite in [0, 1], each
+    rescored leg at least its coarse leg, the IVF-SQ ladder non-decreasing;
+    every TPU kernel it launched held against plain on its last launch; a
+    breakdown of its deepest IVF-SQ search; the same flags at 30,000 rows
+    held to the CPU rehearsal (--rehearse 10m). Its wall is held to
+    BENCH10M_WALL_LIMIT_S."""
+    import re
+
+    from quantization_tpu_torch.bench import bench_10m, threefry
+    from quantization_tpu_torch.models.ivf import IVFIndex
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    t_path = time.perf_counter()
+    info = {"rowgen": rowgen_check(dev, smi)}
+    torch.cuda.empty_cache()
+
+    deepest = {}
+    report_serve = bench_10m.Harness.report_serve
+
+    def keep_deepest(self, name, index, eq, gt, iters=10, **knobs):
+        report_serve(self, name, index, eq, gt, iters, **knobs)
+        if (name.startswith("IVF-SQ p=") and isinstance(index, IVFIndex)
+                and knobs["nscan"] >= deepest.get("nscan", 0)):
+            deepest.update(index=index, eq=eq, nprobe=knobs["nprobe"], nscan=knobs["nscan"])
+
+    reset_all(*mods, threefry)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bench_10m.Harness.report_serve = keep_deepest
+    try:
+        with recorded(*mods, body=pq_body) as calls:
+            rc, printed = captured(bench_10m.main, BENCH10M_ARGV)
+    finally:
+        bench_10m.Harness.report_serve = report_serve
+    info["main_s"] = time.perf_counter() - t0
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k_: v for k_, v in counts(*mods).items() if v}
+    info["rowgen"]["launches"] = threefry.LAUNCHES["latent_rows"]
+    info["launches"] = launches
+    say("bench10m", f"main() at 10,000,000 x 768 in {info['main_s']:.1f} s (peak "
+        f"{info['peak_gb']:.1f} GB allocated), exit {rc}; launches {launches}, row kernel "
+        f"{info['rowgen']['launches']}; on {smi}")
+    require(rc == 0, "bench_10m.main exits 0")
+    rec, failed = leg_recalls(printed)
+    require(not failed, f"no FAILED leg ({failed})")
+    for prefix, n in BENCH10M_LEGS.items():
+        got = [leg for leg in rec if leg.startswith(prefix)]
+        require(len(got) == n, f"{n} '{prefix}' legs ({got})")
+    require(len(rec) == sum(BENCH10M_LEGS.values()), f"the flags' legs and no other ({len(rec)})")
+    require(all(0.0 <= r <= 1.0 for r in rec.values()), "every recall finite in [0, 1]")
+    coarse = {"SQ": "SQ fused approx", "OPQ": "OPQ fused approx", "BQ": "BQ fused approx"}
+    for leg, r in rec.items():
+        m = re.match(r"2s (IVF-\w+)->f32 R=\d+ (p=\d+ nscan=\d+)$", leg)
+        base = f"{m.group(1)} {m.group(2)}" if m else None
+        m2 = re.match(r"2s (\w+)->f32 ov=", leg)
+        base = base or (coarse[m2.group(1)] if m2 else None)
+        if base:
+            require(r >= rec[base] - 0.01, f"{leg} ({r}) >= {base} ({rec[base]}) - 0.01")
+    ladder = [rec[leg] for leg in sorted((leg for leg in rec if leg.startswith("IVF-SQ p=")),
+                                         key=lambda s: int(s.rsplit("=", 1)[1]))]
+    require(all(b >= a - 0.01 for a, b in zip(ladder, ladder[1:])),
+            f"the IVF-SQ ladder's recall non-decreasing ({ladder})")
+    nbk = int(re.search(r"\((\d+) buckets x (\d+)", printed).group(1))
+    info["nbuckets"] = nbk
+    info["recall_at_10"] = rec
+    info["times_ms"] = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(\S.*?)\s*: .*\(\s*([0-9.]+) ms/batch\)", printed, re.M)}
+    info["passes_s"] = {m.group(1): float(m.group(2)) for m in (
+        re.match(r"(.*?):? (\d+)s\b", line) for line in printed.splitlines()
+        if "recall@" not in line and not line.startswith(("IVF geometry", "residual SQ")))
+        if m}
+    for leg, r in rec.items():
+        tpu = BENCH10M_TPU_RECALL.get(tpu_key(leg, nbk))
+        say("bench10m", f"{leg}: recall@10 {r:.3f} on the card"
+            + (f", {tpu:.3f} on the TPU (BASELINE.md, as {tpu_key(leg, nbk)})"
+               if tpu is not None else ""))
+
+    info["breakdown_ms"] = ivf_breakdown(deepest["index"], deepest["eq"], deepest["nprobe"],
+                                         deepest["nscan"], smi)
+    deepest.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held = hold_at_scale(calls, launches, "10M anchor")
+    info["hold_s"] = time.perf_counter() - t0
+    info["held_max_abs_err"] = {c: e for c, (_, e) in held.items()}
+    bodies = {f"{c} ({b})" for c in ("pq_search_exact", "pq_search_approx")
+              for b in ("one-hot", "lut-gather")}
+    require(bodies <= set(held), "10M anchor: the 4-bit one-hot and the 8-bit LUT-gather "
+            f"PQ searches each held on their last launch ({sorted(held)})")
+    say("bench10m", "each launched kernel's last launch against plain on its inputs: "
+        + ", ".join(f"{c} {shape}" for c, (shape, _) in sorted(held.items()))
+        + f" ({info['hold_s']:.1f} s)")
+    del calls
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc, printed = captured(bench_10m.main, BENCH10M_REHEARSAL_ARGV)
+    require(rc == 0, "the 30,000-row run exits 0")
+    small, failed = leg_recalls(printed)
+    require(not failed, f"no FAILED leg at 30,000 rows ({failed})")
+    require(set(small) == set(BENCH10M_RECALL_REHEARSAL),
+            f"the 30,000-row legs are the rehearsal's ({sorted(set(small) ^ set(BENCH10M_RECALL_REHEARSAL))})")
+    for leg, r in small.items():
+        want = BENCH10M_RECALL_REHEARSAL[leg]
+        require(abs(r - want) <= BENCH10M_REHEARSAL_SLACK,
+                f"{leg} at 30,000 rows: {r:.4f} on the card within "
+                f"{BENCH10M_REHEARSAL_SLACK} of the CPU rehearsal's {want:.4f}")
+    info["rehearsal_recall_at_10"] = small
+    info["rehearsal_s"] = time.perf_counter() - t0
+    say("bench10m", f"the same flags at 30,000 rows: {len(small)} legs within "
+        f"{BENCH10M_REHEARSAL_SLACK} of the CPU rehearsal (--rehearse 10m), max |diff| "
+        f"{max(abs(r - BENCH10M_RECALL_REHEARSAL[k_]) for k_, r in small.items()):.4f}, "
+        f"{info['rehearsal_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("bench10m", f"path 9 wall {wall:.1f} s (limit {BENCH10M_WALL_LIMIT_S:.0f} s; main "
+        f"{info['main_s']:.1f}, holds {info['hold_s']:.1f}, 30,000 rows "
+        f"{info['rehearsal_s']:.1f}) on {smi}")
+    require(wall <= BENCH10M_WALL_LIMIT_S, f"path 9 within {BENCH10M_WALL_LIMIT_S:.0f} s")
+    return info
+
+
 def rehearse(which, n=30_000):
     """The CPU rehearsal at ``n`` rows, with the plain versions: path 3's
     recalls ("pq"), path 4's IVF-SQ -> f32 ("ivf") and path 5's residual
@@ -3660,6 +4143,31 @@ def rehearse(which, n=30_000):
     device numbers)."""
     torch.set_num_threads(4)
     cpu = torch.device("cpu")
+    if "10m" in which:
+        from quantization_tpu_torch.bench import bench_10m
+
+        # Recall only: each leg's search once (the plain versions take
+        # seconds a call here), coarse legs without the pipelined loop,
+        # whose results equal the blocking search's.
+        def one_call(self, fn, iters=10):
+            fn()
+            return 1.0, None
+
+        def one_search(self, name, index, eq, gt, iters=10, **knobs):
+            self.report(name, lambda: index.top_k_device(eq, self.K, **knobs), gt)
+
+        t0 = time.perf_counter()
+        saved = bench_10m.Harness.timeit, bench_10m.Harness.report_serve
+        bench_10m.Harness.timeit, bench_10m.Harness.report_serve = one_call, one_search
+        try:
+            rc, printed = captured(bench_10m.main,
+                                   BENCH10M_REHEARSAL_ARGV + ["--device", "cpu"])
+        finally:
+            bench_10m.Harness.timeit, bench_10m.Harness.report_serve = saved
+        rec, failed = leg_recalls(printed)
+        say("rehearsal", f"CPU, the path-9 flags at 30,000 rows, exit {rc}, "
+            f"{time.perf_counter() - t0:.0f} s (not a device number); {len(failed)} FAILED; "
+            f"recall@{K}: {json.dumps(rec)}")
     if "ann" in which:
         t0 = time.perf_counter()
         rec = ann_recalls(cpu, ANN_REHEARSAL_COUNT)
@@ -3893,6 +4401,8 @@ def main():
     torch.cuda.empty_cache()
     sharded_ivf_info = sharded_ivf_path(dev, smi, ivf_keep, rbq_keep)
     del ivf_keep, rbq_keep
+    torch.cuda.empty_cache()
+    bench10m_info = bench10m_path(dev, smi)
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -3928,6 +4438,7 @@ def main():
         "harness": harness_info,
         "sharded": sharded_info,
         "sharded_ivf": sharded_ivf_info,
+        "bench_10m": bench10m_info,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -198,6 +198,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         # K8 with 4-bit codes and the bf16 LUT: (lut, codes_t, out, Q, mpad,
         # npad, n_valid, stream)
         "qtt_pq4_mma_scores_bf16": [p, p, p, i, i, ll, i, p],
+        # The 10M harness's row generator (bench/threefry.py): (ids, n, dim,
+        # centers, clusters, spectrum, sigma, base0, base1, out, clusters_out,
+        # stream)
+        "qtt_rowgen": [p, i, i, p, i, p, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, p, p,
+                       p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -45,7 +45,8 @@ def lloyd_iteration(centroids, data, reseed_rows, frozen):
     (new centroids f32[g, k, d], diff f32[g])."""
     k = centroids.shape[1]
     idx = torch.argmin(sq_distances(data, centroids), dim=2)  # first minimum
-    onehot = torch.nn.functional.one_hot(idx, k).to(torch.float32)  # [g, n, k]
+    onehot = torch.zeros(idx.shape + (k,), dtype=torch.float32, device=data.device)
+    onehot.scatter_(2, idx[:, :, None], 1.0)  # [g, n, k]
     counts = torch.sum(onehot, dim=1)  # [g, k]
     with full_f32():
         sums = torch.bmm(onehot.transpose(1, 2), data)  # [g, k, d]

@@ -1327,3 +1327,76 @@ def test_timed_takes_cuda_event_times(dev, monkeypatch):
     dt = profiling.timed(torch.matmul, x, x, iters=5, warmup=1)
     assert made and all(kw.get("enable_timing") for kw in made)
     assert np.isfinite(dt) and 0 < dt < 1.0
+
+
+@pytest.mark.parametrize("dist", ["realistic", "clustered"])
+@pytest.mark.parametrize("first,n,d", [(0, 1000, 768), (10_000_000 - 300, 1200, 768),
+                                       (2**24 - 7, 17, 100), (2**31 - 40, 40, 33)])
+def test_row_kernel_equals_plain_threefry(dev, dist, first, n, d):
+    """The 10M harness's row kernel (csrc/rowgen_kernels.cu) against its
+    plain version on the card: clusters equal; rows equal but for the
+    last-bit differences of the card's libm between the two (within 2 ulp);
+    ragged row counts and widths. Its launches are counted."""
+    from quantization_tpu_torch.bench import bench_10m, threefry
+
+    args = bench_10m.parser().parse_args(["--d", str(d), "--dist", dist])
+    rows = bench_10m.RowSource(args, dev)
+    ids = torch.arange(first, first + n, device=dev)
+    before = threefry.LAUNCHES["latent_rows"]
+    got, gc = threefry.latent_rows(ids, rows.centers, rows.spectrum, rows.sigma, rows.base,
+                                   return_clusters=True)
+    assert threefry.LAUNCHES["latent_rows"] == before + 1
+    want, wc = threefry.latent_rows_plain(ids, rows.centers, rows.spectrum, rows.sigma,
+                                          rows.base, return_clusters=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gc, wc)
+    step = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    assert float(((got - want).abs() / step).max()) <= 2.0
+    assert torch.equal(threefry.latent_rows(ids[:0], rows.centers, rows.spectrum, rows.sigma,
+                                            rows.base), want[:0])
+
+
+def test_row_kernel_takes_ids_past_2_31_as_their_int32_bits(dev):
+    """The row kernel reads an id's low 32 bits, as its plain version does
+    (the JAX harness's int32 id of the same bits); it checks no id, which
+    would wait for the card."""
+    from quantization_tpu_torch.bench import bench_10m, threefry
+
+    rows = bench_10m.RowSource(bench_10m.parser().parse_args(["--d", "32"]), dev)
+    ids = torch.tensor([2**31, 2**31 + 5, 2**32 - 1, 2**32 + 7], device=dev)
+    got, gc = threefry.latent_rows(ids, rows.centers, None, 0.5, rows.base,
+                                   return_clusters=True)
+    want, wc = threefry.latent_rows_plain(ids, rows.centers, None, 0.5, rows.base,
+                                          return_clusters=True)
+    low, lc = threefry.latent_rows(ids[3:] - 2**32, rows.centers, None, 0.5, rows.base,
+                                   return_clusters=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gc, wc) and torch.equal(gc[3:], lc)
+    step = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    assert float(((got - want).abs() / step).max()) <= 2.0
+    assert torch.equal(got[3:], low)
+
+
+def test_bench_10m_on_the_card_equals_its_cpu_run(dev):
+    """The 10M harness at 20,000 rows on the card and on the CPU (the same
+    corpus, the plain versions there): the same legs, recall@10 within
+    0.02 each (ids differ only among ties and near-ties of the codecs)."""
+    import contextlib
+    import io
+    import re
+
+    from quantization_tpu_torch.bench import bench_10m
+
+    flags = ["--n", "20000", "--d", "64", "--batch", "5000", "--clusters", "16", "--queries",
+             "32", "--only", "sq", "--ivf", "--ivf-base", "sq", "--ivf-residual"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert bench_10m.main(flags + ["--device", device]) == 0
+        out[device] = re.findall(r"^(\S.*?)\s*: .* recall@10 vs exact = ([0-9.]+)",
+                                 buf.getvalue(), re.M)
+    assert [n for n, _ in out["cuda"]] == [n for n, _ in out["cpu"]]
+    assert len(out["cuda"]) >= 12
+    for (name, a), (_, b) in zip(out["cuda"], out["cpu"]):
+        assert abs(float(a) - float(b)) <= 0.02, (name, a, b)

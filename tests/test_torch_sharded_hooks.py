@@ -33,6 +33,7 @@ from torch_sharded_cases import (
     close,
     host,
     ids_up_to_ties,
+    jax_pallas,
     meshes,
     params,
     wrapped,
@@ -132,7 +133,7 @@ def test_two_stage_sharded_exact_rescorer(rng, s):
 
 
 @pytest.mark.parametrize("s", SHARDS)
-def test_recommend_composes_with_sharded_engines(rng, s, monkeypatch):
+def test_recommend_composes_with_sharded_engines(rng, s, jax_pallas):
     """tests/test_policy.py:233 (its sq family) in the port: recommend()
     calibrates against a sharded index end to end, and a rescored plan's
     build() selects ShardedExactRescorer over the index's own mesh — no
@@ -140,8 +141,8 @@ def test_recommend_composes_with_sharded_engines(rng, s, monkeypatch):
     its sharded index over the same state, reaches the same plan; it runs
     its fused kernels in Pallas interpret mode (QTPU_FORCE_PALLAS=1) so both
     packages' approx coarse stages pick from the same stride classes (the
-    shards are equal in both at this count)."""
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+    shards are equal in both at this count); ``jax_pallas`` drops those
+    programs after the test."""
     dim, count = 48, 12_000
     data = clustered(rng, count, dim)
     queries = clustered(rng, 24, dim)
