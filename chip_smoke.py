@@ -11,7 +11,10 @@ Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
-LUT ring is fed by bulk copies on mbarriers, and drives the
+LUT ring is fed by bulk copies on mbarriers, builds and runs the probe
+csrc/probe/select_split.cu (the scans of K1 and K5c without their select,
+which splits their times into scan and select, and the exact kernels'
+blocks a SM), and drives the
 port's nine main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
@@ -127,10 +130,14 @@ both corpora, since the clustered one ties far more.
      rehearsal (``--rehearse 10m``). Its wall is held to 240 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
-shapes of its path, checks the results against an f32 oracle, and times the
+shapes of its path (each exact search on both of its selects: the queue at
+k <= 64, the radix select above, ktile.exact_geometry), checks the results
+against an f32 oracle, and times the
 kernels, their plain versions, the PyTorch library call that computes the
-same function where there is one, an f32 matmul + top-k baseline and the
-two-stage batches with CUDA events.
+same function where there is one (for the searches torch._int_mm, the
+epilogue and torch.topk), an f32 matmul + top-k baseline and the two-stage
+batches with CUDA events. The kernels line names the select each exact
+kernel's timed launches took.
 
 Every phase prints one line; any failed check raises and the exit code is
 not 0. The last lines are a JSON object of the kernels, the nvidia-smi name
@@ -406,9 +413,18 @@ def require(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+class Ms(float):
+    """A time in ms, with the exact select (ktile.SELECT_LAUNCHES: "queue" or
+    "radix") that the timed calls' exact launches took, None for none."""
+    select = None
+
+
 def timed_ms(fn, warmup=3, iters=10, reps=7):
     """Median over ``reps`` runs of the mean time per call of ``iters``
-    back-to-back calls, between two CUDA events."""
+    back-to-back calls, between two CUDA events (an Ms)."""
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    before = dict(ktile.SELECT_LAUNCHES)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -422,7 +438,95 @@ def timed_ms(fn, warmup=3, iters=10, reps=7):
         b.record()
         b.synchronize()
         runs.append(a.elapsed_time(b) / iters)
-    return statistics.median(runs)
+    out = Ms(statistics.median(runs))
+    out.select = "+".join(r for r, n in ktile.SELECT_LAUNCHES.items() if n != before[r]) or None
+    return out
+
+
+def library_time(label, fn, smi):
+    """The time of a library yardstick (a composite of PyTorch calls that
+    computes what a kernel computes; the port never calls it), or None where
+    this torch refuses it (torch._int_mm wants shapes it may not take)."""
+    try:
+        t = timed_ms(fn)
+    except RuntimeError as e:
+        say("library", f"{label}: not timed ({e})")
+        return None
+    say("library", f"{label}: {t:.4f} ms per {Q}-query batch on {smi}")
+    return t
+
+
+def sq_composite(qcodes, qoff, codes, voff, mult, k, corr=None):
+    """The library composite of an exact SQ search over ``codes``' rows: one
+    cuBLAS int8 GEMM (torch._int_mm), the affine epilogue (and the
+    residual-IVF corr, [Q, rows]) and torch.topk."""
+    m = torch.as_tensor(mult, dtype=torch.float32, device=qcodes.device).reshape(-1, 1)
+
+    def run():
+        acc = torch._int_mm(qcodes, codes.t())
+        s = m * acc.to(torch.float32) + qoff[:, None] + voff[None, :]
+        return torch.topk(s if corr is None else s + corr, k, dim=1)
+
+    return run
+
+
+def sign_composite(qpm, cpm, sign, k):
+    """The library composite of an exact sign-query BQ search: torch._int_mm
+    of the +-1 int8 signs (K6's yardstick: the rows expanded once, outside
+    the timed call), times the sign, as f32, and torch.topk."""
+    def run():
+        acc = torch._int_mm(qpm, cpm.t())
+        return torch.topk((acc if sign > 0 else acc.neg_()).float(), k, dim=1)
+
+    return run
+
+
+PROBE = "quantization_tpu_torch/csrc/probe/select_split.cu"
+_probe = {}
+
+
+def start_select_probe(nvcc):
+    """Starts building the scan / select probe (csrc/probe/select_split.cu),
+    beside the library's build."""
+    exe = os.path.join("quantization_tpu_torch", "_build", "select_split")
+    os.makedirs(os.path.dirname(exe), exist_ok=True)
+    _probe["exe"] = exe
+    _probe["proc"] = subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-o", exe,
+         PROBE], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def select_probe():
+    """The probe's lines, run once: the scans of K1 and K5c without their
+    select, in each route's geometry ({(kernel, route): scan ms}), and the
+    exact kernels' blocks a SM."""
+    if "out" not in _probe:
+        proc = _probe["proc"]
+        out, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"the select probe builds: {out[-2000:]}")
+        run = subprocess.run([_probe["exe"]], capture_output=True, text=True, timeout=300)
+        require(run.returncode == 0, f"the select probe runs: {run.stderr[-2000:]}")
+        _probe["out"] = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+        for line in _probe["out"]:
+            if line["probe"] == "occupancy":
+                say("select", f"{line['kernel']} kk={line['kk']}: {line['smem']} bytes of "
+                    f"shared memory, {line['blocks_per_sm']} blocks a SM")
+                if line["kernel"] == "search_queue_kernel":
+                    require(line["blocks_per_sm"] == 2, "the queue select holds two blocks a SM")
+    return {(ln["kernel"], ln["route"]): ln["scan_ms"] for ln in _probe["out"]
+            if ln["probe"] == "select_split"}
+
+
+def say_select_split(kname, label, kernel_ms, smi):
+    """A kernel's time split by the probe into its scan and its select."""
+    split = select_probe()
+    route = kernel_ms.select
+    scan = split[(kname, route)]
+    say("select", f"{label} ({route} select): kernel {kernel_ms:.4f} ms = scan {scan:.4f} ms "
+        f"(csrc/probe/select_split.cu, the same geometry) + select {kernel_ms - scan:.4f} ms; "
+        f"the other geometry's scan: " + ", ".join(
+            f"{r} {t:.4f} ms" for (k, r), t in sorted(split.items()) if k == kname and r != route)
+        + f"; on {smi}")
 
 
 def graph_ms(fn, iters=20, reps=7):
@@ -830,6 +934,15 @@ def sq_path(dev, smi, do_profile):
             "K3's scores")
     except RuntimeError as e:  # a yardstick only: the port never calls it
         say("library", f"torch._int_mm not timed: {e}")
+    # K1 / K2's: the same and torch.topk, over the valid rows (the exact
+    # top-k; K2's approx has no library form).
+    composite = sq_composite(eq.codes, eq.offsets, enc.codes[:N], enc.voffsets[:N], enc._mult,
+                             K)
+    lib_ms["sq_search_exact"] = lib_ms["sq_search_approx"] = library_time(
+        f"torch._int_mm + epilogue + torch.topk (k={K}), K1 / K2's yardstick", composite, smi)
+    if lib_ms["sq_search_exact"] is not None:
+        same = torch.equal(composite()[0], sq_kernel.sq_search(*args, k=K, **kw)[0])
+        say("library", f"its values {'equal' if same else 'differ from'} K1's")
     f32_ms = timed_ms(lambda: torch.topk(queries_dev @ data_dev.T, K, dim=1))
     for kname in ms:
         extra = f", library {lib_ms[kname]:.4f} ms" if lib_ms[kname] else ""
@@ -839,6 +952,8 @@ def sq_path(dev, smi, do_profile):
         f"on {smi}")
     say("time", f"at Q={Q_SMALL}: " + ", ".join(f"{n_} {t:.4f} ms" for n_, t in small_ms.items())
         + f" per batch at N={N} D={D} on {smi}")
+    say_select_split("sq_search_exact", f"K1 at N={N} D={D}, k={K}", ms["sq_search_exact"],
+                     smi)
     if do_profile:
         profile("SQ top_k exact", lambda: enc.top_k(eq, K))
         profile("SQ top_k approx", lambda: enc.top_k(eq, K, method="approx"))
@@ -1098,9 +1213,18 @@ def bq_path(dev, smi, do_profile):
     if lib_bq:
         say("time", f"bq_scores: kernel {ms['bq_scores']:.4f} ms against torch._int_mm "
             f"{lib_bq:.4f} ms ({lib_bq / ms['bq_scores']:.2f}x the kernel's time) on {smi}")
+    say_select_split("bq_search_exact", f"K5c at N={BN} dim={BD}, k={R}", ms["bq_search_exact"],
+                     smi)
+    # K5c / K5a's yardstick: K6's and torch.topk (K5a's approx has no library form).
+    lib = {"bq_scores": lib_bq}
+    if lib_bq is not None:
+        cpm, qpm = pm1_rows(planes[:, :BN].t(), BD), pm1_rows(qw, BD)
+        lib["bq_search_exact"] = lib["bq_search_approx"] = library_time(
+            f"torch._int_mm of the +-1 signs + torch.topk (k={R}), K5c / K5a's yardstick",
+            sign_composite(qpm, cpm, sign, R), smi)
+        del cpm, qpm
     recs = [dict(name=n, launches=launches[n], max_abs_err=err[n], ms=ms[n],
-                 plain_ms=pms[n], bound=bounds[n],
-                 library_ms=lib_bq if n == "bq_scores" else None) for n in ms]
+                 plain_ms=pms[n], bound=bounds[n], library_ms=lib.get(n)) for n in ms]
     return recs, {"f32_ms": f32_ms, "recall": rec, "batch_ms": batch_ms,
                   "bq_scores_pm1_expand_ms": expand_ms, "score_batch_ms": score_batch_ms,
                   "ties_at_r": tied,
@@ -1880,14 +2004,28 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
             what = f"{'K9b' if mode == 'exact' else 'K9a'} {name}"
             if mode == "exact":
                 check_exact_pairs(v, i, pv, scores, col, what)
+                # The radix select (kk past ktile.QUEUE_K_MAX) over the same tiles.
+                kw6 = dict(kw, k=600)
+                v6, i6 = sq_kernel.sq_search_indexed(*args, **kw6)
+                p6, _ = sq_kernel.sq_search_indexed_plain(*args, **kw6)
+                torch.cuda.synchronize()
+                check_exact_pairs(v6, i6, p6, scores, col, f"{what} k=600")
             else:
                 require(torch.equal(v, pv) and torch.equal(i, pi), f"{what}: equal plain")
             if with_corr:  # the path's shape: the residual index's scan
+                if mode == "exact":  # K9a / K9b's yardstick: the selected rows, gathered once
+                    lib9 = library_time(
+                        f"torch._int_mm + epilogue + corr + torch.topk (k={kk2}) over the "
+                        f"{rows.shape[0]} selected rows, K9a / K9b's yardstick",
+                        sq_composite(qcodes, qoff, codes[rows], voff[rows], mult, kk2,
+                                     ktile.expand_corr(corr, selection=True)), smi)
                 record(kname, 0.0, lambda a=args, k=kw: sq_kernel.sq_search_indexed(*a, **k),
                        lambda a=args, k=kw: sq_kernel.sq_search_indexed_plain(*a, **k),
-                       sq_bound(rows.shape[0], codes.shape[1], corr.shape[0], tiles.shape[0]))
-        say("K9", f"{name}: K9b / K9a over {tiles.shape[0]} permuted tiles of {s} rows"
-            f"{' with corr' if with_corr else ''}: equal to plain")
+                       sq_bound(rows.shape[0], codes.shape[1], corr.shape[0], tiles.shape[0]),
+                       lib9)
+        say("K9", f"{name}: K9b (k={kk2}, queue select; k=600, radix select) / K9a over "
+            f"{tiles.shape[0]} permuted tiles of {s} rows{' with corr' if with_corr else ''}: "
+            "equal to plain")
         if with_corr:  # K1 / K2 with corr: the compact scan of the same union
             nb = ivf.metadata.nbuckets
             width = union.shape[0] * s
@@ -1932,9 +2070,15 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     rows = tiles.shape[0] * itile
     bnd, i8 = bq_bound(rows * wt * 4 + Q * wt * 4 + tiles.shape[0] * 4 + Q * kk2 * 8, Q,
                        rows, PD)
+    sel_rows = ktile.tile_rows(tiles, itile)
+    lib10 = library_time(
+        f"torch._int_mm of the +-1 signs + torch.topk (k={kk2}) over the {rows} selected "
+        "rows, K10's yardstick",
+        sign_composite(pm1_rows(qw, PD), pm1_rows(planes[:, sel_rows].t(), PD),
+                       bq_kernel.metric_sign(DistanceType.DOT, False), kk2), smi)
     record("bq_search_indexed", 0.0,
            lambda: bq_kernel.bq_search_indexed(qw, planes, tiles, **kw),
-           lambda: bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw), bnd)
+           lambda: bq_kernel.bq_search_indexed_plain(qw, planes, tiles, **kw), bnd, lib10)
     say("bound", f"bq_search_indexed: as +-1 int8 multiply-adds at 1,979 TOPS {i8:.4f} ms")
     g = ivf_mod._gather_buckets(planes, union, nb, s, 1)
     g = torch.nn.functional.pad(g, (0, (-g.shape[1]) % bq_kernel.TILE_N)).contiguous()
@@ -2377,9 +2521,15 @@ def rbq_path(dev, smi, do_profile):
                                  dim=PD, rowadd=ra)[:, :width]
     torch.cuda.synchronize()
     check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K5b compact")
+    kw6 = dict(kw_c, k=600)  # the radix select, past ktile.QUEUE_K_MAX
+    v, i = bq_kernel.bq_search(None, g, corr_c, mode="exact", **kw6)
+    pv, _ = bq_kernel.bq_search_plain(None, g, corr_c, mode="exact", **kw6)
+    torch.cuda.synchronize()
+    check_exact_pairs(v, i, pv, sc, torch.arange(width, device=dev), "K5b compact k=600")
     del sc
     say("K10/K5a/K5b", f"value query + rowadd + corr: K10 over {tiles.shape[0]} permuted "
-        f"tiles of {itile} rows, K5a and K5b over the compact {width}-row union: equal to plain")
+        f"tiles of {itile} rows, K5a and K5b (k={kk2}, queue select; k=600, radix select) "
+        f"over the compact {width}-row union: equal to plain")
 
     recs = []
     rows_b = planes.shape[0] * 4  # plane bytes per row
@@ -4209,32 +4359,37 @@ def sass_functions(build):
 
 def tensor_core_bodies(funcs):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
-    shared scan body (the scores_kernel, approx_parts_kernel and
-    search_exact_kernel instantiations: K3, the SQ and BQ searches, and the
-    one-hot route of 4-bit int8-LUT PQ: K8, K7a / K11, K7b), in the bf16
-    one-hot K8 (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ
-    sign-query kernels (K6's bq_sign_scores_kernel, bq_sign_exact_kernel,
-    bq_sign_approx_kernel: single-bit BGMMA); every one must have some."""
+    shared scan body (the scores_kernel, approx_parts_kernel,
+    search_queue_kernel and search_exact_kernel instantiations: K3, the SQ
+    and BQ searches on both exact selects, and the one-hot route of 4-bit
+    int8-LUT PQ: K8, K7a / K11, K7b), in the bf16 one-hot K8
+    (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ sign-query kernels
+    (K6's bq_sign_scores_kernel, K5c's bq_sign_queue_kernel and
+    bq_sign_exact_kernel, bq_sign_approx_kernel: single-bit BGMMA); every
+    one must have some."""
     import re
 
     found = {}
     for name, part in funcs.items():
-        m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel)"
-                      r"INS_\d+(CodeRows|PlaneRows|NibbleRows)", name)
+        m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel|"
+                      r"search_queue_kernel)INS_\d+(CodeRows|PlaneRows|NibbleRows)", name)
         if m:
             key = f"{m.group(1)}<{m.group(2)}>"
             found[key] = found.get(key, 0) + part.count("GMMA")
         elif re.search(r"\dpq4_bf16_scores_kernel", name):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
-        elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_approx_kernel|"
-                            r"bq_sign_scores_kernel)", name):
+        elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_queue_kernel|"
+                            r"bq_sign_approx_kernel|bq_sign_scores_kernel)", name):
             found[m.group(1)] = part.count("BGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
+                           "search_queue_kernel<CodeRows>", "search_queue_kernel<PlaneRows>",
+                           "search_queue_kernel<NibbleRows>",
                            "pq4_bf16_scores_kernel", "bq_sign_exact_kernel",
-                           "bq_sign_approx_kernel", "bq_sign_scores_kernel"},
+                           "bq_sign_queue_kernel", "bq_sign_approx_kernel",
+                           "bq_sign_scores_kernel"},
             f"the tensor-core entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found
@@ -4359,6 +4514,7 @@ def main():
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
+    start_select_probe(build.find_nvcc())
     build.load_library()
     info = build.BUILD_INFO or {"seconds": 0.0, "log": "(already built)"}
     say("build", f"ok in {time.perf_counter() - t0:.1f} s (nvcc, one process per source: "
@@ -4413,6 +4569,7 @@ def main():
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
+            **({"select": r["ms"].select} if getattr(r["ms"], "select", None) else {}),
         })
     for kr in kernels:
         say("bound", f"{kr['name']}: {kr['ms']:.4f} ms against a bound of "

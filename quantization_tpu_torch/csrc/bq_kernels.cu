@@ -47,13 +47,16 @@
 // (approx_parts_kernel: 64 queries a block, two blocks a SM, running maxima
 // per stride class over APPROX_PART-row parts, the JAX approx geometry, so
 // their candidates are the plain approx's to the bit), the maxima kept on
-// the row's integer term, the query's added once at the end. K5c keeps the
-// select geometry of the popcount kernel it replaced (32 queries a block, 4
-// a warp, two blocks a SM; SignExactTile) over 512-row splits of exact
-// per-split top-k in shared memory (ktile.cuh). K6 is persistent, two
-// blocks a SM, each holding a 128-query tile and its popcounts and walking
-// 128-row segments; a segment's [128 x 128] f32 scores leave in two halves
-// by cp.async.bulk stores (bq_sign_scores_kernel, below).
+// the row's integer term, the query's added once at the end. K5c selects
+// by kk (ktile.cuh): up to 64 on the queue select, 64 queries a block
+// (K5a's query tile, SignQueueTile) over ranges of several 512-row splits,
+// two blocks a SM; above it on the radix select in the geometry of the
+// popcount kernel it replaced (32 queries a block, 4 a warp, two blocks a
+// SM; SignExactTile), each 512-row split's keys in shared memory. K6 is
+// persistent, two blocks a SM, each holding a 128-query tile and its
+// popcounts and walking 128-row segments; a segment's [128 x 128] f32
+// scores leave in two halves by cp.async.bulk stores (bq_sign_scores_kernel,
+// below).
 //
 // What bounds them on the H100 at the main path's 1,000,000 x 1536 bits, Q =
 // 256: 192 MB of planes, 57 us at 3.35 TB/s; 3.9e11 bit products, which the
@@ -62,9 +65,11 @@
 // 51 us; so bytes, where the +-1 int8 route of the TPU design counts 0.40 ms
 // of int8 operations. The kernels run far above that floor: a 128-row
 // segment's depth is 1.5 chunks, so the ring barely fills and each segment
-// pays its barriers, its query copies and its epilogue; the radix select
-// takes most of K5c's time. Same card (scan_ab.py in turns; PERF.md): K5a
-// 0.80, K5c 3.37, K10 over 262,144 rows of 768 dims 0.25 ms, where the
+// pays its barriers, its query copies and its epilogue; the select takes
+// half of K5c's time (its scan alone 0.4887 ms, the kernel 1.1491 on random
+// planes, csrc/probe/select_split.cu). Same card (scan_ab.py in turns;
+// PERF.md): K5a 0.80, K5c 3.37 on the radix select and 1.25 on the queue,
+// K10 over 262,144 rows of 768 dims 0.25 ms, where the
 // popcount body these replaced (one __popc(q ^ c) per word, query and row on
 // the CUDA cores, ~3 ms of popc issue) ran 3.79, 6.12 and 0.62, and the +-1
 // int8 route on PlaneRows runs 1.75 and 5.98. Also measured: K5c in the exact
@@ -96,8 +101,8 @@
 // of SPAN * mxu_tile_n dense, SPAN * tile_n indexed), so their candidates are
 // the BQ plain versions'. Bound: 2 * Q * rows * dims int8 operations at
 // 1,979 TOPS (0.05 ms for 256 queries over 262,144 rows of 768 dims, 0.25 ms
-// over the serving plan's 1,255,424); K5a / K10 run about 10 times that, K5b's
-// radix select several times more (PERF.md).
+// over the serving plan's 1,255,424); K5a / K10 run about 10 times that, K5b
+// more (its select; PERF.md).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -141,21 +146,23 @@ constexpr size_t hamming_bytes() {
   return sizeof(int) * (T::TQ + 2 * kSeg);
 }
 
-// K5c's tile: 32 queries a block (n32 products), a ring of two chunks, two
-// blocks a SM, so 16 warps a SM select, 4 queries each, while the other
-// block scans; the popcount kernel it replaced selected in this geometry.
-// The exact body's (64 queries, 8 a warp, one block a SM) selected slower:
-// 4.77 against 3.39 ms at 1M x 1536, 1.21 against 0.80 ms over 262,144 x
-// 768 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md).
+// K5c's tile on the radix select (kk > 64): 32 queries a block (n32
+// products), a ring of two chunks, two blocks a SM, so 16 warps a SM
+// select, 4 queries each, while the other block scans; the popcount kernel
+// it replaced selected in this geometry. The exact body's (64 queries, 8 a
+// warp, one block a SM) radix-selected slower: 4.77 against 3.39 ms at 1M x
+// 1536, 1.21 against 0.80 ms over 262,144 x 768 (NVIDIA H100 80GB HBM3,
+// 700 W, scan_ab.py; PERF.md).
 using SignExactTile = Tile<32, 2, 2>;
 
-// K5c. grid nsplit * ceil(Q / 32), the query tiles of a split neighbours in
-// launch order. Block (s, t) scores rows [s*split, s*split + split) of its 32
-// queries into shared memory as ordered keys, then each warp selects the
-// exact top-kk of its 4 queries among the split's rows < n_valid and writes
-// them, unordered, to cand_v / cand_i [Q, nsplit*kk] at columns s*kk ..
-// s*kk+kk-1 (NEG / -1 past the valid rows). The warps' histograms take the
-// ring's memory once the scan is done.
+// K5c on the radix select. grid nsplit * ceil(Q / 32), the query tiles of a
+// split neighbours in launch order. Block (s, t) scores rows [s*split,
+// s*split + split) of its 32 queries into shared memory as ordered keys,
+// then each warp selects the exact top-kk of its 4 queries among the
+// split's rows < n_valid and writes them, unordered, to cand_v / cand_i
+// [Q, nsplit*kk] at columns s*kk .. s*kk+kk-1 (NEG / -1 past the valid
+// rows). The warps' histograms take the ring's memory once the scan is
+// done.
 __global__ void __launch_bounds__(kThreads, SignExactTile::kBlocks) bq_sign_exact_kernel(
     const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
     float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int W, long long npad,
@@ -197,6 +204,65 @@ __global__ void __launch_bounds__(kThreads, SignExactTile::kBlocks) bq_sign_exac
     if (q >= Q) break;
     const long long o = (long long)q * width + (long long)split_id * kk;
     warp_select_topk(keys + j * ks, cnt, kk, start, cand_v + o, cand_i + o, hist);
+  }
+}
+
+// K5c on the queue route (kk <= kQueueK; ktile.cuh QueueSelect): 64
+// queries a block (n64 products, K5a's query tile) and a ring of two chunks,
+// two blocks a SM; grid nblk * ceil(Q / 64) over ranges of `split` rows (a
+// multiple of 128; the wrapper's one wave of two blocks a SM, ktile.py
+// exact_geometry), each block walking its range a segment at a time with
+// one queue a query, the owner warps 8 queries each. The queues leave
+// sorted, NEG / -1 past the valid rows, at columns s*kk .. s*kk+kk-1 of
+// cand_v / cand_i [Q, nblk*kk]. The 32-query tile, which the radix select
+// needed, ran 1.4381-1.4573 ms against this one's 1.2692 at 1M x 1536, k =
+// 40, and 0.3711-0.3813 against 0.4054 over 262,144 x 768, k = 20 (NVIDIA
+// H100 80GB HBM3, 700 W, scan_ab.py; PERF.md).
+using SignQueueTile = Tile<64, 2, 2>;
+
+__global__ void __launch_bounds__(kThreads, SignQueueTile::kBlocks) bq_sign_queue_kernel(
+    const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
+    float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int W, long long npad,
+    int n_valid, int dim, int sign, int split, int kk) {
+  using T = SignQueueTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  int* qo = reinterpret_cast<int*>(smem + T::kBytes);
+  int* pc = qo + TQ;
+  static_assert(T::kBytes >= TQ * kKeyStride * sizeof(unsigned), "the keys in the ring");
+  QueueSelect<TQ> qs;
+  qs.init(reinterpret_cast<uint8_t*>(pc + 2 * kSeg), smem, kk);
+  const int nqt = (Q + TQ - 1) / TQ, nblk = (int)((npad + split - 1) / split);
+  const int blk = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)blk * split;
+  const long long end = min((long long)n_valid, start + split);
+  load_hamming_q<TQ>(qo, qwords, q0, Q, W, dim, sign);
+  const BitRows rows{planes, npad, W, pc};
+  const int8_t* qbytes = reinterpret_cast<const int8_t*>(qwords);
+
+  for (long long off = start; off < end; off += kSeg) {
+    int acc[1][T::kAcc];
+    mma_segment<T>(rows, qbytes, q0, Q, off, 4 * W, smem_addr(smem), acc);
+    unsigned key[T::kAcc];
+#pragma unroll
+    for (int e = 0; e < T::kAcc; ++e) {
+      const int r = frag_row(e);
+      key[e] = off + r < end ? float_to_key(hamming_score(qo[frag_col(e)], pc[r] + pc[kSeg + r],
+                                                          acc[0][e], sign))
+                             : 0u;
+    }
+    queue_segment<TQ, T::kAcc>(qs, key, off, min(TQ, Q - q0));
+  }
+  __syncthreads();  // the queues, also where the block had no valid row
+
+  const long long width = (long long)nblk * kk;
+  const ScanMap dense{nullptr, 0, nullptr, 0, 0};
+  for (int j = threadIdx.x >> 5; j < TQ; j += kThreads / 32) {
+    const int q = q0 + j;
+    if (q >= Q) break;
+    const long long o = (long long)q * width + (long long)blk * kk;
+    qs.write(j, cand_v + o, cand_i + o, dense);
   }
 }
 
@@ -387,14 +453,28 @@ int qtt_bq_search_exact(const void* qwords, const void* planes, void* cand_v,
                         int sign, int split, int kk, void* stream) {
   using T = SignExactTile;
   static_assert(T::kBytes >= sizeof(unsigned) * 256 * (kThreads / 32), "hist in the ring");
-  if (split % kSeg) return static_cast<int>(cudaErrorInvalidValue);
+  if (split % kSeg || kk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nblk = (npad + split - 1) / split;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kk <= kQueueK) {
+    using U = SignQueueTile;
+    const unsigned grid = (unsigned)(nblk * ((Q + U::TQ - 1) / U::TQ));
+    const size_t smem = kAlign + U::kBytes + hamming_bytes<U>() + QueueSelect<U::TQ>::bytes(kk);
+    const cudaError_t err = queue_smem(bq_sign_queue_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bq_sign_queue_kernel<<<grid, kThreads, smem, s>>>(
+        static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
+        static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, W8, npad, n_valid, dim,
+        sign, split, kk);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const unsigned grid = (unsigned)(nblk * ((Q + T::TQ - 1) / T::TQ));
   const size_t smem = kAlign + T::kBytes + hamming_bytes<T>() +
                       sizeof(unsigned) * (size_t)T::TQ * (split + kKeyPad);
   cudaError_t err = cudaFuncSetAttribute(
       bq_sign_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = (unsigned)((npad + split - 1) / split) * ((Q + T::TQ - 1) / T::TQ);
-  bq_sign_exact_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  bq_sign_exact_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
       static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, W8, npad, n_valid, dim,
       sign, split, kk);

@@ -83,16 +83,25 @@
 //     maxima and their segment numbers as bytes (8 registers), turned into
 //     corpus rows once at the end. One block per SM, without the spills,
 //     ran slower.
-//   * exact (K1, K9b, K5b; K7b 4-bit int8): TQ = 64, the 72 KB ring plus
-//     the split's keys [64][split + 4] u32 (132 KB at split 512; the 4-word
-//     pad spreads the fragment's writes over every bank) and 8 KB of
-//     histograms: one block per SM; 112 / 102 / 100 (NibbleRows) registers,
-//     no spills. Each warp then radix-selects
-//     8 queries (ktile.cuh), which takes most of the kernel's time.
+//   * exact (K1, K9b, K5b; K7b 4-bit int8), two selects by kk (ktile.cuh):
+//     - the queue select, kk <= 64 (search_queue_kernel): TQ = 64, the 72 KB
+//       ring (each segment's [64][132] u32 key tile passes through it) and
+//       the queues, 64 x (8 kk + 4) bytes: two blocks per SM, each walking
+//       a range of several 512-row splits; 128 registers, 36 / 40-44 / 56-76
+//       bytes of spill stores / loads (CodeRows / PlaneRows / NibbleRows).
+//       The owner warps' select still keeps the scan waiting: K1's scan
+//       alone in this geometry takes 0.0722 ms, the kernel 0.1975
+//       (csrc/probe/select_split.cu; NVIDIA H100 80GB HBM3, 700 W).
+//     - the radix select, kk > 64 (search_exact_kernel): TQ = 64, the ring
+//       plus the split's keys [64][split + 4] u32 (132 KB at split 512; the
+//       4-word pad spreads the fragment's writes over every bank) and 8 KB
+//       of histograms: one block per SM; 112 / 102 / 100 (NibbleRows)
+//       registers, no spills; each warp radix-selects 8 queries.
 //   * the BQ sign searches (BitRows, bq_kernels.cu): K5a / K10 the approx
-//     tile, 128 registers, no spills; K5c a tile of its own, 32 queries
-//     (n32 products) and a ring of two chunks beside the [32][516] keys, two
-//     blocks a SM, 104 registers, no spills.
+//     tile, 128 registers, no spills; K5c on the queue select 64 queries and
+//     a ring of two chunks, two blocks a SM, 100 registers, no spills; on
+//     the radix select 32 queries (n32 products) beside the [32][516] keys,
+//     two blocks a SM, 104 registers, no spills.
 // Also measured and dropped (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py): a
 // fourth ring stage with one product group left in flight across the next
 // chunk's barrier, for the approx body and for K3 (no gain, PlaneRows and
@@ -106,8 +115,8 @@
 // times (2 / 4 passes at Q = 256, the later ones from L2 where the tiles run
 // together). A segment's products take about 40 % of the tensor-core rate
 // per chunk; the per-segment epilogue, the searches' selection (the exact
-// body's radix select, the approx merge's torch.topk) and K3's output write
-// take the rest. The replaced body, a __dp4a 4 x 4 register tile over 32
+// body's queue or radix select, the approx merge's torch.topk) and K3's
+// output write take the rest. The replaced body, a __dp4a 4 x 4 register tile over 32
 // queries, was bound by instruction issue at 3-5 % of the int8 tensor-core
 // bound: K3 0.51, K2 0.64, K1 0.75 ms at 100k x 1024, Q = 256, and the
 // value-query K10 1.22 ms over 262,144 x 768 rows and 5.49 ms over the
@@ -341,6 +350,34 @@ __device__ __forceinline__ int frag_row(int e) {
 }
 __device__ __forceinline__ int frag_col(int e) {
   return (e >> 2) * 8 + (threadIdx.x & 3) * 2 + (e & 1);
+}
+
+// One segment of the queue select (ktile.cuh QueueSelect's protocol),
+// called by every thread of the block once the segment's products are
+// done: key[e] is the order key of the thread's accumulator e (0: not a
+// candidate), at segment row frag_row(e) and query frag_col(e); the
+// segment's first compact row is row0 (rows in increasing order); nq the
+// block's queries below Q.
+template <int TQ, int kAcc>
+__device__ __forceinline__ void queue_segment(QueueSelect<TQ>& qs, const unsigned (&key)[kAcc],
+                                              long long row0, int nq) {
+  __syncthreads();  // every warpgroup's products are done: the ring is free
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) qs.keys[frag_col(e) * kKeyStride + frag_row(e)] = key[e];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < nq; j += kThreads / 32) {
+    const uint4 k4 = *reinterpret_cast<const uint4*>(qs.keys + j * kKeyStride + 4 * lane);
+    const unsigned k[4] = {k4.x, k4.y, k4.z, k4.w};
+    const unsigned t = qs.thr[j];
+    const unsigned pass = (unsigned)(k[0] > t) | (unsigned)(k[1] > t) << 1 |
+                          (unsigned)(k[2] > t) << 2 | (unsigned)(k[3] > t) << 3;
+    if (__any_sync(0xffffffffu, pass != 0)) {
+      const unsigned nt =
+          queue_take(qs.queue + j * qs.kk, qs.keys + j * kKeyStride, k, pass, row0, qs.kk);
+      if (lane == 0) qs.thr[j] = nt;
+    }
+  }
 }
 
 // ------------------------------------------------------------ row sources
@@ -738,15 +775,18 @@ __global__ void __launch_bounds__(kThreads, ScoresTile::kBlocks) scores_kernel(
 }
 
 // ----------------------------------------------------------- exact search
-// grid nsplit * ceil(Q / 64), nsplit = ceil(ncomp / split), the query tiles
-// of a split neighbours in launch order. Block (s, t) scores
-// compact rows [s*split, s*split + split) of its 64 queries into shared
-// memory as ordered keys, then each warp selects the exact top-kk of its 8
-// queries among the split's valid rows (compact rows < n_valid) by a 4-pass
-// radix select, and writes them, unordered, with their corpus rows, to
-// cand_v / cand_i [Q, nsplit*kk] at columns s*kk .. s*kk+kk-1. Slots beyond
-// the split's valid rows hold NEG / -1. A split lies in one selected tile
-// (split divides tile_n), so its corpus rows are consecutive.
+// Two selects, chosen by kk alone (ktile.cuh): the queue for kk <= kQueueK,
+// the radix select above it. Both write cand_v / cand_i [Q, nblk*kk], block
+// (b, t)'s exact top-min(kk, rows) of compact rows [b*split, b*split +
+// split) below n_valid at columns b*kk .. b*kk+kk-1, NEG / -1 in the slots
+// past its valid rows; grid nblk * ceil(Q / 64), nblk = ceil(ncomp / split),
+// the query tiles of a range neighbours in launch order.
+//
+// The radix route (search_exact_kernel): split = 512. The block scores its
+// split's 64 queries into shared memory as ordered keys, then each warp
+// selects the top-kk of its 8 queries by a 4-pass radix select and writes
+// them, unordered, with their corpus rows. A split lies in one selected
+// tile (split divides tile_n), so its corpus rows are consecutive.
 template <class Rows, bool kOnce>
 __global__ void __launch_bounds__(kThreads, ExactTile::kBlocks) search_exact_kernel(
     const typename Rows::Elem* __restrict__ base, long long stride,
@@ -793,6 +833,65 @@ __global__ void __launch_bounds__(kThreads, ExactTile::kBlocks) search_exact_ker
     const long long o = (long long)q * width + (long long)split_id * kk;
     warp_select_topk(keys + j * ks, cnt, kk, row0, cand_v + o, cand_i + o,
                      hist_all + warp * 256);
+  }
+}
+
+// The queue route (search_queue_kernel): split is any multiple of 128, the
+// wrapper's range of whole 512-row splits that makes one wave of two blocks
+// a SM (ktile.py exact_geometry). The block walks its range a 128-row
+// segment at a time with one QueueSelect (ktile.cuh): the epilogue offers
+// each valid score above its query's threshold, the owner warps (8 queries
+// each) merge, and the queues leave sorted. Each segment lies in one
+// selected tile (tile_n is a multiple of 128), its corpus rows from
+// ScanMap::row; ties go to the lower compact row.
+using ExactQueueTile = Tile<64, 3, 2>;
+
+template <class Rows, bool kOnce>
+__global__ void __launch_bounds__(kThreads, ExactQueueTile::kBlocks) search_queue_kernel(
+    const typename Rows::Elem* __restrict__ base, long long stride,
+    const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
+    const float* __restrict__ mult, const float* __restrict__ voff,
+    float* __restrict__ cand_v, int* __restrict__ cand_i, int Q, int ncomp, int n_valid,
+    int D, int split, int kk, int mstride, ScanMap map) {
+  using T = ExactQueueTile;
+  constexpr int TQ = T::TQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  using P = typename QParam<kOnce>::T;
+  P* qm = reinterpret_cast<P*>(smem + T::kBytes);
+  P* qo = qm + TQ;
+  static_assert(T::kBytes >= TQ * kKeyStride * sizeof(unsigned), "the keys in the ring");
+  QueueSelect<TQ> qs;
+  qs.init(reinterpret_cast<uint8_t*>(qo + TQ), smem, kk);
+  const int nqt = (Q + TQ - 1) / TQ, nblk = (ncomp + split - 1) / split;
+  const int blk = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)blk * split;
+  const long long end = min(min((long long)ncomp, (long long)n_valid), start + split);
+  load_qparams<TQ>(qm, qo, mult, qoff, q0, Q, mstride);
+
+  for (long long off = start; off < end; off += kSeg) {
+    int acc[1][32];
+    const long long seg0 = map.row(off);
+    mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, seg0, D, smem_addr(smem), acc);
+    unsigned key[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = frag_col(e), r = frag_row(e);
+      key[e] = off + r < end ? float_to_key(map.add_corr(
+                                   epilogue_q<kOnce>(qm[j], acc[0][e], qo[j], voff, seg0 + r),
+                                   min(q0 + j, Q - 1), off + r))
+                             : 0u;
+    }
+    queue_segment<TQ, 32>(qs, key, off, min(TQ, Q - q0));
+  }
+  __syncthreads();  // the queues, also where the block had no valid row
+
+  const long long width = (long long)nblk * kk;
+  for (int j = threadIdx.x >> 5; j < TQ; j += kThreads / 32) {
+    const int q = q0 + j;
+    if (q >= Q) break;
+    const long long o = (long long)q * width + (long long)blk * kk;
+    qs.write(j, cand_v + o, cand_i + o, map);
   }
 }
 
@@ -890,18 +989,32 @@ cudaError_t launch_search_exact(const void* base, long long stride, const void* 
                                 void* cand_i, int Q, int ncomp, int n_valid, int D,
                                 int split, int kk, int mstride, ScanMap map,
                                 cudaStream_t s) {
-  if (split % kSeg) return cudaErrorInvalidValue;
-  const size_t smem = kAlign + ExactTile::kBytes +
-                      sizeof(typename QParam<kOnce>::T) * 2 * ExactTile::TQ +
+  static_assert(ExactTile::TQ == ExactQueueTile::TQ, "one grid for both routes");
+  if (split % kSeg || kk < 1) return cudaErrorInvalidValue;
+  using P = typename QParam<kOnce>::T;
+  // The query tiles of one range are neighbours in launch order, so they
+  // run together and read its rows once from device memory.
+  const unsigned grid =
+      (unsigned)((ncomp + split - 1) / split) * ((Q + ExactTile::TQ - 1) / ExactTile::TQ);
+  if (kk <= kQueueK) {
+    const size_t smem = kAlign + ExactQueueTile::kBytes + sizeof(P) * 2 * ExactQueueTile::TQ +
+                        QueueSelect<ExactQueueTile::TQ>::bytes(kk);
+    const cudaError_t err = queue_smem(search_queue_kernel<Rows, kOnce>, smem);
+    if (err != cudaSuccess) return err;
+    search_queue_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
+        static_cast<const typename Rows::Elem*>(base), stride,
+        static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
+        static_cast<const float*>(mult), static_cast<const float*>(voff),
+        static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, ncomp, n_valid, D, split,
+        kk, mstride, map);
+    return cudaGetLastError();
+  }
+  const size_t smem = kAlign + ExactTile::kBytes + sizeof(P) * 2 * ExactTile::TQ +
                       sizeof(unsigned) * ((size_t)ExactTile::TQ * (split + kKeyPad) + 8 * 256);
   cudaError_t err = cudaFuncSetAttribute(search_exact_kernel<Rows, kOnce>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  // The query tiles of one split are neighbours in launch order, so they
-  // run together and read its rows once from device memory.
-  const unsigned grid =
-      (unsigned)((ncomp + split - 1) / split) * ((Q + ExactTile::TQ - 1) / ExactTile::TQ);
   search_exact_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
       static_cast<const typename Rows::Elem*>(base), stride,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),

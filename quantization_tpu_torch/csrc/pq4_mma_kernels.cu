@@ -46,8 +46,9 @@
 // shared memory for coalesced row stores); K7a and K11 the approx tile over
 // parts of SPAN * tile_n rows (SPAN * TILE_N = 4096 dense: 32 segments), so
 // that each part is one span block of the JAX geometry and no combine pass
-// follows; K7b the exact tile, each 512-row split radix-selecting its
-// top-min(k, 512) (ktile.cuh), which binds it as it binds K1.
+// follows; K7b the exact tile with its two selects by kk (ktile.cuh): the
+// queue up to 64, over ranges of several 512-row splits, two blocks a SM;
+// above it each 512-row split radix-selecting its top-min(k, 512).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,8 +56,6 @@
 #include "dot_scan.cuh"
 
 namespace {
-
-constexpr int kExactSplit = 512;  // rows per exact split, as every exact search (F10)
 
 // ------------------------------------------------- K8 with the bf16 LUT
 // The JAX kernel's bf16 K8 multiplies the LUT, bf16 [Q, Mpad * 16], by the
@@ -398,7 +397,8 @@ cudaError_t launch_bf16_scores(const void* lut, const void* codes_t, void* out, 
 // of -0.0) and corr (null for none; corr_qs, corr_bs: ktile.cuh ScanMap).
 // The approx search also takes a tile selection sel [ncomp / tile_n] (null:
 // dense, ncomp = npad) and writes out_v / out_i [Q, ceil(ncomp / part) *
-// 128]; the exact search writes cand_v / cand_i [Q, npad / 512 * kk]. The
+// 128]; the exact search writes cand_v / cand_i [Q, ceil(npad / split) *
+// kk], split the rows of a block (ktile.py exact_geometry). The
 // bf16 K8 takes the bf16 LUT [Q, mpad * 16] (zero past m) and no scale,
 // bias or voff.
 
@@ -427,11 +427,11 @@ int qtt_pq4_mma_search_approx(const void* lutq, const void* scale, const void* b
 int qtt_pq4_mma_search_exact(const void* lutq, const void* scale, const void* bias,
                              const void* codes_t, const void* voff, void* cand_v,
                              void* cand_i, int Q, int mpad, long long npad, int n_valid,
-                             int kk, const void* corr, long long corr_qs, long long corr_bs,
-                             void* stream) {
+                             int split, int kk, const void* corr, long long corr_qs,
+                             long long corr_bs, void* stream) {
   return static_cast<int>(launch_search_exact<NibbleRows, true>(
       codes_t, npad, lutq, bias, scale, voff, cand_v, cand_i, Q, (int)npad, n_valid,
-      mpad * 16, kExactSplit, kk, 1, scan_map(nullptr, 0, corr, corr_qs, corr_bs),
+      mpad * 16, split, kk, 1, scan_map(nullptr, 0, corr, corr_qs, corr_bs),
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -42,9 +42,10 @@
 //     shared memory and each output row leaves as coalesced stores, with the
 //     epilogue applied on the way out;
 //   * the fused searches never write the [Q, N] score matrix: K1 selects the
-//     exact top-k of each 512-row split inside the block (radix select in
-//     shared memory, ktile.cuh), K2 keeps one running maximum per stride
-//     class in registers, and only candidates reach device memory.
+//     exact top-k of each block's rows inside the block (ktile.cuh: a
+//     threshold-filtered queue over several 512-row splits for k <= 64, a
+//     radix select of one split above), K2 keeps one running maximum per
+//     stride class in registers, and only candidates reach device memory.
 // K12 keeps a __dp4a body of its own (below): the tensor cores have no
 // absolute-difference product. Its operations bind it, not its bytes (the
 // same as K3's, 0.06 ms at 100k x 1024): 6.6e9 __vabsdiffu4 + __dp4a pairs

@@ -49,26 +49,32 @@ from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
     CORR_BLK,
+    EXACT_SPLIT,
     NEG,
+    SELECT_LAUNCHES,
     SPAN,
     approx_candidates,
     check_search,
     check_tensors,
     corr_strides,
+    exact_geometry,
     expand_corr,
     merge_candidates,
     merge_exact,
     tile_rows,
 )
-from .sq_kernel import mult_arg
+from .sq_kernel import EXACT_TQ, mult_arg
 
 # Corpus rows are padded to a multiple of this by the quantizer (the JAX
 # package's TILE_N, bq_kernel.py:50).
 TILE_N = 2048
 # Plane words are padded to a multiple of this (the 8-sublane tile).
 W_ALIGN = 8
-# Corpus rows per K5c block (csrc: one split of shared-memory keys).
-EXACT_SPLIT = 512
+# Queries per K5c block on the queue select (csrc/bq_kernels.cu
+# SignQueueTile), whose blocks cover ranges of EXACT_SPLIT rows
+# (ktile.exact_geometry); the radix select's blocks take 32 queries and one
+# split. K5b runs the int8 exact body (EXACT_TQ).
+SIGN_QUEUE_TQ = 64
 # Corpus rows per K5a pass-1 block; divides every approx span.
 APPROX_PART = 2048
 # Narrowest approx tile of the JAX package (its MXU_TILE_N); see mxu_tile_n.
@@ -262,18 +268,18 @@ def bq_search(
     dev = planes.device
     args = (q, w8, npad, n_valid, dim, metric_sign(distance_type, invert))
     if mode == "exact":
-        kk = min(k, EXACT_SPLIT)
-        width = (npad // EXACT_SPLIT) * kk
+        kk, split, width, route = exact_geometry(k, npad, q, SIGN_QUEUE_TQ)
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q:
             lib = load_library()
             err = lib.qtt_bq_search_exact(
                 qwords.data_ptr(), planes.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                *args, EXACT_SPLIT, kk, _stream(planes),
+                *args, split, kk, _stream(planes),
             )
             check(lib, err, "bq_search_exact")
             LAUNCHES["bq_search_exact"] += 1
+            SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
 
     return _launch_approx(qwords, planes, args, None, 0, npad,
@@ -311,16 +317,16 @@ def _launch_res(query_affine, planes, corr, rowadd, sel, tile_n, ncomp, n_valid,
     head = (qs.data_ptr(), qb.data_ptr(), m.data_ptr(), planes.data_ptr(), rowadd.data_ptr())
     lib = load_library()
     if mode == "exact":
-        kk = min(k, EXACT_SPLIT)
-        width = -(-ncomp // EXACT_SPLIT) * kk
+        kk, split, width, route = exact_geometry(k, ncomp, q, EXACT_TQ)
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q and ncomp:
             err = lib.qtt_bq_search_exact_res(
                 *head, vals.data_ptr(), ids.data_ptr(), q, w8, npad, ncomp, n_valid,
-                EXACT_SPLIT, kk, mstride, *scan, _stream(planes))
+                split, kk, mstride, *scan, _stream(planes))
             check(lib, err, name)
             LAUNCHES[name] += 1
+            SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
     bufs = _approx_buffers(q, ncomp, span_rows, dev)
     if q and ncomp:

@@ -189,12 +189,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "qtt_pq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, p, p, ll, ll,
                                  p, i, ll, i, p],
         # The one-hot route (4-bit codes, int8 LUT): (lutq, scale, bias,
-        # codes_t, [voff,] outputs..., Q, mpad, npad, n_valid, [kk | part,
-        # sel, tile_n, ncomp,] [corr, corr_qs, corr_bs,] stream)
+        # codes_t, [voff,] outputs..., Q, mpad, npad, n_valid, [split, kk |
+        # part, sel, tile_n, ncomp,] [corr, corr_qs, corr_bs,] stream)
         "qtt_pq4_mma_scores": [p, p, p, p, p, i, i, ll, i, p],
         "qtt_pq4_mma_search_approx": [p, p, p, p, p, p, p, i, i, ll, i, i, p, i, ll,
                                       p, ll, ll, p],
-        "qtt_pq4_mma_search_exact": [p, p, p, p, p, p, p, i, i, ll, i, i, p, ll, ll, p],
+        "qtt_pq4_mma_search_exact": [p, p, p, p, p, p, p, i, i, ll, i, i, i, p, ll, ll, p],
         # K8 with 4-bit codes and the bf16 LUT: (lut, codes_t, out, Q, mpad,
         # npad, n_valid, stream)
         "qtt_pq4_mma_scores_bf16": [p, p, p, i, i, ll, i, p],

@@ -8,10 +8,13 @@ candidates with ``torch.topk`` — outside the kernel, as the JAX package
 merges with ``lax.top_k`` outside Pallas.
 
 Exact mode needs no spill bound and no fallback: each kernel block returns
-the exact top-min(k, rows) of its corpus split, so the union of the blocks'
-candidates holds the exact top-k by construction. An empty slot
-(k > n_valid) comes back as -inf / -1, as in the JAX package
-(``merge_exact``).
+the exact top-min(k, rows) of the compact rows it covers, the lower row
+first among equal scores, so the union of the blocks' candidates holds the
+exact top-k by construction. An empty slot (k > n_valid) comes back as
+-inf / -1, as in the JAX package (``merge_exact``). The blocks' rows and
+select follow from kk alone (``exact_geometry``): up to QUEUE_K_MAX a
+threshold-filtered queue over a range of several EXACT_SPLIT-row splits,
+above it the radix select of one split.
 
 Approx mode keeps the JAX candidate geometry (one max per 128-wide stride
 class over SPAN consecutive tiles). Its final merge is exact here, where the
@@ -37,6 +40,22 @@ SLOT = 128
 # Exact fused search cap: the JAX contract (models/sq.py:362-365).
 FUSED_K_MAX = 1024
 
+# Corpus rows a block of the radix select covers, and the unit of the
+# queue select's ranges.
+EXACT_SPLIT = 512
+
+# The queue select's largest kk (csrc/ktile.cuh kQueueK); larger kk take
+# the radix select. No switch chooses between them.
+QUEUE_K_MAX = 64
+
+# Blocks of one queue-select launch: two a SM on an H100's 132 SMs, so one
+# wave fills the card. A constant, so the blocks' rows (and the ids among
+# tied scores) do not depend on the card.
+QUEUE_WAVE = 264
+
+#: Exact-search launches per select since the last reset.
+SELECT_LAUNCHES = {"queue": 0, "radix": 0}
+
 # Approx fused search cap: bounded by the merge width, not the tile.
 APPROX_K_MAX = 4096
 
@@ -47,6 +66,28 @@ SPAN = 4
 # CORR_BLK, sq_kernel.py:55): IVF buckets are CORR_BLK-aligned, so one value
 # per query and 512-row block carries the bucket term exactly.
 CORR_BLK = 512
+
+
+def select_route(k: int) -> str:
+    """The exact kernels' select for a top-``k`` search: "queue" or "radix"."""
+    return "queue" if min(k, EXACT_SPLIT) <= QUEUE_K_MAX else "radix"
+
+
+def exact_geometry(k: int, ncomp: int, q: int, tq: int) -> Tuple[int, int, int, str]:
+    """(kk, split, width, route) of an exact kernel launch over ``ncomp``
+    compact rows and ``q`` queries in tiles of ``tq``: each block covers
+    ``split`` rows and writes its top-kk, so the candidates are [q, width],
+    width = ceil(ncomp / split) * kk. The radix select takes one
+    EXACT_SPLIT; the queue select a range of whole splits, as few as give
+    QUEUE_WAVE blocks over the ceil(q / tq) query tiles."""
+    kk = min(k, EXACT_SPLIT)
+    nsplit = -(-ncomp // EXACT_SPLIT)
+    route = select_route(k)
+    split = EXACT_SPLIT
+    if route == "queue":
+        per = max(1, QUEUE_WAVE // max(1, -(-q // tq)))
+        split *= max(1, -(-nsplit // per))
+    return kk, split, -(-ncomp // split) * kk, route
 
 
 def corr_strides(corr: torch.Tensor, q: int, selection: bool):

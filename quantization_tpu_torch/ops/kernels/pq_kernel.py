@@ -75,17 +75,21 @@ from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
     CORR_BLK,
+    EXACT_SPLIT,
     NEG,
+    SELECT_LAUNCHES,
     SPAN,
     approx_candidates,
     check_search,
     check_tensors,
     corr_strides,
+    exact_geometry,
     expand_corr,
     merge_candidates,
     merge_exact,
     tile_rows,
 )
+from .sq_kernel import EXACT_TQ
 
 # Corpus rows are padded to a multiple of this, chunks to a multiple of
 # M_BLK (the JAX package's code padding, pq_kernel.py:71-73).
@@ -96,10 +100,9 @@ K4 = 16  # centroids per chunk, 4-bit codes
 GRP4 = 8  # 4-bit chunks the JAX kernel sums in one matmul (pq_kernel.py:87)
 # lo-word prescale of the bf16x2 split (a power of two: exact in bf16).
 LO_SCALE = 256.0
-# Queries per kernel block (one per lane) and corpus rows per K7b split,
-# which are the rows of one kernel tile (csrc kPTR).
+# Queries per kernel block (one per lane); the LUT-gather K7b's splits of
+# EXACT_SPLIT rows are the rows of one kernel tile (csrc kPTR).
 TQ = 32
-EXACT_SPLIT = 512
 
 PRECISIONS = ("int8", "bf16", "bf16x2")
 _KIND = {"int8": 0, "bf16": 1, "bf16x2": 2}
@@ -317,9 +320,10 @@ def onehot_voff(rowadd, npad: int, dev) -> torch.Tensor:
 
 
 def _launch_onehot(name, lut, codes_t, n_valid, outs, voff=None, res=(0, 0, 0), *, kk=0,
-                   sel=None, tile_n=0, ncomp=0, part=0):
+                   split=0, sel=None, tile_n=0, ncomp=0, part=0):
     """The one-hot route of ``name``: ``qtt_pq4_mma_scores`` (K8), ``_search_exact``
-    (K7b: voff, kk and the corr triple ``res``) or ``_search_approx`` (K7a,
+    (K7b: voff, the block rows ``split``, kk and the corr triple ``res``) or
+    ``_search_approx`` (K7a,
     and K11 with ``sel`` / ``tile_n``: voff, part, the selection and
     ``res``) on the current stream. Counts the launch in LAUNCHES and
     ONEHOT_LAUNCHES; raises on any error."""
@@ -333,7 +337,8 @@ def _launch_onehot(name, lut, codes_t, n_valid, outs, voff=None, res=(0, 0, 0), 
         fn, args = "qtt_pq4_mma_scores", [*head, outs[0].data_ptr(), *dims]
     elif name == "pq_search_exact":
         fn = "qtt_pq4_mma_search_exact"
-        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), *dims, kk, *res]
+        args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), *dims, split, kk,
+                *res]
     else:
         fn = "qtt_pq4_mma_search_approx"
         args = [*head, voff.data_ptr(), *(o.data_ptr() for o in outs), *dims, part,
@@ -494,17 +499,22 @@ def pq_search(lut, codes_t, rowadd=None, corr=None, *, n_valid, k, mode="exact",
     res = _residual_args(rowadd, corr, q, npad, npad // CORR_BLK, False, dev)
     onehot = onehot_route(lut.shape[2], precision, mode)
     if mode == "exact":
-        kk = min(k, EXACT_SPLIT)
-        width = (npad // EXACT_SPLIT) * kk
+        # The one-hot route runs the int8 body's exact select (the queue up
+        # to ktile.QUEUE_K_MAX); the LUT-gather body keeps the radix select
+        # of EXACT_SPLIT-row splits at every kk.
+        kk, split, width, route = (exact_geometry(k, npad, q, EXACT_TQ) if onehot else
+                                   (min(k, EXACT_SPLIT), EXACT_SPLIT,
+                                    npad // EXACT_SPLIT * min(k, EXACT_SPLIT), "radix"))
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q and npad:
             if onehot:
                 _launch_onehot("pq_search_exact", lut, codes_t, n_valid, (vals, ids),
-                               onehot_voff(rowadd, npad, dev), res[1:], kk=kk)
+                               onehot_voff(rowadd, npad, dev), res[1:], kk=kk, split=split)
             else:
                 _launch("pq_search_exact", lut, codes_t, precision, n_valid, (vals, ids), kk,
                         *res)
+            SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
     nblocks = -(-npad // (SPAN * TILE_N))
     vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)

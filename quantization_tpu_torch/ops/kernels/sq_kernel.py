@@ -34,12 +34,15 @@ from ..dispatch import use_kernels
 from .build import check, load_library
 from .ktile import (
     CORR_BLK,
+    EXACT_SPLIT,
     NEG,
+    SELECT_LAUNCHES,
     SPAN,
     approx_candidates,
     check_search,
     check_tensors,
     corr_strides,
+    exact_geometry,
     expand_corr,
     merge_candidates,
     merge_exact,
@@ -48,8 +51,9 @@ from .ktile import (
 
 # Corpus rows are padded to a multiple of this by the quantizer.
 TILE_N = 512
-# Corpus rows per K1 block (csrc: one split of shared-memory keys).
-EXACT_SPLIT = 512
+# Queries per block of the exact body (csrc/dot_scan.cuh ExactTile); its
+# blocks cover ranges of EXACT_SPLIT rows (ktile.exact_geometry).
+EXACT_TQ = 64
 # Corpus rows per K2 pass-1 block; divides every approx span (SPAN * tile_n).
 APPROX_PART = 2048
 # Depth of a staged code chunk in the kernels: D must be a multiple.
@@ -215,18 +219,18 @@ def _launch_search(qcodes, qoff, codes, voff, multiplier, sel, tile_n, corr, nco
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if mode == "exact":
-        kk = min(k, EXACT_SPLIT)
-        width = -(-ncomp // EXACT_SPLIT) * kk
+        kk, split, width, route = exact_geometry(k, ncomp, q, EXACT_TQ)
         vals = torch.empty((q, width), dtype=torch.float32, device=dev)
         ids = torch.empty((q, width), dtype=torch.int32, device=dev)
         if q and ncomp:
             err = lib.qtt_sq_search_exact(
                 qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(),
                 codes.data_ptr(), voff.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                q, ncomp, n_valid, d, EXACT_SPLIT, kk, mstride, *scan, stream,
+                q, ncomp, n_valid, d, split, kk, mstride, *scan, stream,
             )
             check(lib, err, name)
             LAUNCHES[name] += 1
+            SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
 
     nparts = -(-ncomp // APPROX_PART)

@@ -4,7 +4,7 @@ comparing two checkouts in turns on the same card.
 
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
-    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate
+    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -37,9 +37,12 @@ Kernel times are CUDA-event medians of 7 runs of 10 calls, in ms per
 batch. The rate section builds and runs this checkout's probes,
 quantization_tpu_torch/csrc/probe/wgmma_rate.cu (the issue rate of the
 single-bit wgmma product against the int8 one, in turns) and
-absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pair rate). Prints one JSON
-object: the card (nvidia-smi name and power limit), the package's
-directory, the times and the rates. Needs a CUDA card; the kernels are
+absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pair rate); the split
+section select_split.cu (the scans of K1 and K5c without their select, in
+each select's geometry, and the exact kernels' blocks a SM). K1 and K5c
+are also timed at k = 600, on the radix select. Prints one JSON object:
+the card (nvidia-smi name and power limit), the package's directory, the
+times, the rates and the split. Needs a CUDA card; the kernels are
 built from the checkout's sources on first use.
 """
 
@@ -98,9 +101,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory holding the quantization_tpu_torch package to time")
-    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate",
-                    help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate "
-                         "(default all)")
+    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split",
+                    help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate, "
+                         "split (default all)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -138,8 +141,9 @@ def main():
     if "api" in only:
         api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
     rate = probe_rates(build.find_nvcc()) if "rate" in only else None
-    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate}),
-          flush=True)
+    split = run_probe(build.find_nvcc(), "select_split") if "split" in only else None
+    print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate,
+                      "select_split": split}), flush=True)
     return 0
 
 
@@ -159,6 +163,9 @@ def sq_rows(ms, sq_kernel, sq_operands, dot, g, dev):
                 *ops, distance_type=dot, n_valid=N, k=K, mode=mode))
     ms["sq_scores_l1"] = timed_ms(
         lambda: sq_kernel.sq_scores(*a, distance_type=DistanceType.L1, n_valid=N))
+    # K1 past the queue select: k = 600 (the sharded paths' k), the radix select.
+    ms["sq_search_exact_k600"] = timed_ms(lambda: sq_kernel.sq_search(
+        *a, distance_type=dot, n_valid=N, k=600))
     del a, small
 
     # IVF-SQ: the indexed scans over 256 tiles, the compact ones with corr.
@@ -221,6 +228,8 @@ def bqsign_rows(ms, bq_kernel, dot, g, dev):
         ms[f"bq_sign_search_{mode}"] = timed_ms(
             lambda md=mode: bq_kernel.bq_search(qw, planes, k=r, mode=md, **kw))
     ms["bq_sign_scores"] = timed_ms(lambda: bq_kernel.bq_scores(qw, planes, **kw))
+    ms["bq_sign_search_exact_k600"] = timed_ms(
+        lambda: bq_kernel.bq_search(qw, planes, k=600, **kw))
     # The same searches on the +-1 int8 route of the JAX design (the value-
     # query bodies, PlaneRows): qs = 2 * bit - 1, hamming = pq - qs . bits,
     # score = 2 (qs . bits) + dim - 2 pq (bq_kernel.py:367-402 of the JAX
@@ -246,6 +255,20 @@ def bqsign_rows(ms, bq_kernel, dot, g, dev):
     del planes, union
 
 
+def run_probe(nvcc, probe):
+    """Builds this checkout's csrc/probe/<probe>.cu into its _build/ and runs
+    it: one dict a JSON line it prints."""
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
+    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
+    exe = os.path.join(pkg, "_build", probe)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-o", exe, os.path.join(pkg, "csrc", "probe", probe + ".cu")],
+                   check=True, timeout=600)
+    out = subprocess.run([exe], capture_output=True, text=True, check=True,
+                         timeout=600).stdout
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
 def probe_rates(nvcc):
     """The probes of csrc/probe/ of this checkout, built into its _build/:
     wgmma_rate.cu (b1 and s8 wgmma products a second per SM) and
@@ -253,16 +276,7 @@ def probe_rates(nvcc):
     with the SASS VABSDIFF4 and IDP4A counts of its kernel). One dict a
     line each prints, by probe."""
     pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
-    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
-    rates = {}
-    for probe in ("wgmma_rate", "absdiff_rate"):
-        exe = os.path.join(pkg, "_build", probe)
-        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-o", exe, os.path.join(pkg, "csrc", "probe", probe + ".cu")],
-                       check=True, timeout=600)
-        out = subprocess.run([exe], capture_output=True, text=True, check=True,
-                             timeout=600).stdout
-        rates[probe] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    rates = {probe: run_probe(nvcc, probe) for probe in ("wgmma_rate", "absdiff_rate")}
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                            os.path.join(pkg, "_build", "absdiff_rate")],
                           capture_output=True, text=True, check=True, timeout=300).stdout

@@ -1400,3 +1400,178 @@ def test_bench_10m_on_the_card_equals_its_cpu_run(dev):
     assert len(out["cuda"]) >= 12
     for (name, a), (_, b) in zip(out["cuda"], out["cpu"]):
         assert abs(float(a) - float(b)) <= 0.02, (name, a, b)
+
+
+# ------------------------------------------ the exact select: queue and radix
+# Every exact instantiation on both selects (ktile.exact_geometry: the queue
+# for k <= QUEUE_K_MAX, the radix select above), on corpora that hold the
+# queue's threshold to account: random scores; scores that rise with the
+# row (every row beats the threshold, so buffers overflow on every segment);
+# scores that fall with it (after the first segment nothing passes); rows
+# repeated with a period of 700 (equal scores across every split and block
+# boundary). n_valid is ragged and Q is not a multiple of the query tile;
+# the shapes give the queue blocks ranges of several 512-row splits.
+SELECT_KS = [1, 10, 40, 63, 64, 65, 100, 512, 513, 1024]
+SELECT_KINDS = ["random", "rising", "falling", "dups"]
+SELECT_STEP = 1.0e4  # row term of the monotone corpora, above every dot term
+
+
+def _row_term(dev, npad, kind):
+    """f32 [npad]: +-SELECT_STEP per row for the monotone corpora, else 0."""
+    n = torch.arange(npad, device=dev, dtype=torch.float32) * SELECT_STEP
+    return {"rising": n, "falling": -n}.get(kind, torch.zeros_like(n))
+
+
+def _dup_rows(t, period=700, dim=0):
+    """t with every row (along dim) a copy of row n % period."""
+    idx = torch.arange(t.shape[dim], device=t.device) % period
+    return t.index_select(dim, idx).contiguous()
+
+
+def _select_check(v, i, pv, scores, n_valid, route_before, k):
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    route = ktile.select_route(k)
+    assert ktile.SELECT_LAUNCHES[route] == route_before[route] + 1
+    torch.cuda.synchronize()
+    _check_topk(v, i, pv, scores, n_valid)
+    assert bool((i[:, :min(k, n_valid)] >= 0).all())
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("k", SELECT_KS)
+def test_select_k1_both_routes(dev, k, kind):
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    n_valid, q = 140_001, 100
+    qcodes, qoff, codes, voff, mult = _operands(dev, n_valid, 128, q, seed=k)
+    npad = codes.shape[0]
+    if kind == "dups":
+        codes, voff = _dup_rows(codes), _dup_rows(voff)
+    else:
+        voff = voff + _row_term(dev, npad, kind)
+    a = (qcodes, qoff, codes, voff, mult)
+    kw = dict(distance_type=qt.DistanceType.DOT, n_valid=n_valid, k=k)
+    _, split, _, _ = ktile.exact_geometry(k, npad, q, sq_kernel.EXACT_TQ)
+    assert split > ktile.EXACT_SPLIT or k > ktile.QUEUE_K_MAX
+    before = dict(ktile.SELECT_LAUNCHES)
+    v, i = sq_kernel.sq_search(*a, **kw)
+    pv, _ = sq_kernel.sq_search_plain(*a, **kw)
+    scores = sq_kernel.sq_scores_plain(*a, distance_type=qt.DistanceType.DOT, n_valid=n_valid)
+    _select_check(v, i, pv, scores, n_valid, before, k)
+    if kind == "rising":
+        assert torch.equal(i[:, 0], torch.full_like(i[:, 0], n_valid - 1))
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("k", SELECT_KS)
+def test_select_k9b_with_corr_both_routes(dev, k, kind):
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    tile_n, t, q = 1024, 60, 150
+    n_valid = 80 * tile_n
+    qcodes, qoff, codes, voff, mult = _operands(dev, n_valid, 256, q, seed=k + 1)
+    if kind == "dups":
+        codes, voff = _dup_rows(codes), _dup_rows(voff)
+    else:
+        voff = voff + _row_term(dev, n_valid, kind)
+    sel = torch.arange(t, dtype=torch.int32, device=dev) + 7  # ascending: monotone compact rows
+    if kind in ("random", "dups"):
+        sel = _selection(dev, n_valid // tile_n, t, seed=k)
+    corr = _corr(dev, q, t * tile_n // 512, True, seed=k)
+    a = (qcodes, qoff, codes, voff, mult)
+    kw = dict(distance_type=qt.DistanceType.DOT, k=k, mode="exact", tile_n=tile_n)
+    _, split, _, _ = ktile.exact_geometry(k, t * tile_n, q, sq_kernel.EXACT_TQ)
+    assert split > ktile.EXACT_SPLIT or k > ktile.QUEUE_K_MAX
+    before = dict(ktile.SELECT_LAUNCHES)
+    v, i = sq_kernel.sq_search_indexed(*a, sel, corr, **kw)
+    pv, _ = sq_kernel.sq_search_indexed_plain(*a, sel, corr, **kw)
+    rows = ktile.tile_rows(sel, tile_n)
+    scores = torch.full((q, n_valid), float("-inf"), device=dev)
+    scores[:, rows] = sq_kernel.sq_scores_plain(
+        qcodes, qoff, codes[rows], voff[rows], mult, distance_type=qt.DistanceType.DOT,
+        n_valid=rows.shape[0]) + torch.repeat_interleave(corr.T, 512, dim=1)
+    _select_check(v, i, pv, scores, n_valid, before, k)
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("k", SELECT_KS)
+def test_select_k5b_value_both_routes(dev, k, kind):
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    npad, n_valid, q, dim = 40_960, 40_001, 300, 200
+    planes, aff, g = _value_query(dev, npad, dim, q, True, seed=k + 2)
+    if kind == "dups":
+        planes = _dup_rows(planes, dim=1)
+    rowadd = _row_term(dev, npad, kind)
+    corr = torch.randn(q, npad // 512, generator=g, device=dev) * 3
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid, k=k,
+              mode="exact", query_affine=aff, rowadd=rowadd)
+    _, split, _, _ = ktile.exact_geometry(k, npad, q, sq_kernel.EXACT_TQ)
+    assert split > ktile.EXACT_SPLIT or k > ktile.QUEUE_K_MAX
+    before = dict(ktile.SELECT_LAUNCHES)
+    v, i = bq_kernel.bq_search(None, planes, corr, **kw)
+    pv, _ = bq_kernel.bq_search_plain(None, planes, corr, **kw)
+    scores = bq_kernel._plain_scores(None, planes, corr, aff, distance_type=DistanceType.DOT,
+                                     invert=False, dim=dim, rowadd=rowadd)[:, :n_valid]
+    _select_check(v, i, pv, scores, n_valid, before, k)
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("k", SELECT_KS)
+def test_select_k7b_4bit_onehot_both_routes(dev, k, kind):
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    m, n_valid, q = 24, 70_001, 130
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=k + 3)
+    npad = codes_t.shape[1]
+    if kind == "dups":
+        codes_t = _dup_rows(codes_t, dim=1)
+    rowadd = _row_term(dev, npad, kind)
+    corr = _corr(dev, q, npad // 512, False, seed=k)
+    kw = dict(n_valid=n_valid, k=k, precision="int8")
+    _, split, _, _ = ktile.exact_geometry(k, npad, q, sq_kernel.EXACT_TQ)
+    assert split > ktile.EXACT_SPLIT or k > ktile.QUEUE_K_MAX
+    before = dict(ktile.SELECT_LAUNCHES)
+    onehot = pq_kernel.ONEHOT_LAUNCHES["pq_search_exact"]
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_search_exact"] == onehot + 1
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=npad, precision="int8")
+    scores = ((scores + rowadd[None]) + torch.repeat_interleave(corr, 512, dim=1))[:, :n_valid]
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    _select_check(v, i, pv, scores, n_valid, before, k)
+
+
+def _prefix_words(x, w8):
+    """int32 [N, w8]: words whose first x[n] bits are set."""
+    cnt = (x[:, None] - 32 * torch.arange(w8, device=x.device)[None, :]).clamp(0, 32)
+    return torch.where(cnt == 32, torch.full_like(cnt, -1), (1 << cnt) - 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("k", SELECT_KS)
+def test_select_k5c_sign_both_routes(dev, k, kind):
+    """K5c: query 0 meets a corpus whose Hamming distance to it falls
+    (rising) or grows (falling) with the row, in steps of whole bits, so
+    its scores are a staircase of ties; the other queries see the same rows
+    at random distances."""
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    n_valid, dim, q = 140_001, 256, 70
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=k + 4)
+    w8 = planes.shape[0]
+    if kind in ("rising", "falling"):
+        n = torch.arange(n_valid, device=dev)
+        x = dim - n * (dim + 1) // n_valid if kind == "rising" else n * (dim + 1) // n_valid
+        planes[:, :n_valid] = (qw[0][None, :] ^ _prefix_words(x, w8)).T
+    elif kind == "dups":
+        planes[:, :n_valid] = _dup_rows(planes[:, :n_valid], dim=1)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid)
+    _, split, _, _ = ktile.exact_geometry(k, planes.shape[1], q, bq_kernel.SIGN_QUEUE_TQ)
+    assert split > ktile.EXACT_SPLIT or k > ktile.QUEUE_K_MAX
+    before = dict(ktile.SELECT_LAUNCHES)
+    v, i = bq_kernel.bq_search(qw, planes, k=k, **kw)
+    pv, _ = bq_kernel.bq_search_plain(qw, planes, k=k, **kw)
+    scores = bq_kernel.bq_scores_plain(qw, planes, **kw)
+    _select_check(v, i, pv, scores, n_valid, before, k)
