@@ -11,7 +11,9 @@ Builds the hand-written kernels from ``quantization_tpu_torch/csrc`` with
 nvcc (one process per source, all at once), checks with cuobjdump that
 every entry function of the int8 scan body runs on wgmma (the BQ
 sign-query kernels, K6 and the searches, on its single-bit product) and that the PQ searches'
-LUT ring is fed by bulk copies on mbarriers, builds and runs the probe
+LUT ring is fed by bulk copies on mbarriers, counts the PQ LUT-gather
+lookup loop's SASS instructions a lookup (held to LOOP_SASS_MAX) and prints
+each of its entries' ptxas registers and spills, builds and runs the probe
 csrc/probe/select_split.cu (the scans of K1 and K5c without their select,
 which splits their times into scan and select, and the exact kernels'
 blocks a SM), and drives the
@@ -42,7 +44,9 @@ both corpora, since the clustered one ties far more.
      residual additives; with 4-bit codes and the bf16 LUT, K8 takes the
      bf16 one-hot route, counted apart too); codes
      against the CPU
-     encoder, save/load, then OPQ and an OPQ ->
+     encoder, save/load; the LUT-gather kernels also held at Q = 4, 33 and
+     100 and on int8 sums at their extremes, past the packed sums' flush
+     (gather_holds); then OPQ and an OPQ ->
      f32 two-stage index (R = 40), whose recall@10 is held to the floor of
      the CPU rehearsal (``--rehearse``).
 
@@ -274,7 +278,18 @@ INT8_RECALL_SLACK = 0.02
 # 4 int8 (2 bf16) queries. The PQ kernels' own design makes one load per
 # lookup, 32 per clock per SM: its floor, printed beside the bound.
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
-SMEM_WORDS_PER_CLOCK_PER_SM = 32
+# The LUT-gather lookup loop (csrc/pq_kernels.cuh Lanes): queries a lane's
+# 8-byte LUT load serves, by LUT word, and the SASS instructions a lookup its
+# loop may take (the loop before the packed words took 4.14 / ~6.25 /
+# 10.86). Its issue floor is its instructions at 4 warp instructions a
+# clock per SM, 32 lookups each. LOOP_SASS: each entry's count, from the
+# build.
+LOOKUPS_PER_LOAD = {"int8": 8, "bf16": 4, "bf16x2": 2}
+LOOP_SASS_MAX = {"int8": 2.5, "bf16x2": 7.0}
+ISSUE_PER_CLOCK_PER_SM = 4 * 32
+LOOP_SASS = {}
+# The query counts the LUT-gather kernels are also held at (gather_holds).
+GATHER_HOLD_QS = (4, 33, 100)
 # f32 adds per clock per SM (128 FP32 lanes; 67 TFLOP/s counts an FMA as
 # two): the floor of the bf16 one-hot K8's own design, whose products land
 # on the tensor cores and whose one add per LUT entry (pairs, groups, the
@@ -1662,14 +1677,22 @@ def pq_path(dev, smi, do_profile):
                              p, props, clock)
             say("time", f"{kname} {label} {p} LUT: kernel {t:.4f} ms, bound {b:.4f} ms "
                 f"({by}) on {smi}")
-        floor_ms = lookup_ms(Q, PN, m, SMEM_WORDS_PER_CLOCK_PER_SM, props, clock)
-        design_floor["pq" + sfx] = floor_ms
-        say("bound", f"PQ {label}: the kernels' one load per lookup floor {floor_ms:.4f} ms "
-            f"({SMEM_WORDS_PER_CLOCK_PER_SM} lookups per clock per SM)")
+        # The gather loop's issue floor: its SASS instructions a lookup (the
+        # K7a / K11 entry's, LOOP_SASS) at ISSUE_PER_CLOCK_PER_SM.
+        floors = {p: lookup_ms(Q, PN, m, ISSUE_PER_CLOCK_PER_SM
+                               / LOOP_SASS[f"pq_search_approx_kernel<{kc}, {p}>"], props, clock)
+                  for p in (("int8", "bf16", "bf16x2") if label == "8bit" else
+                            ("bf16", "bf16x2"))}
+        design_floor["pq" + sfx] = floors
+        say("bound", f"PQ {label}: the LUT-gather loop's issue floor (its SASS instructions a "
+            f"lookup at {ISSUE_PER_CLOCK_PER_SM} a clock per SM) "
+            + ", ".join(f"{p} {t:.4f} ms" for p, t in floors.items()) + f" on {smi}")
         if do_profile:
             eqp = enc.encode_query(st["queries"])
             profile(f"PQ {label} top_k exact", lambda: enc.top_k(eqp, K))
             profile(f"PQ {label} top_k approx", lambda: enc.top_k(eqp, K, method="approx"))
+
+    gather_holds(dev, st, smi)
 
     # K7a as the OPQ coarse stage: k = R on the rotated LUT and OPQ codes.
     opq = st["opq"]
@@ -1704,6 +1727,73 @@ def pq_path(dev, smi, do_profile):
             "data": st["data"][:SHARD_PQ_ENCODE_N].copy()}
     return recs, {"recall_at_10": rec, "f32_ms": f32_ms, "opq_f32_batch_ms": two_ms,
                   "train_encode_s": st["times"], "lookup_floor_ms": design_floor}, keep
+
+
+def gather_holds(dev, st, smi):
+    """The LUT-gather kernels against plain at the lookup loop's edges: Q = 4,
+    33 and 100 (a 32-query tile partly past Q) on path 3's LUTs and codes
+    (8 bits: K8 int8 / bf16, K7b and K7a with every LUT word; 4 bits: the
+    bf16 / bf16x2 K7b and K7a), then the int8 kernels (K8, K7b, K7a, K11) on
+    LUTs whose packed 16-bit sums reach +-127 x m (every code +127, -127, or
+    the two in turn) at m = 96 and at m = 272, past the packed sums' flush
+    every 256 chunks, at 100,000 rows. K8 to the bit, K7b values (ids up to
+    ties), K7a / K11 values and ids."""
+    from quantization_tpu_torch.ops.kernels import ktile, pq_kernel
+
+    t0 = time.perf_counter()
+    n = 0
+    for label, words in (("8bit", ("int8", "bf16", "bf16x2")), ("4bit", ("bf16", "bf16x2"))):
+        enc = st[label]
+        lut_all, ct = enc.encode_query(st["queries"]).lut, enc.codes_t
+        for q in GATHER_HOLD_QS:
+            lut = lut_all[:q].contiguous()
+            for p in words:
+                kw = dict(n_valid=PN, precision=p)
+                sc = pq_kernel.lut_scores_plain(lut, ct, **kw)
+                if label == "8bit" and p != "bf16x2":
+                    require(torch.equal(pq_kernel.pq_scores(lut, ct, **kw), sc),
+                            f"K8 {label} {p} Q={q} equals plain to the bit")
+                ids_all = torch.arange(PN, device=dev, dtype=torch.int32).expand(q, PN)
+                v, i = pq_kernel.pq_search(lut, ct, k=K, **kw)
+                check_topk(v, i, ktile.merge_exact(sc, ids_all, K)[0], sc, PN,
+                           f"K7b {label} {p} Q={q}")
+                pv, pi = pq_kernel.pq_search_plain(lut, ct, k=R, mode="approx", **kw)
+                v, i = pq_kernel.pq_search(lut, ct, k=R, mode="approx", **kw)
+                require(torch.equal(v, pv) and torch.equal(i, pi),
+                        f"K7a {label} {p} Q={q}: values and ids equal the plain approx")
+                n += 1
+                del sc, ids_all
+    rows, q = 100_000, 33
+    npad = rows + (-rows) % pq_kernel.TILE_N
+    sel = torch.arange(0, npad // 1024, 2, device=dev, dtype=torch.int32)
+    for m in (96, 272):
+        lut = torch.zeros((q, m, pq_kernel.K), device=dev)
+        lut[:, :, 0], lut[:, :, 1] = 1.0, -1.0  # int8 entries +127 and -127
+        c = torch.arange(m, device=dev)[:, None] + torch.arange(rows, device=dev)[None]
+        for kind, codes in (("+127", 0 * c), ("-127", 0 * c + 1), ("alternating", c % 2)):
+            ct = torch.zeros((m + (-m) % pq_kernel.M_BLK, npad), dtype=torch.uint8, device=dev)
+            ct[:m, :rows] = codes.to(torch.uint8)
+            kw = dict(n_valid=rows, precision="int8")
+            sc = pq_kernel.pq_scores_plain(lut, ct, **kw)
+            what = f"int8 {kind} m={m}"
+            require(torch.equal(pq_kernel.pq_scores(lut, ct, **kw), sc), f"K8 {what}")
+            v, i = pq_kernel.pq_search(lut, ct, k=K, **kw)
+            check_topk(v, i, pq_kernel.pq_search_plain(lut, ct, k=K, **kw)[0], sc, rows,
+                       f"K7b {what}")
+            for got, want in ((pq_kernel.pq_search(lut, ct, k=R, mode="approx", **kw),
+                               pq_kernel.pq_search_plain(lut, ct, k=R, mode="approx", **kw)),
+                              (pq_kernel.pq_search_indexed(lut, ct, sel, k=R, precision="int8"),
+                               pq_kernel.pq_search_indexed_plain(lut, ct, sel, k=R,
+                                                                 precision="int8"))):
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"K7a / K11 {what}: values and ids equal the plain approx")
+            n += 1
+            del sc, ct
+    torch.cuda.synchronize()
+    say("K7/K8", f"the LUT-gather kernels at Q = {GATHER_HOLD_QS} on path 3's LUTs and codes "
+        "(8-bit every word, 4-bit bf16 / bf16x2), and the int8 K8 / K7b / K7a / K11 on "
+        "+127 / -127 / alternating sums at m = 96 and 272 (past the packed sums' flush "
+        f"every 256 chunks): {n} cases equal plain ({time.perf_counter() - t0:.1f} s)")
 
 
 IVF_SPECS = {  # name -> IVFIndex.encode arguments beyond (data, params)
@@ -4239,6 +4329,8 @@ def bench10m_path(dev, smi):
             + (f", {tpu:.3f} on the TPU (BASELINE.md, as {tpu_key(leg, nbk)})"
                if tpu is not None else ""))
 
+    say("bench10m", "the PQ legs (device ms a batch): " + ", ".join(
+        f"{leg} {t:.3f}" for leg, t in info["times_ms"].items() if "PQ" in leg))
     info["breakdown_ms"] = ivf_breakdown(deepest["index"], deepest["eq"], deepest["nprobe"],
                                          deepest["nscan"], smi)
     deepest.clear()
@@ -4423,47 +4515,53 @@ def bf16_onehot_loop(funcs):
 
 def ring_bodies(funcs):
     """The bulk copies (SASS UBLKCP) and mbarrier operations (SYNCS) in each
-    instantiation of the LUT-gather body's ring kernels (pq_search_exact_kernel,
-    pq_search_approx_kernel: K7b, K7a / K11, 2 code widths x 3 LUT words
-    each, but K7b 8-bit int8; pq_scores_kernel: K8 at 8 bits, int8 and bf16
-    words); every one must have both, and the synchronously staged K7b 8-bit
-    int8 (pq_search_exact_staged_kernel, which the ring ran slower) neither."""
-    import re
-
-    found = {}
-    for name, part in funcs.items():
-        m = re.search(r"\d(pq_search_exact_kernel|pq_search_approx_kernel|pq_scores_kernel|"
-                      r"pq_search_exact_staged_kernel)ILi(\d+)ELi(\d)E", name)
-        if m:
-            found[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (part.count("UBLKCP"),
-                                                                   part.count("SYNCS"))
-    staged = {k: v for k, v in found.items() if k.startswith("pq_search_exact_staged")}
-    ring = {k: v for k, v in found.items() if k not in staged}
-    require(len(ring) == 13 and {"pq_scores_kernel<256, 0>", "pq_scores_kernel<256, 1>"}
-            <= set(ring) and set(staged) == {"pq_search_exact_staged_kernel<256, 0>"},
+    instantiation of the LUT-gather body's kernels, every one on the ring
+    (pq_search_exact_kernel, pq_search_approx_kernel: K7b, K7a / K11, 2 code
+    widths x 3 LUT words each; pq_scores_kernel: K8 at 8 bits, int8 and
+    bf16 words): every one must have both."""
+    found = {key: (part.count("UBLKCP"), part.count("SYNCS"))
+             for key, part in ((gather_entry(name), part) for name, part in funcs.items())
+             if key}
+    require(len(found) == 14 and {"pq_scores_kernel<256, int8>", "pq_scores_kernel<256, bf16>"}
+            <= set(found),
             f"the ring kernels' instantiations in the library ({sorted(found)})")
-    require(all(a > 0 and b > 0 for a, b in ring.values()),
-            f"every ring kernel stages by bulk copies on mbarriers ({ring})")
-    require(all(v == (0, 0) for v in staged.values()),
-            f"K7b 8-bit int8 stages synchronously ({staged})")
+    require(all(a > 0 and b > 0 for a, b in found.values()),
+            f"every ring kernel stages by bulk copies on mbarriers ({found})")
     return found
 
 
+LUT_GATHER_ENTRY = (r"\d(pq_scores_kernel|pq_search_approx_kernel|pq_search_exact_kernel)"
+                    r"ILi(\d+)ELi(\d)E")
+
+
+def gather_entry(name):
+    """'kernel<kc, word>' of a LUT-gather entry function's mangled name, or None."""
+    import re
+
+    m = re.search(LUT_GATHER_ENTRY, name)
+    return m and f"{m.group(1)}<{m.group(2)}, {('int8', 'bf16', 'bf16x2')[int(m.group(3))]}>"
+
+
 def lookup_loops(funcs):
-    """{kernel: (instructions, LDS)} of the LUT-gather body's lookup loop in
-    the 8-bit kernels (K8's pq_scores_kernel, int8 and bf16, and
-    pq_search_approx_kernel, per LUT word), read from the SASS: the
-    shortest loop (a backward branch) holding at least 64 shared-memory
-    loads, one chunk's lookups for a thread's 64 rows. Its instructions
-    over 64 are the lookups' issue cost; the bf16x2 loop also holds the lo
-    fold that runs once every 16 chunks."""
+    """{kernel<kc, word>: (instructions, LUT loads, lookups)} of the LUT-gather
+    body's lookup loop in every entry function that runs it (K8's
+    pq_scores_kernel, K7b's pq_search_exact_kernel, K7a / K11's
+    pq_search_approx_kernel; 8- and 4-bit codes), read from the SASS: the
+    shortest loop (a backward branch) holding at least 64 lookups' 8-byte
+    LUT loads (LDS.64) and as many code bytes (LDS.U8), one chunk of a
+    thread's rows (a group of 8 chunks at 4 bits). Lookups a load come from
+    the layout (LOOKUPS_PER_LOAD). With 8-bit codes that is the loop over a
+    ring stage's chunks, whose instructions a lookup must stay within
+    LOOP_SASS_MAX; a 4-bit stage holds one group, so there the loop is the
+    stage's, its wait, release and bf16x2 lo fold included."""
     import re
 
     out = {}
     for name, part in funcs.items():
-        m = re.search(r"\d(pq_scores_kernel|pq_search_approx_kernel)ILi256ELi(\d)E", name)
-        if not m:
+        key = gather_entry(name)
+        if not key:
             continue
+        per = LOOKUPS_PER_LOAD[key.split(", ")[1][:-1]]
         ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
         best = None
         for addr, op in ins:
@@ -4471,11 +4569,40 @@ def lookup_loops(funcs):
             if not b or int(b.group(1), 16) >= addr:
                 continue
             body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
-            lds = sum(1 for o in body if re.match(r"(@!?U?P\w+\s+)?LDS\b", o))
-            if lds >= 64 and (best is None or len(body) < best[0]):
-                best = (len(body), lds)
-        out[f"{m.group(1)}<256, {('int8', 'bf16', 'bf16x2')[int(m.group(2))]}>"] = best
-    require(len(out) == 5 and all(out.values()), f"the lookup loops in the SASS ({out})")
+            lds = sum(1 for o in body if re.match(r"(@!?U?P\w+\s+)?LDS\.64\b", o))
+            codes = sum(1 for o in body if re.match(r"(@!?U?P\w+\s+)?LDS\.U8\b", o))
+            if lds * per >= 64 and codes >= lds and (best is None or len(body) < best[0]):
+                best = (len(body), lds, lds * per)
+        out[key] = best
+    require(len(out) == 14 and all(out.values()), f"the lookup loops in the SASS ({out})")
+    for key, (n, _, look) in out.items():
+        word = key.split(", ")[1][:-1]
+        if "<256," in key and word in LOOP_SASS_MAX:
+            require(n / look <= LOOP_SASS_MAX[word],
+                    f"{key}: {n / look:.2f} SASS instructions a lookup, at most "
+                    f"{LOOP_SASS_MAX[word]}")
+    return out
+
+
+def ptxas_usage(log):
+    """{kernel<kc, word>: (registers, stack bytes, spill stores, spill loads)}
+    of the LUT-gather entry functions, from the build's ptxas -v lines."""
+    import re
+
+    out, cur, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur, frame = gather_entry(m.group(1)), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *frame)
+            cur = None
     return out
 
 
@@ -4529,9 +4656,16 @@ def main():
     ring = ring_bodies(funcs)
     say("build", "bulk copies and mbarrier operations (SASS UBLKCP, SYNCS) in " + ", ".join(
         f"{k} {a} / {b}" for k, (a, b) in sorted(ring.items())))
-    say("build", "the LUT-gather lookup loop (SASS instructions, LDS; 64 lookups a pass): "
-        + ", ".join(f"{k} {n}, {lds} ({n / 64:.2f} a lookup)"
-                    for k, (n, lds) in sorted(lookup_loops(funcs).items())))
+    loops = lookup_loops(funcs)
+    LOOP_SASS.update({k: n / look for k, (n, _, look) in loops.items()})
+    say("build", "the LUT-gather lookup loop (SASS instructions, 8-byte LUT loads, lookups a "
+        "pass): " + ", ".join(f"{k} {n}, {lds}, {look} ({n / look:.2f} a lookup)"
+                              for k, (n, lds, look) in sorted(loops.items())))
+    usage = ptxas_usage(info["log"])
+    say("build", "the LUT-gather entries (ptxas: registers, stack, spill stores / loads in "
+        "bytes): " + (", ".join(f"{k} {r}, {st}, {a} / {b}"
+                                for k, (r, st, a, b) in sorted(usage.items()))
+                      or "no ptxas log: the library was already built"))
     n, hg, fadd, mov = bf16_onehot_loop(funcs)
     say("build", f"the bf16 one-hot K8's group loop (SASS; 8 chunks x 32 outputs a thread): "
         f"{n} instructions, {hg} HGMMA, {fadd} FADD, {mov} MOV ({n / 256:.2f} an output "

@@ -42,41 +42,64 @@
 // The TPU has no vector gather, so the Pallas kernels multiply the LUT by a
 // one-hot matrix of the codes on the MXU (pq_kernel.py:1-37). A GPU gathers
 // from shared memory, and that is what these kernels do:
-//   * a block holds 32 queries, one per lane, and a tile of 512 corpus rows,
-//     64 per warp; each thread keeps its query's 64 sums in registers;
-//   * the LUT arrives pre-transposed, [query tile][chunk][code][32 queries],
-//     and is staged into shared memory a few chunks at a time, so the 32
-//     lanes of a lookup read 32 neighbouring entries of one (chunk, code)
-//     row: no bank conflicts, whatever the codes;
-//   * the codes of the tile are staged chunk-major as bytes; a warp reads four
-//     rows' codes of one chunk as one broadcast word;
+//   * a block holds 32 queries and a tile of 512 corpus rows, 64 per warp;
+//   * the LUT arrives as [query tile][chunk][code][32 queries' entries],
+//     packed so that one 32-bit word holds one (chunk, code)'s entries for 4
+//     neighbouring queries (int8, each biased by 128 as x ^ 0x80) or 2
+//     (bf16); bf16x2 holds a pair's hi halves in one word and its lo halves
+//     in the next. It is staged into shared memory a few chunks at a time;
+//   * the lookup loop (Lanes): each lane loads 8 bytes of a (chunk, code)
+//     row, the entries of 8 int8 / 4 bf16 / 2 bf16x2 neighbouring queries,
+//     and the warp's lanes split into query groups x row groups (4 x 8, 8 x
+//     4, 16 x 2): a lane sums its queries over 8 / 16 / 32 of the warp's 64
+//     rows (rows rg, rg + 8 / 4 / 2, ... for row group rg), so the code byte
+//     and the row address are computed once for 8 / 4 / 2 lookups;
+//   * int8 sums are packed: a word's even and odd bytes, split by one mask
+//     and one byte permute, each add into a register of two 16-bit sums
+//     (4 registers a row for 8 queries), exact while 255 x chunks < 65,536;
+//     every 256 chunks (only where mpad > 256) they are flushed into int32
+//     sums in local memory, and 128 x mpad comes off at the end, so the sum
+//     is the plain int32 sum to the bit;
+//   * bf16 / bf16x2 entries are unpacked by a shift or a mask and summed in
+//     f32 in the plain version's order (chunk order, 4-bit pairs, the lo
+//     fold every 16 chunks), so the sums equal its to the bit;
+//   * the codes of the tile are staged chunk-major as bytes; a lane reads its
+//     row's code as one byte (the row groups of a warp read neighbouring
+//     bytes);
 //   * the kernels (K8, K7b, K7a, K11) stage both through a ring of bulk
 //     copies completing on mbarriers, each stage refilled by the last warp
-//     done with it (see "the ring" below), but K7b with 8-bit codes and the
-//     int8 LUT, which the ring leaves slower: it stages them synchronously
-//     through registers (score_tile).
+//     done with it (see "the ring" below). K7b with 8-bit codes and the int8
+//     LUT, which the old loop ran faster on a synchronous staging through
+//     registers, runs on the ring too since this loop: 4.66 against 5.23 ms
+//     at 1M x 96 chunks, Q = 256 (scan_ab.py in turns, PERF.md).
+// Bank conflicts: a half-warp's 8-byte loads read one (chunk, code) row of
+// 128 bytes for bf16x2 (none), two rows of 64 bytes for bf16 (two-way when
+// the codes' parity agrees) and four rows of 32 bytes for int8 (as many ways
+// as the codes share a residue mod 4; ~2.1 on random codes). The map that
+// puts lanes across queries (128 int8 queries a warp, one 32-bit load a
+// lane) has none, but it idles lanes below 128 queries, stages 4x the LUT
+// bytes a row tile, and ran slower: csrc/probe/lut_gather_rate.cu counts
+// 48.4-48.8 int8 lookups a clock per SM for this map, 32.4-32.6 for that
+// one and 25.4-25.6 for the old loop (16.7 against 15.1 for bf16x2).
 // What bounds them on the H100, at the main path's 1M rows x 96 chunks and
-// Q = 256: 2.46e10 lookups. Shared memory serves 128 bytes per clock per SM,
-// so one 32-bit load of this layout could read one code's entries for 4
-// int8 queries (2 bf16): the card's lookup bound is 0.73 ms for int8 entries
-// and 1.47 ms for bf16, at 1.98 GHz on 132 SMs. This design makes one load
-// per lookup, 32 lookups per clock per SM: its floor is 2.94 ms. The one-hot
-// product on the int8 tensor cores would take 6.4 ms at 8 bits and 0.8 ms at
-// 4 bits (192 chunks x 16 codes), where this design's floor is 5.9 ms. The
+// Q = 256: 2.46e10 lookups. Shared memory serves 128 bytes per clock per SM:
+// the card's lookup bound is 0.73 ms for int8 entries and 1.47 ms for bf16,
+// at 1.98 GHz on 132 SMs. The one-hot product on the int8 tensor cores would
+// take 6.4 ms at 8 bits and 0.8 ms at 4 bits (192 chunks x 16 codes). The
 // codes (96 MB) stream in 0.03 ms; K8's 1 GB output takes 0.3 ms. The LUT
 // is staged again for every 512-row tile: 786 KB (int8) to 3.1 MB (bf16x2)
-// per tile and 32 queries, read from L2 (~12.9 GB a K11 launch at bf16x2,
-// 262,144 rows, m = 96, Q = 256). What binds is the lookup loop itself: one
-// chunk's 64 lookups a thread take ~265 instructions for int8 entries, ~400
-// for bf16 and ~692 for bf16x2 (its lo fold included; chip_smoke.py counts
-// them in the SASS), and with one block of 8 warps per SM (their 64 sums a
-// thread need the registers) the loads' latency shows. The synchronous
-// staging this ring replaced (through registers, two barriers a LUT block,
-// no overlap) ran K11 bf16x2 at 5.45 ms against the ring's 3.83 and the
-// 8-bit bf16 / bf16x2 K7a a third slower. Multicasting each stage's LUT over a cluster of 2 blocks halved
-// the L2 reads and ran slower on every launch (K11 bf16x2 5.06 ms, K7b
-// 8-bit bf16x2 24.36 against 15.95): each stage then waits for the
-// slower block. (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md.)
+// per tile and 32 queries, read from L2 (0.5 B a lookup for int8, 2 B for
+// bf16x2), which the probe copies at ~32 B a clock per SM: bf16x2 cannot
+// pass ~16 lookups a clock per SM this way. The loop takes 1.59 SASS
+// instructions a lookup for int8 entries, 3.1 for bf16 and 6.1 for bf16x2
+// (chip_smoke.py counts them), against 4.14, ~6.25 and 10.86 for the loop it
+// replaced (one 1-4 byte load a lookup, 32 lookups per clock per SM, a
+// 2.94 ms floor, run at ~44 % of it): K7b 8-bit int8 7.03 -> 4.68 ms, K8
+// 5.85 -> 3.10, K11 bf16x2 3.88 -> 3.34. The synchronous staging the ring
+// replaced ran K11 bf16x2 at 5.45 ms against the ring's 3.83; multicasting
+// each stage's LUT over a cluster of 2 blocks ran slower on every launch
+// (K11 bf16x2 5.06 ms): each stage then waits for the slower block.
+// (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py; PERF.md.)
 //
 // The searches then add the residual-IVF terms, when given, in the JAX order
 // (score + rowadd[n]) + corr[q, block of n], each add rounded once: rowadd
@@ -107,51 +130,71 @@ constexpr int kPTQ = 32;                         // queries per block, one per l
 constexpr int kPTR = 512;                        // corpus rows per tile
 constexpr int kPRW = kPTR / (kPThreads / 32);    // 64 rows per warp
 constexpr int kMBlk = 16;                        // M_BLK: Mpad alignment, bf16x2 fold
-constexpr int kLutBytes = 65536;                 // one staged LUT block (score_tile)
 constexpr int kStride = kPTR + 1;                // score stage row stride in words
 constexpr int kStageBytes = kPTQ * kStride * 4;  // [32][513] f32 scores or keys
-constexpr int kRegionBytes = kStageBytes > kLutBytes ? kStageBytes : kLutBytes;
-constexpr int kCodesBytes = kMBlk * kPTR;        // [<=16 chunks][512 rows] codes
 constexpr int kApproxPart = 4096;                // dense K7a part: SPAN * TILE_N
 
 enum { kInt8 = 0, kBf16 = 1, kBf16x2 = 2 };
 
 template <int KIND>
 using LutWord = typename std::conditional<
-    KIND == kInt8, int8_t,
+    KIND == kInt8, uint8_t,
     typename std::conditional<KIND == kBf16, uint16_t, uint32_t>::type>::type;
 
-// Chunks staged per LUT block: as many as fit 64 KB, at most 16 (then they
-// divide every Mpad, a multiple of 16).
-template <int KC, int KIND>
-struct Staging {
-  static constexpr int kFit = kLutBytes / (KC * kPTQ * (int)sizeof(LutWord<KIND>));
-  static constexpr int kChunks = kFit < kMBlk ? kFit : kMBlk;
+// The lookup loop's lane map: a lane reads 8 bytes of a (chunk, code) row,
+// the entries of kQL neighbouring queries, and sums them over kRL of its
+// warp's 64 rows. Lane = rg * kG + g: query group g (queries kQL g ..), row
+// group rg (the warp's rows rg, rg + kRG, ..). A half-warp's loads then read
+// 16 / kG rows of kPTQ entries, and a store of the lanes' r-th sums of one
+// query index to the score stage hits 32 banks.
+template <int KIND>
+struct Lanes {
+  static constexpr int kQL = 8 / (int)sizeof(LutWord<KIND>);  // queries a lane: 8 / 4 / 2
+  static constexpr int kG = kPTQ / kQL;                       // query groups a warp
+  static constexpr int kRG = 32 / kG;                         // row groups a warp
+  static constexpr int kRL = kPRW / kRG;                      // rows a lane: 8 / 16 / 32
+  static constexpr int kRowBytes = kPTQ * (int)sizeof(LutWord<KIND>);  // a (chunk, code)
+  static __device__ __forceinline__ int g() { return (threadIdx.x & 31) % kG; }
+  static __device__ __forceinline__ int rg() { return (threadIdx.x & 31) / kG; }
+  // The tile row of the lane's r-th sum, and the tile query of its i-th.
+  static __device__ __forceinline__ int row(int r) {
+    return (threadIdx.x >> 5) * kPRW + r * kRG + rg();
+  }
+  static __device__ __forceinline__ int query(int i) { return g() * kQL + i; }
 };
+
+// int8 sums are packed: two 16-bit sums a register, flushed into int32 every
+// kFlush chunks (only where mpad > kFlush), exact while 255 x kFlush < 2^16.
+constexpr int kFlush = 256;
 
 template <int KIND>
 struct Accum {
-  using A = typename std::conditional<KIND == kInt8, int, float>::type;
-  A v[kPRW];
-  float lo[KIND == kBf16x2 ? kPRW : 1];
+  using L = Lanes<KIND>;
+  // int8: a row's 8 queries in 4 words of two 16-bit sums (word 2h + p holds
+  // queries 4h + p and 4h + p + 2 in its low and high halves); else f32.
+  using A = typename std::conditional<KIND == kInt8, uint32_t, float>::type;
+  static constexpr int kV = KIND == kInt8 ? 4 : L::kQL;
+  static constexpr int kWide = KIND == kInt8 ? L::kRL * L::kQL : 1;
+  A v[L::kRL][kV];
+  float lo[KIND == kBf16x2 ? L::kRL : 1][KIND == kBf16x2 ? L::kQL : 1];
+  // int8 past kFlush chunks: the flushed sums, kWide ints of the kernel's
+  // local memory (indexed at run time, so that they take no registers).
+  int* wide;
 };
-
-__device__ __forceinline__ int add_rn(int a, int b) { return a + b; }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
 // Adds entry x, the cc-th chunk of a group of G, to the group's sum gs:
 // with G = 8 (4-bit codes) the chunks go in pairs (pr) and the pairs in
 // order, ((x0 + x1) + (x2 + x3)) + ..., the order of the JAX package's CPU
 // dot over one block-diagonal group (ROADMAP Queue 3, F19).
-template <int G, typename A>
-__device__ __forceinline__ void group_add(int cc, A& gs, A& pr, A x) {
+template <int G>
+__device__ __forceinline__ void group_add(int cc, float& gs, float& pr, float x) {
   if constexpr (G == 1) {
     gs = x;
   } else if (cc % 2 == 0) {
     pr = x;
   } else {
-    pr = add_rn(pr, x);
-    gs = cc == 1 ? pr : add_rn(gs, pr);
+    pr = __fadd_rn(pr, x);
+    gs = cc == 1 ? pr : __fadd_rn(gs, pr);
   }
 }
 
@@ -160,128 +203,134 @@ __device__ __forceinline__ void group_add(int cc, A& gs, A& pr, A x) {
 template <int KC>
 constexpr int kGroup = KC == 16 ? 8 : 1;
 
-// Adds the group of chunks c .. c + G - 1 of a staged block to the lane's 64
-// sums: lut_s [chunks][KC][32] words, codes_s [chunks][512] row codes (the
-// warp's rows at 64 * warp ..). Every search and K8 sum through it, in this
-// order, which is the plain version's.
+// The f32 values of a loaded 8 bytes: bf16 4 queries (low half first);
+// bf16x2 2 queries' hi (x) and lo (y) halves.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Adds the group of chunks c .. c + G - 1 of a staged block to the lane's
+// sums: lut_s [chunks][KC][32 queries' entries], codes_s [chunks][512] row
+// codes (the warp's rows at 64 * warp ..). Every search and K8 sum through
+// it; the float sums in the plain version's order.
 template <int KC, int KIND>
 __device__ __forceinline__ void add_group(const LutWord<KIND>* lut_s, const uint8_t* codes_s,
                                           int c, Accum<KIND>& acc) {
-  using T = LutWord<KIND>;
+  using L = Lanes<KIND>;
   constexpr int G = kGroup<KC>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the lane's 8 bytes of chunk c + cc, code 0; the row's code at cs[cc][r]
+  const uint8_t* lut_b = reinterpret_cast<const uint8_t*>(lut_s) + 8 * L::g();
+  const uint8_t* cs = codes_s + (threadIdx.x >> 5) * kPRW + L::rg();
 #pragma unroll
-  for (int j = 0; j < kPRW / 4; ++j) {
-    // The group's sums of 4 rows (gs; gl of the lo words): chunks in
-    // pairs (pr, pl), then the pairs in order.
-    typename Accum<KIND>::A gs[4], pr[4];
-    [[maybe_unused]] float gl[4], pl[4];
+  for (int r = 0; r < L::kRL; ++r) {
+    [[maybe_unused]] float gs[L::kQL], pr[L::kQL], gl[L::kQL], pl[L::kQL];
 #pragma unroll
     for (int cc = 0; cc < G; ++cc) {
-      const T* lc = lut_s + (c + cc) * KC * kPTQ + lane;
-      // codes of 4 rows of one chunk: one broadcast load
-      const uint32_t w =
-          reinterpret_cast<const uint32_t*>(codes_s + (c + cc) * kPTR + warp * kPRW)[j];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const T e = lc[((w >> (8 * b)) & (KC - 1)) * kPTQ];
-        if constexpr (KIND == kInt8) {
-          group_add<G>(cc, gs[b], pr[b], (int)e);
-        } else if constexpr (KIND == kBf16) {
-          group_add<G>(cc, gs[b], pr[b], __uint_as_float((uint32_t)e << 16));
-        } else {  // word = hi bf16 in the high half, lo bf16 in the low half
-          group_add<G>(cc, gs[b], pr[b], __uint_as_float(e & 0xffff0000u));
-          group_add<G>(cc, gl[b], pl[b], __uint_as_float(e << 16));
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int r = 4 * j + b;
+      const uint8_t* lc = lut_b + (c + cc) * (KC * L::kRowBytes);
+      const int code = cs[(c + cc) * kPTR + r * L::kRG] & (KC - 1);
+      const uint2 e = *reinterpret_cast<const uint2*>(lc + code * L::kRowBytes);
       if constexpr (KIND == kInt8) {
-        acc.v[r] += gs[b];
-      } else {
-        acc.v[r] = __fadd_rn(acc.v[r], gs[b]);
-        if constexpr (KIND == kBf16x2) acc.lo[r] = __fadd_rn(acc.lo[r], gl[b]);
+        // biased entries: the even bytes by a mask, the odd by a permute
+        acc.v[r][0] += e.x & 0x00ff00ffu;
+        acc.v[r][1] += __byte_perm(e.x, 0u, 0x4341);
+        acc.v[r][2] += e.y & 0x00ff00ffu;
+        acc.v[r][3] += __byte_perm(e.y, 0u, 0x4341);
+      } else if constexpr (KIND == kBf16) {
+        // the row's group sums (gs): chunks in pairs (pr), then the pairs
+        group_add<G>(cc, gs[0], pr[0], bf16_lo(e.x));
+        group_add<G>(cc, gs[1], pr[1], bf16_hi(e.x));
+        group_add<G>(cc, gs[2], pr[2], bf16_lo(e.y));
+        group_add<G>(cc, gs[3], pr[3], bf16_hi(e.y));
+      } else {  // x: the pair's hi halves, y: its lo halves (gl, pl)
+        group_add<G>(cc, gs[0], pr[0], bf16_lo(e.x));
+        group_add<G>(cc, gs[1], pr[1], bf16_hi(e.x));
+        group_add<G>(cc, gl[0], pl[0], bf16_lo(e.y));
+        group_add<G>(cc, gl[1], pl[1], bf16_hi(e.y));
+      }
+    }
+    if constexpr (KIND != kInt8) {
+#pragma unroll
+      for (int i = 0; i < L::kQL; ++i) {
+        acc.v[r][i] = __fadd_rn(acc.v[r][i], gs[i]);
+        if constexpr (KIND == kBf16x2) acc.lo[r][i] = __fadd_rn(acc.lo[r][i], gl[i]);
       }
     }
   }
 }
 
+// The packed 16-bit sum of the lane's i-th query in a row's int8 words.
+__device__ __forceinline__ int packed_sum(const uint32_t (&w)[4], int i) {
+  const uint32_t x = w[2 * (i >> 2) + (i & 1)];
+  return (int)((i & 2) ? x >> 16 : x & 0xffffu);
+}
+
+// A run-time zero: wide's indices hold it, so that wide stays in local memory.
+__device__ __forceinline__ int wide_base(int mpad) { return mpad >> 31; }
+
 template <int KIND>
-__device__ __forceinline__ void zero_acc(Accum<KIND>& acc) {
+__device__ __forceinline__ void zero_acc(Accum<KIND>& acc, int mpad) {
+  using L = Lanes<KIND>;
 #pragma unroll
-  for (int r = 0; r < kPRW; ++r) {
-    acc.v[r] = 0;
-    if constexpr (KIND == kBf16x2) acc.lo[r] = 0.0f;
+  for (int r = 0; r < L::kRL; ++r) {
+#pragma unroll
+    for (int i = 0; i < Accum<KIND>::kV; ++i) acc.v[r][i] = 0;
+    if constexpr (KIND == kBf16x2) {
+#pragma unroll
+      for (int i = 0; i < L::kQL; ++i) acc.lo[r][i] = 0.0f;
+    }
+  }
+  if constexpr (KIND == kInt8) {
+    if (mpad > kFlush) {
+      const int z = wide_base(mpad);
+#pragma unroll 1
+      for (int i = 0; i < Accum<KIND>::kWide; ++i) acc.wide[z + i] = 0;
+    }
   }
 }
 
-// bf16x2: the lo sums folded into acc at the end of every block of 16
-// chunks, once chunks .. c_end - 1 are summed.
+// Once chunks .. c_end - 1 are summed (at the end of a staged block, whose
+// chunks divide 16): bf16x2 folds the lo sums into acc as acc + lo * (1/256)
+// at the end of every block of 16 chunks; int8 flushes its packed sums every
+// kFlush chunks while chunks remain.
 template <int KIND>
-__device__ __forceinline__ void fold_lo(Accum<KIND>& acc, int c_end) {
+__device__ __forceinline__ void end_stage(Accum<KIND>& acc, int c_end, int mpad) {
+  using L = Lanes<KIND>;
   if constexpr (KIND == kBf16x2) {
     if (c_end % kMBlk == 0) {
 #pragma unroll
-      for (int r = 0; r < kPRW; ++r) {
-        acc.v[r] = __fadd_rn(acc.v[r], __fmul_rn(acc.lo[r], 1.0f / 256.0f));
-        acc.lo[r] = 0.0f;
+      for (int r = 0; r < L::kRL; ++r) {
+#pragma unroll
+        for (int i = 0; i < L::kQL; ++i) {
+          acc.v[r][i] = __fadd_rn(acc.v[r][i], __fmul_rn(acc.lo[r][i], 1.0f / 256.0f));
+          acc.lo[r][i] = 0.0f;
+        }
+      }
+    }
+  } else if constexpr (KIND == kInt8) {
+    if (c_end % kFlush == 0 && c_end < mpad) {
+      const int z = wide_base(mpad);
+#pragma unroll
+      for (int r = 0; r < L::kRL; ++r) {
+#pragma unroll
+        for (int i = 0; i < L::kQL; ++i) acc.wide[z + r * L::kQL + i] += packed_sum(acc.v[r], i);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc.v[r][i] = 0;
       }
     }
   }
 }
 
-// The tile's sums for the lane's query over compact rows row0 + 64 * warp ..
-// + 63 (corpus rows through map: 16 consecutive compact rows lie in one
-// selected tile). lut points at this block's query tile, [mpad][KC][32]
-// words. Every thread of the block must call it (it synchronises).
-// Only K7b with 8-bit codes and the int8 LUT stages through it,
-// synchronously (registers, st.shared, two barriers a LUT block): the ring
-// below ran that launch slower (see pq_search_exact_staged_kernel).
-template <int KC, int KIND>
-__device__ __forceinline__ void score_tile(const LutWord<KIND>* __restrict__ lut,
-                                           const uint8_t* __restrict__ codes_t,
-                                           long long npad, int mpad, long long row0,
-                                           const ScanMap& map, uint8_t* region,
-                                           uint8_t* codes_s, Accum<KIND>& acc) {
-  using T = LutWord<KIND>;
-  constexpr int MB = Staging<KC, KIND>::kChunks;
-  constexpr int G = kGroup<KC>;
-  static_assert(MB % G == 0, "a staged LUT block holds whole groups");
-  constexpr int kLutVec = MB * KC * kPTQ * (int)sizeof(T) / 16;
-  constexpr int kRowVec = kPTR / 16;
-  const int tid = threadIdx.x;
-  const T* lut_s = reinterpret_cast<const T*>(region);
-  zero_acc<KIND>(acc);
-  for (int c0 = 0; c0 < mpad; c0 += MB) {
-    __syncthreads();  // the previous block's (or the caller's) readers are done
-    const uint4* src = reinterpret_cast<const uint4*>(lut + (long long)c0 * KC * kPTQ);
-    for (int i = tid; i < kLutVec; i += kPThreads)
-      reinterpret_cast<uint4*>(region)[i] = __ldg(src + i);
-    for (int i = tid; i < MB * kRowVec; i += kPThreads) {
-      const int c = i / kRowVec, v = i % kRowVec;
-      reinterpret_cast<uint4*>(codes_s)[i] = __ldg(reinterpret_cast<const uint4*>(
-          codes_t + (long long)(c0 + c) * npad + map.row(row0 + 16 * v)));
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < MB; c += G) {
-      add_group<KC, KIND>(lut_s, codes_s, c, acc);
-      fold_lo<KIND>(acc, c0 + c + G);
-    }
-  }
-}
-
-// The score of sum r: the int8 affine in f64 rounded once, else the sum.
+// The score of the lane's r-th row and i-th query: the int8 sum unbiased
+// (less 128 a chunk, plus the flushed sums) and its affine in f64 rounded
+// once, else the sum.
 template <int KIND>
-__device__ __forceinline__ float finish(const Accum<KIND>& acc, int r, float scale,
-                                        float bias) {
+__device__ __forceinline__ float finish(const Accum<KIND>& acc, int r, int i, float scale,
+                                        float bias, int mpad) {
   if constexpr (KIND == kInt8) {
-    return __double2float_rn(
-        __dadd_rn(__dmul_rn((double)scale, (double)acc.v[r]), (double)bias));
+    int s = packed_sum(acc.v[r], i) - 128 * mpad;
+    if (mpad > kFlush) s += acc.wide[wide_base(mpad) + r * Lanes<KIND>::kQL + i];
+    return __double2float_rn(__dadd_rn(__dmul_rn((double)scale, (double)s), (double)bias));
   } else {
-    return acc.v[r];
+    return acc.v[r][i];
   }
 }
 
@@ -313,32 +362,33 @@ inline TileArgs tile_args(const void* lut, const void* scale, const void* bias,
                   scan_map(sel, tile_n, corr, corr_qs, corr_bs)};
 }
 
-template <int KC, int KIND>
-__device__ __forceinline__ const LutWord<KIND>* tile_lut(const TileArgs& a) {
-  return static_cast<const LutWord<KIND>*>(a.lut) +
-         (long long)blockIdx.y * a.mpad * KC * kPTQ;
-}
-
-// Writes the lane's 64 scores of the tile to stage[lane][64 * warp + r];
-// with mask, compact rows >= n_valid score NEG instead.
+// Writes the lane's scores of the tile to stage[query][row]; with mask,
+// compact rows >= n_valid score NEG instead.
 template <int KIND>
 __device__ __forceinline__ void stage_scores(const TileArgs& a, const Accum<KIND>& acc,
                                              float* stage, long long row0, bool mask) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q = blockIdx.y * kPTQ + lane;
-  float scale = 0.0f, bias = 0.0f;
-  if constexpr (KIND == kInt8) {
-    if (q < a.Q) {
-      scale = a.scale[q];
-      bias = a.bias[q];
+  using L = Lanes<KIND>;
+  float scale[L::kQL], bias[L::kQL];
+#pragma unroll
+  for (int i = 0; i < L::kQL; ++i) {
+    const int q = blockIdx.y * kPTQ + L::query(i);
+    scale[i] = bias[i] = 0.0f;
+    if constexpr (KIND == kInt8) {
+      if (q < a.Q) {
+        scale[i] = a.scale[q];
+        bias[i] = a.bias[q];
+      }
     }
   }
 #pragma unroll
-  for (int r = 0; r < kPRW; ++r) {
-    const int e = warp * kPRW + r;
-    float s = finish<KIND>(acc, r, scale, bias);
-    if (mask && row0 + e >= a.n_valid) s = kNeg;
-    stage[lane * kStride + e] = s;
+  for (int r = 0; r < L::kRL; ++r) {
+    const int e = L::row(r);
+    const bool masked = mask && row0 + e >= a.n_valid;
+#pragma unroll
+    for (int i = 0; i < L::kQL; ++i) {
+      const float s = finish<KIND>(acc, r, i, scale[i], bias[i], a.mpad);
+      stage[L::query(i) * kStride + e] = masked ? kNeg : s;
+    }
   }
 }
 
@@ -382,7 +432,7 @@ __device__ __forceinline__ bool add_residual(const TileArgs& a, float* stage,
 // approx searches' scores go through a stage of their own, so the next
 // tile's LUT arrives while a tile's epilogue runs; K8's and K7b's reuse the
 // ring (Ring, kExact). Each thread sums its rows in the plain version's
-// order (add_group, fold_lo), so the sums equal its to the bit.
+// order (add_group, end_stage), so the sums equal its to the bit.
 constexpr int kRingMaxStages = 4;
 constexpr int kRingBarBytes = 128;            // full barriers and release counts
 constexpr int kHistBytes = sizeof(unsigned) * (kPThreads / 32) * 256;
@@ -390,13 +440,16 @@ constexpr int kHistBytes = sizeof(unsigned) * (kPThreads / 32) * 256;
 // A ring's geometry, chosen by timing the candidates in turns (NVIDIA H100
 // 80GB HBM3, 700 W, scan_ab.py; PERF.md): every stage costs each warp a wait
 // and a release, so 8-bit codes take few, large stages, as many chunks as
-// fit 36 KB (K8, K7b: 3 stages) or 72 KB (K7a / K11: 2 stages; 4 stages of up to
+// fit 36 KB (K8, K7b: 3 stages; K7b bf16x2, one block a SM, 72 KB) or 72 KB
+// (K7a / K11: 2 stages; 4 stages of up to
 // 36 KB ran K11 bf16x2 4.75 against 3.82 ms, K7a 8-bit int8 7.38 against
 // 6.80), and 4-bit codes 4 stages of one group of 8 chunks (16-chunk stages
 // ran K7b 4-bit bf16 19.27 against 15.70 ms).
 // kExact: K8's and K7b's, whose score stage reuses the ring once its one
 // tile is summed: a block's shared memory (74-110 KB) lets two blocks share an SM
-// where the registers allow (every word but bf16x2), and the second
+// where the registers allow (every word but bf16x2, whose one block a SM
+// takes 72 KB stages of 2 chunks: 11.42 against 14.08 ms for 36 KB stages
+// of one), and the second
 // block's lookups overlap the first's radix select (one block per SM, with
 // a score stage of its own, took K7b 8-bit int8 from 7.06 to 10.26 ms).
 // Else K7a / K11's, beside a score stage of its own (one block per SM:
@@ -405,7 +458,8 @@ constexpr int kHistBytes = sizeof(unsigned) * (kPThreads / 32) * 256;
 template <int KC, int KIND, bool kExact>
 struct Ring {
   static constexpr int kChunkLut = KC * kPTQ * (int)sizeof(LutWord<KIND>);
-  static constexpr int kFit = (kExact ? 36 * 1024 : 72 * 1024) / (kChunkLut + kPTR);
+  static constexpr int kFit =
+      (kExact && KIND != kBf16x2 ? 36 * 1024 : 72 * 1024) / (kChunkLut + kPTR);
   // Chunks per stage: a power of two, so it divides every Mpad (a multiple
   // of 16); one group of 8 with 4-bit codes.
   static constexpr int kChunks = KC == 16 ? kGroup<KC>
@@ -420,7 +474,8 @@ struct Ring {
   static constexpr int kSmem = kRingBarBytes +
                                (kExact ? (kBytes > kStageBytes ? kBytes : kStageBytes) + kHistBytes
                                        : kBytes + kStageBytes);
-  static_assert(kChunks % kGroup<KC> == 0, "a stage holds whole groups");
+  static_assert(kChunks % kGroup<KC> == 0 && kMBlk % kChunks == 0,
+                "a stage holds whole groups and divides 16 chunks");
   static_assert(kStages <= kRingMaxStages, "the barriers' room holds the stages'");
   static_assert(kSmem <= 232448, "the ring and the score stage fit the SM's shared memory");
   static_assert(!kExact || KIND == kBf16x2 || 2 * (kSmem + 1024) <= 233472,
@@ -545,24 +600,22 @@ struct RingWalk {
   }
 };
 
-// The tile's sums for the lane's query over compact rows 64 * warp .. + 63
-// of the walk's next tile, from stages j .. j + per_tile - 1. Every warp of
-// the block calls it.
+// The tile's sums for the lane's queries over its rows of the walk's next
+// tile, from stages j .. j + per_tile - 1. Every warp of the block calls it.
 template <int KC, int KIND, class R>
 __device__ __forceinline__ void ring_tile(const TileArgs& a, const RingWalk<KC, KIND, R>& ring,
                                           int& j, Accum<KIND>& acc) {
   using T = LutWord<KIND>;
   constexpr int G = kGroup<KC>;
-  zero_acc<KIND>(acc);
+  zero_acc<KIND>(acc, a.mpad);
   for (int c0 = 0; c0 < a.mpad; c0 += R::kChunks, ++j) {
     mbar_wait(ring.bars + 8 * (j % R::kStages), (j / R::kStages) & 1);
     const uint8_t* st = ring.stages + (j % R::kStages) * R::kStage;
 #pragma unroll 1
-    for (int c = 0; c < R::kChunks; c += G) {
+    for (int c = 0; c < R::kChunks; c += G)
       add_group<KC, KIND>(reinterpret_cast<const T*>(st), st + R::kLut, c, acc);
-      fold_lo<KIND>(acc, c0 + c + G);
-    }
     ring.release(a, j);
+    end_stage<KIND>(acc, c0 + R::kChunks, a.mpad);
   }
 }
 
@@ -587,6 +640,8 @@ __global__ void __launch_bounds__(kPThreads, 2) pq_scores_kernel(TileArgs a, flo
   const RingWalk<KC, KIND, R> ring(smem_p, a, row0, 1);
   int j = 0;
   Accum<KIND> acc;
+  int flushed[Accum<KIND>::kWide];
+  acc.wide = flushed;
   ring_tile(a, ring, j, acc);
   __syncthreads();  // every warp is done with the ring, whose bytes have all landed
   stage_scores<KIND>(a, acc, stage, row0, false);
@@ -656,6 +711,8 @@ __global__ void __launch_bounds__(kPThreads, KIND == kBf16x2 ? 1 : 2)
     const RingWalk<KC, KIND, R> ring(smem_p, a, start, 1);
     int j = 0;
     Accum<KIND> acc;
+    int flushed[Accum<KIND>::kWide];
+    acc.wide = flushed;
     ring_tile(a, ring, j, acc);
     __syncthreads();  // every warp is done with the ring, whose bytes have all landed
     exact_keys<KIND>(a, acc, stage, start);
@@ -663,34 +720,6 @@ __global__ void __launch_bounds__(kPThreads, KIND == kBf16x2 ? 1 : 2)
   exact_select(a, reinterpret_cast<const unsigned*>(stage),
                reinterpret_cast<unsigned*>(smem_p + R::kSmem - kHistBytes), start, cnt, kk,
                cand_v, cand_i);
-}
-
-// K7b with 8-bit codes and the int8 LUT: the same, its LUT staged
-// synchronously by score_tile. The one launch the ring leaves slower, at
-// every geometry timed: 7.08 against 7.21 ms at 1M x 96 chunks, Q = 256,
-// and again 6.97 against 7.31 (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py in
-// turns; PERF.md), as its int8 lookups are the cheapest
-// (4.14 instructions each, against 10.8 for bf16x2) and two blocks per SM
-// already overlap one's staging with the other's work.
-template <int KC, int KIND>
-__global__ void __launch_bounds__(kPThreads) pq_search_exact_staged_kernel(TileArgs a,
-                                                                            float* cand_v,
-                                                                            int* cand_i,
-                                                                            int kk) {
-  extern __shared__ __align__(128) uint8_t smem_p[];
-  float* stage = reinterpret_cast<float*>(smem_p);
-  const long long start = (long long)blockIdx.x * kPTR;
-  const int cnt = split_rows(a);
-  if (cnt > 0) {  // the same for every thread of the block
-    Accum<KIND> acc;
-    score_tile<KC, KIND>(tile_lut<KC, KIND>(a), a.codes_t, a.npad, a.mpad, start, a.map,
-                         smem_p, smem_p + kRegionBytes, acc);
-    __syncthreads();  // every warp is done with the staged LUT
-    exact_keys<KIND>(a, acc, stage, start);
-  }
-  exact_select(a, reinterpret_cast<const unsigned*>(stage),
-               reinterpret_cast<unsigned*>(smem_p + kRegionBytes + kCodesBytes), start, cnt,
-               kk, cand_v, cand_i);
 }
 
 // ---------------------------------------------------------- K7a approx search
@@ -724,6 +753,8 @@ __global__ void __launch_bounds__(kPThreads, 1)
   }
   for (long long row0 = part0; row0 < part_end; row0 += kPTR) {
     Accum<KIND> acc;
+    int flushed[Accum<KIND>::kWide];
+    acc.wide = flushed;
     ring_tile(a, ring, j, acc);
     __syncthreads();  // every warp is done reading the previous tile's stage
     stage_scores<KIND>(a, acc, stage, row0, true);
@@ -776,27 +807,15 @@ int launch_scores(const TileArgs& a, void* out, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K>
-int launch_exact_kernel(K kernel, size_t smem, const TileArgs& a, void* cand_v, void* cand_i,
-                        int kk, cudaStream_t s) {
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)(a.ncomp / kPTR), query_tiles(a.Q));
-  kernel<<<grid, kPThreads, smem, s>>>(a, static_cast<float*>(cand_v),
-                                        static_cast<int*>(cand_i), kk);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int KC, int KIND>
 int launch_exact(const TileArgs& a, void* cand_v, void* cand_i, int kk, cudaStream_t s) {
-  if constexpr (KC == 256 && KIND == kInt8) {
-    return launch_exact_kernel(pq_search_exact_staged_kernel<KC, KIND>,
-                               kRegionBytes + kCodesBytes + kHistBytes, a, cand_v, cand_i, kk,
-                               s);
-  } else {
-    return launch_exact_kernel(pq_search_exact_kernel<KC, KIND>, Ring<KC, KIND, true>::kSmem, a,
-                               cand_v, cand_i, kk, s);
-  }
+  const size_t smem = Ring<KC, KIND, true>::kSmem;
+  cudaError_t err = prepare(pq_search_exact_kernel<KC, KIND>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((unsigned)(a.ncomp / kPTR), query_tiles(a.Q));
+  pq_search_exact_kernel<KC, KIND><<<grid, kPThreads, smem, s>>>(
+      a, static_cast<float*>(cand_v), static_cast<int*>(cand_i), kk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int KC, int KIND>

@@ -295,20 +295,25 @@ def _check_operands(lut, codes_t, n_valid):
 
 
 def _kernel_lut(words, mpad: int) -> torch.Tensor:
-    """The kernels' LUT layout, [ceil(Q/32), mpad, kc, 32] words: each block's
-    32 queries side by side for every (chunk, code), zero past m and Q. The
-    bf16x2 word holds lo in its low and hi in its high 16 bits."""
+    """The kernels' LUT layout, [ceil(Q/32), mpad, kc, 32 queries' entries],
+    zero past m and Q, packed so that one 32-bit word holds one (chunk,
+    code)'s entries of neighbouring queries (``csrc/pq_kernels.cuh``
+    ``Lanes``): int8 4 queries, each entry biased by 128 (``x ^ 0x80``, so
+    a word's bytes split into 16-bit sums), returned as uint8; bf16 2
+    queries; bf16x2 a query pair's hi halves in one int32 word and its lo
+    halves in the next."""
     q, _, kc = words[0].shape
     qt = -(-q // TQ)
 
     def tiled(w):
         w = pad_dim_to(pad_dim_to(w, 1, mpad), 0, qt * TQ)
-        return w.reshape(qt, TQ, mpad, kc).permute(0, 2, 3, 1)
+        return w.reshape(qt, TQ, mpad, kc).permute(0, 2, 3, 1).contiguous()
 
-    if len(words) == 1:
-        return tiled(words[0]).contiguous()
-    hi, lo = (tiled(w.view(torch.int16)) for w in words)
-    return torch.stack([lo, hi], dim=-1).contiguous().view(torch.int32)
+    if len(words) == 2:
+        hi, lo = (tiled(w.view(torch.int16)).view(torch.int32) for w in words)
+        return torch.stack([hi, lo], dim=-1).contiguous()
+    w = tiled(words[0])
+    return w.view(torch.uint8) ^ 0x80 if w.dtype == torch.int8 else w
 
 
 def onehot_voff(rowadd, npad: int, dev) -> torch.Tensor:

@@ -4,7 +4,7 @@ comparing two checkouts in turns on the same card.
 
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
-    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split
+    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split, lut
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -25,13 +25,14 @@ made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
 one-hot route on the scan body), K8b 4-bit (bf16 LUT: the bf16 one-hot
 route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
 ring), and K7b / K7a at both widths with the bf16 and bf16x2 LUTs (the
-gather body); then path 4's PQ scans
+gather body), every gather-body route again at Q = 32 and Q = 4 (the
+first queries of the same LUT); then path 4's PQ scans
 at m = 96 with the residual bf16x2 LUT (rowadd and corr): K11 over 256 of
 1,152 tiles of 1024 rows and the compact K7b / K7a over the README
-geometry's 131,072-row union (k = 20), and K11 of 4-bit IVF-PQ (m = 192,
-int8 LUT) over 256 tiles; then the 4-bit width through the public API
-(ProductQuantizer trained on random vectors, the default int8 LUT): host
-walls of score_batch and of approx and exact top_k, and of residual
+geometry's 131,072-row union (k = 20), the three also at Q = 32 and 4,
+and K11 of 4-bit IVF-PQ (m = 192, int8 LUT) over 256 tiles; then the
+4-bit width through the public API (ProductQuantizer trained on random
+vectors, the default int8 LUT): host walls of score_batch and of approx and exact top_k, and of residual
 IVF-OPQ's approx top_k (nprobe 32 over 256 buckets), medians of 7 calls.
 Kernel times are CUDA-event medians of 7 runs of 10 calls, in ms per
 batch. The rate section builds and runs this checkout's probes,
@@ -39,7 +40,9 @@ quantization_tpu_torch/csrc/probe/wgmma_rate.cu (the issue rate of the
 single-bit wgmma product against the int8 one, in turns) and
 absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pair rate); the split
 section select_split.cu (the scans of K1 and K5c without their select, in
-each select's geometry, and the exact kernels' blocks a SM). K1 and K5c
+each select's geometry, and the exact kernels' blocks a SM); the lut
+section lut_gather_rate.cu (the PQ lookup loop's lookups a clock per SM
+for the old loop and both lane maps, and the L2 rate of re-staging a LUT). K1 and K5c
 are also timed at k = 600, on the radix select. Prints one JSON object:
 the card (nvidia-smi name and power limit), the package's directory, the
 times, the rates and the split. Needs a CUDA card; the kernels are
@@ -101,9 +104,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory holding the quantization_tpu_torch package to time")
-    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split",
+    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split,lut",
                     help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate, "
-                         "split (default all)")
+                         "split, lut (default all)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -142,8 +145,9 @@ def main():
         api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
     rate = probe_rates(build.find_nvcc()) if "rate" in only else None
     split = run_probe(build.find_nvcc(), "select_split") if "split" in only else None
+    lut = run_probe(build.find_nvcc(), "lut_gather_rate") if "lut" in only else None
     print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate,
-                      "select_split": split}), flush=True)
+                      "select_split": split, "lut_gather": lut}), flush=True)
     return 0
 
 
@@ -299,21 +303,26 @@ def pq_rows(ms, pq_kernel, g, dev):
         return lut, codes_t
 
     searches = tuple((mode, p) for p in ("bf16", "bf16x2") for mode in ("exact", "approx"))
+    gather8 = (("scores", "int8"), ("scores", "bf16"), ("exact", "int8"), ("approx", "int8"))
     for bits, m, kc, rows in (
             (4, PM4, pq_kernel.K4, (("scores", "int8"), ("approx", "int8"),
                                     ("scores", "bf16"), ("exact", "int8")) + searches),
-            (8, PM8, pq_kernel.K, (("scores", "int8"), ("scores", "bf16"), ("exact", "int8"),
-                                   ("approx", "int8")) + searches)):
+            (8, PM8, pq_kernel.K, gather8 + searches)):
         lut, codes_t = pq_operands(m, kc, pnpad, PN)
-        for mode, prec in rows:
-            if mode == "scores":
-                fn = lambda p=prec: pq_kernel.pq_scores(lut, codes_t, n_valid=PN, precision=p)
-                name = f"pq_scores_{bits}bit_{prec}"
-            else:
-                fn = lambda p=prec, md=mode: pq_kernel.pq_search(
-                    lut, codes_t, n_valid=PN, k=K, mode=md, precision=p)
-                name = f"pq_search_{mode}_{bits}bit_{prec}"
-            ms[name] = timed_ms(fn)
+        # Q = 256, then the gather body's routes at Q = 32 and 4.
+        small = searches if bits == 4 else gather8 + searches
+        for q, tag, todo in ((Q, "", rows), (QS, f"_q{QS}", small), (4, "_q4", small)):
+            ql = lut[:q].contiguous()
+            for mode, prec in todo:
+                if mode == "scores":
+                    fn = lambda p=prec: pq_kernel.pq_scores(ql, codes_t, n_valid=PN,
+                                                            precision=p)
+                    name = f"pq_scores_{bits}bit_{prec}{tag}"
+                else:
+                    fn = lambda p=prec, md=mode: pq_kernel.pq_search(
+                        ql, codes_t, n_valid=PN, k=K, mode=md, precision=p)
+                    name = f"pq_search_{mode}_{bits}bit_{prec}{tag}"
+                ms[name] = timed_ms(fn)
         del lut, codes_t
 
     # Path 4's PQ scans: residual OPQ (bf16x2 LUT, rowadd and corr), indexed
@@ -324,13 +333,16 @@ def pq_rows(ms, pq_kernel, g, dev):
     lut, codes_t = pq_operands(PM8, pq_kernel.K, ivf_npad)
     rowadd = torch.randn(ivf_npad, generator=g, device=dev)
     tcorr = torch.randn(UNION_TILES * TILE // 512, Q, generator=g, device=dev)
-    ms["pq_search_indexed_res_bf16x2"] = timed_ms(lambda: pq_kernel.pq_search_indexed(
-        lut, codes_t, sel, rowadd, tcorr, k=KK2, precision="bf16x2", tile_n=TILE))
     cct, crow = codes_t[:, :README_ROWS].contiguous(), rowadd[:README_ROWS].contiguous()
-    ccorr = torch.randn(Q, README_ROWS // 512, generator=g, device=dev)
-    for mode in ("exact", "approx"):
-        ms[f"pq_search_{mode}_res_bf16x2"] = timed_ms(lambda md=mode: pq_kernel.pq_search(
-            lut, cct, crow, ccorr, n_valid=README_ROWS, k=KK2, mode=md, precision="bf16x2"))
+    for q, tag in ((Q, ""), (QS, f"_q{QS}"), (4, "_q4")):
+        ql, qcorr = lut[:q].contiguous(), tcorr[:, :q].contiguous()
+        ms["pq_search_indexed_res_bf16x2" + tag] = timed_ms(lambda: pq_kernel.pq_search_indexed(
+            ql, codes_t, sel, rowadd, qcorr, k=KK2, precision="bf16x2", tile_n=TILE))
+        ccorr = torch.randn(q, README_ROWS // 512, generator=g, device=dev)
+        for mode in ("exact", "approx"):
+            ms[f"pq_search_{mode}_res_bf16x2" + tag] = timed_ms(
+                lambda md=mode: pq_kernel.pq_search(ql, cct, crow, ccorr, n_valid=README_ROWS,
+                                                    k=KK2, mode=md, precision="bf16x2"))
     del lut, codes_t, cct
     lut, codes_t = pq_operands(PM4, pq_kernel.K4, ivf_npad)
     ms["pq_search_indexed_4bit_int8"] = timed_ms(lambda: pq_kernel.pq_search_indexed(

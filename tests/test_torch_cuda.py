@@ -540,6 +540,139 @@ def test_k7a_pq_approx_equal_plain(dev, kc, m, n_valid, precision):
     assert torch.equal(i, pi)  # one tie rule: the first maximum in row order
 
 
+# The LUT-gather lookup loop (csrc/pq_kernels.cuh Lanes): a lane's 8-byte
+# load serves 8 int8 / 4 bf16 / 2 bf16x2 queries of the 32-query tile, int8
+# sums packed two to a register and flushed every 256 chunks. Query counts
+# that leave a tile's lanes partly past Q; 8-bit codes and the 4-bit bf16 /
+# bf16x2 searches (the one-hot route takes the 4-bit int8 LUT).
+GATHER_QS = [4, 33, 100]
+GATHER_ROUTES = [(256, 96, "int8"), (256, 96, "bf16"), (256, 96, "bf16x2"),
+                 (16, 192, "bf16"), (16, 192, "bf16x2")]
+
+
+@pytest.mark.parametrize("q", GATHER_QS)
+@pytest.mark.parametrize("kc,m,precision", GATHER_ROUTES)
+def test_gather_ragged_queries_equal_plain(dev, kc, m, precision, q):
+    """K8 (8 bits) to the bit, K7b values (ids up to ties), K7a and K11
+    values and ids, at Q = 4, 33 and 100 on the gather body."""
+    n_valid = 5000
+    lut, codes_t = _pq_operands(dev, kc, m, n_valid, q, seed=q + m)
+    kw = dict(n_valid=n_valid, precision=precision)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, **kw)
+    before, onehot = dict(pq_kernel.LAUNCHES), dict(pq_kernel.ONEHOT_LAUNCHES)
+    if kc == 256 and precision != "bf16x2":
+        got = pq_kernel.pq_scores(lut, codes_t, **kw)
+        want = pq_kernel.pq_scores_plain(lut, codes_t, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    v, i = pq_kernel.pq_search(lut, codes_t, k=20, **kw)
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, k=20, **kw)
+    _check_topk(v, i, pv, scores, n_valid)
+    v, i = pq_kernel.pq_search(lut, codes_t, k=20, mode="approx", **kw)
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, k=20, mode="approx", **kw)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    sel = _selection(dev, codes_t.shape[1] // 1024, 3, seed=q)
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, k=20, precision=precision)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, k=20, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert all(pq_kernel.LAUNCHES[n] == before[n] + 1
+               for n in ("pq_search_exact", "pq_search_approx", "pq_search_indexed"))
+    assert pq_kernel.ONEHOT_LAUNCHES == onehot  # every launch on the gather body
+
+
+def _extreme_int8(dev, q, m, n_valid, kind):
+    """A LUT whose int8 entries are +127 at code 0, -127 at code 1 and 0
+    elsewhere for every (query, chunk), and codes that pick +127 in every
+    chunk (all_plus), -127 (all_minus) or the two in turn (alternating): the
+    packed 16-bit sums' extremes."""
+    lut = torch.zeros((q, m, 256), device=dev)
+    lut[:, :, 0], lut[:, :, 1] = 1.0, -1.0
+    mpad = m + (-m) % pq_kernel.M_BLK
+    npad = n_valid + (-n_valid) % pq_kernel.TILE_N
+    codes_t = torch.zeros((mpad, npad), dtype=torch.uint8, device=dev)
+    c = torch.arange(m, device=dev)[:, None] + torch.arange(n_valid, device=dev)[None]
+    codes_t[:m, :n_valid] = {"all_plus": 0 * c, "all_minus": 0 * c + 1,
+                             "alternating": c % 2}[kind].to(torch.uint8)
+    return lut, codes_t
+
+
+@pytest.mark.parametrize("m", [96, 256, 272, 512])
+@pytest.mark.parametrize("kind", ["all_plus", "all_minus", "alternating"])
+def test_gather_int8_extreme_sums_and_the_flush(dev, kind, m):
+    """The int8 gather kernels (K8, K7b, K7a, K11) on LUTs whose sums reach
+    +-127 x m, at m below, at and past the 256-chunk flush of the packed
+    sums: equal to plain as above."""
+    n_valid, q = 2100, 33
+    lut, codes_t = _extreme_int8(dev, q, m, n_valid, kind)
+    kw = dict(n_valid=n_valid, precision="int8")
+    lutq, _, _ = pq_kernel.quantize_lut(lut)
+    assert int(lutq[:, :, 0].min()) == 127 and int(lutq[:, :, 1].max()) == -127
+    got = pq_kernel.pq_scores(lut, codes_t, **kw)
+    want = pq_kernel.pq_scores_plain(lut, codes_t, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    v, i = pq_kernel.pq_search(lut, codes_t, k=30, **kw)
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, k=30, **kw)
+    _check_topk(v, i, pv, want, n_valid)
+    v, i = pq_kernel.pq_search(lut, codes_t, k=30, mode="approx", **kw)
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, k=30, mode="approx", **kw)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    sel = _selection(dev, codes_t.shape[1] // 512, 3, seed=m)
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, k=30, precision="int8", tile_n=512)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, k=30, precision="int8",
+                                               tile_n=512)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("q", [1] + GATHER_QS)
+@pytest.mark.parametrize("m", [272, 400])
+def test_gather_int8_random_past_the_flush(dev, m, q):
+    """Random LUTs and codes past the flush (mpad 272, 400): K8 to the bit,
+    K7b, K7a and K11 with the residual additives as above."""
+    n_valid = 3000
+    lut, codes_t = _pq_operands(dev, 256, m, n_valid, q, seed=m + q)
+    kw = dict(n_valid=n_valid, precision="int8")
+    got = pq_kernel.pq_scores(lut, codes_t, **kw)
+    want = pq_kernel.pq_scores_plain(lut, codes_t, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    npad = codes_t.shape[1]
+    rowadd, corr = _pq_residual(dev, q, npad, npad // 512, False, seed=m)
+    for mode in ("exact", "approx"):
+        v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, k=25, mode=mode, **kw)
+        pv, pi = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, k=25, mode=mode, **kw)
+        scores = ((want + rowadd[None, :n_valid])
+                  + torch.repeat_interleave(corr, 512, dim=1)[:, :n_valid])
+        _check_topk(v, i, pv, scores, n_valid)
+        if mode == "approx":
+            assert torch.equal(i, pi)
+    sel = _selection(dev, npad // 1024, 2, seed=q)
+    rowadd, corr = _pq_residual(dev, q, npad, 2 * 1024 // 512, True, seed=q)
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, rowadd, corr, k=25, precision="int8")
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, rowadd, corr, k=25,
+                                               precision="int8")
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("m", [24, 272])
+def test_gather_4bit_int8_k11_on_wide_tiles(dev, m):
+    """K11 with 4-bit codes and the int8 LUT over tiles too wide for the
+    one-hot route's parts (tile_n 8192) runs the gather body's KC = 16 int8
+    loop (packed sums, past the flush at m = 272): values and ids equal the
+    plain approx."""
+    tile_n, q = 8192, 33
+    lut, codes_t = _pq_operands(dev, 16, m, 3 * tile_n, q, seed=m)
+    sel = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    assert not pq_kernel.onehot_route(16, "int8", "indexed", tile_n)
+    onehot = dict(pq_kernel.ONEHOT_LAUNCHES)
+    kw = dict(k=30, precision="int8", tile_n=tile_n)
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, **kw)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert pq_kernel.ONEHOT_LAUNCHES == onehot
+
+
 # 4-bit codes with the int8 LUT: K8 and the dense K7a on the one-hot route
 # (the tensor-core scan body, csrc/pq4_mma_kernels.cu). Query counts on both
 # sides of the 64- and 128-query tiles, n_valid on both sides of a 128-row
