@@ -16,7 +16,11 @@ lookup loop's SASS instructions a lookup (held to LOOP_SASS_MAX) and prints
 each of its entries' ptxas registers and spills, builds and runs the probe
 csrc/probe/select_split.cu (the scans of K1 and K5c without their select,
 which splits their times into scan and select, and the exact kernels'
-blocks a SM), and drives the
+blocks a SM) and csrc/probe/approx_split.cu (K9a's, dense K2's and
+K10-value's pass 1, its scan alone and the combine on the warp-specialized
+body and the two-block one, span items and 2048-row items: the [approx]
+lines; both approx bodies' ptxas registers and spills are printed from the
+build), and drives the
 port's nine main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
@@ -485,6 +489,32 @@ def sq_composite(qcodes, qoff, codes, voff, mult, k, corr=None):
     return run
 
 
+def value_composite(planes, aff, rowadd, corr, k, rows=None, n_valid=None):
+    """The library composite of a value-query BQ search (K5a / K10 with a
+    value query) over the planes' columns ``rows`` (all, or the first
+    ``n_valid``): the 0/1 planes expanded once to int8 rows (outside the
+    timed call, as K6's yardstick expands its signs), then torch._int_mm, the
+    kOnce epilogue (mult * acc + qb in f64, rounded once), rowadd, corr
+    ([Q, rows], expanded) and torch.topk."""
+    from quantization_tpu_torch.ops import bq as bq_ops
+
+    cols = planes if rows is None else planes[:, rows]
+    ra = rowadd if rows is None else rowadd[rows]
+    if n_valid is not None:
+        cols, ra, corr = cols[:, :n_valid], ra[:n_valid], corr[:, :n_valid]
+    bits = torch.cat([bq_ops.unpack_bits(cols[:, c:c + 65_536]).T
+                      for c in range(0, cols.shape[1], 65_536)]).contiguous()
+    qs, mult, qb = aff
+    m = torch.as_tensor(mult, device=qs.device).reshape(-1, 1).double()
+    b = qb.reshape(-1, 1).double()
+
+    def run():
+        acc = torch._int_mm(qs, bits.t())
+        return torch.topk((m * acc.double() + b).float() + ra[None, :] + corr, k, dim=1)
+
+    return run
+
+
 def sign_composite(qpm, cpm, sign, k):
     """The library composite of an exact sign-query BQ search: torch._int_mm
     of the +-1 int8 signs (K6's yardstick: the rows expanded once, outside
@@ -497,18 +527,55 @@ def sign_composite(qpm, cpm, sign, k):
 
 
 PROBE = "quantization_tpu_torch/csrc/probe/select_split.cu"
+APPROX_PROBE = "quantization_tpu_torch/csrc/probe/approx_split.cu"
 _probe = {}
+_aprobe = {}
 
 
 def start_select_probe(nvcc):
-    """Starts building the scan / select probe (csrc/probe/select_split.cu),
-    beside the library's build."""
-    exe = os.path.join("quantization_tpu_torch", "_build", "select_split")
-    os.makedirs(os.path.dirname(exe), exist_ok=True)
-    _probe["exe"] = exe
-    _probe["proc"] = subprocess.Popen(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-o", exe,
-         PROBE], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Starts building the scan / select probe (csrc/probe/select_split.cu)
+    and the approx split probe (csrc/probe/approx_split.cu, with the
+    library's -fmad=false), beside the library's build."""
+    for state, src, flags in ((_probe, PROBE, []), (_aprobe, APPROX_PROBE, ["-fmad=false"])):
+        exe = os.path.join("quantization_tpu_torch", "_build",
+                           os.path.splitext(os.path.basename(src))[0])
+        os.makedirs(os.path.dirname(exe), exist_ok=True)
+        state["exe"] = exe
+        state["proc"] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", *flags,
+             "-o", exe, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def approx_split(smi):
+    """Runs the approx probe once and prints its [approx] lines: for K9a,
+    dense K2 at Q = 256 and 32 and K10-value at the serving width, pass 1,
+    its scan alone and the combine of the warp-specialized body
+    (approx_ws_kernel) at span-block items in place and at 2048-row items
+    with the combine, at its other query tile, and of approx_parts_kernel
+    (the body where the query tile does not fit) at 2048-row items, the
+    reference; requires every warp-specialized candidate set equal to it.
+    {(kernel, design, part): line}."""
+    proc = _aprobe["proc"]
+    out, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"the approx probe builds: {out[-2000:]}")
+    run = subprocess.run([_aprobe["exe"]], capture_output=True, text=True, timeout=300)
+    require(run.returncode == 0, f"the approx probe runs: {run.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+    split = {}
+    for ln in lines:
+        if "equal" in ln:
+            require(ln["equal"], f"{ln['kernel']} {ln['design']} {ln['part']}: the "
+                    "warp-specialized candidates equal approx_parts_kernel's")
+        split[ln["kernel"], ln["design"], ln["part"]] = ln
+        body = ("approx_parts_kernel, queries in the ring" if ln["design"] == "parts" else
+                f"approx_ws_kernel, {ln['design'][2:]} queries a block, {ln['stages']} stages")
+        say("approx", f"{ln['kernel']}, {body}, {ln['part']}-row items "
+            f"({ln['blocks_per_sm']} blocks a SM, {ln['smem']} bytes): pass 1 "
+            f"{ln['pass1_ms']:.4f} ms, scan alone {ln['scan_ms']:.4f}, combine "
+            f"{ln['combine_ms']:.4f}, pass 1 + combine {ln['pass1_ms'] + ln['combine_ms']:.4f} "
+            f"(csrc/probe/approx_split.cu) on {smi}")
+    require(len(split) == 15, f"the approx probe's fifteen splits ({sorted(split)})")
+    return split
 
 
 def select_probe():
@@ -2632,22 +2699,32 @@ def rbq_path(dev, smi, do_profile):
         b = rows * (rows_b + 4) + Q * (dp + 8) + Q * rows // ktile.CORR_BLK * 4 + sel * 4
         return bound(b + Q * kk2 * 8, 2 * Q * rows * PD, INT8_OPS_PER_S)
 
-    for name, fn, plain_fn, bnd in (
+    # K10's and K5a's yardstick: the expanded planes through torch._int_mm,
+    # the epilogue, rowadd, corr and torch.topk (K5b: none, as K1's exact
+    # composite is K1's).
+    lib_rows = ktile.tile_rows(tiles, itile)
+    lib_i = value_composite(planes, qaff, rbq._resid_bq,
+                            ktile.expand_corr(corr_t, selection=True), kk2, rows=lib_rows)
+    lib_c = value_composite(g, qaff, ra, ktile.expand_corr(corr_c), kk2, n_valid=width)
+    for name, fn, plain_fn, bnd, lib_fn in (
         ("bq_search_indexed_res",
          lambda: bq_kernel.bq_search_indexed(None, planes, tiles, corr_t, **kw_i),
          lambda: bq_kernel.bq_search_indexed_plain(None, planes, tiles, corr_t, **kw_i),
-         res_bound(width, tiles.shape[0])),
+         res_bound(width, tiles.shape[0]), lib_i),
         ("bq_search_approx_res",
          lambda: bq_kernel.bq_search(None, g, corr_c, mode="approx", **kw_c),
          lambda: bq_kernel.bq_search_plain(None, g, corr_c, mode="approx", **kw_c),
-         res_bound(width)),
+         res_bound(width), lib_c),
         ("bq_search_exact_res",
          lambda: bq_kernel.bq_search(None, g, corr_c, mode="exact", **kw_c),
          lambda: bq_kernel.bq_search_plain(None, g, corr_c, mode="exact", **kw_c),
-         res_bound(width)),
+         res_bound(width), None),
     ):
         recs.append(dict(name=name, launches=launches[name], max_abs_err=0.0, ms=timed_ms(fn),
-                         plain_ms=plain_ms(plain_fn), bound=bnd, library_ms=None))
+                         plain_ms=plain_ms(plain_fn), bound=bnd,
+                         library_ms=lib_fn and library_time(
+                             f"{name}: torch._int_mm of the expanded planes + epilogue + "
+                             "rowadd + corr + torch.topk", lib_fn, smi)))
         r = recs[-1]
         say("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) per {Q}-query batch over {width} rows "
@@ -2782,11 +2859,19 @@ def rbq_path(dev, smi, do_profile):
     s_rows = s_tiles.shape[0] * skw["tile_n"]
     s_bytes = (s_rows * (rows_b + 4) + Q * (dp + 8) + Q * s_rows // ktile.CORR_BLK * 4
                + s_tiles.shape[0] * 4 + Q * s_k * 8)
+    s_corr = sa[3] if len(sa) > 3 else skw.get("corr")
+    s_lib = value_composite(sa[1], skw["query_affine"], skw["rowadd"],
+                            ktile.expand_corr(s_corr, selection=True), s_k,
+                            rows=ktile.tile_rows(s_tiles, skw["tile_n"]))
     recs.append(dict(name="bq_search_indexed_res_serve",
                      launches=serve_launches.get("bq_search_indexed_res", 0), max_abs_err=0.0,
                      ms=timed_ms(lambda: scan_fn(*sa, **skw)),
                      plain_ms=plain_ms(lambda: bq_kernel.bq_search_indexed_plain(*sa, **skw)),
-                     bound=bound(s_bytes, 2 * Q * s_rows * PD, INT8_OPS_PER_S), library_ms=None))
+                     bound=bound(s_bytes, 2 * Q * s_rows * PD, INT8_OPS_PER_S),
+                     library_ms=library_time(
+                         "bq_search_indexed_res_serve: torch._int_mm of the expanded planes + "
+                         "epilogue + rowadd + corr + torch.topk", s_lib, smi)))
+    del s_lib
     r = recs[-1]
     require(r["launches"] > 0, "the served searches launched K10 with a value query")
     say("time", f"bq_search_indexed_res_serve: kernel {r['ms']:.4f} ms, plain "
@@ -4451,8 +4536,9 @@ def sass_functions(build):
 
 def tensor_core_bodies(funcs):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
-    shared scan body (the scores_kernel, approx_parts_kernel,
-    search_queue_kernel and search_exact_kernel instantiations: K3, the SQ
+    shared scan body (the scores_kernel, approx_ws_kernel, approx_parts_kernel,
+    search_queue_kernel and search_exact_kernel
+    instantiations: K3, the SQ
     and BQ searches on both exact selects, and the one-hot route of 4-bit
     int8-LUT PQ: K8, K7a / K11, K7b), in the bf16 one-hot K8
     (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ sign-query kernels
@@ -4463,8 +4549,9 @@ def tensor_core_bodies(funcs):
 
     found = {}
     for name, part in funcs.items():
-        m = re.search(r"\d(scores_kernel|approx_parts_kernel|search_exact_kernel|"
-                      r"search_queue_kernel)INS_\d+(CodeRows|PlaneRows|NibbleRows)", name)
+        m = re.search(r"\d(scores_kernel|approx_parts_kernel|approx_ws_kernel|"
+                      r"search_exact_kernel|search_queue_kernel)INS_\d+"
+                      r"(CodeRows|PlaneRows|NibbleRows)", name)
         if m:
             key = f"{m.group(1)}<{m.group(2)}>"
             found[key] = found.get(key, 0) + part.count("GMMA")
@@ -4475,7 +4562,8 @@ def tensor_core_bodies(funcs):
             found[m.group(1)] = part.count("BGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
-                           "approx_parts_kernel<NibbleRows>", "search_exact_kernel<CodeRows>",
+                           "approx_parts_kernel<NibbleRows>", "approx_ws_kernel<CodeRows>",
+                           "approx_ws_kernel<PlaneRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
                            "search_queue_kernel<CodeRows>", "search_queue_kernel<PlaneRows>",
                            "search_queue_kernel<NibbleRows>",
@@ -4606,6 +4694,35 @@ def ptxas_usage(log):
     return out
 
 
+def approx_usage(log):
+    """[(instantiation, registers, stack, spill stores, spill loads)] of the
+    approx bodies' entry functions (approx_ws_kernel, approx_parts_kernel),
+    from the build's ptxas -v lines. approx_ws_kernel's count is the
+    launch's (168 a thread at 384 threads); at 128 queries its consumers run
+    on 224 and its producer on 56 (setmaxnreg)."""
+    import re
+
+    out, cur, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = re.search(r"approx_parts_kernelINS_\d+(\w+?)ELb(\d)E", m.group(1))
+            x = re.search(r"approx_ws_kernelINS_\d+(\w+?)ELb(\d)ELb(\d)ELi(\d+)E", m.group(1))
+            cur = (w and f"approx_parts_kernel<{w.group(1)}, kOnce {w.group(2)}>") or \
+                  (x and f"approx_ws_kernel<{x.group(1)}, kOnce {x.group(2)}, TQ {x.group(4)}>")
+            frame = (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append((cur, int(m.group(1)), *frame))
+            cur = None
+    return out
+
+
 def max_sm_clock_hz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -4666,10 +4783,16 @@ def main():
         "bytes): " + (", ".join(f"{k} {r}, {st}, {a} / {b}"
                                 for k, (r, st, a, b) in sorted(usage.items()))
                       or "no ptxas log: the library was already built"))
+    approx = approx_usage(info["log"])
+    say("build", "the approx body (ptxas: registers, stack, spill stores / loads in bytes): " + (
+        ", ".join(f"{k} {r}, {st}, {a} / {b}" for k, r, st, a, b in approx)
+        or "no ptxas log: the library was already built"))
     n, hg, fadd, mov = bf16_onehot_loop(funcs)
     say("build", f"the bf16 one-hot K8's group loop (SASS; 8 chunks x 32 outputs a thread): "
         f"{n} instructions, {hg} HGMMA, {fadd} FADD, {mov} MOV ({n / 256:.2f} an output "
         "and chunk)")
+
+    asplit = approx_split(smi)
 
     # ------------------------------------------------------- 3. the paths
     sq_recs, sq_info = sq_path(dev, smi, do_profile)
@@ -4730,6 +4853,8 @@ def main():
         "sharded": sharded_info,
         "sharded_ivf": sharded_ivf_info,
         "bench_10m": bench10m_info,
+        "approx_split": {f"{k}/{d}/{p}": {x: v[x] for x in ("pass1_ms", "scan_ms", "combine_ms")}
+                         for (k, d, p), v in asplit.items()},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

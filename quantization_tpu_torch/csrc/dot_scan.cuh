@@ -76,13 +76,21 @@
 //     query tile); each half tile leaves by cp.async.bulk stores, one query
 //     row a thread, that drain under the next half's and segment's work
 //     (store_tile where n_valid % 4 != 0).
-//   * approx (K2, K9a, K10 / K5a value; K7a and K11 4-bit int8): TQ = 64,
-//     a 72 KB ring, two blocks per SM (128 registers; 88 bytes of spills
-//     for CodeRows, 68 for PlaneRows; NibbleRows, 4096-row parts: 64 bytes
-//     stored, 128 loaded). A thread keeps 32 accumulators, 32 running
-//     maxima and their segment numbers as bytes (8 registers), turned into
-//     corpus rows once at the end. One block per SM, without the spills,
-//     ran slower.
+//   * approx, two bodies. approx_ws_kernel (K2, K9a, K10 / K5a value, where
+//     its query tile fits: CodeRows to 1,024 bytes and PlaneRows to 768
+//     bits, at Q <= 64 to 2,304 and 1,536): warp-specialized and
+//     persistent, one block a SM, a
+//     producer warpgroup filling each consumer warpgroup's ring on
+//     mbarriers, 128 queries resident (64 where Q <= 64), work items of
+//     ktile.py approx_geometry (span blocks in place; K2 at 100k x 1024
+//     2048-row parts and the combine); the consumers take 224 registers
+//     (setmaxnreg) and spill 236-256 bytes of loop invariants at 128
+//     queries, none at 64. approx_parts_kernel (K7a and K11 4-bit int8, and
+//     the depths past that): TQ = 64, a 72 KB ring, two blocks per SM,
+//     121-124 registers, no spills. Both stage each segment's voff and corr
+//     beside its first chunk, and keep, a thread, its running maxima and
+//     their segment numbers as bytes, turned into corpus rows once an item
+//     ends.
 //   * exact (K1, K9b, K5b; K7b 4-bit int8), two selects by kk (ktile.cuh):
 //     - the queue select, kk <= 64 (search_queue_kernel): TQ = 64, the 72 KB
 //       ring (each segment's [64][132] u32 key tile passes through it) and
@@ -107,7 +115,11 @@
 // chunk's barrier, for the approx body and for K3 (no gain, PlaneRows and
 // K3 slower); one chunk stream across a block's segments with the epilogue
 // between chunks (approx slower); 1024-row approx parts (slower); a 32-query
-// exact tile with 256-row splits at two blocks per SM (no gain).
+// exact tile with 256-row splits at two blocks per SM (no gain); for the
+// warp-specialized approx body, strict turns between its consumer
+// warpgroups, a 64-query tile at any Q (K10's plane expansion then holds
+// the scan: 1.0 ms against 0.61), the epilogue's loads kept in program
+// order, and a 232 / 40 register split (ROADMAP "Measured and dropped").
 //
 // What bounds them on the H100: int8 tensor work at 1,979 TOPS against the
 // corpus bytes at 3.35 TB/s; at Q = 256 the SQ scans are bound by bytes, the
@@ -116,8 +128,13 @@
 // together). A segment's products take about 40 % of the tensor-core rate
 // per chunk; the per-segment epilogue, the searches' selection (the exact
 // body's queue or radix select, the approx merge's torch.topk) and K3's
-// output write take the rest. The replaced body, a __dp4a 4 x 4 register tile over 32
-// queries, was bound by instruction issue at 3-5 % of the int8 tensor-core
+// output write take the rest. The approx searches split (the probe
+// csrc/probe/approx_split.cu and scan_ab.py --only approx, NVIDIA H100 80GB
+// HBM3, 700 W): K9a pass 1 0.157-0.163 ms (its scan alone 0.100-0.102) and
+// the merge 0.10-0.13; K10 at the serving width pass 1 0.931-0.932 ms
+// (scan 0.611-0.613, the kOnce epilogue most of the rest) and the merge
+// 0.28. The replaced body, a __dp4a 4 x 4 register tile over 32 queries,
+// was bound by instruction issue at 3-5 % of the int8 tensor-core
 // bound: K3 0.51, K2 0.64, K1 0.75 ms at 100k x 1024, Q = 256, and the
 // value-query K10 1.22 ms over 262,144 x 768 rows and 5.49 ms over the
 // serving plan's 1,255,424 rows, against about 0.12, 0.18, 0.52, 0.50 and
@@ -142,6 +159,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ktile.cuh"
 
@@ -197,6 +216,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // Writes of the generic proxy (st.shared, cp.async) made visible to wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 bytes by cp.async (.ca: the 16-byte .cg form takes no smaller copy).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void st_shared_v4(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
@@ -261,6 +285,39 @@ __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64
         "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
         "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d[64 x 128] += A[64 x 32] . B[128 x 32]^T, s8 x s8 -> s32, from shared
+// memory: the m64n64k32 product over 128 queries (the accumulator fragment
+// continues frag_col past 64).
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
       : "l"(a), "l"(b), "r"(1)
       : "memory");
 }
@@ -547,7 +604,9 @@ __device__ __forceinline__ float epilogue(float m, int acc, float qo,
 __device__ __forceinline__ float affine_once(double m, int acc, double qo) {
   const double a = __hiloint2double(0x43300000, (int)((unsigned)acc ^ 0x80000000u)) -
                    4503601774854144.0;
-  return __double2float_rn(__dadd_rn(__dmul_rn(m, a), qo));
+  // m * a is exact in f64 (24 + 31 bits), so one fused multiply-add rounds
+  // as the multiply then the add do.
+  return __double2float_rn(__fma_rn(m, a, qo));
 }
 
 __device__ __forceinline__ float epilogue(double m, int acc, double qo,
@@ -577,12 +636,28 @@ __device__ __forceinline__ float epilogue_q(typename QParam<kOnce>::T m, int acc
   }
 }
 
+// mult * acc + qoff as epilogue_q computes it, without the row additive.
+template <bool kOnce>
+__device__ __forceinline__ float affine_q(typename QParam<kOnce>::T m, int acc,
+                                          typename QParam<kOnce>::T qo) {
+  if constexpr (kOnce) {
+    return affine_once(m, acc, qo);
+  } else {
+    return __fadd_rn(__fmul_rn(m, __int2float_rn(acc)), qo);
+  }
+}
+
 // The 1024-aligned start of a block's dynamic shared memory (the launchers
 // ask for kAlign bytes more than the layout needs).
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   const uint32_t a = smem_addr(raw);
   return raw + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
 }
+
+// No copies beside a segment's first chunk (mma_segment's side).
+struct NoSide {
+  __device__ __forceinline__ void operator()() const {}
+};
 
 // acc[h][e] = the int8 dot over the depth of segment row frag_row(e) (corpus
 // row row0 + frag_row(e)) against query q0 + 64h + frag_col(e). Rows row0 ..
@@ -591,12 +666,14 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // count, qcodes the query words [Q, D / 4] and D a multiple of 32 bytes (a
 // 256-bit step): the last chunk may be partial, and no product reads past
 // D. Every thread of the block must call it (it synchronises); ring is the
-// shared address of T::kBytes, 1024-aligned.
-template <class T, class Rows>
+// shared address of T::kBytes, 1024-aligned. side() issues more cp.async
+// copies with the first chunk's, landed when the products start.
+template <class T, class Rows, class Side = NoSide>
 __device__ __forceinline__ void mma_segment(const Rows& rows,
                                             const int8_t* __restrict__ qcodes, int q0,
                                             int Q, long long row0, int D, uint32_t ring,
-                                            int (&acc)[T::kH][T::kAcc]) {
+                                            int (&acc)[T::kH][T::kAcc],
+                                            const Side& side = Side{}) {
   constexpr int TQ = T::TQ, S = T::S, kStage = T::kStage, kH = T::kH;
   const int tid = threadIdx.x;
   const int nk = Rows::kBits ? (D + kDK - 1) / kDK : D / kDK;
@@ -633,6 +710,7 @@ __device__ __forceinline__ void mma_segment(const Rows& rows,
       rows.prefetch(p, row0, s * kDK);
       rows.issue(st, row0, s * kDK);
       fetch_queries(st + kSeg * kDK, s * kDK);
+      if (s == 0) side();
       rows.put(st, p);
     }
     cp_async_commit();
@@ -903,8 +981,16 @@ __global__ void __launch_bounds__(kThreads, ExactQueueTile::kBlocks) search_queu
 // the first row wins ties, as the Pallas kernels' compares do. Compact rows
 // >= n_valid score NEG. A 128-row segment lies in one selected tile; part
 // is a multiple of 128 below 255 * 128, so a segment number m fits a byte.
-// part_v / part_i: [Q, nparts*128]. Pass 2 is ktile.cuh's in-order combine
-// per span block.
+// part_v / part_i: [Q, nparts*128]. Where part is the span block (the
+// wrappers' geometry, ktile.py approx_geometry) they are the candidates;
+// else pass 2 is ktile.cuh's in-order combine per span block. Every
+// segment's voff (its 128 rows) and corr (its 512-row block, the block's
+// queries) land in shared memory with its first chunk (side), so the
+// epilogue reads no global memory. approx_ws_kernel (below) takes K2 / K9a
+// and the value-query K5a / K10 wherever its query tile fits; this body
+// keeps the 4-bit int8 K7a / K11 and the depths past that.
+constexpr int kApproxSide = (kSeg + ApproxTile::TQ) * 4;  // voff[128], corr[64]
+
 template <class Rows, bool kOnce>
 __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_kernel(
     const typename Rows::Elem* __restrict__ base, long long stride,
@@ -917,8 +1003,10 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_ke
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   using P = typename QParam<kOnce>::T;
-  P* qm = reinterpret_cast<P*>(smem + T::kBytes);
+  P* qm = reinterpret_cast<P*>(smem + T::kBytes + kApproxSide);
   P* qo = qm + TQ;
+  const float* sv = reinterpret_cast<const float*>(smem + T::kBytes);
+  const uint32_t ring = smem_addr(smem), side = ring + T::kBytes;
   const int nqt = (Q + TQ - 1) / TQ, nparts = (ncomp + part - 1) / part;
   const int part_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
   const long long start = (long long)part_id * part;
@@ -933,15 +1021,28 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_ke
   for (int off = 0; off < part && start + off < ncomp; off += kSeg, ++m) {
     int acc[1][32];
     const long long seg0 = map.row(start + off);
-    mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, seg0, D, smem_addr(smem), acc);
+    // The segment's voff (32 pieces of 16 bytes) and corr, beside its first
+    // chunk.
+    const auto copy_side = [&]() {
+      const int t = threadIdx.x;
+      if (t < kSeg / 4) {
+        cp_async16(side + 16 * t, voff + seg0 + 4 * t, 16);
+      } else if (map.corr && t < kSeg / 4 + TQ) {
+        const int j = t - kSeg / 4;
+        cp_async4(side + 4 * (kSeg + j), map.corr + min(q0 + j, Q - 1) * map.corr_qs +
+                                             ((start + off) >> kCorrShift) * map.corr_bs);
+      }
+    };
+    mma_segment<T>(Rows{base, stride}, qcodes, q0, Q, seg0, D, ring, acc, copy_side);
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int j = frag_col(e), r = frag_row(e);
       const long long c = start + off + r;
-      const float sc =
-          c < n_valid ? map.add_corr(epilogue_q<kOnce>(qm[j], acc[0][e], qo[j], voff, seg0 + r),
-                                     min(q0 + j, Q - 1), c)
-                      : kNeg;
+      float sc = kNeg;
+      if (c < n_valid) {
+        sc = __fadd_rn(affine_q<kOnce>(qm[j], acc[0][e], qo[j]), sv[r]);
+        if (map.corr) sc = __fadd_rn(sc, sv[kSeg + j]);
+      }
       if (sc > best[e]) {
         best[e] = sc;
         const int sh = 8 * (e & 3);
@@ -958,6 +1059,385 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_ke
     const long long c = (long long)q * width + (long long)part_id * kSlot + l;
     part_v[c] = best[e];
     part_i[c] = sm == 0xffu ? -1 : (int)map.row(start + (long long)sm * kSeg + l);
+  }
+}
+
+// ------------------------------------- approx search, warp-specialized body
+// approx_ws_kernel: pass 1 of K2 / K9a (CodeRows) and of the value-query K5a
+// / K10 (PlaneRows), approx_parts_kernel's output to the bit, wherever the
+// block's query tile stays resident beside kWsMinStages ring stages a
+// warpgroup (WsLayout, ws_fits; past that, and for the 4-bit int8 K7a / K11,
+// whose 3,072-byte one-hot depth is no resident tile, approx_parts_kernel
+// runs). A block of 384 threads, one a SM, persistent:
+//   * a tile of 128 queries (ws_tq: 64 where Q <= 64) is loaded once and
+//     stays resident: the products are m64n128k32, so a chunk of rows staged
+//     once serves twice the queries it serves in a 64-query tile.
+//   * warpgroups 0 and 1 consume: warpgroup g takes rows 64g .. 64g + 63 of
+//     every 128-row segment (frag_row), as mma_segment's warpgroups do, from
+//     a ring of its own (8 KB stages: its 64 rows of a 128-byte chunk,
+//     swizzled). Full / empty mbarriers pace the ring, no block-wide barrier
+//     is left in the walk, and a warpgroup keeps a chunk's products in
+//     flight while it releases the stage of the one before.
+//   * warpgroup 2 produces: warps 2g and 2g + 1 keep warpgroup g's ring full
+//     across segments and items. CodeRows: cp.async straight into the
+//     swizzled stage, each thread's copies arriving on the stage's full
+//     barrier as they land (cp.async.mbarrier.arrive.noinc). PlaneRows: a
+//     segment's plane words land raw one segment ahead (cp.async), then a
+//     thread expands its row's words into the stage. With a segment's first
+//     chunk go its voff (the warpgroup's 64 rows) and corr (the block's
+//     queries) into a side slot, so the epilogue reads no global memory. At
+//     TQ = 128 the producer gives registers to the consumers (setmaxnreg:
+//     56 and 224 a thread), whose accumulators and maxima take 128.
+//   * the two consumer warpgroups run free of each other, each on its own
+//     ring, so the epilogue and stride-class maxima of one run under the
+//     other's products. Strict turns on the tensor cores (a warpgroup's chain
+//     only once the other's was issued) measured no faster: K10-value at the
+//     serving width 1.2953 against 1.2593 ms, K9a 0.1632 against 0.1629
+//     (NVIDIA H100 80GB HBM3, 700 W, csrc/probe/approx_split.cu).
+//   * block b walks the work items b, b + G, ... (G, the grid, a multiple of
+//     the query tiles nqt; item i = part i / nqt, query tile i % nqt): its
+//     query tile never changes, and the query tiles of a part run on
+//     neighbouring blocks at once, reading its rows once from device memory.
+// Where an item is a whole span block (part == span_rows, ktile.py
+// approx_geometry), its maxima are the candidates and no combine runs.
+// kScan (csrc/probe/approx_split.cu): the scan alone, each accumulator
+// folded into a register in place of the epilogue (wrong results).
+constexpr int kWsThreads = 3 * 128;
+constexpr int kWsStage = 64 * kDK;                       // a warpgroup's 64 rows of a chunk
+constexpr int kWsMinStages = 4, kWsMaxStages = 8;        // a warpgroup's ring
+constexpr int kWsSide = 4;                               // side slots a warpgroup
+constexpr int kWsBarBytes = 512;
+constexpr int kWsTQ = 128;  // queries a block (64 where Q <= 64: ws_tq)
+constexpr int kWsSmem = 232448;  // H100: dynamic shared memory a block may take
+
+// The block's shared memory, offsets from the 1024-aligned base: the two
+// rings (stage s of warpgroup g at (g * S + s) * kWsStage), the resident
+// queries (chunk c [TQ][128 B] swizzled at q + c * TQ * 128), PlaneRows'
+// raw words (two segments a warpgroup), the side slots, qm / qo, the
+// segment bytes of the running maxima, the barriers. S = 0 where fewer than
+// kWsMinStages fit.
+struct WsLayout {
+  int S, q, raw, raw_seg, side, side_bytes, qp, segs, bars, bytes;
+  __host__ __device__ WsLayout(int TQ, int D, bool planes, int psize) {
+    const int nk = D / kDK, qbytes = nk * TQ * kDK;
+    raw_seg = planes ? nk * 4 * 64 * 4 : 0;  // nk chunks x 4 words x 64 rows
+    side_bytes = (64 + TQ) * 4;              // voff[64], corr[TQ]
+    const int fixed = qbytes + 2 * 2 * raw_seg + 2 * kWsSide * side_bytes + 2 * TQ * psize +
+                      256 * TQ / 2 + kWsBarBytes;
+    const int room = (kWsSmem - kAlign - fixed) / (2 * kWsStage);
+    S = room < kWsMinStages ? 0 : room < kWsMaxStages ? room : kWsMaxStages;
+    q = 2 * S * kWsStage;
+    raw = q + qbytes;
+    side = raw + 2 * 2 * raw_seg;
+    qp = side + 2 * kWsSide * side_bytes;
+    segs = qp + 2 * TQ * psize;
+    bars = segs + 256 * TQ / 2;
+    bytes = bars + kWsBarBytes;
+  }
+};
+
+// The body's mbarriers, 8 bytes each from b.
+struct WsBars {
+  uint32_t b;
+  __device__ __forceinline__ uint32_t full(int g, int s) const {
+    return b + 8 * (g * kWsMaxStages + s);
+  }
+  __device__ __forceinline__ uint32_t empty(int g, int s) const {
+    return b + 8 * ((2 + g) * kWsMaxStages + s);
+  }
+  __device__ __forceinline__ uint32_t side_free(int g, int k) const {
+    return b + 8 * (4 * kWsMaxStages + g * kWsSide + k);
+  }
+  __device__ __forceinline__ uint32_t qready() const {
+    return b + 8 * (4 * kWsMaxStages + 2 * kWsSide);
+  }
+};
+static_assert(8 * (4 * kWsMaxStages + 2 * kWsSide + 1) <= kWsBarBytes, "the barriers fit");
+
+__device__ __forceinline__ void ws_bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival where p holds, with no branch (between a warpgroup's products).
+__device__ __forceinline__ void ws_bar_arrive_if(uint32_t bar, bool p) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)p)
+      : "memory");
+}
+// An arrival once every cp.async this thread issued so far has landed (the
+// barrier's count includes it).
+__device__ __forceinline__ void ws_bar_arrive_cp(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// The block's walk over its items' segments, in order.
+struct WsWalk {
+  int nqt, nitems, part, ncomp, item, m, ns;
+  long long start;  // the item's first compact row
+  __device__ __forceinline__ WsWalk(int TQ, int Q, int ncomp_, int part_) {
+    nqt = (Q + TQ - 1) / TQ;
+    part = part_;
+    ncomp = ncomp_;
+    nitems = (ncomp + part - 1) / part * nqt;
+    item = blockIdx.x;
+    m = 0;
+    set_item();
+  }
+  __device__ __forceinline__ void set_item() {
+    start = (long long)(item / nqt) * part;
+    const long long left = ncomp - start;
+    ns = (int)(((left < part ? left : part) + kSeg - 1) / kSeg);
+  }
+  __device__ __forceinline__ bool done() const { return item >= nitems; }
+  __device__ __forceinline__ bool last() const { return m == ns - 1; }
+  // The segment's first compact row.
+  __device__ __forceinline__ long long comp() const { return start + (long long)m * kSeg; }
+  __device__ __forceinline__ void next() {
+    if (++m == ns) {
+      m = 0;
+      item += gridDim.x;
+      if (item < nitems) set_item();
+    }
+  }
+};
+
+// The products of one k32 step against TQ queries.
+template <int TQ>
+__device__ __forceinline__ void wgmma_tq(int (&d)[TQ / 2], uint64_t a, uint64_t b) {
+  if constexpr (TQ == 128) {
+    wgmma_m64n128k32(d, a, b);
+  } else {
+    wgmma_m64n64k32(d, a, b);
+  }
+}
+
+template <class Rows, bool kOnce, bool kScan, int TQ>
+__global__ void __launch_bounds__(kWsThreads, 1) approx_ws_kernel(
+    const typename Rows::Elem* __restrict__ base, long long stride,
+    const int8_t* __restrict__ qcodes, const float* __restrict__ qoff,
+    const float* __restrict__ mult, const float* __restrict__ voff,
+    float* __restrict__ part_v, int* __restrict__ part_i, int Q, int ncomp, int n_valid,
+    int D, int part, int mstride, ScanMap map) {
+  constexpr bool kPlanes = std::is_same<Rows, PlaneRows>::value;
+  static_assert(kPlanes || std::is_same<Rows, CodeRows>::value, "CodeRows or PlaneRows");
+  constexpr int kAcc = TQ / 2;
+  using P = typename QParam<kOnce>::T;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const WsLayout L(TQ, D, kPlanes, (int)sizeof(P));
+  const uint32_t s0 = smem_addr(smem);
+  const WsBars bars{s0 + L.bars};
+  P* qm = reinterpret_cast<P*>(smem + L.qp);
+  P* qo = qm + TQ;
+  const int nk = D / kDK, S = L.S;
+  const int q0 = (int)(blockIdx.x % ((Q + TQ - 1) / TQ)) * TQ;
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g) {
+      for (int s = 0; s < S; ++s) {
+        mbar_init(bars.full(g, s), 64);  // the ring's 64 producer threads
+        mbar_init(bars.empty(g, s), 1);  // the warpgroup's first thread
+      }
+      for (int k = 0; k < kWsSide; ++k) mbar_init(bars.side_free(g, k), 128);
+    }
+    mbar_init(bars.qready(), 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------------ producer
+    // TQ = 128: the consumers' accumulators and maxima need more than the
+    // launch's 168 registers a thread; the producer gives them its own.
+    if constexpr (TQ == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = threadIdx.x - 256, g = pt >> 6, lt = pt & 63;
+    for (int idx = pt; idx < nk * TQ * 8; idx += 128) {
+      const int c = idx / (TQ * 8), r = (idx >> 3) % TQ, pc = idx & 7, q = q0 + r;
+      cp_async16(s0 + L.q + c * (TQ * kDK) + swz(r, pc),
+                 qcodes + (long long)min(q, Q - 1) * D + c * kDK + pc * 16, q < Q ? 16 : 0);
+    }
+    ws_bar_arrive_cp(bars.qready());
+    const uint32_t ring = s0 + g * S * kWsStage;
+    const uint32_t side0 = s0 + L.side + g * kWsSide * L.side_bytes;
+    const uint32_t raw0 = s0 + L.raw + g * 2 * L.raw_seg;
+    // PlaneRows: the plane words of the segment at row0 into raw slot p,
+    // word (4c + w) of this thread's row at (4c + w) * 256 + 4 lt.
+    auto issue_raw = [&](int p, long long row0) {
+      const uint32_t dst = raw0 + p * L.raw_seg + 4 * lt;
+      const typename Rows::Elem* src = base + row0 + 64 * g + lt;
+      for (int cw = 0; cw < 4 * nk; ++cw) cp_async4(dst + cw * 256, src + (long long)cw * stride);
+    };
+    WsWalk w(TQ, Q, ncomp, part), ahead(TQ, Q, ncomp, part);
+    if constexpr (kPlanes) {
+      issue_raw(0, map.row(w.comp()));
+      cp_async_commit();
+      ahead.next();
+    }
+    int s = 0, u = 0;
+    uint32_t ph = 0;
+    for (; !w.done(); w.next(), ++u) {
+      const long long cs = w.comp(), row0 = map.row(cs);
+      const int ks = u % kWsSide;
+      mbar_wait(bars.side_free(g, ks), ((u / kWsSide) & 1) ^ 1u);
+      const uint32_t side = side0 + ks * L.side_bytes;
+      if (lt < 16) cp_async16(side + 16 * lt, voff + row0 + 64 * g + 4 * lt, 16);
+      if (map.corr) {
+        for (int j = lt; j < TQ; j += 64)
+          cp_async4(side + 4 * (64 + j), map.corr + min(q0 + j, Q - 1) * map.corr_qs +
+                                             (cs >> kCorrShift) * map.corr_bs);
+      }
+      if constexpr (kPlanes) {
+        cp_async_commit();
+        if (!ahead.done()) issue_raw((u + 1) & 1, map.row(ahead.comp()));
+        cp_async_commit();
+        ahead.next();
+        cp_async_wait<1>();  // the side and this segment's raw words landed
+      }
+      for (int c = 0; c < nk; ++c) {
+        mbar_wait(bars.empty(g, s), ph ^ 1u);
+        const uint32_t st = ring + s * kWsStage;
+        if constexpr (kPlanes) {
+          // Row lt's words 4c .. 4c + 3: A row lt, byte 32w + j = bit j of
+          // word w (PlaneRows::put's expansion).
+          const uint32_t src = raw0 + (u & 1) * L.raw_seg + 4 * c * 256 + 4 * lt;
+#pragma unroll
+          for (int wd = 0; wd < 4; ++wd) {
+            uint32_t v;
+            asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(src + wd * 256));
+            uint32_t b[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              b[i] = (((v >> (4 * i)) & 0xFu) * 0x00204081u) & 0x01010101u;
+            st_shared_v4(st + swz(lt, 2 * wd), b[0], b[1], b[2], b[3]);
+            st_shared_v4(st + swz(lt, 2 * wd + 1), b[4], b[5], b[6], b[7]);
+          }
+          fence_proxy_async();  // the stores, for the products
+          ws_bar_arrive(bars.full(g, s));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int idx = lt + 64 * i, r = idx >> 3, pc = idx & 7;
+            cp_async16(st + swz(r, pc), base + (row0 + 64 * g + r) * stride + c * kDK + pc * 16,
+                       16);
+          }
+          ws_bar_arrive_cp(bars.full(g, s));
+        }
+        if (++s == S) s = 0, ph ^= 1u;
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  if constexpr (TQ == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int g = threadIdx.x >> 7;
+  const bool lead = (threadIdx.x & 127) == 0;
+  for (int i = threadIdx.x; i < TQ; i += 256) {
+    const int q = min(q0 + i, Q - 1);
+    qm[i] = mult[q * mstride];
+    qo[i] = qoff[q];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers' qm / qo
+  mbar_wait(bars.qready(), 0);
+  fence_proxy_async();
+  const uint32_t ring = s0 + g * S * kWsStage;
+  const uint64_t dq = wgmma_desc(s0 + L.q);
+  const int nparts = (ncomp + part - 1) / part;
+  const long long width = (long long)nparts * kSlot;
+  float best[kAcc];
+  // The segment of best[e] (0xff: none), a byte in shared memory: byte e % 4
+  // of this thread's word e / 4 (words [kAcc / 4][256 threads]).
+  uint8_t* seg = smem + L.segs + 4 * threadIdx.x;
+  unsigned fold = 0;
+  auto reset = [&]() {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) best[e] = -__int_as_float(0x7f800000);  // -inf
+#pragma unroll
+    for (int i = 0; i < kAcc / 4; ++i) *reinterpret_cast<unsigned*>(seg + i * 1024) = ~0u;
+  };
+  reset();
+  int s = 0, u = 0;
+  uint32_t ph = 0;
+  for (WsWalk w(TQ, Q, ncomp, part); !w.done(); w.next(), ++u) {
+    int acc[kAcc];
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[e] = 0;
+    fence_acc(acc);
+    int sp = 0;
+    for (int c = 0; c < nk; ++c) {
+      mbar_wait(bars.full(g, s), ph);
+      fence_proxy_async();  // the producer's cp.async copies, for the products
+      const uint64_t da = wgmma_desc(ring + s * kWsStage),
+                     db = dq + (uint64_t)((c * TQ * kDK) >> 4);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kDK / 32; ++k) wgmma_tq<TQ>(acc, da + 2 * k, db + 2 * k);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();  // chunk c - 1's products are done: its stage is free
+        ws_bar_arrive_if(bars.empty(g, sp), lead);
+      }
+      sp = s;
+      if (++s == S) s = 0, ph ^= 1u;
+    }
+    wgmma_wait<0>();
+    ws_bar_arrive_if(bars.empty(g, sp), lead);
+    fence_acc(acc);
+    const int ks = u % kWsSide;
+    const float* sv = reinterpret_cast<const float*>(smem + L.side +
+                                                     (g * kWsSide + ks) * L.side_bytes);
+    const long long cs = w.comp();
+    if constexpr (kScan) {
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) fold ^= (unsigned)acc[e];
+    } else {
+      // Elements 4i .. 4i + 3: queries j = 8i + 2 (t % 4) and j + 1 (e & 1) at
+      // rows r and r + 8 (e & 2).
+      const int r0 = frag_row(0);
+      const bool in0 = cs + r0 < n_valid, in1 = cs + r0 + 8 < n_valid;
+      const float v0 = sv[r0 - 64 * g], v1 = sv[r0 + 8 - 64 * g];
+#pragma unroll
+      for (int i = 0; i < kAcc / 4; ++i) {
+        const int j = frag_col(4 * i);
+        const P m0 = qm[j], m1 = qm[j + 1], o0 = qo[j], o1 = qo[j + 1];
+        const float c0 = map.corr ? sv[64 + j] : 0.f, c1 = map.corr ? sv[65 + j] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int e = 4 * i + h;
+          float sc = kNeg;
+          if (h & 2 ? in1 : in0) {
+            sc = __fadd_rn(affine_q<kOnce>(h & 1 ? m1 : m0, acc[e], h & 1 ? o1 : o0),
+                           h & 2 ? v1 : v0);
+            if (map.corr) sc = __fadd_rn(sc, h & 1 ? c1 : c0);
+          }
+          if (sc > best[e]) {
+            best[e] = sc;
+            seg[i * 1024 + h] = (uint8_t)w.m;
+          }
+        }
+      }
+    }
+    ws_bar_arrive(bars.side_free(g, ks));
+    if (w.last()) {
+      const int pid = (int)(w.start / part);
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) {
+        const int q = q0 + frag_col(e), l = frag_row(e);
+        if (q >= Q) continue;
+        const unsigned sm = seg[(e >> 2) * 1024 + (e & 3)];
+        const long long o = (long long)q * width + (long long)pid * kSlot + l;
+        if constexpr (kScan) {
+          part_v[o] = __uint_as_float(fold);
+        } else {
+          part_v[o] = best[e];
+          part_i[o] = sm == 0xffu ? -1 : (int)map.row(w.start + (long long)sm * kSeg + l);
+        }
+      }
+      reset();
+    }
   }
 }
 
@@ -1024,6 +1504,77 @@ cudaError_t launch_search_exact(const void* base, long long stride, const void* 
   return cudaGetLastError();
 }
 
+// approx_parts_kernel's launch.
+template <class Rows, bool kOnce>
+cudaError_t launch_approx_parts(const void* base, long long stride, const void* qcodes,
+                                const void* qoff, const void* mult, const void* voff,
+                                void* part_v, void* part_i, int Q, int ncomp, int n_valid, int D,
+                                int part, int mstride, ScanMap map, cudaStream_t s) {
+  auto* kernel = approx_parts_kernel<Rows, kOnce>;
+  const size_t smem = kAlign + ApproxTile::kBytes + kApproxSide +
+                      2 * ApproxTile::TQ * sizeof(typename QParam<kOnce>::T);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nparts = (ncomp + part - 1) / part;
+  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const typename Rows::Elem*>(base), stride,
+      static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
+      static_cast<const float*>(mult), static_cast<const float*>(voff),
+      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
+      mstride, map);
+  return cudaGetLastError();
+}
+
+// approx_ws_kernel's launch: one block a SM (at least one a query tile), the
+// grid a multiple of the query tiles and at most the items. The caller
+// checks that the layout fits (ws_fits).
+template <class Rows, bool kOnce, bool kScan = false, int TQ = kWsTQ>
+cudaError_t launch_approx_ws(const void* base, long long stride, const void* qcodes,
+                             const void* qoff, const void* mult, const void* voff, void* part_v,
+                             void* part_i, int Q, int ncomp, int n_valid, int D, int part,
+                             int mstride, ScanMap map, cudaStream_t s) {
+  const WsLayout L(TQ, D, std::is_same<Rows, PlaneRows>::value,
+                   (int)sizeof(typename QParam<kOnce>::T));
+  if (L.S == 0) return cudaErrorInvalidValue;
+  auto* kernel = approx_ws_kernel<Rows, kOnce, kScan, TQ>;
+  const size_t smem = kAlign + L.bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, nsm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int nqt = (Q + TQ - 1) / TQ;
+  const long long nitems = (long long)((ncomp + part - 1) / part) * nqt;
+  long long grid = (long long)(nsm / nqt > 1 ? nsm / nqt : 1) * nqt;
+  if (grid > nitems) grid = nitems;
+  kernel<<<(unsigned)grid, kWsThreads, smem, s>>>(
+      static_cast<const typename Rows::Elem*>(base), stride,
+      static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
+      static_cast<const float*>(mult), static_cast<const float*>(voff),
+      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
+      mstride, map);
+  return cudaGetLastError();
+}
+
+// The query tile: 128 queries, or 64 where there are no more.
+inline int ws_tq(int Q) { return Q > 64 ? kWsTQ : 64; }
+
+// Whether approx_ws_kernel runs the route: CodeRows or PlaneRows, its
+// layout in the SM's shared memory.
+template <class Rows, bool kOnce>
+bool ws_fits(int Q, int D) {
+  constexpr bool planes = std::is_same<Rows, PlaneRows>::value;
+  if (!planes && !std::is_same<Rows, CodeRows>::value) return false;
+  return WsLayout(ws_tq(Q), D, planes, (int)sizeof(typename QParam<kOnce>::T)).S > 0;
+}
+
+// Pass 1 (approx_ws_kernel where ws_fits, else approx_parts_kernel), then,
+// unless each part is a whole span block, the combine into out_v / out_i
+// [Q, ceil(ncomp / span_rows) * 128].
 template <class Rows, bool kOnce>
 cudaError_t launch_search_approx(const void* base, long long stride, const void* qcodes,
                                  const void* qoff,
@@ -1034,23 +1585,26 @@ cudaError_t launch_search_approx(const void* base, long long stride, const void*
   // With out_v / out_i in the parts' place, each part must be a whole span
   // block: pass 1's maxima are then the result, and no combine runs.
   const bool in_place = out_v == part_v;
-  if (part % kSeg || part / kSeg > 255 || (in_place && span_rows != part))
+  if (part % kSeg || part / kSeg > 255 || span_rows % part || (in_place && span_rows != part))
     return cudaErrorInvalidValue;
-  const size_t smem =
-      kAlign + ApproxTile::kBytes + sizeof(typename QParam<kOnce>::T) * 2 * ApproxTile::TQ;
-  cudaError_t err = cudaFuncSetAttribute(approx_parts_kernel<Rows, kOnce>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
   const int nparts = (ncomp + part - 1) / part;
-  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
-  approx_parts_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
-      static_cast<const typename Rows::Elem*>(base), stride,
-      static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
-      static_cast<const float*>(mult), static_cast<const float*>(voff),
-      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
-      mstride, map);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (std::is_same<Rows, CodeRows>::value || std::is_same<Rows, PlaneRows>::value) {
+    if (ws_fits<Rows, kOnce>(Q, D) && ws_tq(Q) == 64) {
+      err = launch_approx_ws<Rows, kOnce, false, 64>(base, stride, qcodes, qoff, mult, voff,
+                                                     part_v, part_i, Q, ncomp, n_valid, D, part,
+                                                     mstride, map, s);
+    } else if (ws_fits<Rows, kOnce>(Q, D)) {
+      err = launch_approx_ws<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v, part_i,
+                                          Q, ncomp, n_valid, D, part, mstride, map, s);
+    } else {
+      err = launch_approx_parts<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v,
+                                             part_i, Q, ncomp, n_valid, D, part, mstride, map, s);
+    }
+  } else {
+    err = launch_approx_parts<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v, part_i,
+                                           Q, ncomp, n_valid, D, part, mstride, map, s);
+  }
   if (err != cudaSuccess || in_place) return err;
   return launch_approx_combine(static_cast<const float*>(part_v),
                                static_cast<const int*>(part_i), static_cast<float*>(out_v),

@@ -76,6 +76,25 @@ inline ScanMap scan_map(const void* sel, int tile_n, const void* corr, long long
                  corr_qs, corr_bs};
 }
 
+// mbarriers in shared memory (the LUT ring, pq_kernels.cuh; the
+// warp-specialized approx body, dot_scan.cuh).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
 // Order-preserving map f32 -> u32: a > b as floats iff key(a) > key(b).
 __device__ __forceinline__ unsigned float_to_key(float f) {
   unsigned u = __float_as_uint(f);

@@ -53,7 +53,9 @@ from .ktile import (
     NEG,
     SELECT_LAUNCHES,
     SPAN,
+    approx_buffers,
     approx_candidates,
+    approx_geometry,
     check_search,
     check_tensors,
     corr_strides,
@@ -61,6 +63,7 @@ from .ktile import (
     expand_corr,
     merge_candidates,
     merge_exact,
+    sm_count,
     tile_rows,
 )
 from .sq_kernel import EXACT_TQ, mult_arg
@@ -75,7 +78,8 @@ W_ALIGN = 8
 # (ktile.exact_geometry); the radix select's blocks take 32 queries and one
 # split. K5b runs the int8 exact body (EXACT_TQ).
 SIGN_QUEUE_TQ = 64
-# Corpus rows per K5a pass-1 block; divides every approx span.
+# Corpus rows per pass-1 block of the sign-query K5a / K10; divides every
+# approx span.
 APPROX_PART = 2048
 # Narrowest approx tile of the JAX package (its MXU_TILE_N); see mxu_tile_n.
 MXU_TILE_N = 512
@@ -286,16 +290,6 @@ def bq_search(
                           SPAN * mxu_tile_n(w8 * 32, npad), k, "bq_search_approx")
 
 
-def _approx_buffers(q, ncomp, span_rows, dev):
-    """(part_v, part_i, vals, ids) of an approx launch: the pass-1 maxima per
-    APPROX_PART rows and the span blocks' candidates, 128 slots each."""
-    nparts, nblocks = -(-ncomp // APPROX_PART), -(-ncomp // span_rows)
-    return (torch.empty((q, nparts * 128), dtype=torch.float32, device=dev),
-            torch.empty((q, nparts * 128), dtype=torch.int32, device=dev),
-            torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev),
-            torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev))
-
-
 def _launch_res(query_affine, planes, corr, rowadd, sel, tile_n, ncomp, n_valid, k, mode,
                 span_rows, name):
     """Launch K5b (exact) or K5a / K10 (approx, ``sel`` None: dense) with a
@@ -328,10 +322,11 @@ def _launch_res(query_affine, planes, corr, rowadd, sel, tile_n, ncomp, n_valid,
             LAUNCHES[name] += 1
             SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
-    bufs = _approx_buffers(q, ncomp, span_rows, dev)
+    part = approx_geometry(ncomp, q, span_rows, sm_count(dev))
+    bufs = approx_buffers(q, ncomp, span_rows, part, dev)
     if q and ncomp:
         err = lib.qtt_bq_search_approx_res(
-            *head, *(b.data_ptr() for b in bufs), q, w8, npad, ncomp, n_valid, APPROX_PART,
+            *head, *(b.data_ptr() for b in bufs), q, w8, npad, ncomp, n_valid, part,
             span_rows, mstride, *scan, _stream(planes))
         check(lib, err, name)
         LAUNCHES[name] += 1
@@ -342,7 +337,7 @@ def _launch_approx(qwords, planes, args, sel, tile_n, ncomp, span_rows, k, name)
     """Launch K5a / K10 over ``ncomp`` compact rows (``sel`` None: dense)
     and merge; counts the launch as ``name``."""
     q, dev = qwords.shape[0], planes.device
-    bufs = _approx_buffers(q, ncomp, span_rows, dev)
+    bufs = approx_buffers(q, ncomp, span_rows, APPROX_PART, dev)
     if q and ncomp:
         lib = load_library()
         err = lib.qtt_bq_search_approx(

@@ -62,6 +62,23 @@ APPROX_K_MAX = 4096
 # Corpus tiles max-merged into one [Q, SLOT] approx candidate block.
 SPAN = 4
 
+# The int8 approx body (csrc/dot_scan.cuh approx_ws_kernel: K2 / K9a, the
+# value-query K5a / K10): a block takes APPROX_TQ queries (64 where there
+# are no more), one block a SM, and walks work items of a part of rows each
+# (approx_geometry). An item is a whole span block (pass 1 writes the
+# candidates in place, no combine) unless smaller parts, at least
+# APPROX_MIN_PART rows, end the walk sooner by more than the margin: on an
+# NVIDIA H100 80GB HBM3 at 700 W (csrc/probe/approx_split.cu) K9a's span
+# items in place took 0.1632 ms against 0.2021 + 0.0215 for 2048-row items
+# and the combine, whose walk the model puts equal, and dense K2 at 100k x
+# 1024 rows (26 span items on 132 SMs) 0.3731 against 0.1251 + 0.0056. A
+# segment number is a byte (0xff: none), so a part holds at most
+# APPROX_MAX_SEGS segments of SLOT rows.
+APPROX_TQ = 128
+APPROX_MIN_PART = 2048
+APPROX_MAX_SEGS = 255
+APPROX_INPLACE_MARGIN = 0.9
+
 # Rows per value of a residual-IVF ``corr`` additive (the JAX package's
 # CORR_BLK, sq_kernel.py:55): IVF buckets are CORR_BLK-aligned, so one value
 # per query and 512-row block carries the bucket term exactly.
@@ -88,6 +105,63 @@ def exact_geometry(k: int, ncomp: int, q: int, tq: int) -> Tuple[int, int, int, 
         per = max(1, QUEUE_WAVE // max(1, -(-q // tq)))
         split *= max(1, -(-nsplit // per))
     return kk, split, -(-ncomp // split) * kk, route
+
+
+def approx_geometry(ncomp: int, q: int, span_rows: int, nsm: int) -> int:
+    """Rows of an approx work item (pass 1's ``part``) over ``ncomp`` compact
+    rows, ``q`` queries and span blocks of ``span_rows``, on a card of
+    ``nsm`` SMs. The body runs one block a SM (the grid a multiple of the
+    query tiles), each walking every grid-th item, so the launch lasts about
+    ceil(items / grid) items of ``part`` rows: the span block, unless a part
+    of span / 2, / 4, ... (at least APPROX_MIN_PART rows) cuts that below
+    APPROX_INPLACE_MARGIN of it or the span block holds more than
+    APPROX_MAX_SEGS segments; then the smallest such time, the larger part on
+    a tie. The candidates do not depend on it: the combine of smaller parts
+    is the span block's own in-order maximum."""
+    nqt = -(-q // (APPROX_TQ if q > 64 else 64))
+    grid = max(1, nsm // nqt) * nqt
+
+    def cost(part):
+        items = -(-ncomp // part) * nqt
+        return -(-items // min(grid, items)) * part
+
+    def fits(part):
+        return part // SLOT <= APPROX_MAX_SEGS
+
+    parts, part = [], span_rows
+    while part % 2 == 0 and part // 2 >= APPROX_MIN_PART and (part // 2) % SLOT == 0:
+        part //= 2
+        if fits(part):
+            parts.append(part)
+    small = min(parts, key=lambda p: (cost(p), -p), default=None)
+    if not fits(span_rows):
+        if small is None:
+            raise ValueError(f"no approx work item of at most {APPROX_MAX_SEGS} segments "
+                             f"divides a span block of {span_rows} rows")
+        return small
+    if small is not None and cost(small) < APPROX_INPLACE_MARGIN * cost(span_rows):
+        return small
+    return span_rows
+
+
+def approx_buffers(q: int, ncomp: int, span_rows: int, part: int, dev):
+    """(part_v, part_i, vals, ids) of an approx launch: pass 1's maxima
+    [q, ceil(ncomp / part) * SLOT] and the span blocks' candidates [q,
+    ceil(ncomp / span_rows) * SLOT]; one pair where ``part`` is the span
+    block, which pass 1 then writes in place."""
+    nblocks = -(-ncomp // span_rows)
+    vals = torch.empty((q, nblocks * SLOT), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, nblocks * SLOT), dtype=torch.int32, device=dev)
+    if part == span_rows:
+        return vals, ids, vals, ids
+    nparts = -(-ncomp // part)
+    return (torch.empty((q, nparts * SLOT), dtype=torch.float32, device=dev),
+            torch.empty((q, nparts * SLOT), dtype=torch.int32, device=dev), vals, ids)
+
+
+def sm_count(dev) -> int:
+    """The SMs of the CUDA card ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def corr_strides(corr: torch.Tensor, q: int, selection: bool):

@@ -38,7 +38,9 @@ from .ktile import (
     NEG,
     SELECT_LAUNCHES,
     SPAN,
+    approx_buffers,
     approx_candidates,
+    approx_geometry,
     check_search,
     check_tensors,
     corr_strides,
@@ -46,6 +48,7 @@ from .ktile import (
     expand_corr,
     merge_candidates,
     merge_exact,
+    sm_count,
     tile_rows,
 )
 
@@ -54,8 +57,6 @@ TILE_N = 512
 # Queries per block of the exact body (csrc/dot_scan.cuh ExactTile); its
 # blocks cover ranges of EXACT_SPLIT rows (ktile.exact_geometry).
 EXACT_TQ = 64
-# Corpus rows per K2 pass-1 block; divides every approx span (SPAN * tile_n).
-APPROX_PART = 2048
 # Depth of a staged code chunk in the kernels: D must be a multiple.
 D_ALIGN = 128
 
@@ -233,17 +234,13 @@ def _launch_search(qcodes, qoff, codes, voff, multiplier, sel, tile_n, corr, nco
             SELECT_LAUNCHES[route] += 1
         return merge_exact(vals, ids, k)
 
-    nparts = -(-ncomp // APPROX_PART)
-    nblocks = -(-ncomp // span_rows)
-    part_v = torch.empty((q, nparts * 128), dtype=torch.float32, device=dev)
-    part_i = torch.empty((q, nparts * 128), dtype=torch.int32, device=dev)
-    vals = torch.empty((q, nblocks * 128), dtype=torch.float32, device=dev)
-    ids = torch.empty((q, nblocks * 128), dtype=torch.int32, device=dev)
+    part = approx_geometry(ncomp, q, span_rows, sm_count(dev))
+    part_v, part_i, vals, ids = approx_buffers(q, ncomp, span_rows, part, dev)
     if q and ncomp:
         err = lib.qtt_sq_search_approx(
             qcodes.data_ptr(), qoff.data_ptr(), mult.data_ptr(), codes.data_ptr(),
             voff.data_ptr(), part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), q, ncomp, n_valid, d, APPROX_PART, span_rows, mstride,
+            ids.data_ptr(), q, ncomp, n_valid, d, part, span_rows, mstride,
             *scan, stream,
         )
         check(lib, err, name)

@@ -4,7 +4,8 @@ comparing two checkouts in turns on the same card.
 
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
-    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split, lut
+    python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split,
+                                        # lut, approx, asplit
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -43,7 +44,17 @@ section select_split.cu (the scans of K1 and K5c without their select, in
 each select's geometry, and the exact kernels' blocks a SM); the lut
 section lut_gather_rate.cu (the PQ lookup loop's lookups a clock per SM
 for the old loop and both lane maps, and the L2 rate of re-staging a LUT). K1 and K5c
-are also timed at k = 600, on the radix select. Prints one JSON object:
+are also timed at k = 600, on the radix select. The approx section times
+every user of the int8 approx body through its public wrapper (K2 at Q = 256
+and 32 and over the IVF union with corr, K9a, the value-query K5a and K10 at
+both widths, 4-bit int8 K7a and K11) and, apart, each one's merge
+(ktile.merge_candidates: torch.topk and the gather over its candidates'
+width); the asplit section builds and runs csrc/probe/approx_split.cu
+(pass 1, its scan alone and the combine of K9a, of dense K2 at Q = 256 and
+32 and of K10-value at the serving width: the warp-specialized body at
+span-block items and 2048-row items, its other query tile, and the
+fallback body's 2048-row items, with the warp-specialized body's ptxas
+registers and spills). Prints one JSON object:
 the card (nvidia-smi name and power limit), the package's directory, the
 times, the rates and the split. Needs a CUDA card; the kernels are
 built from the checkout's sources on first use.
@@ -86,6 +97,16 @@ def timed_ms(fn, warmup=3, iters=10, reps=7):
     return statistics.median(runs)
 
 
+def warm_card(dev, seconds=1.0):
+    """Keeps the card busy for a while (f32 products), so the first section
+    is not timed while its clocks come up from idle (the library's build)."""
+    x = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        x @ x
+        torch.cuda.synchronize()
+
+
 def wall_ms(fn, warmup=2, reps=7):
     """Median host wall of fn() with the card synchronised after it."""
     for _ in range(warmup):
@@ -104,9 +125,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory holding the quantization_tpu_torch package to time")
-    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split,lut",
+    ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split,lut,approx,asplit",
                     help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate, "
-                         "split, lut (default all)")
+                         "split, lut, approx, asplit (default all)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -118,6 +139,8 @@ def main():
     from quantization_tpu_torch.ops.kernels import bq_kernel, build, pq_kernel, sq_kernel
 
     dev = torch.device("cuda", 0)
+    build.load_library()
+    warm_card(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
@@ -141,13 +164,17 @@ def main():
         bqsign_rows(ms, bq_kernel, dot, g, dev)
     if "pq" in only:
         pq_rows(ms, pq_kernel, g, dev)
+    if "approx" in only:
+        approx_rows(ms, sq_kernel, bq_kernel, pq_kernel, sq_operands, dot, g, dev)
     if "api" in only:
         api_rows(ms, ProductQuantizer, IVFIndex, VectorParameters, dot, g, dev)
     rate = probe_rates(build.find_nvcc()) if "rate" in only else None
     split = run_probe(build.find_nvcc(), "select_split") if "split" in only else None
     lut = run_probe(build.find_nvcc(), "lut_gather_rate") if "lut" in only else None
+    asplit = approx_probe(build.find_nvcc()) if "asplit" in only else None
     print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate,
-                      "select_split": split, "lut_gather": lut}), flush=True)
+                      "select_split": split, "lut_gather": lut, "approx_split": asplit}),
+          flush=True)
     return 0
 
 
@@ -271,6 +298,106 @@ def run_probe(nvcc, probe):
     out = subprocess.run([exe], capture_output=True, text=True, check=True,
                          timeout=600).stdout
     return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def approx_probe(nvcc, *args):
+    """Builds and runs csrc/probe/approx_split.cu of this checkout with the
+    library's flags (-fmad=false) and ptxas -v: its JSON lines, and the
+    approx body's ptxas lines ({"ptxas": [...]})."""
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
+    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
+    exe = os.path.join(pkg, "_build", "approx_split")
+    built = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                            "-O3", "-fmad=false", "-Xptxas", "-v", "-o", exe,
+                            os.path.join(pkg, "csrc", "probe", "approx_split.cu")],
+                           capture_output=True, text=True, check=True, timeout=600)
+    out = subprocess.run([exe, *args], capture_output=True, text=True, check=True,
+                         timeout=600).stdout
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")] + [
+        {"ptxas": ptxas_lines(built.stdout + built.stderr, "approx_ws_kernel")}]
+
+
+def ptxas_lines(log, kernel):
+    """The ptxas -v lines (registers, stack, spills, and any warning that
+    ptxas serialized their wgmma) of the entry functions whose mangled name
+    holds ``kernel``, one string each."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if kernel in line else None
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+        elif "Performance Loss" in line and kernel in line:
+            out.append(line.strip())
+    return out
+
+
+def approx_rows(ms, sq_kernel, bq_kernel, pq_kernel, sq_operands, dot, g, dev):
+    """Every user of the int8 approx body through its public wrapper, and
+    each one's merge (torch.topk + gather over its candidates) apart."""
+    from quantization_tpu_torch.ops.kernels.ktile import SLOT, SPAN, merge_candidates
+
+    def merge(name, width, k):
+        vals = torch.randn(Q, width, generator=g, device=dev)
+        ids = torch.randint(0, 2**30, (Q, width), generator=g, device=dev, dtype=torch.int32)
+        ms["merge_" + name] = timed_ms(lambda: merge_candidates(vals, ids, k))
+
+    npad = N + (-N) % sq_kernel.TILE_N
+    a = sq_operands(npad, D, Q)
+    small = (a[0][:QS].contiguous(), a[1][:QS].contiguous(), *a[2:])
+    for tag, ops in (("", a), (f"_q{QS}", small)):
+        ms["sq_search_approx" + tag] = timed_ms(lambda: sq_kernel.sq_search(
+            *ops, distance_type=dot, n_valid=N, k=K, mode="approx"))
+    merge("sq_search_approx", -(-npad // (SPAN * sq_kernel.approx_tile_n(npad))) * SLOT, K)
+    del a, small
+    b = sq_operands(IVF_TILES * TILE, IVF_D, Q)
+    sel = torch.randperm(IVF_TILES, generator=g, device=dev)[:UNION_TILES].to(torch.int32)
+    ms["sq_search_indexed_approx"] = timed_ms(lambda: sq_kernel.sq_search_indexed(
+        *b, sel, None, distance_type=dot, k=KK2, mode="approx", tile_n=TILE))
+    rows = UNION_TILES * TILE
+    comp = (b[0], b[1], b[2][:rows].contiguous(), b[3][:rows].contiguous(), b[4])
+    corr = torch.randn(Q, rows // 512, generator=g, device=dev)
+    ms["sq_search_approx_ivf"] = timed_ms(lambda: sq_kernel.sq_search(
+        *comp, corr, distance_type=dot, n_valid=rows, k=KK2, mode="approx"))
+    merge("sq_search_indexed_approx", rows // (SPAN * TILE) * SLOT, KK2)
+    del b, comp
+
+    # Residual BQ with value queries: K5a over the union, K10 at both widths.
+    w8 = IVF_D // 32
+    planes = torch.randint(-2**31, 2**31 - 1, (w8, RES_TILES * TILE), generator=g, device=dev,
+                           dtype=torch.int32)
+    qs = torch.randint(-127, 128, (Q, IVF_D), generator=g, device=dev, dtype=torch.int8)
+    ab = torch.rand(Q, 1, generator=g, device=dev) * 0.02 + 1e-3
+    kw = dict(distance_type=dot, invert=False, dim=IVF_D,
+              query_affine=(qs, 2.0 * ab, -ab * qs.float().sum(1, keepdim=True)))
+    rowadd = torch.zeros(planes.shape[1], device=dev)
+    cplanes, crow = planes[:, :rows].contiguous(), rowadd[:rows].contiguous()
+    ms["bq_search_approx_res"] = timed_ms(lambda: bq_kernel.bq_search(
+        None, cplanes, corr, n_valid=rows, k=KK2, mode="approx", rowadd=crow, **kw))
+    for name, ntiles, k in (("bq_search_indexed_res", UNION_TILES, KK2),
+                            ("bq_search_indexed_res_serve", RES_TILES, SERVE_K)):
+        tiles = torch.randperm(RES_TILES, generator=g, device=dev)[:ntiles].to(torch.int32)
+        tcorr = torch.randn(ntiles * TILE // 512, Q, generator=g, device=dev)
+        ms[name] = timed_ms(lambda: bq_kernel.bq_search_indexed(
+            None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
+        merge(name, -(-ntiles * TILE // (SPAN * TILE)) * SLOT, k)
+    del planes, rowadd, cplanes, crow
+
+    # 4-bit PQ, int8 LUT: K7a at path 3's shape, K11 over 256 tiles.
+    for name, n, npad_, sel_ in (("pq_search_approx_4bit_int8", PN, PN + (-PN) % 512, None),
+                                 ("pq_search_indexed_4bit_int8", None, IVF_TILES * TILE, sel)):
+        lut = (torch.randn(Q, PM4, pq_kernel.K4, generator=g, device=dev) * 2
+               + torch.randn(Q, PM4, 1, generator=g, device=dev))
+        codes_t = torch.randint(0, pq_kernel.K4, (PM4, npad_), generator=g, device=dev,
+                                dtype=torch.uint8)
+        if sel_ is None:
+            codes_t[:, n:] = 0
+            ms[name] = timed_ms(lambda: pq_kernel.pq_search(
+                lut, codes_t, n_valid=n, k=K, mode="approx", precision="int8"))
+        else:
+            ms[name] = timed_ms(lambda: pq_kernel.pq_search_indexed(
+                lut, codes_t, sel_, k=KK2, precision="int8", tile_n=TILE))
+        del lut, codes_t
 
 
 def probe_rates(nvcc):

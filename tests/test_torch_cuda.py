@@ -21,7 +21,7 @@ import torch
 
 import quantization_tpu_torch as qt
 from quantization_tpu_torch.core.types import DistanceType
-from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+from quantization_tpu_torch.ops.kernels import bq_kernel, gather, ktile, pq_kernel, sq_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -1708,3 +1708,118 @@ def test_select_k5c_sign_both_routes(dev, k, kind):
     pv, _ = bq_kernel.bq_search_plain(qw, planes, k=k, **kw)
     scores = bq_kernel.bq_scores_plain(qw, planes, **kw)
     _select_check(v, i, pv, scores, n_valid, before, k)
+
+
+# ---------------------------------------------------- the int8 approx body
+# approx_ws_kernel (csrc/dot_scan.cuh): K2 / K9a and the value-query K5a /
+# K10, warp-specialized and persistent, 128 queries a block (64 where Q <=
+# 64), span-block items in place or smaller items with the combine
+# (ktile.approx_geometry); approx_parts_kernel where its query tile does not
+# fit. Held to the plain approx's values and ids. The shapes of
+# tests/test_torch_approx_body.py: k = 10 and 1,280, ragged n_valid, Q = 1,
+# 63, 65, 257 (both query tiles), a few selected tiles, equal scores, every
+# part a span allows, tiles of 8,192 rows (a span block past a byte of
+# segments), and depths on both sides of the query tile's fit (CodeRows
+# 128, 768, 2,048 and 4,096 bytes, PlaneRows 768 and 2,048 bits).
+AB_QS = [1, 63, 65, 257]
+
+
+@pytest.mark.parametrize("k", [10, 1280])
+@pytest.mark.parametrize("q", AB_QS)
+@pytest.mark.parametrize("n_valid,d", [(5001, 128), (100_000, 768), (9000, 2048), (3000, 4096)])
+def test_approx_body_k2_equal_plain(dev, q, k, n_valid, d):
+    a = _operands(dev, n_valid, d, q, seed=q + k + d)
+    kw = dict(distance_type=qt.DistanceType.DOT, n_valid=n_valid, k=k, mode="approx")
+    before = sq_kernel.LAUNCHES["sq_search_approx"]
+    v, i = sq_kernel.sq_search(*a, **kw)
+    assert sq_kernel.LAUNCHES["sq_search_approx"] == before + 1
+    pv, pi = sq_kernel.sq_search_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("part", [512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("corpus", ["random", "equal"])
+def test_approx_body_every_part_equal_plain(dev, monkeypatch, part, corpus):
+    """Whatever part the geometry gives (8,192 is the span at 100,352 rows:
+    in place), the candidates are the plain approx's; on a corpus of one
+    repeated row each span block keeps its first row of every class."""
+    n_valid, q = 100_000, 65
+    a = _operands(dev, n_valid, 256, q, seed=part)
+    if corpus == "equal":
+        a[2][:n_valid] = a[2][0]
+        a[3][:n_valid] = 0.5
+    monkeypatch.setattr(sq_kernel, "approx_geometry", lambda *args: part)
+    kw = dict(distance_type=qt.DistanceType.DOT, n_valid=n_valid, k=300, mode="approx")
+    v, i = sq_kernel.sq_search(*a, **kw)
+    pv, pi = sq_kernel.sq_search_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("q", AB_QS)
+@pytest.mark.parametrize("t,with_corr", [(3, False), (3, True), (301, True)])
+def test_approx_body_k9a_equal_plain(dev, q, t, with_corr):
+    """K9a over 3 tiles (fewer items than SMs) and 301 (a partial last span
+    block), with and without corr."""
+    tile_n, n_valid = 1024, 320 * 1024
+    a = _operands(dev, n_valid, 768, q, seed=q + t)
+    sel = _selection(dev, n_valid // tile_n, t, seed=t)
+    corr = _corr(dev, q, t * tile_n // 512, True, seed=q) if with_corr else None
+    kw = dict(distance_type=qt.DistanceType.DOT, k=20, mode="approx", tile_n=tile_n)
+    v, i = sq_kernel.sq_search_indexed(*a, sel, corr, **kw)
+    pv, pi = sq_kernel.sq_search_indexed_plain(*a, sel, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("q", [32, 256])
+def test_approx_body_k9a_wide_tiles_equal_plain(dev, q):
+    """K9a over 64 of 100 tiles of 8,192 rows: a span block of 32,768 rows
+    would hold 256 segments, past a byte, so the geometry takes smaller
+    items and the combine."""
+    tile_n, n_valid = 8192, 100 * 8192
+    a = _operands(dev, n_valid, 128, q, seed=q)
+    sel = _selection(dev, n_valid // tile_n, 64, seed=q)
+    part = ktile.approx_geometry(64 * tile_n, q, ktile.SPAN * tile_n, ktile.sm_count(dev))
+    assert part < ktile.SPAN * tile_n and part // ktile.SLOT <= ktile.APPROX_MAX_SEGS
+    kw = dict(distance_type=qt.DistanceType.DOT, k=50, mode="approx", tile_n=tile_n)
+    v, i = sq_kernel.sq_search_indexed(*a, sel, None, **kw)
+    pv, pi = sq_kernel.sq_search_indexed_plain(*a, sel, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("k", [10, 1280])
+@pytest.mark.parametrize("q", AB_QS)
+@pytest.mark.parametrize("dim", [768, 2048])
+def test_approx_body_k10_value_equal_plain(dev, q, k, dim):
+    """K10 with a value query over 40 of 64 tiles, corr in selection order
+    and a rowadd that poisons a fifth of the rows."""
+    npad, tile_n, t = 64 * 1024, 1024, 40
+    planes, aff, g = _value_query(dev, npad, dim, q, True, seed=q + dim)
+    sel = _selection(dev, npad // tile_n, t, seed=dim)
+    corr = torch.randn(t * tile_n // 512, q, generator=g, device=dev) * 3
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=k, tile_n=tile_n,
+              query_affine=aff, rowadd=_rowadd(dev, npad, g))
+    v, i = bq_kernel.bq_search_indexed(None, planes, sel, corr, **kw)
+    pv, pi = bq_kernel.bq_search_indexed_plain(None, planes, sel, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("q", AB_QS)
+@pytest.mark.parametrize("dim", [768, 2048])
+def test_approx_body_k5a_value_equal_plain(dev, q, dim, with_corr):
+    n_valid = 30_001
+    npad = n_valid + (-n_valid) % bq_kernel.TILE_N
+    planes, aff, g = _value_query(dev, npad, dim, q, False, seed=q + dim)
+    corr = torch.randn(q, npad // 512, generator=g, device=dev) * 3 if with_corr else None
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid, k=40,
+              mode="approx", query_affine=aff,
+              rowadd=_rowadd(dev, npad, g) if with_corr else None)
+    v, i = bq_kernel.bq_search(None, planes, corr, **kw)
+    pv, pi = bq_kernel.bq_search_plain(None, planes, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
