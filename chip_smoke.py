@@ -16,11 +16,12 @@ lookup loop's SASS instructions a lookup (held to LOOP_SASS_MAX) and prints
 each of its entries' ptxas registers and spills, builds and runs the probe
 csrc/probe/select_split.cu (the scans of K1 and K5c without their select,
 which splits their times into scan and select, and the exact kernels'
-blocks a SM) and csrc/probe/approx_split.cu (K9a's, dense K2's and
-K10-value's pass 1, its scan alone and the combine on the warp-specialized
-body and the two-block one, span items and 2048-row items: the [approx]
-lines; both approx bodies' ptxas registers and spills are printed from the
-build), and drives the
+blocks a SM) and csrc/probe/approx_split.cu (K9a's, dense K2's,
+K10-value's and the sign-query K5a's and K10's pass 1, its scan alone and
+the combine on the warp-specialized bodies and the two-block ones, span
+items and 2048-row items: the [approx] lines; every approx body's ptxas
+registers and spills are printed from the build, the sign-query ones
+required), and drives the
 port's nine main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
@@ -553,8 +554,10 @@ def approx_split(smi):
     (approx_ws_kernel) at span-block items in place and at 2048-row items
     with the combine, at its other query tile, and of approx_parts_kernel
     (the body where the query tile does not fit) at 2048-row items, the
-    reference; requires every warp-specialized candidate set equal to it.
-    {(kernel, design, part): line}."""
+    reference; the same for the sign-query K5a at 1M x 1536 and K10 over 256
+    tiles of 768 dims on bq_sign_approx_ws_kernel against
+    bq_sign_approx_kernel; requires every warp-specialized candidate set
+    equal to its reference. {(kernel, design, part): line}."""
     proc = _aprobe["proc"]
     out, _ = proc.communicate(timeout=600)
     require(proc.returncode == 0, f"the approx probe builds: {out[-2000:]}")
@@ -567,14 +570,18 @@ def approx_split(smi):
             require(ln["equal"], f"{ln['kernel']} {ln['design']} {ln['part']}: the "
                     "warp-specialized candidates equal approx_parts_kernel's")
         split[ln["kernel"], ln["design"], ln["part"]] = ln
-        body = ("approx_parts_kernel, queries in the ring" if ln["design"] == "parts" else
-                f"approx_ws_kernel, {ln['design'][2:]} queries a block, {ln['stages']} stages")
+        design = ln["design"]
+        body = ("approx_parts_kernel, queries in the ring" if design == "parts" else
+                "bq_sign_approx_kernel, 64 queries a block in the ring" if design == "sign_parts"
+                else f"bq_sign_approx_ws_kernel, {design[7:]} queries a block, "
+                f"{ln['slots']} box slots" if design.startswith("sign_ws") else
+                f"approx_ws_kernel, {design[2:]} queries a block, {ln['stages']} stages")
         say("approx", f"{ln['kernel']}, {body}, {ln['part']}-row items "
             f"({ln['blocks_per_sm']} blocks a SM, {ln['smem']} bytes): pass 1 "
             f"{ln['pass1_ms']:.4f} ms, scan alone {ln['scan_ms']:.4f}, combine "
             f"{ln['combine_ms']:.4f}, pass 1 + combine {ln['pass1_ms'] + ln['combine_ms']:.4f} "
             f"(csrc/probe/approx_split.cu) on {smi}")
-    require(len(split) == 15, f"the approx probe's fifteen splits ({sorted(split)})")
+    require(len(split) == 23, f"the approx probe's 23 splits ({sorted(split)})")
     return split
 
 
@@ -775,6 +782,23 @@ def check_topk(vals, ids, want_vals, scores, n_valid, what):
 def reset_all(*modules):
     for m in modules:
         m.reset_launches()
+
+
+def require_sign_ws(what, launches, names):
+    """Every launch of the sign-query K5a / K10 (``names`` that ``launches``
+    shows moved, one at least) ran the warp-specialized body
+    (csrc/bq_kernels.cu bq_sign_approx_ws_kernel, counted in
+    bq_kernel.SIGN_WS_LAUNCHES): at these shapes its query tile fits."""
+    from quantization_tpu_torch.ops.kernels import bq_kernel
+
+    moved = [n for n in names if launches.get(n)]
+    require(moved, f"{what}: launched {' or '.join(names)}")
+    for n in moved:
+        ws = bq_kernel.SIGN_WS_LAUNCHES[n]
+        require(ws == launches[n], f"{what}: every {n} launch ({launches[n]}) ran "
+                f"bq_sign_approx_ws_kernel ({ws})")
+    say("sign-ws", f"{what}: " + ", ".join(f"{n} {launches[n]} launches" for n in moved)
+        + ", every one on bq_sign_approx_ws_kernel")
 
 
 def counts(*modules):
@@ -1106,6 +1130,7 @@ def bq_path(dev, smi, do_profile):
         f"launches {launches}")
     for kname in ("sq_score_candidates", "bq_search_approx", "bq_search_exact", "bq_scores"):
         require(launches[kname] > 0, f"two-stage main path launched {kname}")
+    require_sign_ws("two-stage main path", launches, ("bq_search_approx",))
 
     require(bq.device.type == "cuda" and sq.device.type == "cuda",
             "encode places the codes on the card by default")
@@ -1200,10 +1225,11 @@ def bq_path(dev, smi, do_profile):
     check_topk(v, i, want_v, splain, 700, "K5c k>n_valid")
     require(int((i >= 0).sum(1).min()) == 700, "K5c k>n_valid: every row returned")
     say("K5c", "k=1000 > n_valid=700: all rows, then -inf / -1")
-    pv, _ = bq_kernel.bq_search_plain(qw, planes, k=R, mode="approx", **kw)
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, k=R, mode="approx", **kw)
     v, i = bq_kernel.bq_search(qw, planes, k=R, mode="approx", **kw)
     err["bq_search_approx"] = check_topk(v, i, pv, plain, BN, f"K5a k={R}")
-    say("K5a", f"approx k={R}: values equal the plain approx, pairs are true scores")
+    require(torch.equal(i, pi), f"K5a k={R}: ids equal the plain approx's")
+    say("K5a", f"approx k={R}: values and ids equal the plain approx, pairs are true scores")
     del plain
     _, cand = bq.top_k_device(beq, R, method="approx")
     cand = cand.clone()
@@ -2041,6 +2067,7 @@ def ivf_path(dev, smi, do_profile, opq_f32_ms):
     }
     for kname in path_kernels:
         require(launches[kname] > 0, f"IVF main path launched {kname}")
+    require_sign_ws("IVF main path", launches, ("bq_search_indexed", "bq_search_approx"))
     for kname, n in onehot.items():
         require(0 < n < launches[kname], f"IVF main path launched {kname} on the one-hot "
                 "route (4-bit IVF-PQ) and on the ring")
@@ -4380,6 +4407,7 @@ def bench10m_path(dev, smi):
         f"{info['peak_gb']:.1f} GB allocated), exit {rc}; launches {launches}, row kernel "
         f"{info['rowgen']['launches']}; on {smi}")
     require(rc == 0, "bench_10m.main exits 0")
+    require_sign_ws("10M anchor", launches, ("bq_search_approx", "bq_search_indexed"))
     rec, failed = leg_recalls(printed)
     require(not failed, f"no FAILED leg ({failed})")
     for prefix, n in BENCH10M_LEGS.items():
@@ -4534,6 +4562,12 @@ def sass_functions(build):
     return {part.split("\n", 1)[0].strip(): part for part in sass.split("Function : ")[1:]}
 
 
+# bq_sign_approx_ws_kernel's instantiations: both query tiles at every depth
+# it is built for (bq_kernels.cu sign_ws_depth, 256-bit steps a row).
+SIGN_WS_ENTRIES = {f"bq_sign_approx_ws_kernel<TQ {tq}, n {n}>"
+                   for tq in (64, 128) for n in (1, 2, 3, 4, 6, 8)}
+
+
 def tensor_core_bodies(funcs):
     """The wgmma instructions (SASS *GMMA) in each entry function of the
     shared scan body (the scores_kernel, approx_ws_kernel, approx_parts_kernel,
@@ -4543,8 +4577,9 @@ def tensor_core_bodies(funcs):
     int8-LUT PQ: K8, K7a / K11, K7b), in the bf16 one-hot K8
     (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ sign-query kernels
     (K6's bq_sign_scores_kernel, K5c's bq_sign_queue_kernel and
-    bq_sign_exact_kernel, bq_sign_approx_kernel: single-bit BGMMA); every
-    one must have some."""
+    bq_sign_exact_kernel, K5a / K10's bq_sign_approx_ws_kernel at both query
+    tiles and bq_sign_approx_kernel: single-bit BGMMA); every one must have
+    some."""
     import re
 
     found = {}
@@ -4557,6 +4592,9 @@ def tensor_core_bodies(funcs):
             found[key] = found.get(key, 0) + part.count("GMMA")
         elif re.search(r"\dpq4_bf16_scores_kernel", name):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
+        elif m := re.search(r"\dbq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", name):
+            found[f"bq_sign_approx_ws_kernel<TQ {m.group(1)}, n {m.group(2)}>"] = \
+                part.count("BGMMA")
         elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_queue_kernel|"
                             r"bq_sign_approx_kernel|bq_sign_scores_kernel)", name):
             found[m.group(1)] = part.count("BGMMA")
@@ -4569,7 +4607,7 @@ def tensor_core_bodies(funcs):
                            "search_queue_kernel<NibbleRows>",
                            "pq4_bf16_scores_kernel", "bq_sign_exact_kernel",
                            "bq_sign_queue_kernel", "bq_sign_approx_kernel",
-                           "bq_sign_scores_kernel"},
+                           "bq_sign_scores_kernel"} | SIGN_WS_ENTRIES,
             f"the tensor-core entry functions in the library ({sorted(found)})")
     require(all(n > 0 for n in found.values()), f"every scan body runs on wgmma ({found})")
     return found
@@ -4696,10 +4734,11 @@ def ptxas_usage(log):
 
 def approx_usage(log):
     """[(instantiation, registers, stack, spill stores, spill loads)] of the
-    approx bodies' entry functions (approx_ws_kernel, approx_parts_kernel),
-    from the build's ptxas -v lines. approx_ws_kernel's count is the
-    launch's (168 a thread at 384 threads); at 128 queries its consumers run
-    on 224 and its producer on 56 (setmaxnreg)."""
+    approx bodies' entry functions (approx_ws_kernel, approx_parts_kernel,
+    and the sign-query bq_sign_approx_ws_kernel and bq_sign_approx_kernel),
+    from the build's ptxas -v lines. The warp-specialized bodies' count is
+    the launch's (168 a thread at 384 threads); at 128 queries their
+    consumers run on 224 and their producer on 56 (setmaxnreg)."""
     import re
 
     out, cur, frame = [], None, (0, 0, 0)
@@ -4708,8 +4747,11 @@ def approx_usage(log):
         if m:
             w = re.search(r"approx_parts_kernelINS_\d+(\w+?)ELb(\d)E", m.group(1))
             x = re.search(r"approx_ws_kernelINS_\d+(\w+?)ELb(\d)ELb(\d)ELi(\d+)E", m.group(1))
+            y = re.search(r"bq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", m.group(1))
             cur = (w and f"approx_parts_kernel<{w.group(1)}, kOnce {w.group(2)}>") or \
-                  (x and f"approx_ws_kernel<{x.group(1)}, kOnce {x.group(2)}, TQ {x.group(4)}>")
+                  (x and f"approx_ws_kernel<{x.group(1)}, kOnce {x.group(2)}, TQ {x.group(4)}>") or \
+                  (y and f"bq_sign_approx_ws_kernel<TQ {y.group(1)}, n {y.group(2)}>") or \
+                  ("bq_sign_approx_kernel" if "bq_sign_approx_kernel" in m.group(1) else None)
             frame = (0, 0, 0)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -4787,6 +4829,10 @@ def main():
     say("build", "the approx body (ptxas: registers, stack, spill stores / loads in bytes): " + (
         ", ".join(f"{k} {r}, {st}, {a} / {b}" for k, r, st, a, b in approx)
         or "no ptxas log: the library was already built"))
+    if approx:
+        sign = {k for k, *_ in approx if k.startswith("bq_sign_approx")}
+        require(sign == SIGN_WS_ENTRIES | {"bq_sign_approx_kernel"},
+                f"the sign-query approx bodies' ptxas lines ({sorted(sign)})")
     n, hg, fadd, mov = bf16_onehot_loop(funcs)
     say("build", f"the bf16 one-hot K8's group loop (SASS; 8 chunks x 32 outputs a thread): "
         f"{n} instructions, {hg} HGMMA, {fadd} FADD, {mov} MOV ({n / 256:.2f} an output "

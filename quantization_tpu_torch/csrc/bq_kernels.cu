@@ -43,11 +43,15 @@
 // pq the query's popcount (taken when the block starts), pc the row's (taken
 // by the loader, one __popc a word). The epilogue computes sign * (dim - 2x)
 // in integers (hamming_score), so a zero score is +0.0, as plain's is (an
-// f32 epilogue could give -0.0). K5a / K10 keep the approx body's geometry
-// (approx_parts_kernel: 64 queries a block, two blocks a SM, running maxima
-// per stride class over APPROX_PART-row parts, the JAX approx geometry, so
-// their candidates are the plain approx's to the bit), the maxima kept on
-// the row's integer term, the query's added once at the end. K5c selects
+// f32 epilogue could give -0.0). K5a / K10 run bq_sign_approx_ws_kernel
+// (below: warp-specialized, persistent, 128 queries resident, A from
+// registers, span items in place) at the depths it is built for, where its
+// layout fits; past that bq_sign_approx_kernel keeps the approx body's
+// geometry (approx_parts_kernel: 64 queries a block, two blocks a SM,
+// running maxima per stride class over APPROX_PART-row parts and the
+// combine). Both keep the JAX approx geometry, so their candidates are the
+// plain approx's to the bit, the maxima on the row's integer term, the
+// query's added once at the end. K5c selects
 // by kk (ktile.cuh): up to 64 on the queue select, 64 queries a block
 // (K5a's query tile, SignQueueTile) over ranges of several 512-row splits,
 // two blocks a SM; above it on the radix select in the geometry of the
@@ -63,22 +67,33 @@
 // b1 wgmma issues at the s8 instruction rate (5.5e7 m64n64k256 products a
 // second per SM, NVIDIA H100 80GB HBM3 at 700 W, scan_ab.py --only rate),
 // 51 us; so bytes, where the +-1 int8 route of the TPU design counts 0.40 ms
-// of int8 operations. The kernels run far above that floor: a 128-row
-// segment's depth is 1.5 chunks, so the ring barely fills and each segment
-// pays its barriers, its query copies and its epilogue; the select takes
-// half of K5c's time (its scan alone 0.4887 ms, the kernel 1.1491 on random
-// planes, csrc/probe/select_split.cu). Same card (scan_ab.py in turns;
-// PERF.md): K5a 0.80, K5c 3.37 on the radix select and 1.25 on the queue,
-// K10 over 262,144 rows of 768 dims 0.25 ms, where the
-// popcount body these replaced (one __popc(q ^ c) per word, query and row on
-// the CUDA cores, ~3 ms of popc issue) ran 3.79, 6.12 and 0.62, and the +-1
-// int8 route on PlaneRows runs 1.75 and 5.98. Also measured: K5c in the exact
-// body's geometry (64 queries, 8 a warp, one block a SM) 4.77; K5a with a
-// float running maximum 0.91 (the integer one below 0.79); K5a with every
-// prologue chunk's loads issued before the first store 0.83 (96 bytes of
-// spills); K5a with no plane loads at all (wrong sums, a timing probe) 0.65.
-// Over 262,144 rows of 768 dims K5c is select-bound, 0.84 ms against the
-// popcount kernel's 0.80.
+// of int8 operations. The two-block approx body ran far above that floor:
+// a 128-row segment's depth is 1.5 chunks, so its ring barely fills and
+// each segment pays its barriers, its query copies and its epilogue (K5a
+// pass 1 0.53 ms, its scan alone 0.39, the combine 0.07). The
+// warp-specialized body takes K5a's pass 1 to 0.21 ms (scan alone 0.11) and
+// K10's over 262,144 x 768 from 0.12 + 0.02 to 0.05
+// (csrc/probe/approx_split.cu, NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md); the merge's torch.topk is then the larger share of K5a's
+// search. On the way (same probe): the rows moved into a swizzled ring by
+// the producer, from words landed by 4-byte cp.async, 0.40 ms; by 256-byte
+// bulk copies from one thread, 0.59; by one 2D box, 0.31; with whole chunks
+// of three steps (no product issued under a condition), 0.27; the item-end
+// rows in 32-bit arithmetic (no spills), 0.24; A from registers, 0.21.
+// Deeper raw prefetch (two to six segments), two accumulator sets and turns
+// between the consumers measured no faster. The select takes half of K5c's
+// time (its scan alone 0.4887 ms, the kernel 1.1491 on random planes,
+// csrc/probe/select_split.cu). Same card (scan_ab.py in turns; PERF.md): K5c
+// 3.37 on the radix select and 1.25 on the queue, where the popcount body
+// these replaced (one __popc(q ^ c) per word, query and row on the CUDA
+// cores, ~3 ms of popc issue) ran 3.79 (K5a), 6.12 and 0.62 (K10), and the
+// +-1 int8 route on PlaneRows runs 1.75 and 5.98. Also measured: K5c in the
+// exact body's geometry (64 queries, 8 a warp, one block a SM) 4.77; the
+// two-block K5a with a float running maximum 0.91 (the integer one 0.79),
+// with every prologue chunk's loads issued before the first store 0.83 (96
+// bytes of spills), with no plane loads at all (wrong sums, a timing probe)
+// 0.65. Over 262,144 rows of 768 dims K5c is select-bound, 0.84 ms against
+// the popcount kernel's 0.80.
 //
 // K6 writes a 1.024 GB score matrix at that shape, 0.306 ms of its 0.363 ms
 // bound (bytes). The popcount body it replaced (32 queries a block, one row
@@ -104,9 +119,12 @@
 // over the serving plan's 1,255,424); K5a / K10 run about 10 times that, K5b
 // more (its select; PERF.md).
 
+#include <cuda.h>  // CUtensorMap, the planes' tensor map (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "dot_scan.cuh"
 
@@ -267,7 +285,8 @@ __global__ void __launch_bounds__(kThreads, SignQueueTile::kBlocks) bq_sign_queu
 }
 
 // K5a, and K10 over selected tiles (map.sel; bq_search_indexed, bq_kernel.py:328
-// of the JAX package): pass 1, grid ceil(ncomp / part) * ceil(Q / 64), the
+// of the JAX package), where bq_sign_approx_ws_kernel (below) does not run
+// (sign_ws_tq): pass 1, grid ceil(ncomp / part) * ceil(Q / 64), the
 // query tiles of a part neighbours in launch order: approx_parts_kernel's
 // geometry. Block p keeps, for each of its queries and each stride class l
 // (compact rows p*part + m*128 + l), the running maximum and its corpus row
@@ -329,6 +348,303 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) bq_sign_approx_
                 : best[e] == kPad ? kNeg
                                   : __int2float_rn(qo[j] + best[e]);
     part_i[c] = sm == 0xffu ? -1 : (int)map.row(start + (long long)sm * kSeg + l);
+  }
+}
+
+// ------------------------------------- K5a / K10: the warp-specialized body
+// bq_sign_approx_ws_kernel: pass 1 of K5a / K10 with sign queries, warp-
+// specialized and persistent on dot_scan.cuh's walk (WsWalk over the items
+// of ktile.py approx_geometry, span blocks in place; WsBars; ws_grid;
+// ws_fetch_queries), bq_sign_approx_kernel's output to the bit, wherever
+// its layout fits (sign_ws_tq). A block of 384 threads, one a SM:
+//   * 128 queries resident (64 where Q <= 64): their words land once as the
+//     B operand, in chunks of 128 bytes, zero past 4 W; each query's qo
+//     once. The products are m64n128k256 b1: a row loaded once serves 128
+//     queries.
+//   * the producer warpgroup only lands plane words: one thread a consumer
+//     warpgroup copies each segment's box of the planes (64 rows and 8
+//     more, every word: one 2D TMA copy, tma_planes_box) into a slot of its
+//     own, R slots deep, on the slot's barrier.
+//   * the consumers take the A operand from registers: b1 wgmma takes
+//     K-major operands only and the planes hold a row's words npad apart, so
+//     no copy lands a row's words together; each thread loads its fragment
+//     (two rows, two words a k256 step) from the box with 32-bit loads (72
+//     rows a word: the warp's loads fall on 32 banks) and counts the rows'
+//     set bits on the way (pc, summed over the row's four lanes). The next
+//     segment's fragment loads while this segment's maxima are taken.
+//   * per (query, stride class) one integer key: 256 t + (255 - m), t =
+//     sign * (2 acc - pc) (half of hamming_term) and m the segment in the
+//     item, so the larger key is the larger term and, among equal terms, the
+//     earlier segment: the strict ">" in compact order, first row of a tie.
+//     One multiply-add and one max an element, with the row's multiplier and
+//     addend (0 and kWsPadT for rows >= n_valid, which score NEG); the
+//     segment needs no byte of its own. The score qo + 2t is formed once,
+//     when an item ends.
+// kScan (csrc/probe/approx_split.cu): the scan alone, each accumulator
+// folded into a register in place of the epilogue (wrong results).
+constexpr int kWsNone = INT_MIN;     // no row yet: -inf, id -1
+constexpr int kWsPadT = -(1 << 22);  // a row >= n_valid; real |t| <= dim < 2^22
+constexpr int kBoxRows = 72;         // a box: 64 rows and 8 more, for the banks
+constexpr int kSignRaw = 6;          // slots a consumer warpgroup, at most
+
+// The depths the body is built for: 256-bit steps a row (W / 8).
+__host__ __device__ inline bool sign_ws_depth(int n) {
+  return n == 1 || n == 2 || n == 3 || n == 4 || n == 6 || n == 8;
+}
+
+// The body's shared memory from the 1024-aligned base: the resident query
+// tile (ceil(n / 4) chunks of [TQ][128 B]), then R slots a warpgroup of one
+// box ([W][kBoxRows] u32), qo[TQ], the barriers. R = 0 where fewer than two
+// fit.
+struct SignLayout {
+  int R, raw, raw_seg, qo, bars, bytes;
+  __host__ __device__ SignLayout(int TQ, int W) {
+    raw = (W / 8 + 3) / 4 * TQ * kDK;
+    raw_seg = W * kBoxRows * 4;
+    R = (kWsSmem - kAlign - raw - TQ * 4 - kWsBarBytes) / (2 * raw_seg);
+    R = R > kSignRaw ? kSignRaw : R < 2 ? 0 : R;
+    qo = raw + 2 * R * raw_seg;
+    bars = qo + TQ * 4;
+    bytes = bars + kWsBarBytes;
+  }
+};
+static_assert(kSignRaw <= kWsMaxStages && kSignRaw <= kWsMaxRaw, "a slot's two barriers");
+
+// The route's query tile: bq_sign_approx_ws_kernel's (128, or 64 where Q <=
+// 64) at the depths it is built for, where its layout fits, else 0
+// (bq_sign_approx_kernel).
+inline int sign_ws_tq(int Q, int W) {
+  return sign_ws_depth(W / 8) && SignLayout(ws_tq(Q), W).R ? ws_tq(Q) : 0;
+}
+
+// A box of the planes [W8][npad] u32 (the tensor map, planes_box_map):
+// kBoxRows rows from corpus row x of every word, into shared memory at dst
+// as [W8][kBoxRows] (word w of the box's row r at dst + 4 (kBoxRows w +
+// r)), rows past npad zero, completing on bar.
+__device__ __forceinline__ void tma_planes_box(uint32_t dst, const CUtensorMap* map, int x,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(0), "r"(bar)
+      : "memory");
+}
+
+// d[64 x N] += popc(A[64 x 256 bits] & B[N x 256 bits]^T), A from registers,
+// B K-major in shared memory: a[0 .. 3] the thread's fragment of its warp's
+// 16 rows, as mma.m16n8k256 holds it (lane l: a[0] row l/4, word l%4 of the
+// step; a[1] row l/4 + 8; a[2], a[3] the same rows, word l%4 + 4).
+__device__ __forceinline__ void wgmma_m64n128k256_b1_rs(int (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64k256_b1_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <int TQ>
+__device__ __forceinline__ void wgmma_b1_rs(int (&d)[TQ / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (TQ == 128) {
+    wgmma_m64n128k256_b1_rs(d, a, b);
+  } else {
+    wgmma_m64n64k256_b1_rs(d, a, b);
+  }
+}
+
+// Keeps the compiler from reusing a fragment's registers before the
+// products that read them are done.
+template <int kN>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[kN][4]) {
+#pragma unroll
+  for (int k = 0; k < kN; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+template <bool kScan, int TQ, int kN>
+__global__ void __launch_bounds__(kWsThreads, 1) bq_sign_approx_ws_kernel(
+    const __grid_constant__ CUtensorMap planes_map, const uint32_t* __restrict__ qwords,
+    float* __restrict__ part_v, int* __restrict__ part_i, int Q, int W, int ncomp, int n_valid,
+    int dim, int sign, int part, ScanMap map) {
+  constexpr int kAcc = TQ / 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const SignLayout L(TQ, W);
+  const uint32_t s0 = smem_addr(smem);
+  const WsBars bars{s0 + L.bars};  // raw(g, r): slot r landed; empty(g, r): slot r read
+  int* qo = reinterpret_cast<int*>(smem + L.qo);
+  const int q0 = (int)(blockIdx.x % ((Q + TQ - 1) / TQ)) * TQ;
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g) {
+      for (int r = 0; r < L.R; ++r) {
+        mbar_init(bars.raw(g, r), 1);      // the copying thread
+        mbar_init(bars.empty(g, r), 128);  // the warpgroup's threads
+      }
+    }
+    mbar_init(bars.qready(), 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------------ producer
+    if constexpr (TQ == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = threadIdx.x - 256, g = pt >> 6;
+    ws_fetch_queries<TQ>(s0, reinterpret_cast<const int8_t*>(qwords), q0, Q, 4 * W,
+                         bars.qready(), pt);
+    cp_async_commit();
+    if ((pt & 63) == 0) {
+      int u = 0;
+      for (WsWalk w(TQ, Q, ncomp, part); !w.done(); w.next(), ++u) {
+        const int slot = u % L.R;
+        mbar_wait(bars.empty(g, slot), ((u / L.R) & 1) ^ 1u);  // its last box was read
+        mbar_expect_tx(bars.raw(g, slot), L.raw_seg);
+        tma_planes_box(s0 + L.raw + (g * L.R + slot) * L.raw_seg, &planes_map,
+                       (int)map.row(w.comp()) + 64 * g, bars.raw(g, slot));
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  if constexpr (TQ == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  load_hamming_q<TQ>(qo, qwords, q0, Q, W, dim, sign);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers' qo
+  mbar_wait(bars.qready(), 0);
+  fence_proxy_async();
+  const uint64_t dq = wgmma_desc(s0);
+  const long long width = (long long)((ncomp + part - 1) / part) * kSlot;
+  const int r0 = frag_row(0);  // this thread's rows: r0 (e & 2 == 0) and r0 + 8
+  // Its fragment's words in a box: row r0 - 64 g, word l%4 of each step.
+  const int fo = (lane & 3) * kBoxRows + r0 - 64 * g;
+  int best[kAcc];
+  unsigned fold = 0;
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) best[e] = kWsNone;
+
+  // Segment u's fragment from its box into a (its rows' set bits into p0,
+  // p1), then the slot is free.
+  int p0 = 0, p1 = 0;
+  auto load = [&](uint32_t (&a)[kN][4], int u) {
+    const int slot = u % L.R;
+    mbar_wait(bars.raw(g, slot), (u / L.R) & 1);
+    const uint32_t* box =
+        reinterpret_cast<const uint32_t*>(smem + L.raw + (g * L.R + slot) * L.raw_seg) + fo;
+    p0 = p1 = 0;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const uint32_t* x = box + 8 * k * kBoxRows;
+      a[k][0] = x[0];
+      a[k][1] = x[8];
+      a[k][2] = x[4 * kBoxRows];
+      a[k][3] = x[4 * kBoxRows + 8];
+      p0 += __popc(a[k][0]) + __popc(a[k][2]);
+      p1 += __popc(a[k][1]) + __popc(a[k][3]);
+    }
+    ws_bar_arrive(bars.empty(g, slot));
+  };
+  // The segment's products from a, one commit group.
+  auto issue = [&](int (&acc)[kAcc], uint32_t (&a)[kN][4]) {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[e] = 0;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kN; ++k)
+      wgmma_b1_rs<TQ>(acc, a[k], dq + (uint64_t)(((k / 4) * TQ * kDK) >> 4) + 2 * (k % 4));
+    wgmma_commit();
+  };
+  // Segment u's maxima (and, where its item ends, the item's slots), once
+  // its products are done; pc of its rows from this segment's p0 / p1.
+  auto retire = [&](int (&acc)[kAcc], const WsWalk& w, int pc0, int pc1) {
+    if constexpr (kScan) {
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) fold ^= (unsigned)acc[e];
+    } else {
+      const long long cs = w.comp();
+      const int tail = 255 - w.m;
+      // Row r's key a * mul + add: 256 sign (2a - pc) + tail, or kWsPadT's.
+      const bool in0 = cs + r0 < n_valid, in1 = cs + r0 + 8 < n_valid;
+      const int mul0 = in0 ? 512 * sign : 0, mul1 = in1 ? 512 * sign : 0;
+      const int add0 = (in0 ? -sign * pc0 : kWsPadT) * 256 + tail;
+      const int add1 = (in1 ? -sign * pc1 : kWsPadT) * 256 + tail;
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e)
+        best[e] = max(best[e], acc[e] * (e & 2 ? mul1 : mul0) + (e & 2 ? add1 : add0));
+    }
+    if (w.last()) {
+      // The item's slots, and its rows in 32-bit arithmetic (npad and ncomp
+      // fit an int): segment cs = seg0 + m of the compact rows, through the
+      // selection's tiles of tseg segments where there is one.
+      const long long item = (long long)(w.start / part) * kSlot;
+      const int seg0 = (int)(w.start / kSeg), tseg = map.sel ? map.tile_n / kSeg : 0;
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) {
+        const int j = frag_col(e), q = q0 + j, l = frag_row(e);
+        if (q >= Q) continue;
+        const long long o = (long long)q * width + item + l;
+        if constexpr (kScan) {
+          part_v[o] = __uint_as_float(fold);
+        } else {
+          const int key = best[e], t = key >> 8, cs = seg0 + 255 - (key & 255);
+          part_v[o] = key == kWsNone ? -__int_as_float(0x7f800000)
+                      : t == kWsPadT ? kNeg
+                                     : __int2float_rn(qo[j] + 2 * t);
+          part_i[o] = key == kWsNone ? -1
+                      : tseg         ? map.sel[cs / tseg] * map.tile_n + cs % tseg * kSeg + l
+                                     : cs * kSeg + l;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) best[e] = kWsNone;
+    }
+  };
+  // Each segment: its products, then (once they are done) the next
+  // segment's fragment loaded into the same registers, under this one's
+  // maxima.
+  int acc[kAcc];
+  uint32_t a[kN][4];
+  int u = 0;
+  load(a, 0);
+  for (WsWalk w(TQ, Q, ncomp, part); !w.done(); w.next(), ++u) {
+    issue(acc, a);
+    int c0 = p0, c1 = p1;
+    wgmma_wait<0>();
+    fence_frag(a);
+    fence_acc(acc);
+    WsWalk ahead = w;
+    ahead.next();
+    if (!ahead.done()) load(a, u + 1);
+    // pc of this segment's rows: the four lanes of a row hold a quarter each.
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 1);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 1);
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 2);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 2);
+    retire(acc, w, c0, c1);
   }
 }
 
@@ -417,6 +733,100 @@ __global__ void __launch_bounds__(kThreads, SignScoresTile::kBlocks) bq_sign_sco
   if (bulk && tid < kHalfQ) bulk_wait();
 }
 
+// ------------------------------------------------------------- launches
+
+// bq_sign_approx_kernel's launch (pass 1 only).
+cudaError_t launch_sign_approx_parts(const void* qwords, const void* planes, void* part_v,
+                                     void* part_i, int Q, int W8, long long npad,
+                                     long long ncomp, int n_valid, int dim, int sign, int part,
+                                     ScanMap map, cudaStream_t s) {
+  const size_t smem = kAlign + ApproxTile::kBytes + hamming_bytes<ApproxTile>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bq_sign_approx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nparts = (int)((ncomp + part - 1) / part);
+  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
+  bq_sign_approx_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
+      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, W8, npad, ncomp, n_valid,
+      dim, sign, part, map);
+  return cudaGetLastError();
+}
+
+// The planes' tensor map for bq_sign_approx_ws_kernel: u32 [W8][npad],
+// boxes of kBoxRows rows x W8 words (tma_planes_box). cuTensorMapEncodeTiled
+// lives in libcuda; the runtime hands its entry point over, so the library
+// does not link libcuda.
+cudaError_t planes_box_map(CUtensorMap* m, const void* planes, int W8, long long npad) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)npad, (cuuint64_t)W8};
+  const cuuint64_t strides[1] = {(cuuint64_t)npad * 4};  // bytes from one word's row to the next
+  const cuuint32_t box[2] = {kBoxRows, (cuuint32_t)W8}, unit[2] = {1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<void*>(planes), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <bool kScan, int TQ, int kN>
+cudaError_t launch_sign_ws_n(const CUtensorMap& planes_map, const void* qwords, void* part_v,
+                             void* part_i, int Q, int W8, long long ncomp, int n_valid, int dim,
+                             int sign, int part, ScanMap map, cudaStream_t s) {
+  auto* kernel = bq_sign_approx_ws_kernel<kScan, TQ, kN>;
+  const size_t smem = kAlign + SignLayout(TQ, W8).bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = ws_grid(Q, TQ, ncomp, part, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWsThreads, smem, s>>>(
+      planes_map, static_cast<const uint32_t*>(qwords), static_cast<float*>(part_v),
+      static_cast<int*>(part_i), Q, W8, (int)ncomp, n_valid, dim, sign, part, map);
+  return cudaGetLastError();
+}
+
+// bq_sign_approx_ws_kernel's launch (ws_grid), the instantiation of its
+// depth; the caller checks the route (sign_ws_tq).
+template <bool kScan, int TQ>
+cudaError_t launch_sign_approx_ws(const void* qwords, const void* planes, void* part_v,
+                                  void* part_i, int Q, int W8, long long npad, long long ncomp,
+                                  int n_valid, int dim, int sign, int part, ScanMap map,
+                                  cudaStream_t s) {
+  if (!sign_ws_depth(W8 / 8) || !SignLayout(TQ, W8).R || npad > INT_MAX)
+    return cudaErrorInvalidValue;
+  CUtensorMap m;
+  const cudaError_t err = planes_box_map(&m, planes, W8, npad);
+  if (err != cudaSuccess) return err;
+  auto run = [&](auto n) {
+    return launch_sign_ws_n<kScan, TQ, decltype(n)::value>(m, qwords, part_v, part_i, Q, W8,
+                                                           ncomp, n_valid, dim, sign, part, map,
+                                                           s);
+  };
+  switch (W8 / 8) {
+    case 1: return run(std::integral_constant<int, 1>{});
+    case 2: return run(std::integral_constant<int, 2>{});
+    case 3: return run(std::integral_constant<int, 3>{});
+    case 4: return run(std::integral_constant<int, 4>{});
+    case 6: return run(std::integral_constant<int, 6>{});
+    default: return run(std::integral_constant<int, 8>{});
+  }
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -484,30 +894,43 @@ int qtt_bq_search_exact(const void* qwords, const void* planes, void* cand_v,
 // qtt_bq_search_approx scans ncomp compact rows: sel null for a dense scan
 // (ncomp = npad), else T selected tiles of tile_n rows, a multiple of 512
 // (K10; ncomp = T * tile_n).
+// Pass 1 on the body the caller chose by qtt_bq_sign_approx_ws_tq:
+// bq_sign_approx_ws_kernel with a tile of tq = 128 or 64 queries (its layout
+// must fit), or bq_sign_approx_kernel for tq = 0; then, unless out_v / out_i
+// are the parts' (each part a whole span block, the maxima the result), the
+// combine.
 int qtt_bq_search_approx(const void* qwords, const void* planes, void* part_v,
                          void* part_i, void* out_v, void* out_i, int Q, int W8,
                          long long npad, int n_valid, int dim, int sign, int part,
-                         int span_rows, const void* sel, int tile_n, long long ncomp,
+                         int span_rows, const void* sel, int tile_n, long long ncomp, int tq,
                          void* stream) {
-  if (part % kSeg || part / kSeg > 255) return static_cast<int>(cudaErrorInvalidValue);
+  const bool in_place = out_v == part_v;
+  if (part % kSeg || part / kSeg > 255 || span_rows % part || (in_place && span_rows != part) ||
+      ncomp > INT_MAX || (tq && ((tq != 64 && tq != 128) || !sign_ws_depth(W8 / 8) ||
+                                 !SignLayout(tq, W8).R)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = kAlign + ApproxTile::kBytes + hamming_bytes<ApproxTile>();
-  cudaError_t err = cudaFuncSetAttribute(
-      bq_sign_approx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int nparts = (int)((ncomp + part - 1) / part);
-  const unsigned grid = (unsigned)nparts * ((Q + ApproxTile::TQ - 1) / ApproxTile::TQ);
-  bq_sign_approx_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(planes),
-      static_cast<float*>(part_v), static_cast<int*>(part_i), Q, W8, npad, ncomp, n_valid,
-      dim, sign, part, scan_map(sel, tile_n, nullptr, 0, 0));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const ScanMap map = scan_map(sel, tile_n, nullptr, 0, 0);
+  cudaError_t err =
+      tq == 128 ? launch_sign_approx_ws<false, 128>(qwords, planes, part_v, part_i, Q, W8, npad,
+                                                    ncomp, n_valid, dim, sign, part, map, s)
+      : tq == 64 ? launch_sign_approx_ws<false, 64>(qwords, planes, part_v, part_i, Q, W8, npad,
+                                                    ncomp, n_valid, dim, sign, part, map, s)
+                 : launch_sign_approx_parts(qwords, planes, part_v, part_i, Q, W8, npad, ncomp,
+                                            n_valid, dim, sign, part, map, s);
+  if (err != cudaSuccess || in_place) return static_cast<int>(err);
   return static_cast<int>(launch_approx_combine(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), Q, nparts,
       span_rows / part, s));
 }
+
+// The sign-query approx route for Q queries of W8 words, a function of the
+// layout's fit alone: the query tile of bq_sign_approx_ws_kernel (128, or 64
+// where Q <= 64; the wrapper then takes ktile.py approx_geometry's part), or
+// 0 past it (bq_sign_approx_kernel: 2048-row parts and the combine).
+int qtt_bq_sign_approx_ws_tq(int Q, int W8) { return sign_ws_tq(Q, W8); }
 
 // The residual forms (K5b, and K5a / K10 with a value query): qs int8
 // [Q, W8*32], qb f32 [Q], mult f32 [1] or [Q] (mstride 0 / 1), rowadd f32

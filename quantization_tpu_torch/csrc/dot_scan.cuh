@@ -3,9 +3,12 @@
 // pq4_mma_kernels.cu (K8, K7a, K7b and K11 with 4-bit codes and the int8
 // LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
 // s32.s8.s8, both operands K-major in shared memory (mma_segment). The BQ
-// sign-query kernels of bq_kernels.cu (K6, K5c, K5a, K10) run the same body
-// with the single-bit product m64nNk256 b1.b1.and.popc (N = 64, or 32 for
-// K5c's 32-query tile) on plane words stored as they are (BitRows). K12 (L1)
+// sign-query kernels of bq_kernels.cu (K6, K5c, and K5a / K10 past their
+// warp-specialized body's fit) run the same body with the single-bit
+// product m64nNk256 b1.b1.and.popc (N = 64, or 32 for K5c's 32-query tile)
+// on plane words stored as they are (BitRows); K5a / K10 with sign queries
+// run bq_kernels.cu's bq_sign_approx_ws_kernel, on this file's walk
+// (WsWalk, WsBars, ws_fetch_queries, ws_grid) with A from registers. K12 (L1)
 // keeps a __dp4a body of its own in sq_kernels.cu: the tensor cores have no
 // absolute-difference product, and L1's one tensor-core form, thermometer
 // codes through the b1 product, needs more time than the __vabsdiffu4 +
@@ -105,11 +108,12 @@
 //       4-word pad spreads the fragment's writes over every bank) and 8 KB
 //       of histograms: one block per SM; 112 / 102 / 100 (NibbleRows)
 //       registers, no spills; each warp radix-selects 8 queries.
-//   * the BQ sign searches (BitRows, bq_kernels.cu): K5a / K10 the approx
-//     tile, 128 registers, no spills; K5c on the queue select 64 queries and
-//     a ring of two chunks, two blocks a SM, 100 registers, no spills; on
-//     the radix select 32 queries (n32 products) beside the [32][516] keys,
-//     two blocks a SM, 104 registers, no spills.
+//   * the BQ sign searches (BitRows, bq_kernels.cu): K5a / K10 past their
+//     warp-specialized body's fit the approx tile, 128 registers, no spills;
+//     K5c on the queue select 64 queries and a ring of two chunks, two
+//     blocks a SM, 100 registers, no spills; on the radix select 32 queries
+//     (n32 products) beside the [32][516] keys, two blocks a SM, 104
+//     registers, no spills.
 // Also measured and dropped (NVIDIA H100 80GB HBM3, 700 W, scan_ab.py): a
 // fourth ring stage with one product group left in flight across the next
 // chunk's barrier, for the approx body and for K3 (no gain, PlaneRows and
@@ -1106,6 +1110,7 @@ constexpr int kWsThreads = 3 * 128;
 constexpr int kWsStage = 64 * kDK;                       // a warpgroup's 64 rows of a chunk
 constexpr int kWsMinStages = 4, kWsMaxStages = 8;        // a warpgroup's ring
 constexpr int kWsSide = 4;                               // side slots a warpgroup
+constexpr int kWsMaxRaw = 8;  // box slots a warpgroup (bq_sign_approx_ws_kernel)
 constexpr int kWsBarBytes = 512;
 constexpr int kWsTQ = 128;  // queries a block (64 where Q <= 64: ws_tq)
 constexpr int kWsSmem = 232448;  // H100: dynamic shared memory a block may take
@@ -1151,8 +1156,13 @@ struct WsBars {
   __device__ __forceinline__ uint32_t qready() const {
     return b + 8 * (4 * kWsMaxStages + 2 * kWsSide);
   }
+  // Box slot r of warpgroup g, landed by a bulk copy (the sign-query body).
+  __device__ __forceinline__ uint32_t raw(int g, int r) const {
+    return b + 8 * (4 * kWsMaxStages + 2 * kWsSide + 1 + g * kWsMaxRaw + r);
+  }
 };
-static_assert(8 * (4 * kWsMaxStages + 2 * kWsSide + 1) <= kWsBarBytes, "the barriers fit");
+static_assert(8 * (4 * kWsMaxStages + 2 * kWsSide + 1 + 2 * kWsMaxRaw) <= kWsBarBytes,
+              "the barriers fit");
 
 __device__ __forceinline__ void ws_bar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
@@ -1173,6 +1183,24 @@ __device__ __forceinline__ void ws_bar_arrive_if(uint32_t bar, bool p) {
 __device__ __forceinline__ void ws_bar_arrive_cp(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
+// The block's resident query tile, staged by the producer warpgroup (thread
+// pt of 128): chunk c of query q0 + r at dst + c * TQ * kDK + swz(r, piece),
+// from the D bytes of each row of qcodes [Q, D] (a multiple of 16: the last
+// chunk may be partial), zero for queries >= Q and past D; each thread's
+// copies then arrive on qready.
+template <int TQ>
+__device__ __forceinline__ void ws_fetch_queries(uint32_t dst, const int8_t* __restrict__ qcodes,
+                                                 int q0, int Q, int D, uint32_t qready, int pt) {
+  const int nk = (D + kDK - 1) / kDK;
+  for (int idx = pt; idx < nk * TQ * 8; idx += 128) {
+    const int c = idx / (TQ * 8), r = (idx >> 3) % TQ, pc = idx & 7, q = q0 + r;
+    const bool in = q < Q && c * kDK + pc * 16 < D;
+    cp_async16(dst + c * (TQ * kDK) + swz(r, pc),
+               qcodes + (long long)min(q, Q - 1) * D + (in ? c * kDK + pc * 16 : 0), in ? 16 : 0);
+  }
+  ws_bar_arrive_cp(qready);
+}
+
 // The block's walk over its items' segments, in order.
 struct WsWalk {
   int nqt, nitems, part, ncomp, item, m, ns;
@@ -1253,12 +1281,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) approx_ws_kernel(
     // launch's 168 registers a thread; the producer gives them its own.
     if constexpr (TQ == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     const int pt = threadIdx.x - 256, g = pt >> 6, lt = pt & 63;
-    for (int idx = pt; idx < nk * TQ * 8; idx += 128) {
-      const int c = idx / (TQ * 8), r = (idx >> 3) % TQ, pc = idx & 7, q = q0 + r;
-      cp_async16(s0 + L.q + c * (TQ * kDK) + swz(r, pc),
-                 qcodes + (long long)min(q, Q - 1) * D + c * kDK + pc * 16, q < Q ? 16 : 0);
-    }
-    ws_bar_arrive_cp(bars.qready());
+    ws_fetch_queries<TQ>(s0 + L.q, qcodes, q0, Q, D, bars.qready(), pt);
     const uint32_t ring = s0 + g * S * kWsStage;
     const uint32_t side0 = s0 + L.side + g * kWsSide * L.side_bytes;
     const uint32_t raw0 = s0 + L.raw + g * 2 * L.raw_seg;
@@ -1527,9 +1550,22 @@ cudaError_t launch_approx_parts(const void* base, long long stride, const void* 
   return cudaGetLastError();
 }
 
-// approx_ws_kernel's launch: one block a SM (at least one a query tile), the
-// grid a multiple of the query tiles and at most the items. The caller
-// checks that the layout fits (ws_fits).
+// A warp-specialized launch's grid: one block a SM (at least one a query
+// tile), a multiple of the query tiles and at most the items.
+inline cudaError_t ws_grid(int Q, int TQ, long long ncomp, int part, unsigned* grid) {
+  int dev = 0, nsm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int nqt = (Q + TQ - 1) / TQ;
+  const long long nitems = (ncomp + part - 1) / part * nqt;
+  const long long g = (long long)(nsm / nqt > 1 ? nsm / nqt : 1) * nqt;
+  *grid = (unsigned)(g < nitems ? g : nitems);
+  return cudaSuccess;
+}
+
+// approx_ws_kernel's launch (ws_grid). The caller checks that the layout
+// fits (ws_fits).
 template <class Rows, bool kOnce, bool kScan = false, int TQ = kWsTQ>
 cudaError_t launch_approx_ws(const void* base, long long stride, const void* qcodes,
                              const void* qoff, const void* mult, const void* voff, void* part_v,
@@ -1542,16 +1578,10 @@ cudaError_t launch_approx_ws(const void* base, long long stride, const void* qco
   const size_t smem = kAlign + L.bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = ws_grid(Q, TQ, ncomp, part, &grid);
   if (err != cudaSuccess) return err;
-  int dev = 0, nsm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const int nqt = (Q + TQ - 1) / TQ;
-  const long long nitems = (long long)((ncomp + part - 1) / part) * nqt;
-  long long grid = (long long)(nsm / nqt > 1 ? nsm / nqt : 1) * nqt;
-  if (grid > nitems) grid = nitems;
-  kernel<<<(unsigned)grid, kWsThreads, smem, s>>>(
+  kernel<<<grid, kWsThreads, smem, s>>>(
       static_cast<const typename Rows::Elem*>(base), stride,
       static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
       static_cast<const float*>(mult), static_cast<const float*>(voff),

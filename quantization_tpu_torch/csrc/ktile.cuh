@@ -77,7 +77,7 @@ inline ScanMap scan_map(const void* sel, int tile_n, const void* corr, long long
 }
 
 // mbarriers in shared memory (the LUT ring, pq_kernels.cuh; the
-// warp-specialized approx body, dot_scan.cuh).
+// warp-specialized approx bodies, dot_scan.cuh and bq_kernels.cu).
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -93,6 +93,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// The issuing thread's arrival, with the bytes its bulk copies will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
 // Order-preserving map f32 -> u32: a > b as floats iff key(a) > key(b).

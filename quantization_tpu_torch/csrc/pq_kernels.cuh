@@ -486,13 +486,6 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The issuing warp's arrival, with the bytes the stage's copies will bring.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
 // bytes (a multiple of 16, both ends 16-byte aligned) from global memory
 // to shared memory at dst, completing on bar.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,

@@ -1,17 +1,23 @@
-// The int8 approx searches' time split into pass 1, its scan alone and the
-// combine, on one card, for both bodies of dot_scan.cuh: approx_ws_kernel
-// (the warp-specialized body) as the wrappers launch it (span-block items in
-// place, or 2048-row items with the combine; its 128-query tile, or 64 where
-// Q <= 64) and at its other query tile, and approx_parts_kernel (the body
-// where that tile does not fit, queries in the ring) at 2048-row items with
-// the combine, the reference. Four searches:
+// The approx searches' time split into pass 1, its scan alone and the
+// combine, on one card, for both int8 bodies of dot_scan.cuh:
+// approx_ws_kernel (the warp-specialized body) as the wrappers launch it
+// (span-block items in place, or 2048-row items with the combine; its
+// 128-query tile, or 64 where Q <= 64) and at its other query tile, and
+// approx_parts_kernel (the body where that tile does not fit, queries in the
+// ring) at 2048-row items with the combine, the reference; and for both
+// sign-query bodies of bq_kernels.cu: bq_sign_approx_ws_kernel the same
+// way, against bq_sign_approx_kernel (2048-row parts and the combine, the
+// reference). Six searches:
 //   * K9a: 256 of 1,152 tiles of 1024 rows of 768-byte SQ codes, Q = 256
 //     (CodeRows, the step-by-step epilogue; scan_ab.py's shape);
 //   * K2: a dense scan of 100,352 rows of 1024-byte SQ codes, Q = 256 and 32
 //     (span blocks of 8,192 rows);
 //   * K10-value at the serving width: all 1,226 tiles of 1024 rows of 768
 //     bits, Q = 256 (PlaneRows, the kOnce epilogue, a query mult a query,
-//     corr).
+//     corr);
+//   * sign-query K5a: a dense scan of 1,000,000 rows of 1536 bits (npad
+//     1,001,472), Q = 256 (chip_smoke.py path 2's shape);
+//   * sign-query K10: 256 of 1,152 tiles of 1024 rows of 768 bits, Q = 256.
 // "scan" is pass 1 with its epilogue and maxima taken out (each accumulator
 // folded into a register): a timing probe whose results are wrong. The
 // merge's torch.topk is timed by scan_ab.py (--only approx), beside the
@@ -21,7 +27,9 @@
 //
 //     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //          -o approx_split approx_split.cu
-//     ./approx_split    # one JSON line a measurement
+//     ./approx_split               # one JSON line a measurement
+//     ./approx_split sign          # the sign-query K5a / K10 alone
+//     ./approx_split sign-parent   # their two-block body alone
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -29,7 +37,7 @@
 #include <type_traits>
 #include <vector>
 
-#include "../dot_scan.cuh"
+#include "../bq_kernels.cu"  // the sign-query kernels, and dot_scan.cuh
 
 namespace {
 
@@ -75,6 +83,31 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) parts_scan_kern
     int acc[1][32];
     mma_segment<ApproxTile>(Rows{base, stride}, qcodes, q0, Q, map.row(start + off), D,
                             smem_addr(smem), acc);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) fold ^= (unsigned)acc[0][e];
+  }
+  out[(long long)blockIdx.x * kThreads + threadIdx.x] = fold;
+}
+
+// bq_sign_approx_kernel's scan alone: its loop over its part's segments
+// (mma_segment with BitRows), each accumulator folded into a register.
+__global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) sign_parts_scan_kernel(
+    const uint32_t* __restrict__ qwords, const uint32_t* __restrict__ planes,
+    unsigned* __restrict__ out, int Q, int W, long long npad, long long ncomp, int part,
+    ScanMap map) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  constexpr int TQ = ApproxTile::TQ;
+  int* pc = reinterpret_cast<int*>(smem + ApproxTile::kBytes) + TQ;
+  const int nqt = (Q + TQ - 1) / TQ;
+  const int part_id = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)part_id * part;
+  const BitRows rows{planes, npad, W, pc};
+  unsigned fold = 0;
+  for (int off = 0; off < part && start + off < ncomp; off += kSeg) {
+    int acc[1][32];
+    mma_segment<ApproxTile>(rows, reinterpret_cast<const int8_t*>(qwords), q0, Q,
+                            map.row(start + off), 4 * W, smem_addr(smem), acc);
 #pragma unroll
     for (int e = 0; e < 32; ++e) fold ^= (unsigned)acc[0][e];
   }
@@ -241,15 +274,123 @@ bool split(const char* name, const void* base, long long stride, const int8_t* q
   return good;
 }
 
+// Pass 1 of one sign-query search on bq_sign_approx_ws_kernel (TQ queries a
+// block) at part rows an item, its scan alone and, where part is not the
+// span block, the combine; its candidates (into ov / oi) against the
+// reference (rv / ri).
+template <int TQ>
+bool split_sign_ws(const char* name, const uint32_t* qwords, const uint32_t* planes, int Q,
+                   int W, long long npad, long long ncomp, int n_valid, int dim, int span,
+                   int part, ScanMap map, float* pv, int* pi, float* ov, int* oi, const float* rv,
+                   const int* ri) {
+  auto pass1 = [&] {
+    launch_sign_approx_ws<false, TQ>(qwords, planes, pv, pi, Q, W, npad, ncomp, n_valid, dim, 1,
+                                     part, map, 0);
+  };
+  const float p1 = time_ms(pass1);
+  bool good = ok("sign ws pass 1");
+  const float sc = time_ms([&] {
+    launch_sign_approx_ws<true, TQ>(qwords, planes, ov, oi, Q, W, npad, ncomp, n_valid, dim, 1,
+                                    part, map, 0);
+  });
+  good &= ok("sign ws scan");
+  const int nparts = (int)((ncomp + part - 1) / part);
+  auto combine = [&] { launch_approx_combine(pv, pi, ov, oi, Q, nparts, span / part, 0); };
+  const float cb = part == span ? 0.0f : time_ms(combine);
+  good &= ok("sign ws combine");
+  pass1();
+  if (part != span) combine();
+  good &= cudaDeviceSynchronize() == cudaSuccess;
+  const bool eq = good && same(rv, ri, part == span ? pv : ov, part == span ? pi : oi,
+                               (size_t)Q * ((ncomp + span - 1) / span) * kSlot);
+  const SignLayout L(TQ, W);
+  printf("{\"probe\": \"approx_split\", \"kernel\": \"%s\", \"design\": \"sign_ws%d\", "
+         "\"part\": %d, \"pass1_ms\": %.4f, \"scan_ms\": %.4f, \"combine_ms\": %.4f, "
+         "\"smem\": %d, \"slots\": %d, \"blocks_per_sm\": 1, \"equal\": %s}\n",
+         name, TQ, part, p1, sc, cb, kAlign + L.bytes, L.R, eq ? "true" : "false");
+  return good && eq;
+}
+
+// One sign-query search (K5a dense, K10 over selected tiles; bq_kernels.cu):
+// the two-block body (bq_sign_approx_kernel, its 64-query tile, two blocks a
+// SM) at 2048-row items, its scan alone and the combine, the reference; then
+// bq_sign_approx_ws_kernel as the wrapper launches it (128 queries, span
+// items in place), at 2048-row items with the combine, and at 64 queries.
+// Every warp-specialized candidate set must equal the reference to the bit.
+bool split_sign(const char* name, const uint32_t* qwords, const uint32_t* planes, int Q, int W,
+                long long npad, long long ncomp, int n_valid, int dim, int span, ScanMap map,
+                bool ws) {
+  const int part = 2048, nparts = (int)((ncomp + part - 1) / part), nqt = (Q + 63) / 64;
+  const size_t slots = (size_t)Q * (ncomp / 512 + 1) * kSlot;
+  float *pv, *rv, *wv, *xv;
+  int *pi, *ri, *wi, *xi;
+  unsigned* fold;
+  for (float** p : {&pv, &rv, &wv, &xv}) cudaMalloc(p, slots * 4);
+  for (int** p : {&pi, &ri, &wi, &xi}) cudaMalloc(p, slots * 4);
+  cudaMalloc(&fold, (size_t)nparts * nqt * kThreads * 4);
+  const float p1 = time_ms([&] {
+    launch_sign_approx_parts(qwords, planes, pv, pi, Q, W, npad, ncomp, n_valid, dim, 1, part,
+                             map, 0);
+  });
+  bool good = ok("sign pass 1");
+  const size_t smem = kAlign + ApproxTile::kBytes + hamming_bytes<ApproxTile>();
+  cudaFuncSetAttribute(sign_parts_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const float sc = time_ms([&] {
+    sign_parts_scan_kernel<<<nparts * nqt, kThreads, smem>>>(qwords, planes, fold, Q, W, npad,
+                                                             ncomp, part, map);
+  });
+  good &= ok("sign scan");
+  const float cb = time_ms([&] { launch_approx_combine(pv, pi, rv, ri, Q, nparts, span / part, 0); });
+  launch_sign_approx_parts(qwords, planes, pv, pi, Q, W, npad, ncomp, n_valid, dim, 1, part, map,
+                           0);
+  launch_approx_combine(pv, pi, rv, ri, Q, nparts, span / part, 0);
+  good &= ok("sign combine") && cudaDeviceSynchronize() == cudaSuccess;
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bq_sign_approx_kernel, kThreads, smem);
+  printf("{\"probe\": \"approx_split\", \"kernel\": \"%s\", \"design\": \"sign_parts\", "
+         "\"part\": %d, \"pass1_ms\": %.4f, \"scan_ms\": %.4f, \"combine_ms\": %.4f, "
+         "\"smem\": %zu, \"blocks_per_sm\": %d}\n",
+         name, part, p1, sc, cb, smem, per_sm);
+  if (ws && good && sign_ws_tq(Q, W) == 128) {
+    good &= split_sign_ws<128>(name, qwords, planes, Q, W, npad, ncomp, n_valid, dim, span, span,
+                               map, wv, wi, xv, xi, rv, ri);
+    good &= split_sign_ws<128>(name, qwords, planes, Q, W, npad, ncomp, n_valid, dim, span, 2048,
+                               map, xv, xi, wv, wi, rv, ri);
+    good &= split_sign_ws<64>(name, qwords, planes, Q, W, npad, ncomp, n_valid, dim, span, span,
+                              map, wv, wi, xv, xi, rv, ri);
+  }
+  for (void* p : {(void*)pv, (void*)pi, (void*)rv, (void*)ri, (void*)wv, (void*)wi, (void*)xv,
+                  (void*)xi, (void*)fold})
+    cudaFree(p);
+  return good;
+}
+
+// Random sign planes [W, npad] (zero past n) and query words [Q, W].
+void sign_operands(uint32_t** planes, uint32_t** qwords, int Q, int W, long long npad,
+                   long long n, unsigned seed) {
+  cudaMalloc(planes, (size_t)W * npad * 4);
+  cudaMalloc(qwords, (size_t)Q * W * 4);
+  fill_kernel<<<1024, 256>>>(reinterpret_cast<uint8_t*>(*planes), (long long)W * npad * 4, 0xff,
+                             seed);
+  fill_kernel<<<64, 256>>>(reinterpret_cast<uint8_t*>(*qwords), (long long)Q * W * 4, 0xff,
+                           seed + 1);
+  for (int w = 0; w < W && n < npad; ++w) cudaMemset(*planes + w * npad + n, 0, (npad - n) * 4);
+}
+
 }  // namespace
 
-int main() {
+int main(int argc, char** argv) {
   setvbuf(stdout, nullptr, _IOLBF, 0);  // each line out as it is measured
   const int Q = 256, D = 768, TILE = 1024;
+  // No argument: every search; "sign": the sign-query K5a / K10 alone;
+  // "sign-parent": only their two-block body (bq_sign_approx_kernel).
+  const bool all = argc < 2, ws = all || !strcmp(argv[1], "sign"),
+             sign = ws || !strcmp(argv[1], "sign-parent");
   bool good = true;
 
   // K9a: SQ codes of 1,152 tiles, 256 of them selected.
-  {
+  if (all) {
     const int tiles = 1152, ntile = 256;
     const long long npad = (long long)tiles * TILE;
     int8_t *codes, *qcodes;
@@ -280,6 +421,7 @@ int main() {
   // K2: a dense scan of 100,352 rows of 1024-byte SQ codes (span blocks of
   // 8,192 rows), Q = 256 and 32.
   for (const int q : {256, 32}) {
+    if (!all) break;
     const int D2 = 1024, n = 100352;
     int8_t *codes, *qcodes;
     float *qoff, *mult, *voff;
@@ -301,7 +443,7 @@ int main() {
   }
 
   // K10-value at the serving width: every tile of 1,226, value queries.
-  {
+  if (all) {
     const int tiles = 1226, W = D / 32;
     const long long npad = (long long)tiles * TILE;
     uint32_t* planes;
@@ -331,6 +473,29 @@ int main() {
     for (void* p : {(void*)planes, (void*)qs, (void*)qb, (void*)mult, (void*)rowadd,
                     (void*)corr, (void*)sel})
       cudaFree(p);
+  }
+  // Sign-query K5a at path 2's 1,000,000 x 1536 (span blocks of 4,096
+  // rows), and K10 over 256 of 1,152 tiles of 1024 rows of 768 dims.
+  if (sign) {
+    const long long n = 1000000, npad = 1001472;
+    uint32_t *planes, *qwords;
+    sign_operands(&planes, &qwords, Q, 48, npad, n, 21);
+    good &= split_sign("bq_search_approx", qwords, planes, Q, 48, npad, npad, (int)n, 1536, 4096,
+                       ScanMap{nullptr, 0, nullptr, 0, 0}, ws);
+    cudaFree(planes);
+    cudaFree(qwords);
+    const int tiles = 1152, ntile = 256;
+    sign_operands(&planes, &qwords, Q, D / 32, (long long)tiles * TILE, (long long)tiles * TILE,
+                  23);
+    int* sel;
+    cudaMalloc(&sel, ntile * 4);
+    std::vector<int> hs(ntile);
+    for (int i = 0; i < ntile; ++i) hs[i] = (i * 7) % tiles;
+    cudaMemcpy(sel, hs.data(), ntile * 4, cudaMemcpyHostToDevice);
+    good &= split_sign("bq_search_indexed", qwords, planes, Q, D / 32, (long long)tiles * TILE,
+                       ntile * TILE, ntile * TILE, D, 4 * TILE, ScanMap{sel, TILE, nullptr, 0, 0},
+                       ws);
+    for (void* p : {(void*)planes, (void*)qwords, (void*)sel}) cudaFree(p);
   }
   const cudaError_t err = cudaDeviceSynchronize();
   if (err != cudaSuccess) {

@@ -15,6 +15,9 @@ Twin of ``quantization_tpu/ops/pallas/bq_kernel.py``. The kernels live in
     With sign queries K6, K5c, K5a and K10 run on the tensor cores:
     single-bit AND-popcount products (``wgmma`` b1) on the int8 scan body of
     ``csrc/dot_scan.cuh``, Hamming = popc(q) + popc(c) - 2 popc(q & c);
+    K5a and K10 on ``bq_sign_approx_ws_kernel`` (warp-specialized, A from
+    registers) at the depths it is built for, where its layout fits
+    (counted in ``SIGN_WS_LAUNCHES`` too);
   * the residual-BQ forms, with ``query_affine=(qs, mult, qb)`` — an int8
     VALUE query [Q, W8*32] scored ``mult * (qs . bits) + qb`` against the
     sign bits — a per-row additive ``rowadd`` and the bucket additive
@@ -78,8 +81,9 @@ W_ALIGN = 8
 # (ktile.exact_geometry); the radix select's blocks take 32 queries and one
 # split. K5b runs the int8 exact body (EXACT_TQ).
 SIGN_QUEUE_TQ = 64
-# Corpus rows per pass-1 block of the sign-query K5a / K10; divides every
-# approx span.
+# Corpus rows per pass-1 block of the sign-query K5a / K10 off the
+# warp-specialized body (bq_sign_approx_kernel); divides every approx span.
+# On that body a work item is approx_geometry's.
 APPROX_PART = 2048
 # Narrowest approx tile of the JAX package (its MXU_TILE_N); see mxu_tile_n.
 MXU_TILE_N = 512
@@ -88,11 +92,15 @@ MXU_TILE_N = 512
 LAUNCHES = {"bq_scores": 0, "bq_search_exact": 0, "bq_search_approx": 0,
             "bq_search_indexed": 0, "bq_search_exact_res": 0, "bq_search_approx_res": 0,
             "bq_search_indexed_res": 0}
+#: Of the sign-query K5a / K10 launches, those on the warp-specialized body
+#: (csrc/bq_kernels.cu bq_sign_approx_ws_kernel).
+SIGN_WS_LAUNCHES = {"bq_search_approx": 0, "bq_search_indexed": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SIGN_WS_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def mxu_tile_n(dp: int, n: int) -> int:
@@ -333,20 +341,35 @@ def _launch_res(query_affine, planes, corr, rowadd, sel, tile_n, ncomp, n_valid,
     return merge_candidates(bufs[2], bufs[3], k)
 
 
+def _sign_route(lib, q: int, w8: int) -> int:
+    """The sign-query approx body for ``q`` queries of ``w8`` words, a
+    function of the depth and the layout's fit alone (csrc/bq_kernels.cu
+    sign_ws_tq): the query tile of bq_sign_approx_ws_kernel (128, or 64
+    where q <= 64), or 0 off its route (bq_sign_approx_kernel)."""
+    return lib.qtt_bq_sign_approx_ws_tq(q, w8)
+
+
 def _launch_approx(qwords, planes, args, sel, tile_n, ncomp, span_rows, k, name):
     """Launch K5a / K10 over ``ncomp`` compact rows (``sel`` None: dense)
-    and merge; counts the launch as ``name``."""
+    and merge; counts the launch as ``name``. On the warp-specialized body
+    (``_sign_route``; counted in SIGN_WS_LAUNCHES too) a work item is
+    ``approx_geometry``'s part (span blocks in place, or smaller parts and
+    the combine); on bq_sign_approx_kernel APPROX_PART rows and the
+    combine."""
     q, dev = qwords.shape[0], planes.device
-    bufs = approx_buffers(q, ncomp, span_rows, APPROX_PART, dev)
-    if q and ncomp:
-        lib = load_library()
+    lib = load_library() if q and ncomp else None
+    tq = _sign_route(lib, q, qwords.shape[1]) if lib else 0
+    part = approx_geometry(ncomp, q, span_rows, sm_count(dev)) if tq else APPROX_PART
+    bufs = approx_buffers(q, ncomp, span_rows, part, dev)
+    if lib:
         err = lib.qtt_bq_search_approx(
             qwords.data_ptr(), planes.data_ptr(), *(b.data_ptr() for b in bufs), *args,
-            APPROX_PART, span_rows, 0 if sel is None else sel.data_ptr(), tile_n, ncomp,
+            part, span_rows, 0 if sel is None else sel.data_ptr(), tile_n, ncomp, tq,
             _stream(planes),
         )
         check(lib, err, name)
         LAUNCHES[name] += 1
+        SIGN_WS_LAUNCHES[name] += bool(tq)
     return merge_candidates(bufs[2], bufs[3], k)
 
 

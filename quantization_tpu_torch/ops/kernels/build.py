@@ -175,7 +175,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         #  [sel, tile_n, ncomp,] stream)
         "qtt_bq_scores": [p, p, p, i, i, ll, i, i, i, p],
         "qtt_bq_search_exact": [p, p, p, p, i, i, ll, i, i, i, i, i, p],
-        "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, i, i, p, i, ll, p],
+        "qtt_bq_search_approx": [p, p, p, p, p, p, i, i, ll, i, i, i, i, i, p, i, ll, i, p],
+        # (Q, W8): the sign-query approx route's query tile, 0 past its fit
+        "qtt_bq_sign_approx_ws_tq": [i, i],
         # (qs, qb, mult, planes, rowadd, outputs..., Q, W8, npad, ncomp, n_valid,
         #  ..., mstride, scan, stream): the residual forms
         "qtt_bq_search_exact_res": [p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, *scan, p],

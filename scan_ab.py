@@ -5,7 +5,7 @@ comparing two checkouts in turns on the same card.
     python3 scan_ab.py                  # this checkout's quantization_tpu_torch
     python3 scan_ab.py --root DIR       # the package under DIR (another checkout)
     python3 scan_ab.py --only pq,api    # some sections: sq, bq, bqsign, pq, api, rate, split,
-                                        # lut, approx, asplit
+                                        # lut, approx, asplit, ssplit
 
 Every kernel of the shared int8 scan body (csrc/dot_scan.cuh and the K3 /
 K12 bodies of sq_kernels.cu) runs through its public wrapper at the shapes
@@ -49,12 +49,14 @@ every user of the int8 approx body through its public wrapper (K2 at Q = 256
 and 32 and over the IVF union with corr, K9a, the value-query K5a and K10 at
 both widths, 4-bit int8 K7a and K11) and, apart, each one's merge
 (ktile.merge_candidates: torch.topk and the gather over its candidates'
-width); the asplit section builds and runs csrc/probe/approx_split.cu
-(pass 1, its scan alone and the combine of K9a, of dense K2 at Q = 256 and
-32 and of K10-value at the serving width: the warp-specialized body at
-span-block items and 2048-row items, its other query tile, and the
-fallback body's 2048-row items, with the warp-specialized body's ptxas
-registers and spills). Prints one JSON object:
+width), the sign-query K5a's and K10's merges too; the asplit section builds
+and runs csrc/probe/approx_split.cu (pass 1, its scan alone and the combine
+of K9a, of dense K2 at Q = 256 and 32, of K10-value at the serving width and
+of the sign-query K5a at 1M x 1536 and K10 over 256 tiles of 768 dims: the
+warp-specialized bodies at span-block items and 2048-row items, their other
+query tile, and the two-block bodies' 2048-row items, with the
+warp-specialized bodies' ptxas registers and spills); ssplit runs its
+sign-query searches alone. Prints one JSON object:
 the card (nvidia-smi name and power limit), the package's directory, the
 times, the rates and the split. Needs a CUDA card; the kernels are
 built from the checkout's sources on first use.
@@ -127,7 +129,8 @@ def main():
                     help="directory holding the quantization_tpu_torch package to time")
     ap.add_argument("--only", default="sq,bq,bqsign,pq,api,rate,split,lut,approx,asplit",
                     help="comma-separated sections to time: sq, bq, bqsign, pq, api, rate, "
-                         "split, lut, approx, asplit (default all)")
+                         "split, lut, approx, asplit, ssplit (default all but ssplit, "
+                         "which asplit holds)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -171,7 +174,8 @@ def main():
     rate = probe_rates(build.find_nvcc()) if "rate" in only else None
     split = run_probe(build.find_nvcc(), "select_split") if "split" in only else None
     lut = run_probe(build.find_nvcc(), "lut_gather_rate") if "lut" in only else None
-    asplit = approx_probe(build.find_nvcc()) if "asplit" in only else None
+    asplit = (approx_probe(build.find_nvcc()) if "asplit" in only else
+              approx_probe(build.find_nvcc(), "sign") if "ssplit" in only else None)
     print(json.dumps({"card": smi, "root": os.path.abspath(args.root), "ms": ms, "rate": rate,
                       "select_split": split, "lut_gather": lut, "approx_split": asplit}),
           flush=True)
@@ -303,7 +307,8 @@ def run_probe(nvcc, probe):
 def approx_probe(nvcc, *args):
     """Builds and runs csrc/probe/approx_split.cu of this checkout with the
     library's flags (-fmad=false) and ptxas -v: its JSON lines, and the
-    approx body's ptxas lines ({"ptxas": [...]})."""
+    warp-specialized bodies' and bq_sign_approx_kernel's ptxas lines
+    ({"ptxas": [...]})."""
     pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
     os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
     exe = os.path.join(pkg, "_build", "approx_split")
@@ -313,8 +318,9 @@ def approx_probe(nvcc, *args):
                            capture_output=True, text=True, check=True, timeout=600)
     out = subprocess.run([exe, *args], capture_output=True, text=True, check=True,
                          timeout=600).stdout
+    log = built.stdout + built.stderr
     return [json.loads(line) for line in out.splitlines() if line.startswith("{")] + [
-        {"ptxas": ptxas_lines(built.stdout + built.stderr, "approx_ws_kernel")}]
+        {"ptxas": ptxas_lines(log, "approx_ws_kernel") + ptxas_lines(log, "approx_kernel")}]
 
 
 def ptxas_lines(log, kernel):
@@ -382,6 +388,11 @@ def approx_rows(ms, sq_kernel, bq_kernel, pq_kernel, sq_operands, dot, g, dev):
             None, planes, tiles, tcorr, k=k, tile_n=TILE, rowadd=rowadd, **kw))
         merge(name, -(-ntiles * TILE // (SPAN * TILE)) * SLOT, k)
     del planes, rowadd, cplanes, crow
+
+    # Sign-query BQ: the merges of K5a at path 2's 1M x 1536 (k = 40) and of
+    # K10 over 256 tiles of 768 dims (kk2), whose kernels bqsign times.
+    merge("bq_sign_search_approx", -(-1_001_472 // (SPAN * 1024)) * SLOT, 40)
+    merge("bq_sign_search_indexed", UNION_TILES * TILE // (SPAN * TILE) * SLOT, KK2)
 
     # 4-bit PQ, int8 LUT: K7a at path 3's shape, K11 over 256 tiles.
     for name, n, npad_, sel_ in (("pq_search_approx_4bit_int8", PN, PN + (-PN) % 512, None),

@@ -205,8 +205,13 @@ class _EmulatedLib:
             i[:, s * kk + take: (s + 1) * kk] = -1
         return 0
 
+    def qtt_bq_sign_approx_ws_tq(self, q, w8):
+        # The warp-specialized body's tile: every depth here fits it
+        # (tests/test_torch_bq_sign_approx_body.py holds its layout).
+        return 128 if q > 64 else 64
+
     def qtt_bq_search_approx(self, qw, pl, pv, pi, ov, oi, q, w8, npad, n_valid, dim, sign,
-                             part, span_rows, sel, tile_n, ncomp, stream):
+                             part, span_rows, sel, tile_n, ncomp, tq, stream):
         self.calls.append("approx" if sel is None or sel == 0 else "indexed")
         assert npad == self.planes.shape[1] and span_rows % part == 0
         if sel:
@@ -232,6 +237,7 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(bq_kernel, "use_kernels", lambda t: True)
     monkeypatch.setattr(bq_kernel, "_stream", lambda t: 0)
     monkeypatch.setattr(bq_kernel, "load_library", lambda: holder.lib)
+    monkeypatch.setattr(bq_kernel, "sm_count", lambda dev: 132)
     return holder
 
 

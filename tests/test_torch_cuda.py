@@ -1823,3 +1823,135 @@ def test_approx_body_k5a_value_equal_plain(dev, q, dim, with_corr):
     pv, pi = bq_kernel.bq_search_plain(None, planes, corr, **kw)
     torch.cuda.synchronize()
     assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+# ------------------------------------------------ the sign-query approx body
+# bq_sign_approx_ws_kernel (csrc/bq_kernels.cu): K5a / K10 with sign queries
+# on the warp-specialized walk wherever its query tile fits (the route of
+# bq_kernel._sign_route), bq_sign_approx_kernel past it. Held to the plain
+# approx's values and ids. The shapes of
+# tests/test_torch_bq_sign_approx_body.py: dims 64, 200 and 1536 (1.5
+# chunks: a partial last chunk), Q = 1, 63, 65, 129 (both query tiles), a
+# ragged n_valid, both signs; 1M x 1536 at Q = 256; every part the geometry
+# may give; a depth past the fit; both bodies and both query tiles on the
+# same operands.
+SIGN_WS_QS = [1, 63, 65, 129]
+SIGN_WS_CASES = [(DistanceType.DOT, False), (DistanceType.L1, False)]  # sign +1, -1
+
+
+def _sign_route(q, w8):
+    return bq_kernel._sign_route(bq_kernel.load_library(), q, w8)
+
+
+@pytest.mark.parametrize("dt,invert", SIGN_WS_CASES)
+@pytest.mark.parametrize("dim", [64, 200, 1536])
+@pytest.mark.parametrize("q", SIGN_WS_QS)
+def test_sign_ws_k5a_equal_plain(dev, q, dim, dt, invert):
+    n_valid = 9001
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=q * 7 + dim)
+    assert _sign_route(q, planes.shape[0]) == (128 if q > 64 else 64)
+    kw = dict(distance_type=dt, invert=invert, dim=dim, n_valid=n_valid, k=40, mode="approx")
+    before = dict(bq_kernel.SIGN_WS_LAUNCHES)
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    assert bq_kernel.SIGN_WS_LAUNCHES["bq_search_approx"] == before["bq_search_approx"] + 1
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("tile_n", [512, 1024, 2048])
+@pytest.mark.parametrize("dim", [200, 768])
+@pytest.mark.parametrize("q", SIGN_WS_QS)
+def test_sign_ws_k10_equal_plain(dev, q, dim, tile_n):
+    npad = 16 * 2048
+    qw, planes = _bq_operands(dev, npad, dim, q, seed=q + dim + tile_n)
+    sel = _selection(dev, npad // tile_n, 7, seed=q + tile_n)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=40, tile_n=tile_n)
+    before = dict(bq_kernel.SIGN_WS_LAUNCHES)
+    v, i = bq_kernel.bq_search_indexed(qw, planes, sel, **kw)
+    assert bq_kernel.SIGN_WS_LAUNCHES["bq_search_indexed"] == before["bq_search_indexed"] + 1
+    pv, pi = bq_kernel.bq_search_indexed_plain(qw, planes, sel, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_sign_ws_k5a_at_path_2_shape_equal_plain(dev):
+    """1,000,000 x 1536, Q = 256, k = 40: 245 span blocks of 4,096 rows in
+    place, two query tiles."""
+    n_valid, dim, q = 1_000_000, 1536, 256
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=3)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, n_valid=n_valid, k=40,
+              mode="approx")
+    before = dict(bq_kernel.SIGN_WS_LAUNCHES)
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    assert bq_kernel.SIGN_WS_LAUNCHES["bq_search_approx"] == before["bq_search_approx"] + 1
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("part", [2048, 4096])
+@pytest.mark.parametrize("corpus", ["random", "equal"])
+def test_sign_ws_every_part_equal_plain(dev, monkeypatch, part, corpus):
+    """Whatever part the geometry gives at 1536 dims (span blocks of 4,096
+    rows in place, or 2,048-row items and the combine), the candidates are
+    the plain approx's; on a corpus of one repeated row each span block
+    keeps its first row of every class, and the rows past n_valid score
+    NEG."""
+    n_valid, q = 100_000, 65
+    qw, planes = _bq_operands(dev, n_valid, 1536, q, seed=part)
+    if corpus == "equal":
+        planes[:, :n_valid] = planes[:, :1]
+    monkeypatch.setattr(bq_kernel, "approx_geometry", lambda *args: part)
+    kw = dict(distance_type=DistanceType.DOT, invert=False, dim=1536, n_valid=n_valid, k=300,
+              mode="approx")
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("q", [1, 65])
+def test_sign_ws_past_the_fit_runs_the_two_block_body(dev, q):
+    """At 4,096 bits the resident tile does not fit: bq_sign_approx_kernel
+    serves (not counted on the warp-specialized body), equal to plain."""
+    n_valid, dim = 7001, 4096
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=q)
+    assert _sign_route(q, planes.shape[0]) == 0
+    kw = dict(distance_type=DistanceType.L2, invert=True, dim=dim, n_valid=n_valid, k=40,
+              mode="approx")
+    before, ws = bq_kernel.LAUNCHES["bq_search_approx"], dict(bq_kernel.SIGN_WS_LAUNCHES)
+    v, i = bq_kernel.bq_search(qw, planes, **kw)
+    assert bq_kernel.LAUNCHES["bq_search_approx"] == before + 1
+    assert bq_kernel.SIGN_WS_LAUNCHES == ws
+    pv, pi = bq_kernel.bq_search_plain(qw, planes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("dim,indexed", [(200, False), (1536, False), (768, True)])
+def test_sign_ws_both_bodies_give_the_same_candidates(dev, monkeypatch, dim, indexed):
+    """Where both fit, the two-block body (2,048-row parts and the combine)
+    and the warp-specialized one at either query tile give the same
+    candidates, bit for bit."""
+    n_valid, q = 20_001, 129
+    qw, planes = _bq_operands(dev, n_valid, dim, q, seed=dim)
+    if indexed:
+        sel = _selection(dev, planes.shape[1] // 1024, 9, seed=dim)
+        kw = dict(distance_type=DistanceType.DOT, invert=False, dim=dim, k=1000, tile_n=1024)
+
+        def run():
+            return bq_kernel.bq_search_indexed(qw, planes, sel, **kw)
+    else:
+        kw = dict(distance_type=DistanceType.L1, invert=True, dim=dim, n_valid=n_valid,
+                  k=1000, mode="approx")
+
+        def run():
+            return bq_kernel.bq_search(qw, planes, **kw)
+    got = []
+    for tq in (0, 64, 128):
+        monkeypatch.setattr(bq_kernel, "_sign_route", lambda lib, q_, w8, tq=tq: tq)
+        got.append(run())
+    torch.cuda.synchronize()
+    for v, i in got[1:]:
+        assert torch.equal(v, got[0][0]) and torch.equal(i, got[0][1])
