@@ -14,10 +14,11 @@ sign-query kernels, K6 and the searches, on its single-bit product) and that the
 LUT ring is fed by bulk copies on mbarriers, counts the PQ LUT-gather
 lookup loop's SASS instructions a lookup (held to LOOP_SASS_MAX) and prints
 each of its entries' ptxas registers and spills, builds and runs the probe
-csrc/probe/select_split.cu (the scans of K1 and K5c without their select,
+csrc/probe/select_split.cu (the scans of K1, K5c and 4-bit K7b without their select,
 which splits their times into scan and select, and the exact kernels'
 blocks a SM) and csrc/probe/approx_split.cu (K9a's, dense K2's,
-K10-value's and the sign-query K5a's and K10's pass 1, its scan alone and
+K10-value's, the sign-query K5a's and K10's and 4-bit int8 K7a's pass 1,
+its scan alone and
 the combine on the warp-specialized bodies and the two-block ones, span
 items and 2048-row items: the [approx] lines; every approx body's ptxas
 registers and spills are printed from the build, the sign-query ones
@@ -556,8 +557,12 @@ def approx_split(smi):
     (the body where the query tile does not fit) at 2048-row items, the
     reference; the same for the sign-query K5a at 1M x 1536 and K10 over 256
     tiles of 768 dims on bq_sign_approx_ws_kernel against
-    bq_sign_approx_kernel; requires every warp-specialized candidate set
-    equal to its reference. {(kernel, design, part): line}."""
+    bq_sign_approx_kernel; for 4-bit int8 K7a at 1M x 192 chunks,
+    pq4_approx_ws_kernel (at Q = 256, and at Q = 32 in both its geometries)
+    against approx_parts_kernel<NibbleRows>, whose scan it splits into the
+    one-hot expansion and the products; requires every
+    warp-specialized candidate set equal to its reference. {(kernel,
+    design, part): line}."""
     proc = _aprobe["proc"]
     out, _ = proc.communicate(timeout=600)
     require(proc.returncode == 0, f"the approx probe builds: {out[-2000:]}")
@@ -568,20 +573,25 @@ def approx_split(smi):
     for ln in lines:
         if "equal" in ln:
             require(ln["equal"], f"{ln['kernel']} {ln['design']} {ln['part']}: the "
-                    "warp-specialized candidates equal approx_parts_kernel's")
+                    "warp-specialized candidates equal the reference body's")
         split[ln["kernel"], ln["design"], ln["part"]] = ln
         design = ln["design"]
         body = ("approx_parts_kernel, queries in the ring" if design == "parts" else
                 "bq_sign_approx_kernel, 64 queries a block in the ring" if design == "sign_parts"
                 else f"bq_sign_approx_ws_kernel, {design[7:]} queries a block, "
                 f"{ln['slots']} box slots" if design.startswith("sign_ws") else
+                "approx_parts_kernel<NibbleRows>, the one-hot rows expanded in shared memory "
+                f"(the expansion alone {ln.get('expand_ms', 0):.4f} ms, the products alone "
+                f"{ln.get('products_ms', 0):.4f})" if design == "onehot_parts" else
+                f"pq4_approx_ws_kernel, A in registers, {ln['tq']} queries and {ln['nb']} m64 "
+                f"blocks a warpgroup, {ln['stages']} stages" if design.startswith("onehot_ws") else
                 f"approx_ws_kernel, {design[2:]} queries a block, {ln['stages']} stages")
         say("approx", f"{ln['kernel']}, {body}, {ln['part']}-row items "
             f"({ln['blocks_per_sm']} blocks a SM, {ln['smem']} bytes): pass 1 "
             f"{ln['pass1_ms']:.4f} ms, scan alone {ln['scan_ms']:.4f}, combine "
             f"{ln['combine_ms']:.4f}, pass 1 + combine {ln['pass1_ms'] + ln['combine_ms']:.4f} "
             f"(csrc/probe/approx_split.cu) on {smi}")
-    require(len(split) == 23, f"the approx probe's 23 splits ({sorted(split)})")
+    require(len(split) == 27, f"the approx probe's 27 splits ({sorted(split)})")
     return split
 
 
@@ -600,7 +610,7 @@ def select_probe():
             if line["probe"] == "occupancy":
                 say("select", f"{line['kernel']} kk={line['kk']}: {line['smem']} bytes of "
                     f"shared memory, {line['blocks_per_sm']} blocks a SM")
-                if line["kernel"] == "search_queue_kernel":
+                if line["kernel"] in ("search_queue_kernel", "pq4_queue_kernel"):
                     require(line["blocks_per_sm"] == 2, "the queue select holds two blocks a SM")
     return {(ln["kernel"], ln["route"]): ln["scan_ms"] for ln in _probe["out"]
             if ln["probe"] == "select_split"}
@@ -1764,6 +1774,9 @@ def pq_path(dev, smi, do_profile):
             say("time", f"{name} {label} int8 LUT: kernel {tk[name]:.4f} ms, plain "
                 f"{tp[name]:.4f} ms per {Q}-query batch at N={PN} m={m} (k={K} for the "
                 f"searches) on {smi}")
+        if label == "4bit":
+            say_select_split("pq_search_exact_4bit", f"K7b 4bit int8 at N={PN} m={m}, k={K}",
+                             tk["pq_search_exact"], smi)
         for name, t in other.items():
             kname, p = name.split()
             b, by = pq_bound("scores" if kname == "pq_scores" else "search", Q, PN, m, kc, K,
@@ -4566,6 +4579,11 @@ def sass_functions(build):
 # it is built for (bq_kernels.cu sign_ws_depth, 256-bit steps a row).
 SIGN_WS_ENTRIES = {f"bq_sign_approx_ws_kernel<TQ {tq}, n {n}>"
                    for tq in (64, 128) for n in (1, 2, 3, 4, 6, 8)}
+# The 4-bit int8 one-hot kernels with A in registers (pq4_mma_kernels.cu):
+# the approx kernel in both geometries (queries a block, m64 blocks a
+# warpgroup) and the exact queue kernel.
+ONEHOT_ENTRIES = {"pq4_approx_ws_kernel<128, 2>", "pq4_approx_ws_kernel<64, 4>",
+                  "pq4_queue_kernel"}
 
 
 def tensor_core_bodies(funcs):
@@ -4573,8 +4591,10 @@ def tensor_core_bodies(funcs):
     shared scan body (the scores_kernel, approx_ws_kernel, approx_parts_kernel,
     search_queue_kernel and search_exact_kernel
     instantiations: K3, the SQ
-    and BQ searches on both exact selects, and the one-hot route of 4-bit
-    int8-LUT PQ: K8, K7a / K11, K7b), in the bf16 one-hot K8
+    and BQ searches on both exact selects, and 4-bit int8-LUT PQ's K8 and
+    radix K7b on NibbleRows), in the one-hot kernels with A in registers
+    (pq4_approx_ws_kernel for K7a / K11, pq4_queue_kernel for K7b with the
+    queue select), in the bf16 one-hot K8
     (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ sign-query kernels
     (K6's bq_sign_scores_kernel, K5c's bq_sign_queue_kernel and
     bq_sign_exact_kernel, K5a / K10's bq_sign_approx_ws_kernel at both query
@@ -4592,6 +4612,10 @@ def tensor_core_bodies(funcs):
             found[key] = found.get(key, 0) + part.count("GMMA")
         elif re.search(r"\dpq4_bf16_scores_kernel", name):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
+        elif m := re.search(r"\dpq4_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", name):
+            found[f"pq4_approx_ws_kernel<{m.group(1)}, {m.group(2)}>"] = part.count("GMMA")
+        elif re.search(r"\dpq4_queue_kernelILb0E", name):
+            found["pq4_queue_kernel"] = part.count("GMMA")
         elif m := re.search(r"\dbq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", name):
             found[f"bq_sign_approx_ws_kernel<TQ {m.group(1)}, n {m.group(2)}>"] = \
                 part.count("BGMMA")
@@ -4600,11 +4624,11 @@ def tensor_core_bodies(funcs):
             found[m.group(1)] = part.count("BGMMA")
     require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
-                           "approx_parts_kernel<NibbleRows>", "approx_ws_kernel<CodeRows>",
+                           "approx_ws_kernel<CodeRows>",
                            "approx_ws_kernel<PlaneRows>", "search_exact_kernel<CodeRows>",
                            "search_exact_kernel<PlaneRows>", "search_exact_kernel<NibbleRows>",
                            "search_queue_kernel<CodeRows>", "search_queue_kernel<PlaneRows>",
-                           "search_queue_kernel<NibbleRows>",
+                           *ONEHOT_ENTRIES,
                            "pq4_bf16_scores_kernel", "bq_sign_exact_kernel",
                            "bq_sign_queue_kernel", "bq_sign_approx_kernel",
                            "bq_sign_scores_kernel"} | SIGN_WS_ENTRIES,
@@ -4735,10 +4759,12 @@ def ptxas_usage(log):
 def approx_usage(log):
     """[(instantiation, registers, stack, spill stores, spill loads)] of the
     approx bodies' entry functions (approx_ws_kernel, approx_parts_kernel,
-    and the sign-query bq_sign_approx_ws_kernel and bq_sign_approx_kernel),
-    from the build's ptxas -v lines. The warp-specialized bodies' count is
-    the launch's (168 a thread at 384 threads); at 128 queries their
-    consumers run on 224 and their producer on 56 (setmaxnreg)."""
+    the sign-query bq_sign_approx_ws_kernel and bq_sign_approx_kernel, the
+    one-hot pq4_approx_ws_kernel) and of the one-hot K7b's pq4_queue_kernel,
+    from the build's ptxas -v lines. The int8 and sign-query warp-specialized
+    bodies' count is the launch's (168 a thread at 384 threads); at 128
+    queries their consumers run on 224 and their producer on 56
+    (setmaxnreg); pq4_approx_ws_kernel's 288 threads allow 224 a thread."""
     import re
 
     out, cur, frame = [], None, (0, 0, 0)
@@ -4748,10 +4774,14 @@ def approx_usage(log):
             w = re.search(r"approx_parts_kernelINS_\d+(\w+?)ELb(\d)E", m.group(1))
             x = re.search(r"approx_ws_kernelINS_\d+(\w+?)ELb(\d)ELb(\d)ELi(\d+)E", m.group(1))
             y = re.search(r"bq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", m.group(1))
+            z = re.search(r"\dpq4_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", m.group(1))
             cur = (w and f"approx_parts_kernel<{w.group(1)}, kOnce {w.group(2)}>") or \
                   (x and f"approx_ws_kernel<{x.group(1)}, kOnce {x.group(2)}, TQ {x.group(4)}>") or \
                   (y and f"bq_sign_approx_ws_kernel<TQ {y.group(1)}, n {y.group(2)}>") or \
-                  ("bq_sign_approx_kernel" if "bq_sign_approx_kernel" in m.group(1) else None)
+                  ("bq_sign_approx_kernel" if "bq_sign_approx_kernel" in m.group(1) else None) or \
+                  (z and f"pq4_approx_ws_kernel<{z.group(1)}, {z.group(2)}>") or \
+                  ("pq4_queue_kernel" if re.search(r"\dpq4_queue_kernelILb0E", m.group(1))
+                   else None)
             frame = (0, 0, 0)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -4826,13 +4856,16 @@ def main():
                                 for k, (r, st, a, b) in sorted(usage.items()))
                       or "no ptxas log: the library was already built"))
     approx = approx_usage(info["log"])
-    say("build", "the approx body (ptxas: registers, stack, spill stores / loads in bytes): " + (
-        ", ".join(f"{k} {r}, {st}, {a} / {b}" for k, r, st, a, b in approx)
-        or "no ptxas log: the library was already built"))
+    say("build", "the approx bodies and the one-hot K7b (ptxas: registers, stack, spill "
+        "stores / loads in bytes): " + (
+            ", ".join(f"{k} {r}, {st}, {a} / {b}" for k, r, st, a, b in approx)
+            or "no ptxas log: the library was already built"))
     if approx:
         sign = {k for k, *_ in approx if k.startswith("bq_sign_approx")}
         require(sign == SIGN_WS_ENTRIES | {"bq_sign_approx_kernel"},
                 f"the sign-query approx bodies' ptxas lines ({sorted(sign)})")
+        onehot = {k for k, *_ in approx if k.startswith("pq4_")}
+        require(onehot == ONEHOT_ENTRIES, f"the one-hot kernels' ptxas lines ({sorted(onehot)})")
     n, hg, fadd, mov = bf16_onehot_loop(funcs)
     say("build", f"the bf16 one-hot K8's group loop (SASS; 8 chunks x 32 outputs a thread): "
         f"{n} instructions, {hg} HGMMA, {fadd} FADD, {mov} MOV ({n / 256:.2f} an output "

@@ -119,7 +119,6 @@
 // over the serving plan's 1,255,424); K5a / K10 run about 10 times that, K5b
 // more (its select; PERF.md).
 
-#include <cuda.h>  // CUtensorMap, the planes' tensor map (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -363,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) bq_sign_approx_
 //     queries.
 //   * the producer warpgroup only lands plane words: one thread a consumer
 //     warpgroup copies each segment's box of the planes (64 rows and 8
-//     more, every word: one 2D TMA copy, tma_planes_box) into a slot of its
+//     more, every word: one 2D TMA copy, tma_load_2d) into a slot of its
 //     own, R slots deep, on the slot's barrier.
 //   * the consumers take the A operand from registers: b1 wgmma takes
 //     K-major operands only and the planes hold a row's words npad apart, so
@@ -415,19 +414,6 @@ static_assert(kSignRaw <= kWsMaxStages && kSignRaw <= kWsMaxRaw, "a slot's two b
 // (bq_sign_approx_kernel).
 inline int sign_ws_tq(int Q, int W) {
   return sign_ws_depth(W / 8) && SignLayout(ws_tq(Q), W).R ? ws_tq(Q) : 0;
-}
-
-// A box of the planes [W8][npad] u32 (the tensor map, planes_box_map):
-// kBoxRows rows from corpus row x of every word, into shared memory at dst
-// as [W8][kBoxRows] (word w of the box's row r at dst + 4 (kBoxRows w +
-// r)), rows past npad zero, completing on bar.
-__device__ __forceinline__ void tma_planes_box(uint32_t dst, const CUtensorMap* map, int x,
-                                               uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(0), "r"(bar)
-      : "memory");
 }
 
 // d[64 x N] += popc(A[64 x 256 bits] & B[N x 256 bits]^T), A from registers,
@@ -521,8 +507,10 @@ __global__ void __launch_bounds__(kWsThreads, 1) bq_sign_approx_ws_kernel(
         const int slot = u % L.R;
         mbar_wait(bars.empty(g, slot), ((u / L.R) & 1) ^ 1u);  // its last box was read
         mbar_expect_tx(bars.raw(g, slot), L.raw_seg);
-        tma_planes_box(s0 + L.raw + (g * L.R + slot) * L.raw_seg, &planes_map,
-                       (int)map.row(w.comp()) + 64 * g, bars.raw(g, slot));
+        // The box: kBoxRows rows from the warpgroup's first of every word, as
+        // [W8][kBoxRows] (word w of row r at 4 (kBoxRows w + r)).
+        tma_load_2d(s0 + L.raw + (g * L.R + slot) * L.raw_seg, &planes_map,
+                    (int)map.row(w.comp()) + 64 * g, 0, bars.raw(g, slot));
       }
     }
     cp_async_wait<0>();
@@ -754,33 +742,11 @@ cudaError_t launch_sign_approx_parts(const void* qwords, const void* planes, voi
 }
 
 // The planes' tensor map for bq_sign_approx_ws_kernel: u32 [W8][npad],
-// boxes of kBoxRows rows x W8 words (tma_planes_box). cuTensorMapEncodeTiled
-// lives in libcuda; the runtime hands its entry point over, so the library
-// does not link libcuda.
+// boxes of kBoxRows rows x W8 words, rows past npad zero.
 cudaError_t planes_box_map(CUtensorMap* m, const void* planes, int W8, long long npad) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<Encode>(fn);
-  }();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)npad, (cuuint64_t)W8};
-  const cuuint64_t strides[1] = {(cuuint64_t)npad * 4};  // bytes from one word's row to the next
-  const cuuint32_t box[2] = {kBoxRows, (cuuint32_t)W8}, unit[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<void*>(planes), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-                 CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return tensor_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT32, planes, (unsigned long long)npad,
+                       (unsigned long long)W8, (unsigned long long)npad * 4, kBoxRows,
+                       (unsigned)W8, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <bool kScan, int TQ, int kN>

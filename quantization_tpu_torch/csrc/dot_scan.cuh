@@ -1,7 +1,9 @@
 // The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b),
 // bq_kernels.cu (K5b and the value-query forms of K5a / K10) and
-// pq4_mma_kernels.cu (K8, K7a, K7b and K11 with 4-bit codes and the int8
-// LUT, as one-hot products), on the tensor cores: wgmma.mma_async m64n64k32
+// pq4_mma_kernels.cu (K8, and K7b above the queue select, with 4-bit codes
+// and the int8 LUT, as one-hot products; K7a / K11 and the queue K7b run
+// that file's kernels with the one-hot A operand built in registers, on
+// this file's walk, barriers and tensor maps), on the tensor cores: wgmma.mma_async m64n64k32
 // s32.s8.s8, both operands K-major in shared memory (mma_segment). The BQ
 // sign-query kernels of bq_kernels.cu (K6, K5c, and K5a / K10 past their
 // warp-specialized body's fit) run the same body with the single-bit
@@ -88,13 +90,14 @@
 //     ktile.py approx_geometry (span blocks in place; K2 at 100k x 1024
 //     2048-row parts and the combine); the consumers take 224 registers
 //     (setmaxnreg) and spill 236-256 bytes of loop invariants at 128
-//     queries, none at 64. approx_parts_kernel (K7a and K11 4-bit int8, and
-//     the depths past that): TQ = 64, a 72 KB ring, two blocks per SM,
+//     queries, none at 64. approx_parts_kernel (the depths past that): TQ =
+//     64, a 72 KB ring, two blocks per SM,
 //     121-124 registers, no spills. Both stage each segment's voff and corr
 //     beside its first chunk, and keep, a thread, its running maxima and
 //     their segment numbers as bytes, turned into corpus rows once an item
 //     ends.
-//   * exact (K1, K9b, K5b; K7b 4-bit int8), two selects by kk (ktile.cuh):
+//   * exact (K1, K9b, K5b; K7b 4-bit int8 past kk = 64), two selects by kk
+//     (ktile.cuh):
 //     - the queue select, kk <= 64 (search_queue_kernel): TQ = 64, the 72 KB
 //       ring (each segment's [64][132] u32 key tile passes through it) and
 //       the queues, 64 x (8 kk + 4) bytes: two blocks per SM, each walking
@@ -161,6 +164,7 @@
 // (ktile.cuh ScanMap), rounded once more, before it selects.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (libcuda is not linked: tensor_map_2d)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -256,6 +260,17 @@ __device__ __forceinline__ void wgmma_wait_all() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The box of a 2D tensor map (tensor_map_2d) at element (x, y) into shared
+// memory at dst, completing on bar (its bytes expected there first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators across
@@ -403,6 +418,69 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const ui
       : "memory");
 }
 
+// d[64 x 64] = A[64 x 32] . B[64 x 32]^T, plus d where scale_d is not 0,
+// s8 x s8 -> s32, A from registers, B K-major in shared memory (the
+// m64n64k32 product's descriptors). a[0 .. 3] is the thread's fragment of
+// the 64 x 32 A tile, as mma.m16n8k32 holds it for the warp's 16 rows (warp
+// w of the warpgroup rows 16w ..; lane l: a[0] row l/4, columns 4 (l%4) ..
+// + 3, a[1] row l/4 + 8, a[2] and a[3] the same rows at columns + 16), four
+// bytes a register, the lower column in the low byte.
+__device__ __forceinline__ void wgmma_m64n64k32_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+// The same product against 128 queries (B[128 x 32]): the accumulator
+// fragment continues frag_col past 64, as wgmma_m64n128k32's does.
+__device__ __forceinline__ void wgmma_m64n128k32_rs(int (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 // Element e of a thread's 64 x 64 fragment: its segment row and its query
 // within the 64-query half.
 __device__ __forceinline__ int frag_row(int e) {
@@ -412,19 +490,28 @@ __device__ __forceinline__ int frag_row(int e) {
 __device__ __forceinline__ int frag_col(int e) {
   return (e >> 2) * 8 + (threadIdx.x & 3) * 2 + (e & 1);
 }
+// The segment row of element e where the A tile's rows come in pairs (the
+// one-hot fragments of pq4_mma_kernels.cu, A built in registers): tile rows
+// R and R + 8 of warp w of warpgroup g are segment rows 64g + 16w + 2R and
+// + 1, so one 16-bit load of a chunk's codes gives a thread both its rows.
+__device__ __forceinline__ int pair_row(int e) {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + 2 * ((t & 31) >> 2) + ((e >> 1) & 1);
+}
 
 // One segment of the queue select (ktile.cuh QueueSelect's protocol),
 // called by every thread of the block once the segment's products are
 // done: key[e] is the order key of the thread's accumulator e (0: not a
-// candidate), at segment row frag_row(e) and query frag_col(e); the
-// segment's first compact row is row0 (rows in increasing order); nq the
-// block's queries below Q.
-template <int TQ, int kAcc>
+// candidate), at segment row frag_row(e) (pair_row(e) with kPairRows) and
+// query frag_col(e); the segment's first compact row is row0 (rows in
+// increasing order); nq the block's queries below Q.
+template <int TQ, int kAcc, bool kPairRows = false>
 __device__ __forceinline__ void queue_segment(QueueSelect<TQ>& qs, const unsigned (&key)[kAcc],
                                               long long row0, int nq) {
   __syncthreads();  // every warpgroup's products are done: the ring is free
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) qs.keys[frag_col(e) * kKeyStride + frag_row(e)] = key[e];
+  for (int e = 0; e < kAcc; ++e)
+    qs.keys[frag_col(e) * kKeyStride + (kPairRows ? pair_row(e) : frag_row(e))] = key[e];
   __syncthreads();
   const int lane = threadIdx.x & 31;
   for (int j = threadIdx.x >> 5; j < nq; j += kThreads / 32) {
@@ -992,7 +1079,7 @@ __global__ void __launch_bounds__(kThreads, ExactQueueTile::kBlocks) search_queu
 // queries) land in shared memory with its first chunk (side), so the
 // epilogue reads no global memory. approx_ws_kernel (below) takes K2 / K9a
 // and the value-query K5a / K10 wherever its query tile fits; this body
-// keeps the 4-bit int8 K7a / K11 and the depths past that.
+// keeps the depths past that.
 constexpr int kApproxSide = (kSeg + ApproxTile::TQ) * 4;  // voff[128], corr[64]
 
 template <class Rows, bool kOnce>
@@ -1070,9 +1157,9 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) approx_parts_ke
 // approx_ws_kernel: pass 1 of K2 / K9a (CodeRows) and of the value-query K5a
 // / K10 (PlaneRows), approx_parts_kernel's output to the bit, wherever the
 // block's query tile stays resident beside kWsMinStages ring stages a
-// warpgroup (WsLayout, ws_fits; past that, and for the 4-bit int8 K7a / K11,
-// whose 3,072-byte one-hot depth is no resident tile, approx_parts_kernel
-// runs). A block of 384 threads, one a SM, persistent:
+// warpgroup (WsLayout, ws_fits; past that approx_parts_kernel runs; the
+// 4-bit int8 K7a / K11, whose 3,072-byte one-hot depth is no resident tile,
+// run pq4_mma_kernels.cu's pq4_approx_ws_kernel on this walk). A block of 384 threads, one a SM, persistent:
 //   * a tile of 128 queries (ws_tq: 64 where Q <= 64) is loaded once and
 //     stays resident: the products are m64n128k32, so a chunk of rows staged
 //     once serves twice the queries it serves in a 64-query tile.
@@ -1485,33 +1572,18 @@ cudaError_t launch_mma_scores(const void* base, long long stride, const void* qc
   return cudaGetLastError();
 }
 
+// The radix route alone (search_exact_kernel), whatever kk.
 template <class Rows, bool kOnce>
-cudaError_t launch_search_exact(const void* base, long long stride, const void* qcodes,
-                                const void* qoff,
-                                const void* mult, const void* voff, void* cand_v,
-                                void* cand_i, int Q, int ncomp, int n_valid, int D,
-                                int split, int kk, int mstride, ScanMap map,
-                                cudaStream_t s) {
-  static_assert(ExactTile::TQ == ExactQueueTile::TQ, "one grid for both routes");
+cudaError_t launch_search_radix(const void* base, long long stride, const void* qcodes,
+                                const void* qoff, const void* mult, const void* voff,
+                                void* cand_v, void* cand_i, int Q, int ncomp, int n_valid, int D,
+                                int split, int kk, int mstride, ScanMap map, cudaStream_t s) {
   if (split % kSeg || kk < 1) return cudaErrorInvalidValue;
   using P = typename QParam<kOnce>::T;
-  // The query tiles of one range are neighbours in launch order, so they
+  // The query tiles of one split are neighbours in launch order, so they
   // run together and read its rows once from device memory.
   const unsigned grid =
       (unsigned)((ncomp + split - 1) / split) * ((Q + ExactTile::TQ - 1) / ExactTile::TQ);
-  if (kk <= kQueueK) {
-    const size_t smem = kAlign + ExactQueueTile::kBytes + sizeof(P) * 2 * ExactQueueTile::TQ +
-                        QueueSelect<ExactQueueTile::TQ>::bytes(kk);
-    const cudaError_t err = queue_smem(search_queue_kernel<Rows, kOnce>, smem);
-    if (err != cudaSuccess) return err;
-    search_queue_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
-        static_cast<const typename Rows::Elem*>(base), stride,
-        static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
-        static_cast<const float*>(mult), static_cast<const float*>(voff),
-        static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, ncomp, n_valid, D, split,
-        kk, mstride, map);
-    return cudaGetLastError();
-  }
   const size_t smem = kAlign + ExactTile::kBytes + sizeof(P) * 2 * ExactTile::TQ +
                       sizeof(unsigned) * ((size_t)ExactTile::TQ * (split + kKeyPad) + 8 * 256);
   cudaError_t err = cudaFuncSetAttribute(search_exact_kernel<Rows, kOnce>,
@@ -1524,6 +1596,37 @@ cudaError_t launch_search_exact(const void* base, long long stride, const void* 
       static_cast<const float*>(mult), static_cast<const float*>(voff),
       static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, ncomp, n_valid, D, split,
       kk, mstride, map);
+  return cudaGetLastError();
+}
+
+template <class Rows, bool kOnce>
+cudaError_t launch_search_exact(const void* base, long long stride, const void* qcodes,
+                                const void* qoff,
+                                const void* mult, const void* voff, void* cand_v,
+                                void* cand_i, int Q, int ncomp, int n_valid, int D,
+                                int split, int kk, int mstride, ScanMap map,
+                                cudaStream_t s) {
+  static_assert(ExactTile::TQ == ExactQueueTile::TQ, "one grid for both routes");
+  if (kk > kQueueK)
+    return launch_search_radix<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, cand_v,
+                                            cand_i, Q, ncomp, n_valid, D, split, kk, mstride,
+                                            map, s);
+  if (split % kSeg || kk < 1) return cudaErrorInvalidValue;
+  using P = typename QParam<kOnce>::T;
+  // The query tiles of one range are neighbours in launch order, so they
+  // run together and read its rows once from device memory.
+  const unsigned grid =
+      (unsigned)((ncomp + split - 1) / split) * ((Q + ExactTile::TQ - 1) / ExactTile::TQ);
+  const size_t smem = kAlign + ExactQueueTile::kBytes + sizeof(P) * 2 * ExactQueueTile::TQ +
+                      QueueSelect<ExactQueueTile::TQ>::bytes(kk);
+  const cudaError_t err = queue_smem(search_queue_kernel<Rows, kOnce>, smem);
+  if (err != cudaSuccess) return err;
+  search_queue_kernel<Rows, kOnce><<<grid, kThreads, smem, s>>>(
+      static_cast<const typename Rows::Elem*>(base), stride,
+      static_cast<const int8_t*>(qcodes), static_cast<const float*>(qoff),
+      static_cast<const float*>(mult), static_cast<const float*>(voff),
+      static_cast<float*>(cand_v), static_cast<int*>(cand_i), Q, ncomp, n_valid, D, split, kk,
+      mstride, map);
   return cudaGetLastError();
 }
 
@@ -1548,6 +1651,40 @@ cudaError_t launch_approx_parts(const void* base, long long stride, const void* 
       static_cast<float*>(part_v), static_cast<int*>(part_i), Q, ncomp, n_valid, D, part,
       mstride, map);
   return cudaGetLastError();
+}
+
+// A 2D tensor map over a row-major array of `rows` rows of `cols` elements
+// of `type`, row_bytes apart, for boxes of box_cols x box_rows elements
+// (tma_load_2d); elements past the array land as zeros. The TMA loads of
+// the warp-specialized bodies: bq_kernels.cu's plane boxes, pq4_mma_kernels.cu's
+// LUT and code boxes. cuTensorMapEncodeTiled lives in libcuda; the runtime
+// hands its entry point over, so the library does not link libcuda.
+inline cudaError_t tensor_map_2d(CUtensorMap* m, CUtensorMapDataType type, const void* base,
+                                 unsigned long long cols, unsigned long long rows,
+                                 unsigned long long row_bytes, unsigned box_cols, unsigned box_rows,
+                                 CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
+  return encode(m, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 // A warp-specialized launch's grid: one block a SM (at least one a query
@@ -1617,20 +1754,17 @@ cudaError_t launch_search_approx(const void* base, long long stride, const void*
   const bool in_place = out_v == part_v;
   if (part % kSeg || part / kSeg > 255 || span_rows % part || (in_place && span_rows != part))
     return cudaErrorInvalidValue;
+  static_assert(std::is_same<Rows, CodeRows>::value || std::is_same<Rows, PlaneRows>::value,
+                "CodeRows or PlaneRows (the one-hot searches: pq4_mma_kernels.cu)");
   const int nparts = (ncomp + part - 1) / part;
   cudaError_t err;
-  if constexpr (std::is_same<Rows, CodeRows>::value || std::is_same<Rows, PlaneRows>::value) {
-    if (ws_fits<Rows, kOnce>(Q, D) && ws_tq(Q) == 64) {
-      err = launch_approx_ws<Rows, kOnce, false, 64>(base, stride, qcodes, qoff, mult, voff,
-                                                     part_v, part_i, Q, ncomp, n_valid, D, part,
-                                                     mstride, map, s);
-    } else if (ws_fits<Rows, kOnce>(Q, D)) {
-      err = launch_approx_ws<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v, part_i,
-                                          Q, ncomp, n_valid, D, part, mstride, map, s);
-    } else {
-      err = launch_approx_parts<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v,
-                                             part_i, Q, ncomp, n_valid, D, part, mstride, map, s);
-    }
+  if (ws_fits<Rows, kOnce>(Q, D) && ws_tq(Q) == 64) {
+    err = launch_approx_ws<Rows, kOnce, false, 64>(base, stride, qcodes, qoff, mult, voff, part_v,
+                                                   part_i, Q, ncomp, n_valid, D, part, mstride,
+                                                   map, s);
+  } else if (ws_fits<Rows, kOnce>(Q, D)) {
+    err = launch_approx_ws<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v, part_i, Q,
+                                        ncomp, n_valid, D, part, mstride, map, s);
   } else {
     err = launch_approx_parts<Rows, kOnce>(base, stride, qcodes, qoff, mult, voff, part_v, part_i,
                                            Q, ncomp, n_valid, D, part, mstride, map, s);

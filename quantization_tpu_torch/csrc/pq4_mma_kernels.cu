@@ -1,7 +1,9 @@
 // 4-bit PQ on the tensor cores (sm_90a): with the int8 LUT, K8, K7a, K7b
-// and K11 as one-hot products on the int8 scan body of dot_scan.cuh; with
-// the bf16 LUT, K8 as one-hot bf16 products summed on the CUDA cores in the
-// plain version's order (qtt_pq4_mma_scores_bf16, at the end of this file).
+// and K11 as one-hot products, K8 and K7b past kk = 64 on the int8 scan body
+// of dot_scan.cuh, K7a / K11 and K7b up to kk = 64 on kernels of this file
+// that build the one-hot A operand in registers (pq4_approx_ws_kernel,
+// pq4_queue_kernel); with the bf16 LUT, K8 as one-hot bf16 products summed
+// on the CUDA cores in the plain version's order (qtt_pq4_mma_scores_bf16).
 //
 // Replaces, for 4-bit codes (KC = 16) and the int8 LUT, the Pallas kernels of
 // quantization_tpu/ops/pallas/pq_kernel.py:
@@ -22,8 +24,9 @@
 //
 // The JAX kernel computes score[q, n] = sum_c lut[q, c, :] . onehot(code[n,
 // c]) on the MXU (pq_kernel.py:1-37), and so does this one, on wgmma:
-//   * A (corpus rows, the M side): NibbleRows expands the transposed codes
-//     u8 [mpad, npad] to 16 one-hot bytes per chunk, one swizzle piece each;
+//   * A (corpus rows, the M side): the one-hot bytes of the transposed codes
+//     u8 [mpad, npad], 16 per chunk, expanded into shared memory by
+//     NibbleRows (K8, the radix K7b) or built in registers by OneHotI8Frag;
 //   * B (queries, the N side): the int8 LUT flattened to [Q, mpad * 16], zero
 //     past m (quantize_lut's entries, no transposition: the JAX package's
 //     lut_flat, pq_kernel.py:932-933). The depth D = mpad * 16 is a multiple
@@ -41,16 +44,18 @@
 // What bounds them on the H100, at 1M rows, m = 192 and Q = 256: the
 // one-hot product is 2 * 256 * 1M * 3,072 = 1.57e12 int8 operations, 0.79 ms
 // at 1,979 TOPS; K8 also writes a 1 GB score matrix (0.30 ms at 3.35 TB/s).
-// The body's tiles and its measured rate are in dot_scan.cuh's header. K8
-// runs the K3 tile (128 queries a block, the int32 tile staged through
-// shared memory for coalesced row stores); K7a and K11 the approx tile over
-// parts of SPAN * tile_n rows (SPAN * TILE_N = 4096 dense: 32 segments), so
-// that each part is one span block of the JAX geometry and no combine pass
-// follows; K7b the exact tile with its two selects by kk (ktile.cuh): the
-// queue up to 64, over ranges of several 512-row splits, two blocks a SM;
-// above it each 512-row split radix-selecting its top-min(k, 512).
+// K8 runs the K3 tile of dot_scan.cuh (128 queries a block, the int32 tile
+// staged through shared memory for coalesced row stores); K7a and K11
+// pq4_approx_ws_kernel over parts of SPAN * tile_n rows (SPAN * TILE_N =
+// 4096 dense: 32 segments), so that each part is one span block of the JAX
+// geometry and no combine pass follows; K7b the exact selects by kk
+// (ktile.cuh): pq4_queue_kernel up to 64, over ranges of several 512-row
+// splits, two blocks a SM; above it dot_scan.cuh's radix body, each
+// 512-row split selecting its top-min(k, 512). Their designs and measured
+// times are at their definitions below.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "dot_scan.cuh"
@@ -142,7 +147,7 @@ static_assert(kBfSmem <= 232448, "the ring and the epilogue tile fit the SM's sh
 // and the A tile's rows are the segment's rows in another order: tile rows
 // R and R + 8 of warp w of warpgroup g are segment rows 64g + 16w + 2R and +
 // 1, so one 16-bit load of a chunk's codes gives a thread both its rows.
-// bf_row names the segment row of an accumulator element.
+// pair_row (dot_scan.cuh) names the segment row of an accumulator element.
 struct OneHotBf16Frag {
   uint32_t src;  // offset of the thread's two codes in a stage's [8][128] codes
   uint32_t col;  // 32 (lane % 4): the thread's column pair, as a shift
@@ -179,13 +184,6 @@ struct OneHotBf16Frag {
   }
 };
 
-// The segment row of accumulator element e (frag_row's tile row, in the
-// A tile's order of OneHotBf16Frag).
-__device__ __forceinline__ int bf_row(int e) {
-  const int t = threadIdx.x;
-  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + 2 * ((t & 31) >> 2) + ((e >> 1) & 1);
-}
-
 // The accumulator set of chunk c of a group: 0 1 2 0 1 0 2 1. A set is
 // rewritten only once its chunk is summed: chunk c's while chunks c - 1
 // (pending) and c - 2 (even c: waiting for its pair) hold the other two.
@@ -219,7 +217,7 @@ __device__ __forceinline__ void bf_epilogue(const float (&acc)[32], float* tile,
                                             float* __restrict__ out, int q0, int Q,
                                             long long row0, int n_valid) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) tile[frag_col(e) * kBfTS + bf_row(e)] = acc[e];
+  for (int e = 0; e < 32; ++e) tile[frag_col(e) * kBfTS + pair_row(e)] = acc[e];
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long r = row0 + 4 * lane;
@@ -386,6 +384,603 @@ cudaError_t launch_bf16_scores(const void* lut, const void* codes_t, void* out, 
   return cudaGetLastError();
 }
 
+// ------------------------------------- K7a / K11 and K7b with the int8 LUT
+// The one-hot searches with A built in registers. The JAX kernels multiply
+// the LUT by the one-hot matrix of the codes on the MXU; the int8 body of
+// dot_scan.cuh did the same with the one-hot rows expanded into shared
+// memory (NibbleRows), 16 bytes a code, written and read back once per
+// 64-query tile: at 1M rows x 192 chunks, Q = 256, the expansion alone took
+// 1.20 ms and the products alone 1.43 of approx_parts_kernel's 2.74 ms
+// pass 1, every 128-row segment re-reading its queries' LUT block from L2
+// (NVIDIA H100 80GB HBM3, 700 W; csrc/probe/approx_split.cu, PERF.md). Here
+// each thread builds its A fragment of a k32 step (two chunks) from the
+// codes of its rows (OneHotI8Frag), shared memory holds only the LUT stream
+// and the raw codes, and more rows share each LUT stage: 512 in the approx
+// kernel, 256 in the exact one. The sums stay exact (LUT entries in
+// [-127, 127] against 0/1 bytes: any order gives the same s32), and the
+// epilogue stays f32(f64(scale) * acc + f64(bias)) rounded once, + voff,
+// then + corr (ROADMAP F14), so both equal their plain versions as the
+// NibbleRows bodies did.
+//
+// Geometry: the LUT block a stage is the block's 64 queries x 256 bytes of
+// depth (16 chunks, 8 k32 steps): two [64][128 B] tiles in the 128-byte
+// swizzle the wgmma descriptors name, zero for queries >= Q; beside it the
+// raw codes of the stage's rows, 16 chunks of each, as codes_t holds them
+// ([chunk][row]). 64 queries a block,
+// because a consumer thread holds (rows / 128) x 32 accumulators and (as
+// each m64 block shares its classes across segments) 32 maxima: four m64
+// blocks at 64 queries are 128 accumulators, at 128 queries they would be
+// 256. The A fragment's build is the same per k32 step whatever the query
+// width, and the LUT's L2 reads fall with the rows a stage: N Q 3,072 / 512
+// = 1.6 GB a 1M-row search at 512 rows a stage against 6.3 GB at 128.
+
+// The one-hot A fragment of one k32 step (chunks c and c + 1) of a warp's 16
+// rows, int8: byte (tile row R, column i) is 1 where code(chunk c + i / 16,
+// row) == i % 16, else 0. A thread's four registers are (row R, chunk c),
+// (row R + 8, chunk c), (row R, chunk c + 1) and (row R + 8, chunk c + 1),
+// columns 4 (lane % 4) .. + 3 of each chunk (wgmma_m64n64k32_rs): the
+// register of code x is 1 << (8 x - 32 (lane % 4)), zero where that is not
+// in [0, 24] (shl.b32 gives 0 from 32 on, and a negative amount, taken mod
+// 256 below, is at least 160). Tile rows R and R + 8 are rows 2R and 2R + 1
+// of the warp's 16 (pair_row), so one 16-bit load gives a chunk's two codes.
+struct OneHotI8Frag {
+  uint32_t src;   // the thread's first row within its warpgroup's 64: 16 w + 2 (lane / 4)
+  uint32_t bias;  // each byte 128 - 32 (lane % 4)
+  __device__ __forceinline__ OneHotI8Frag()
+      : src(((threadIdx.x >> 5) & 3) * 16 + 2 * ((threadIdx.x & 31) >> 2)),
+        bias((0x80u - 32u * (threadIdx.x & 3)) * 0x01010101u) {}
+  // The thread's codes of chunks c and c + 1, rows R and R + 8 (bytes 0 ..
+  // 3 in register order), from rows of a warpgroup's 64 codes each chunk,
+  // cstride bytes apart.
+  __device__ __forceinline__ uint32_t load(const uint8_t* codes, int c, int cstride) const {
+    return *reinterpret_cast<const uint16_t*>(codes + c * cstride + src) |
+           (uint32_t)*reinterpret_cast<const uint16_t*>(codes + (c + 1) * cstride + src) << 16;
+  }
+  // The four registers from load's word: each byte of v is (8 x - 32 (lane %
+  // 4)) mod 256, formed for all four codes at once (8 x + 128 - 32 (lane %
+  // 4) lies in [32, 248], so no byte carries), then one shift a register.
+  __device__ __forceinline__ void build(uint32_t cw, uint32_t (&a)[4]) const {
+    const uint32_t v = ((cw & 0x0F0F0F0Fu) * 8u + bias) ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t n = __byte_perm(v, 0u, 0x4440u | i);  // byte i, zero-extended
+      asm("shl.b32 %0, %1, %2;" : "=r"(a[i]) : "r"(1u), "r"(n));
+    }
+  }
+};
+
+constexpr int kOhTQ = 64;                // the exact kernel's queries a block
+constexpr int kOhKS = 256;               // depth a stage: 16 chunks, 8 k32 steps
+constexpr int kOhSteps = kOhKS / 32;
+constexpr int kOhLut = kOhTQ * kOhKS;    // the exact kernel's LUT block: two [64][128 B] tiles
+constexpr int kOhBox = kOhKS / 16 * 64;  // a code box: [16 chunks][64 rows]
+constexpr int kOhLag = 2;                // stages warpgroup 1 runs behind warpgroup 0, at most
+
+// pq4_approx_ws_kernel's geometry: TQ queries a block (one m64nTQk32
+// product a row block), NB m64 blocks a consumer warpgroup (a unit: NB
+// segments, so 2 NB 64-row blocks share a LUT stage), and the shared
+// memory from the 1024-aligned base: S ring stages (the LUT block, two
+// tiles of [TQ][128 B], then 2 NB code boxes), the maxima f32 [TQ / 2][256
+// threads], their segments [TQ / 8][256][4 B], qm / qo f64 [TQ], each
+// consumer warpgroup's corr of its unit f32 [2][TQ], the barriers; S as
+// many as fit, at most kWsMaxStages.
+template <int TQ_, int NB_>
+struct OhGeom {
+  static constexpr int TQ = TQ_, NB = NB_, kAcc = TQ / 2;
+  static constexpr int kLut = TQ * kOhKS;
+  static constexpr int kStage = kLut + 2 * NB * kOhBox;
+  static constexpr int kFixed = kAcc * kThreads * 5 + 2 * TQ * 8 + 2 * TQ * 4 + kWsBarBytes;
+  static constexpr int kRoom = (kWsSmem - kAlign - kFixed) / kStage;
+  static constexpr int S = kRoom < kWsMaxStages ? kRoom : kWsMaxStages;
+  static constexpr int kBestOff = S * kStage;
+  static constexpr int kSegOff = kBestOff + kAcc * kThreads * 4;
+  static constexpr int kQpOff = kSegOff + kAcc * kThreads;
+  static constexpr int kCorrOff = kQpOff + 2 * TQ * 8;
+  static constexpr int kBarOff = kCorrOff + 2 * TQ * 4;
+  static constexpr int kSmem = kAlign + kBarOff + kWsBarBytes;
+  static_assert(S >= 3 && kSmem <= kWsSmem, "three stages beside the maxima");
+};
+
+// A block's walk over its units: NB segments of its items b, b + G, ... (G
+// the grid; item i = part i / nqt, query tile i % nqt, as WsWalk), in
+// order; an item's last unit may hold fewer segments.
+template <int TQ, int NB>
+struct OhWalk {
+  int nqt, nitems, part, ncomp, item, u, nu, ns;
+  long long start;  // the item's first compact row
+  __device__ __forceinline__ OhWalk(int Q, int ncomp_, int part_) {
+    nqt = (Q + TQ - 1) / TQ;
+    part = part_;
+    ncomp = ncomp_;
+    nitems = (ncomp + part - 1) / part * nqt;
+    item = blockIdx.x;
+    u = 0;
+    if (item < nitems) set_item();
+  }
+  __device__ __forceinline__ void set_item() {
+    start = (long long)(item / nqt) * part;
+    const long long left = ncomp - start;
+    ns = (int)(((left < part ? left : part) + kSeg - 1) / kSeg);
+    nu = (ns + NB - 1) / NB;
+  }
+  __device__ __forceinline__ bool done() const { return item >= nitems; }
+  __device__ __forceinline__ bool last() const { return u == nu - 1; }
+  // The unit's first compact row; the item's number of the unit's segment h
+  // (a segment of the item where below ns).
+  __device__ __forceinline__ long long comp() const { return start + (long long)u * NB * kSeg; }
+  __device__ __forceinline__ int seg(int h) const { return u * NB + h; }
+  __device__ __forceinline__ void next() {
+    if (++u == nu) {
+      u = 0;
+      item += gridDim.x;
+      if (item < nitems) set_item();
+    }
+  }
+};
+
+template <int TQ>
+__device__ __forceinline__ void wgmma_rs(int (&d)[TQ / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (TQ == 128) {
+    wgmma_m64n128k32_rs(d, a, b, scale_d);
+  } else {
+    wgmma_m64n64k32_rs(d, a, b, scale_d);
+  }
+}
+
+// pq4_approx_ws_kernel: pass 1 of K7a (dense) and K11 (a tile selection)
+// with 4-bit codes and the int8 LUT, approx_parts_kernel<NibbleRows>'s output
+// to the bit: per (query, stride class) of each item of part rows (a whole
+// span block: the candidates, in place), the maximum, the first row of a tie
+// (strict ">" in segment order), rows >= n_valid scoring NEG. 384 threads,
+// one block a SM, persistent over the items of its query tile (ws_grid):
+//   * a producer thread (warpgroup 2) fills the ring of G::S stages (full /
+//     empty mbarriers) by TMA: a stage is the LUT block of depth slice j
+//     (two boxes of [TQ queries][128 B] in the 128-byte swizzle, zero past
+//     Q; the slices cycle 0 .. nk - 1) and, for each consumer warpgroup, a
+//     box of codes [16 chunks][64 rows] at slice j of each segment of its
+//     unit.
+//   * warpgroups 0 and 1 consume: warpgroup g takes rows 64g .. 64g + 63 of
+//     each of a unit's NB segments, NB m64 blocks against the stage's LUT
+//     block, so one LUT stage serves 128 NB rows. Its maxima keep the
+//     classes of its rows across segments, so neither warpgroup waits for
+//     the other. Warpgroup 1 walks the same units lag stages behind
+//     warpgroup 0 (at most kOhLag and S - 2: a stage is refilled once both
+//     have read it, so the ring must still run ahead of warpgroup 0),
+//     starting each unit at slice lag: both read every stage, and the
+//     epilogue of one runs under the other's products. Each block's product
+//     is a commit group of its own, so a block's fragment is rebuilt for the
+//     next step while the other blocks' products run (one fragment set).
+//   * the producer warpgroup gives its registers to the consumers
+//     (setmaxnreg: 40 and 232 a thread), whose NB TQ / 2 accumulators and 4
+//     NB fragment registers would not fit the launch's 168; the maxima and
+//     their segments wait in shared memory (thread-major words), read and
+//     written once a unit.
+//   * the epilogue reads its rows' voff from device memory, and its
+//     queries' corr once a unit into shared memory, under the other
+//     warpgroup's products; it walks the blocks in segment order, so each
+//     block's accumulators die with it.
+//   * every stage's products are waited for before the next stage's
+//     barrier: ptxas serializes every product (C7513) where products stay
+//     in flight across the barrier's wait loop, also where that loop runs
+//     only for a stage still filling (pass 1 2.36 against 2.24 ms at 128
+//     queries, NVIDIA H100 80GB HBM3, 700 W; csrc/probe/approx_split.cu).
+// kScan (csrc/probe/approx_split.cu): the scan alone, each accumulator
+// folded into a register in place of the epilogue (wrong results).
+template <bool kScan, int TQ, int NB>
+__global__ void __launch_bounds__(kWsThreads, 1) pq4_approx_ws_kernel(
+    const __grid_constant__ CUtensorMap lut_map, const __grid_constant__ CUtensorMap codes_map,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    const float* __restrict__ voff, float* __restrict__ part_v, int* __restrict__ part_i, int Q,
+    int ncomp, int n_valid, int D, int part, ScanMap map) {
+  using G = OhGeom<TQ, NB>;
+  using Walk = OhWalk<TQ, NB>;
+  constexpr int kAcc = G::kAcc;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t s0 = smem_addr(smem);
+  const WsBars bars{s0 + G::kBarOff};  // full(0, s) and empty(0, s): the ring's stage s
+  double* qm = reinterpret_cast<double*>(smem + G::kQpOff);
+  double* qo = qm + TQ;
+  const int nk = D / kOhKS;  // stages a unit
+  const int lag = min(min(nk / 2, G::S - 2), kOhLag);
+  const int q0 = (int)(blockIdx.x % ((Q + TQ - 1) / TQ)) * TQ;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::S; ++s) {
+      mbar_init(bars.full(0, s), 1);   // the producer's arrival, with the stage's bytes
+      mbar_init(bars.empty(0, s), 2);  // each consumer warpgroup's first thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != kThreads) return;
+    const CUtensorMap *lmap = &lut_map, *cmap = &codes_map;
+    Walk w0(Q, ncomp, part), w1 = w0;  // warpgroup 0's and 1's units
+    int s = 0, j = 0;
+    uint32_t ph = 0;
+    for (int p = 0;; ++p) {
+      const bool a0 = !w0.done(), a1 = p >= lag && !w1.done();
+      if (!a0 && !a1) break;
+      mbar_wait(bars.empty(0, s), ph ^ 1u);
+      int boxes = 0;
+#pragma unroll
+      for (int h = 0; h < NB; ++h) boxes += (a0 && w0.seg(h) < w0.ns) + (a1 && w1.seg(h) < w1.ns);
+      const uint32_t st = s0 + s * G::kStage, full = bars.full(0, s);
+      mbar_expect_tx(full, G::kLut + boxes * kOhBox);
+      tma_load_2d(st, lmap, j * kOhKS, q0, full);
+      tma_load_2d(st + TQ * kDK, lmap, j * kOhKS + kDK, q0, full);
+      // Warpgroup g's code boxes: segment h's rows 64g .. 64g + 63, chunks
+      // 16 j .. 16 j + 15, at st + kLut + (NB g + h) kOhBox.
+      auto codes = [&](Walk& w, int g, int js) {
+#pragma unroll
+        for (int h = 0; h < NB; ++h)
+          if (w.seg(h) < w.ns)
+            tma_load_2d(st + G::kLut + (NB * g + h) * kOhBox, cmap,
+                        (int)map.row(w.comp() + kSeg * h) + 64 * g, 16 * j, full);
+        if (js == nk - 1) w.next();
+      };
+      if (a0) codes(w0, 0, j);
+      if (a1) codes(w1, 1, j >= lag ? j - lag : j - lag + nk);
+      if (++s == G::S) s = 0, ph ^= 1u;
+      if (++j == nk) j = 0;
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = threadIdx.x >> 7;
+  const bool lead = (threadIdx.x & 127) == 0;
+  for (int i = threadIdx.x; i < TQ; i += kThreads) {
+    const int q = min(q0 + i, Q - 1);
+    qm[i] = scale[q];
+    qo[i] = bias[q];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers' qm / qo
+  const OneHotI8Frag frag;
+  const int r0 = (int)frag.src;  // its rows of the warpgroup's 64: r0 (e & 2 == 0), r0 + 1
+  const long long width = (long long)((ncomp + part - 1) / part) * kSlot;
+  // The running maximum of element e, best[e * kThreads], and its segment
+  // (0xff: none), byte e % 4 of this thread's word e / 4 (words [kAcc / 4][256
+  // threads]).
+  float* best = reinterpret_cast<float*>(smem + G::kBestOff) + threadIdx.x;
+  uint8_t* segb = smem + G::kSegOff + 4 * threadIdx.x;
+  unsigned fold = 0;
+  auto reset = [&]() {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) best[e * kThreads] = -__int_as_float(0x7f800000);  // -inf
+#pragma unroll
+    for (int i = 0; i < kAcc / 4; ++i) *reinterpret_cast<unsigned*>(segb + i * 1024) = ~0u;
+  };
+  reset();
+  int s = 0;
+  uint32_t ph = 0;
+  // Stages this warpgroup reads without products (warpgroup 1's first lag,
+  // warpgroup 0's last lag), so that both release every stage.
+  auto idle = [&](int n) {
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(bars.full(0, s), ph);
+      ws_bar_arrive_if(bars.empty(0, s), lead);
+      if (++s == G::S) s = 0, ph ^= 1u;
+    }
+  };
+  if (g == 1) idle(lag);
+  int acc[NB][kAcc];
+  uint32_t af[NB][4];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[h][e] = 0;
+  }
+  for (Walk w(Q, ncomp, part); !w.done(); w.next()) {
+    for (int js = 0; js < nk; ++js) {
+      mbar_wait(bars.full(0, s), ph);
+      const uint64_t db = wgmma_desc(s0 + s * G::kStage);
+      const uint8_t* codes = smem + s * G::kStage + G::kLut + NB * g * kOhBox;
+#pragma unroll
+      for (int k = 0; k < kOhSteps; ++k) {
+        const uint64_t b = db + (uint64_t)((k >> 2) * (TQ * kDK) >> 4) + 2 * (k & 3);
+#pragma unroll
+        for (int h = 0; h < NB; ++h) {
+          // Block h's product of the step before is done (NB - 1 later
+          // groups may be pending): its fragment is free.
+          wgmma_wait<NB - 1>();
+          frag.build(frag.load(codes + h * kOhBox, 2 * k, 64), af[h]);
+          wgmma_fence();  // the fragment's register writes come first
+          wgmma_rs<TQ>(acc[h], af[h], b, js + k);  // scale-d 0: the unit's first step
+          wgmma_commit();
+        }
+      }
+      wgmma_wait<0>();  // the stage's products are done: it is free
+      ws_bar_arrive_if(bars.empty(0, s), lead);
+      if (++s == G::S) s = 0, ph ^= 1u;
+    }
+#pragma unroll
+    for (int h = 0; h < NB; ++h) fence_acc(acc[h]);
+    if constexpr (kScan) {
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+#pragma unroll
+        for (int e = 0; e < kAcc; ++e) fold ^= (unsigned)acc[h][e];
+    } else {
+      // The unit's corr of the block's queries into the warpgroup's slot
+      // (its last readers, the unit before's epilogue, are done).
+      float* cs = reinterpret_cast<float*>(smem + G::kCorrOff) + g * TQ;
+      if (map.corr) {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
+        const float* corr = map.corr + (w.comp() >> kCorrShift) * map.corr_bs;
+        for (int j = threadIdx.x & 127; j < TQ; j += 128)
+          cs[j] = __ldg(corr + min(q0 + j, Q - 1) * map.corr_qs);
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
+      }
+      // Segment h's rows r0 and r0 + 1 of the warpgroup's 64, the segments
+      // in order, so each (query, class) keeps its first maximum: elements
+      // 4i .. 4i + 3 are queries j = 8i + 2 (lane % 4) and j + 1 (e & 1) at
+      // rows r0 and r0 + 1 (e & 2). Each block's accumulators die with it.
+#pragma unroll
+      for (int h = 0; h < NB; ++h) {
+        const int m = w.seg(h);
+        if (m >= w.ns) break;
+        const long long row = map.row(w.comp() + kSeg * h) + 64 * g + r0;
+        const float v0 = __ldg(voff + row), v1 = __ldg(voff + row + 1);
+        const long long c = w.comp() + kSeg * h + 64 * g + r0;
+        const bool in0 = c < n_valid, in1 = c + 1 < n_valid;
+#pragma unroll
+        for (int i = 0; i < kAcc / 4; ++i) {
+          const int j = frag_col(4 * i);
+          const double m0 = qm[j], m1 = qm[j + 1], o0 = qo[j], o1 = qo[j + 1];
+          const float k0 = map.corr ? cs[j] : 0.f, k1 = map.corr ? cs[j + 1] : 0.f;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int e = 4 * i + x;
+            float sc = kNeg;
+            if (x & 2 ? in1 : in0) {
+              sc = __fadd_rn(affine_once(x & 1 ? m1 : m0, acc[h][e], x & 1 ? o1 : o0),
+                             x & 2 ? v1 : v0);
+              if (map.corr) sc = __fadd_rn(sc, x & 1 ? k1 : k0);
+            }
+            if (sc > best[e * kThreads]) {
+              best[e * kThreads] = sc;
+              segb[i * 1024 + x] = (uint8_t)m;
+            }
+          }
+        }
+      }
+    }
+    if (w.last()) {
+      const long long item = (long long)(w.start / part) * kSlot;
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) {
+        const int q = q0 + frag_col(e), l = 64 * g + r0 + ((e >> 1) & 1);
+        if (q >= Q) continue;
+        const long long o = (long long)q * width + item + l;
+        if constexpr (kScan) {
+          part_v[o] = __uint_as_float(fold);
+        } else {
+          const unsigned sm = segb[(e >> 2) * 1024 + (e & 3)];
+          part_v[o] = best[e * kThreads];
+          part_i[o] = sm == 0xffu ? -1 : (int)map.row(w.start + (long long)sm * kSeg + l);
+        }
+      }
+      reset();
+    }
+  }
+  if (g == 0) idle(lag);
+}
+
+// pq4_approx_ws_kernel's launch (ws_grid): part rows an item, a whole span
+// block (its maxima are the candidates), whole units whose segment numbers
+// fit a byte; the LUT's and the codes' tensor maps made per launch.
+template <bool kScan, int TQ, int NB>
+cudaError_t launch_onehot_approx_g(const void* codes_t, long long npad, const void* lutq,
+                                   const void* bias, const void* scale, const void* voff,
+                                   void* part_v, void* part_i, int Q, int ncomp, int n_valid,
+                                   int D, int part, ScanMap map, cudaStream_t s) {
+  using G = OhGeom<TQ, NB>;
+  if (part % (NB * kSeg) || part / kSeg > 255 || D % kOhKS || npad > INT_MAX)
+    return cudaErrorInvalidValue;
+  CUtensorMap lut_map, codes_map;
+  cudaError_t err = tensor_map_2d(&lut_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, lutq,
+                                  (unsigned long long)D, (unsigned long long)Q,
+                                  (unsigned long long)D, kDK, TQ, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map_2d(&codes_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes_t,
+                        (unsigned long long)npad, (unsigned long long)(D / 16),
+                        (unsigned long long)npad, 64, kOhKS / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
+  auto* kernel = pq4_approx_ws_kernel<kScan, TQ, NB>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = ws_grid(Q, TQ, ncomp, part, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWsThreads, G::kSmem, s>>>(
+      lut_map, codes_map, static_cast<const float*>(bias), static_cast<const float*>(scale),
+      static_cast<const float*>(voff), static_cast<float*>(part_v), static_cast<int*>(part_i), Q,
+      ncomp, n_valid, D, part, map);
+  return cudaGetLastError();
+}
+
+// The route's geometry: 128 queries and two m64 blocks a warpgroup (256
+// rows a LUT stage), or where Q <= 64 (half a 128-query tile would be zero)
+// 64 queries and four blocks (512 rows a stage). At 1M rows x 192 chunks,
+// Q = 256, pass 1 ran 1.62 ms at 128 queries, 2.18 at 64 with four blocks
+// and 2.21 with two: a fragment built once serves twice the queries at
+// n128 (NVIDIA H100 80GB HBM3, 700 W; csrc/probe/approx_split.cu).
+template <bool kScan>
+cudaError_t launch_onehot_approx(const void* codes_t, long long npad, const void* lutq,
+                                 const void* bias, const void* scale, const void* voff,
+                                 void* part_v, void* part_i, int Q, int ncomp, int n_valid, int D,
+                                 int part, ScanMap map, cudaStream_t s) {
+  return Q > 64 ? launch_onehot_approx_g<kScan, 128, 2>(codes_t, npad, lutq, bias, scale, voff,
+                                                        part_v, part_i, Q, ncomp, n_valid, D,
+                                                        part, map, s)
+                : launch_onehot_approx_g<kScan, 64, 4>(codes_t, npad, lutq, bias, scale, voff,
+                                                       part_v, part_i, Q, ncomp, n_valid, D, part,
+                                                       map, s);
+}
+
+// pq4_queue_kernel: K7b with 4-bit codes and the int8 LUT on the queue
+// select (kk <= 64), search_queue_kernel<NibbleRows>'s output (ktile.cuh
+// QueueSelect; candidates [Q, nblk * kk]): grid nblk * ceil(Q / 64), block
+// (b, t) walking its range of whole 512-row splits (ktile.py
+// exact_geometry; two blocks a SM) two segments at a time. A pass's
+// products: a ring of three stages (cp.async groups, one stage ahead), each
+// the LUT block of a depth slice and the two segments' codes, so 256 rows
+// share a LUT stage; warpgroup g takes rows 64g .. 64g + 63 of both
+// segments (two m64 blocks, A from registers as in pq4_approx_ws_kernel,
+// each block's product a commit group of its own).
+// Then each segment's keys, in row order, pass through the ring's memory
+// into the queues (queue_segment, pair_row's rows). kScan
+// (csrc/probe/select_split.cu): the scan alone, each key folded into a
+// register in place of the select (wrong results).
+constexpr int kOxSegs = 2;                             // segments a pass
+constexpr int kOxCodes = kOhKS / 16 * kOxSegs * kSeg;  // a stage's codes: [16][2][128]
+constexpr int kOxStage = kOhLut + kOxCodes;            // 20 KB
+constexpr int kOxS = 3;                                // ring stages
+constexpr int kOxRing = kOxS * kOxStage;
+static_assert(kOxRing >= kOhTQ * kKeyStride * 4, "the select's key tile in the ring");
+
+template <bool kScan>
+__global__ void __launch_bounds__(kThreads, 2) pq4_queue_kernel(
+    const uint8_t* __restrict__ codes_t, long long npad, const int8_t* __restrict__ lut,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    const float* __restrict__ voff, float* __restrict__ cand_v, int* __restrict__ cand_i, int Q,
+    int ncomp, int n_valid, int D, int split, int kk, ScanMap map) {
+  constexpr int TQ = kOhTQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  double* qm = reinterpret_cast<double*>(smem + kOxRing);
+  double* qo = qm + TQ;
+  QueueSelect<TQ> qs;
+  qs.init(reinterpret_cast<uint8_t*>(qo + TQ), smem, kk);
+  const int tid = threadIdx.x, g = tid >> 7;
+  const int nqt = (Q + TQ - 1) / TQ, nblk = (ncomp + split - 1) / split;
+  const int blk = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * TQ;
+  const long long start = (long long)blk * split;
+  const long long end = min(min((long long)ncomp, (long long)n_valid), start + split);
+  load_qparams<TQ>(qm, qo, scale, bias, q0, Q, 1);
+  const int nk = D / kOhKS;
+  const OneHotI8Frag frag;
+  // Stage j of the pass at compact rows p0 into ring slot `slot`: the LUT
+  // block of slice j (four pieces a thread) and the two segments' codes of
+  // chunks 16 j .. 16 j + 15 (one piece a thread).
+  auto fetch = [&](int slot, long long p0, int j) {
+    const uint32_t st = ring + slot * kOxStage;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + kThreads * i, r = idx >> 4, t = (idx >> 3) & 1, pc = idx & 7;
+      const int q = q0 + r;
+      cp_async16(st + t * (TQ * kDK) + swz(r, pc),
+                 lut + (long long)min(q, Q - 1) * D + j * kOhKS + t * kDK + pc * 16,
+                 q < Q ? 16 : 0);
+    }
+    const int chunk = tid >> 4, h = (tid >> 3) & 1, pc = tid & 7;
+    cp_async16(st + kOhLut + chunk * (kOxSegs * kSeg) + h * kSeg + 16 * pc,
+               codes_t + (long long)(j * 16 + chunk) * npad + map.row(p0 + kSeg * h) + 16 * pc,
+               16);
+  };
+  int acc[kOxSegs][32];
+  uint32_t af[kOxSegs][4];
+#pragma unroll
+  for (int h = 0; h < kOxSegs; ++h) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0;
+  }
+  unsigned fold = 0;
+  // A pass's rows lie below npad: p0 is a multiple of 256 below end <= npad,
+  // a multiple of 1024.
+  for (long long p0 = start; p0 < end; p0 += kOxSegs * kSeg) {
+    __syncthreads();  // the ring's last readers (the select's key tile) are done
+    fetch(0, p0, 0);
+    cp_async_commit();
+    for (int js = 0; js < nk; ++js) {
+      cp_async_wait<0>();  // this thread's copies of stage js landed
+      fence_proxy_async();
+      __syncthreads();  // everyone's, and the products of stage js - 2 are done
+      if (js + 1 < nk) fetch((js + 1) % kOxS, p0, js + 1);
+      cp_async_commit();
+      const int slot = js % kOxS;
+      const uint64_t db = wgmma_desc(ring + slot * kOxStage);
+      const uint8_t* codes = smem + slot * kOxStage + kOhLut + 64 * g;
+#pragma unroll
+      for (int k = 0; k < kOhSteps; ++k) {
+        const uint64_t b = db + (uint64_t)((k >> 2) * (TQ * kDK) >> 4) + 2 * (k & 3);
+#pragma unroll
+        for (int h = 0; h < kOxSegs; ++h) {
+          wgmma_wait<kOxSegs - 1>();  // block h's product a step before: its fragment is free
+          frag.build(frag.load(codes + kSeg * h, 2 * k, kOxSegs * kSeg), af[h]);
+          wgmma_fence();
+          wgmma_m64n64k32_rs(acc[h], af[h], b, js + k);
+          wgmma_commit();
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kOxSegs; ++h) fence_acc(acc[h]);
+#pragma unroll
+    for (int h = 0; h < kOxSegs; ++h) {
+      const long long off = p0 + kSeg * h;
+      if (off >= end) break;
+      unsigned key[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int j = frag_col(e), r = pair_row(e);
+        key[e] = off + r < end ? float_to_key(map.add_corr(
+                                     epilogue_q<true>(qm[j], acc[h][e], qo[j], voff, off + r),
+                                     min(q0 + j, Q - 1), off + r))
+                               : 0u;
+      }
+      if constexpr (kScan) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fold ^= key[e];
+      } else {
+        queue_segment<TQ, 32, true>(qs, key, off, min(TQ, Q - q0));
+      }
+    }
+  }
+  __syncthreads();  // the queues, also where the block had no valid row
+  if constexpr (kScan) {
+    reinterpret_cast<unsigned*>(cand_v)[(long long)blockIdx.x * kThreads + tid] = fold;
+    return;
+  }
+  const long long width = (long long)nblk * kk;
+  for (int j = tid >> 5; j < TQ; j += kThreads / 32) {
+    const int q = q0 + j;
+    if (q >= Q) break;
+    const long long o = (long long)q * width + (long long)blk * kk;
+    qs.write(j, cand_v + o, cand_i + o, map);
+  }
+}
+
+// pq4_queue_kernel's launch: split a multiple of 512 (ktile.py
+// exact_geometry's queue ranges), kk <= 64.
+template <bool kScan>
+cudaError_t launch_onehot_queue(const void* codes_t, long long npad, const void* lutq,
+                                const void* bias, const void* scale, const void* voff,
+                                void* cand_v, void* cand_i, int Q, int ncomp, int n_valid, int D,
+                                int split, int kk, ScanMap map, cudaStream_t s) {
+  if (split % (kOxSegs * kSeg) || kk < 1 || kk > kQueueK || D % kOhKS)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      kAlign + kOxRing + 2 * kOhTQ * sizeof(double) + QueueSelect<kOhTQ>::bytes(kk);
+  const cudaError_t err = queue_smem(pq4_queue_kernel<kScan>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid =
+      (unsigned)((ncomp + split - 1) / split) * (unsigned)((Q + kOhTQ - 1) / kOhTQ);
+  pq4_queue_kernel<kScan><<<grid, kThreads, smem, s>>>(
+      static_cast<const uint8_t*>(codes_t), npad, static_cast<const int8_t*>(lutq),
+      static_cast<const float*>(bias), static_cast<const float*>(scale),
+      static_cast<const float*>(voff), static_cast<float*>(cand_v), static_cast<int*>(cand_i),
+      Q, ncomp, n_valid, D, split, kk, map);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -418,10 +1013,9 @@ int qtt_pq4_mma_search_approx(const void* lutq, const void* scale, const void* b
                               int part, const void* sel, int tile_n, long long ncomp,
                               const void* corr, long long corr_qs, long long corr_bs,
                               void* stream) {
-  return static_cast<int>(launch_search_approx<NibbleRows, true>(
-      codes_t, npad, lutq, bias, scale, voff, out_v, out_i, out_v, out_i, Q, (int)ncomp,
-      n_valid, mpad * 16, part, part, 1, scan_map(sel, tile_n, corr, corr_qs, corr_bs),
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_onehot_approx<false>(
+      codes_t, npad, lutq, bias, scale, voff, out_v, out_i, Q, (int)ncomp, n_valid, mpad * 16,
+      part, scan_map(sel, tile_n, corr, corr_qs, corr_bs), static_cast<cudaStream_t>(stream)));
 }
 
 int qtt_pq4_mma_search_exact(const void* lutq, const void* scale, const void* bias,
@@ -429,10 +1023,15 @@ int qtt_pq4_mma_search_exact(const void* lutq, const void* scale, const void* bi
                              void* cand_i, int Q, int mpad, long long npad, int n_valid,
                              int split, int kk, const void* corr, long long corr_qs,
                              long long corr_bs, void* stream) {
-  return static_cast<int>(launch_search_exact<NibbleRows, true>(
-      codes_t, npad, lutq, bias, scale, voff, cand_v, cand_i, Q, (int)npad, n_valid,
-      mpad * 16, split, kk, 1, scan_map(nullptr, 0, corr, corr_qs, corr_bs),
-      static_cast<cudaStream_t>(stream)));
+  const ScanMap map = scan_map(nullptr, 0, corr, corr_qs, corr_bs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kk <= kQueueK)
+    return static_cast<int>(launch_onehot_queue<false>(codes_t, npad, lutq, bias, scale, voff,
+                                                       cand_v, cand_i, Q, (int)npad, n_valid,
+                                                       mpad * 16, split, kk, map, s));
+  return static_cast<int>(launch_search_radix<NibbleRows, true>(
+      codes_t, npad, lutq, bias, scale, voff, cand_v, cand_i, Q, (int)npad, n_valid, mpad * 16,
+      split, kk, 1, map, s));
 }
 
 int qtt_pq4_mma_scores_bf16(const void* lut, const void* codes_t, void* out, int Q, int mpad,

@@ -7,7 +7,10 @@
 // ring) at 2048-row items with the combine, the reference; and for both
 // sign-query bodies of bq_kernels.cu: bq_sign_approx_ws_kernel the same
 // way, against bq_sign_approx_kernel (2048-row parts and the combine, the
-// reference). Six searches:
+// reference); and for 4-bit int8 K7a, pq4_mma_kernels.cu's
+// pq4_approx_ws_kernel against approx_parts_kernel<NibbleRows>, whose scan
+// it also splits into the one-hot expansion and the products. Seven
+// searches:
 //   * K9a: 256 of 1,152 tiles of 1024 rows of 768-byte SQ codes, Q = 256
 //     (CodeRows, the step-by-step epilogue; scan_ab.py's shape);
 //   * K2: a dense scan of 100,352 rows of 1024-byte SQ codes, Q = 256 and 32
@@ -17,7 +20,9 @@
 //     corr);
 //   * sign-query K5a: a dense scan of 1,000,000 rows of 1536 bits (npad
 //     1,001,472), Q = 256 (chip_smoke.py path 2's shape);
-//   * sign-query K10: 256 of 1,152 tiles of 1024 rows of 768 bits, Q = 256.
+//   * sign-query K10: 256 of 1,152 tiles of 1024 rows of 768 bits, Q = 256;
+//   * 4-bit int8 K7a: 1,000,000 rows of 192 chunks, Q = 256 (chip_smoke.py
+//     path 3's shape).
 // "scan" is pass 1 with its epilogue and maxima taken out (each accumulator
 // folded into a register): a timing probe whose results are wrong. The
 // merge's torch.topk is timed by scan_ab.py (--only approx), beside the
@@ -30,6 +35,7 @@
 //     ./approx_split               # one JSON line a measurement
 //     ./approx_split sign          # the sign-query K5a / K10 alone
 //     ./approx_split sign-parent   # their two-block body alone
+//     ./approx_split onehot        # the 4-bit int8 K7a alone
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -37,7 +43,8 @@
 #include <type_traits>
 #include <vector>
 
-#include "../bq_kernels.cu"  // the sign-query kernels, and dot_scan.cuh
+#include "../bq_kernels.cu"       // the sign-query kernels, and dot_scan.cuh
+#include "../pq4_mma_kernels.cu"  // the 4-bit int8 one-hot PQ searches
 
 namespace {
 
@@ -112,6 +119,59 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) sign_parts_scan
     for (int e = 0; e < 32; ++e) fold ^= (unsigned)acc[0][e];
   }
   out[(long long)blockIdx.x * kThreads + threadIdx.x] = fold;
+}
+
+// The one-hot split of approx_parts_kernel<NibbleRows> (4-bit int8 K7a's
+// body before its warp-specialized one): NibbleRows with its loads and
+// one-hot stores taken out, so the products read the A tiles as they stand
+// (the products alone; wrong results).
+struct NibbleProducts {
+  static constexpr bool kBits = false;
+  using Elem = uint8_t;
+  struct Pending {};
+  const uint8_t* codes_t;
+  long long npad;
+  __device__ __forceinline__ void prefetch(Pending&, long long, int) const {}
+  __device__ __forceinline__ void issue(uint32_t, long long, int) const {}
+  __device__ __forceinline__ void put(uint32_t, const Pending&) const {}
+};
+
+// The expansion alone: mma_segment's walk over a part's segments with the
+// codes' loads and one-hot stores (NibbleRows) and its barriers, no LUT
+// copies and no products.
+__global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) onehot_expand_kernel(
+    const uint8_t* __restrict__ codes_t, long long npad, unsigned* __restrict__ out, int Q,
+    int ncomp, int D, int part) {
+  using T = ApproxTile;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  const NibbleRows rows{codes_t, npad};
+  const int nqt = (Q + T::TQ - 1) / T::TQ, nk = D / kDK;
+  const long long start = (long long)(blockIdx.x / nqt) * part;
+  for (int off = 0; off < part && start + off < ncomp; off += kSeg) {
+    const long long row0 = start + off;
+    __syncthreads();
+    NibbleRows::Pending p;
+#pragma unroll
+    for (int s = 0; s < T::S - 1; ++s) {
+      if (s < nk) {
+        rows.prefetch(p, row0, s * kDK);
+        rows.put(ring + s * T::kStage, p);
+      }
+    }
+    if (T::S - 1 < nk) rows.prefetch(p, row0, (T::S - 1) * kDK);
+    for (int c = 0; c < nk; ++c) {
+      fence_proxy_async();
+      __syncthreads();
+      const int nc = c + T::S - 1;
+      if (nc < nk) rows.put(ring + (nc % T::S) * T::kStage, p);
+      if (nc + 1 < nk) rows.prefetch(p, row0, (nc + 1) * kDK);
+    }
+  }
+  __syncthreads();
+  out[(long long)blockIdx.x * kThreads + threadIdx.x] =
+      reinterpret_cast<const unsigned*>(smem)[threadIdx.x];
 }
 
 template <class Launch>
@@ -378,16 +438,123 @@ void sign_operands(uint32_t** planes, uint32_t** qwords, int Q, int W, long long
   for (int w = 0; w < W && n < npad; ++w) cudaMemset(*planes + w * npad + n, 0, (npad - n) * 4);
 }
 
+// 4-bit int8 K7a at chip_smoke.py path 3's shape: 1,000,000 rows of m = 192
+// chunks (3,072 one-hot bytes a row, npad 1,000,448), Q = 256, a random
+// rowadd, 4096-row parts in place (one span block each, no combine). The
+// reference is approx_parts_kernel<NibbleRows, true>, K7a's body before
+// pq4_approx_ws_kernel (A built in registers): its pass 1, its scan alone
+// (the expansion and the products), the expansion alone and the products
+// alone; then pq4_approx_ws_kernel's pass 1 and scan alone in the wrapper's
+// geometry at Q = 256 (128 queries a block, two m64 blocks a warpgroup) and
+// at Q = 32 (64 and four), and at Q = 32 also in the other (the choice's
+// measure), its candidates equal to the reference's to the bit.
+bool split_onehot() {
+  const int Q = 256, m = 192, D = m * 16, part = 4096;
+  const long long n = 1000000, npad = 1000448;
+  uint8_t* codes;
+  int8_t* lut;
+  float *scale, *bias, *voff;
+  cudaMalloc(&codes, (size_t)m * npad);
+  cudaMalloc(&lut, (size_t)Q * D);
+  cudaMalloc(&scale, Q * 4);
+  cudaMalloc(&bias, Q * 4);
+  cudaMalloc(&voff, npad * 4);
+  fill_kernel<<<1024, 256>>>(codes, (long long)m * npad, 0x0f, 31);
+  for (int c = 0; c < m; ++c) cudaMemset(codes + c * npad + n, 0, npad - n);
+  fill_kernel<<<64, 256>>>(reinterpret_cast<uint8_t*>(lut), (long long)Q * D, 0xff, 32);
+  fill_f32<<<64, 256>>>(scale, Q, 1e-3f, 1e-2f, 33);
+  fill_f32<<<64, 256>>>(bias, Q, -1.f, 2.f, 34);
+  fill_f32<<<1024, 256>>>(voff, npad, -1.f, 2.f, 35);
+  const ScanMap dense{nullptr, 0, nullptr, 0, 0};
+  const int nparts = (int)((npad + part - 1) / part), nqt = Q / ApproxTile::TQ;
+  const size_t slots = (size_t)Q * nparts * kSlot;
+  float* rv;
+  int* ri;
+  unsigned* fold;
+  cudaMalloc(&rv, slots * 4);
+  cudaMalloc(&ri, slots * 4);
+  cudaMalloc(&fold, (size_t)nparts * nqt * kThreads * 4);
+  const float p1 = time_ms([&] {
+    launch_approx_parts<NibbleRows, true>(codes, npad, lut, bias, scale, voff, rv, ri, Q, (int)npad,
+                                          (int)n, D, part, 1, dense, 0);
+  });
+  bool good = ok("one-hot pass 1");
+  const size_t ssmem = kAlign + ApproxTile::kBytes;
+  cudaFuncSetAttribute(parts_scan_kernel<NibbleRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)ssmem);
+  cudaFuncSetAttribute(parts_scan_kernel<NibbleProducts>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ssmem);
+  cudaFuncSetAttribute(onehot_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)ssmem);
+  const unsigned grid = (unsigned)(nparts * nqt);
+  const float sc = time_ms([&] {
+    parts_scan_kernel<NibbleRows><<<grid, kThreads, ssmem>>>(codes, npad, lut, fold, Q, (int)npad,
+                                                             D, part, dense);
+  });
+  const float pr = time_ms([&] {
+    parts_scan_kernel<NibbleProducts><<<grid, kThreads, ssmem>>>(codes, npad, lut, fold, Q,
+                                                                 (int)npad, D, part, dense);
+  });
+  const float ex = time_ms([&] {
+    onehot_expand_kernel<<<grid, kThreads, ssmem>>>(codes, npad, fold, Q, (int)npad, D, part);
+  });
+  good &= ok("one-hot scan splits") && cudaDeviceSynchronize() == cudaSuccess;
+  printf("{\"probe\": \"approx_split\", \"kernel\": \"pq_search_approx_4bit\", "
+         "\"design\": \"onehot_parts\", \"part\": %d, \"pass1_ms\": %.4f, \"scan_ms\": %.4f, "
+         "\"expand_ms\": %.4f, \"products_ms\": %.4f, \"combine_ms\": 0.0, \"smem\": %zu, "
+         "\"blocks_per_sm\": %d}\n",
+         part, p1, sc, ex, pr, ssmem, ApproxTile::kBlocks);
+  // pq4_approx_ws_kernel in the geometry TQ queries x NB blocks, at Q = q
+  // (the first q queries): pass 1, its scan alone, its candidates against
+  // the reference's first q rows.
+  float* wv;
+  int* wi;
+  cudaMalloc(&wv, slots * 4);
+  cudaMalloc(&wi, slots * 4);
+  bool eq = true;
+  auto ws = [&](auto tq, auto nb, int q, const char* design) {
+    constexpr int TQ = decltype(tq)::value, NB = decltype(nb)::value;
+    auto run = [&](auto scan) {
+      launch_onehot_approx_g<decltype(scan)::value, TQ, NB>(codes, npad, lut, bias, scale, voff,
+                                                             wv, wi, q, (int)npad, (int)n, D, part,
+                                                             dense, 0);
+    };
+    const float t1 = time_ms([&] { run(std::false_type{}); });
+    const float ts = time_ms([&] { run(std::true_type{}); });
+    run(std::false_type{});
+    const bool e = ok("one-hot ws") && cudaDeviceSynchronize() == cudaSuccess &&
+                   same(rv, ri, wv, wi, (size_t)q * nparts * kSlot);
+    eq &= e;
+    printf("{\"probe\": \"approx_split\", \"kernel\": \"pq_search_approx_4bit%s\", "
+           "\"design\": \"%s\", \"part\": %d, \"pass1_ms\": %.4f, \"scan_ms\": %.4f, "
+           "\"combine_ms\": 0.0, \"smem\": %d, \"stages\": %d, \"tq\": %d, \"nb\": %d, "
+           "\"blocks_per_sm\": 1, \"equal\": %s}\n",
+           q == Q ? "" : "_q32", design, part, t1, ts, OhGeom<TQ, NB>::kSmem, OhGeom<TQ, NB>::S,
+           TQ, NB, e ? "true" : "false");
+  };
+  // The wrapper's geometry at Q = 256 and at Q = 32, and the other at 32.
+  ws(std::integral_constant<int, 128>{}, std::integral_constant<int, 2>{}, Q, "onehot_ws");
+  ws(std::integral_constant<int, 64>{}, std::integral_constant<int, 4>{}, 32, "onehot_ws");
+  ws(std::integral_constant<int, 128>{}, std::integral_constant<int, 2>{}, 32, "onehot_ws128");
+  for (void* p : {(void*)codes, (void*)lut, (void*)scale, (void*)bias, (void*)voff, (void*)rv,
+                  (void*)ri, (void*)fold, (void*)wv, (void*)wi})
+    cudaFree(p);
+  return good && eq;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
   setvbuf(stdout, nullptr, _IOLBF, 0);  // each line out as it is measured
   const int Q = 256, D = 768, TILE = 1024;
   // No argument: every search; "sign": the sign-query K5a / K10 alone;
-  // "sign-parent": only their two-block body (bq_sign_approx_kernel).
+  // "sign-parent": only their two-block body (bq_sign_approx_kernel);
+  // "onehot": the 4-bit int8 K7a alone.
   const bool all = argc < 2, ws = all || !strcmp(argv[1], "sign"),
-             sign = ws || !strcmp(argv[1], "sign-parent");
+             sign = ws || !strcmp(argv[1], "sign-parent"),
+             onehot = all || !strcmp(argv[1], "onehot");
   bool good = true;
+  if (onehot) good &= split_onehot();
 
   // K9a: SQ codes of 1,152 tiles, 256 of them selected.
   if (all) {

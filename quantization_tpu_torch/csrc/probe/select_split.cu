@@ -1,10 +1,12 @@
 // The exact searches' time split into scan and select, on one card: the
-// scan of K1 (int8 codes, 100,000 x 1024 padded to 100,352 rows, Q = 256)
-// and of K5c (sign bits, 1,000,000 x 1536 padded to 1,001,472 rows, Q = 256)
-// with their epilogue and its order keys, and no select: each key is folded
-// into a register that one store a thread leaves behind, so the epilogue
-// stays. Each scan runs in two geometries, the launch and the shared memory
-// (so the blocks a SM) of the exact kernel whose time it is taken from:
+// scan of K1 (int8 codes, 100,000 x 1024 padded to 100,352 rows, Q = 256),
+// of K5c (sign bits, 1,000,000 x 1536 padded to 1,001,472 rows, Q = 256)
+// and of 4-bit int8 K7b (pq4_queue_kernel with kScan, 1,000,000 rows of 192
+// chunks, Q = 256, k = 10, in its own geometry only) with their epilogue
+// and its order keys, and no select: each key is folded into a register
+// that one store a thread leaves behind, so the epilogue stays. K1's and
+// K5c's scans run in two geometries, the launch and the shared memory (so
+// the blocks a SM) of the exact kernel whose time it is taken from:
 //   * "radix": 512-row splits, the split-wide key buffer's shared memory
 //     (K1 one block a SM, K5c two);
 //   * "queue": the queue select's ranges (ktile.py exact_geometry: one wave
@@ -24,8 +26,10 @@
 #include <cstdint>
 #include <cstdio>
 #include <initializer_list>
+#include <vector>
 
 #include "../bq_kernels.cu"
+#include "../pq4_mma_kernels.cu"
 
 namespace {
 
@@ -296,6 +300,56 @@ int main() {
     report_cost("bq_search_exact", "ties", kk, time_ms(bq_sign_queue_kernel, 0, launch));
     cudaFree(cv);
     cudaFree(ci);
+  }
+  cudaFree(planes);
+  cudaFree(qwords);
+
+  // K7b with 4-bit codes and the int8 LUT (pq4_mma_kernels.cu
+  // pq4_queue_kernel) at chip_smoke.py path 3's shape: 1,000,000 rows (npad
+  // 1,000,448) of m = 192 chunks, Q = 256, k = 10: its scan and the kernel.
+  {
+    const int m = 192, D4 = m * 16, kk = 10;
+    const long long n4 = 1000000, np4 = 1000448;
+    uint8_t* codes4;
+    int8_t* lut;
+    float *scale, *bias, *voff4;
+    cudaMalloc(&codes4, (size_t)m * np4);
+    cudaMalloc(&lut, (size_t)Q * D4);
+    cudaMalloc(&scale, Q * 4);
+    cudaMalloc(&bias, Q * 4);
+    cudaMalloc(&voff4, np4 * 4);
+    fill_kernel<<<1024, 256>>>(codes4, (long long)m * np4, 0x0f, 5);
+    for (int c = 0; c < m; ++c) cudaMemset(codes4 + c * np4 + n4, 0, np4 - n4);
+    fill_kernel<<<64, 256>>>(reinterpret_cast<uint8_t*>(lut), (long long)Q * D4, 0xff, 6);
+    std::vector<float> hs(Q, 1e-3f), hb(Q, 0.5f);
+    cudaMemcpy(scale, hs.data(), Q * 4, cudaMemcpyHostToDevice);
+    cudaMemcpy(bias, hb.data(), Q * 4, cudaMemcpyHostToDevice);
+    cudaMemset(voff4, 0, np4 * 4);
+    // The scan: pq4_queue_kernel's products and keys, each key folded into a
+    // register in place of the select (kScan), in the kernel's geometry.
+    const int split = queue_split(np4, Q, 64);
+    const size_t smem = kAlign + kOxRing + 8 * 2 * 64 + QueueSelect<64>::bytes(kk);
+    float *cv, *ci;
+    cudaMalloc(&cv, (size_t)Q * ((np4 + split - 1) / split) * kk * 4);
+    cudaMalloc(&ci, (size_t)Q * ((np4 + split - 1) / split) * kk * 4);
+    const ScanMap dense{nullptr, 0, nullptr, 0, 0};
+    const float ms = time_ms(pq4_queue_kernel<true>, smem, [&] {
+      launch_onehot_queue<true>(codes4, np4, lut, bias, scale, voff4, cv, ci, Q, (int)np4, (int)n4,
+                                D4, split, kk, dense, 0);
+    });
+    report("pq_search_exact_4bit", "queue", split, smem, ms);
+    auto launch = [&] {
+      qtt_pq4_mma_search_exact(lut, scale, bias, codes4, voff4, cv, ci, Q, m, np4, (int)n4, split,
+                               kk, nullptr, 0, 0, nullptr);
+    };
+    report_cost("pq_search_exact_4bit", "random", kk,
+                time_ms(pq4_queue_kernel<false>, smem, launch));
+    printf("{\"probe\": \"occupancy\", \"kernel\": \"pq4_queue_kernel\", \"kk\": %d, "
+           "\"smem\": %zu, \"blocks_per_sm\": %d}\n",
+           kk, smem, blocks_per_sm(pq4_queue_kernel<false>, smem));
+    for (void* p : {(void*)codes4, (void*)lut, (void*)scale, (void*)bias, (void*)voff4,
+                    (void*)cv, (void*)ci})
+      cudaFree(p);
   }
   const cudaError_t err = cudaDeviceSynchronize();
   if (err != cudaSuccess) {

@@ -40,11 +40,13 @@ package does before its ``pallas_call``:
     precision but int8, as ``pq_scores_pallas`` does (Queue 3, F15).
 
 4-bit codes with the int8 LUT take another route for every kernel
-(``onehot_route``): the int8 scan body of ``csrc/dot_scan.cuh`` on
-``wgmma``, multiplying the LUT flattened to [Q, Mpad * 16]
-(``onehot_operands``) by the codes expanded to one-hot bytes. Its int32 sum
-and f64 epilogue are the gather body's, so both routes equal the same plain
-version to the bit. K8 with 4-bit codes and the bf16 LUT (``pq_scores``
+(``onehot_route``): ``wgmma`` products of the LUT flattened to [Q, Mpad *
+16] (``onehot_operands``) and the codes' one-hot bytes, K8 on the int8
+scan body of ``csrc/dot_scan.cuh`` (the bytes expanded in shared memory),
+K7a / K11 and K7b up to ``ktile.QUEUE_K_MAX`` on kernels of their own in
+``csrc/pq4_mma_kernels.cu`` that build the one-hot A operand in registers.
+Their int32 sum and f64 epilogue are the gather body's, so both routes
+equal the same plain version to the bit. K8 with 4-bit codes and the bf16 LUT (``pq_scores``
 rounds bf16x2 to bf16) takes a route of its own (``bf16_onehot_route``):
 one-hot bf16 products on ``wgmma``, one chunk each from a zero accumulator,
 so each lands a LUT entry exactly, summed on the CUDA cores in the plain
@@ -117,8 +119,8 @@ LAUNCHES = {"pq_scores": 0, "pq_search_exact": 0, "pq_search_approx": 0,
 ONEHOT_LAUNCHES = dict(LAUNCHES)
 #: And those that took the bf16 one-hot route (``bf16_onehot_route``: K8).
 BF16_ONEHOT_LAUNCHES = {"pq_scores": 0}
-# The one-hot approx body's largest part: a part's 128-row segment number
-# must fit a byte (csrc/dot_scan.cuh approx_parts_kernel).
+# The one-hot approx kernel's largest part: a part's 128-row segment number
+# must fit a byte (csrc/pq4_mma_kernels.cu pq4_approx_ws_kernel).
 ONEHOT_PART_MAX = 255 * 128
 
 

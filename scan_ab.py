@@ -26,8 +26,8 @@ made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
 one-hot route on the scan body), K8b 4-bit (bf16 LUT: the bf16 one-hot
 route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
 ring), and K7b / K7a at both widths with the bf16 and bf16x2 LUTs (the
-gather body), every gather-body route again at Q = 32 and Q = 4 (the
-first queries of the same LUT); then path 4's PQ scans
+gather body), every gather-body route and the 4-bit int8 searches again at
+Q = 32 and Q = 4 (the first queries of the same LUT); then path 4's PQ scans
 at m = 96 with the residual bf16x2 LUT (rowadd and corr): K11 over 256 of
 1,152 tiles of 1024 rows and the compact K7b / K7a over the README
 geometry's 131,072-row union (k = 20), the three also at Q = 32 and 4,
@@ -41,7 +41,8 @@ quantization_tpu_torch/csrc/probe/wgmma_rate.cu (the issue rate of the
 single-bit wgmma product against the int8 one, in turns) and
 absdiff_rate.cu (K12's __vabsdiffu4 + __dp4a pair rate); the split
 section select_split.cu (the scans of K1 and K5c without their select, in
-each select's geometry, and the exact kernels' blocks a SM); the lut
+each select's geometry, 4-bit int8 K7b's in its kernel's, and the exact
+kernels' blocks a SM); the lut
 section lut_gather_rate.cu (the PQ lookup loop's lookups a clock per SM
 for the old loop and both lane maps, and the L2 rate of re-staging a LUT). K1 and K5c
 are also timed at k = 600, on the radix select. The approx section times
@@ -54,8 +55,11 @@ and runs csrc/probe/approx_split.cu (pass 1, its scan alone and the combine
 of K9a, of dense K2 at Q = 256 and 32, of K10-value at the serving width and
 of the sign-query K5a at 1M x 1536 and K10 over 256 tiles of 768 dims: the
 warp-specialized bodies at span-block items and 2048-row items, their other
-query tile, and the two-block bodies' 2048-row items, with the
-warp-specialized bodies' ptxas registers and spills); ssplit runs its
+query tile, and the two-block bodies' 2048-row items; and of 4-bit int8 K7a
+at 1M x 192 chunks on pq4_approx_ws_kernel against approx_parts_kernel
+<NibbleRows>, whose scan it splits into the one-hot expansion and the
+products; with the warp-specialized bodies' ptxas registers and spills);
+ssplit runs its
 sign-query searches alone. Prints one JSON object:
 the card (nvidia-smi name and power limit), the package's directory, the
 times, the rates and the split. Needs a CUDA card; the kernels are
@@ -447,8 +451,10 @@ def pq_rows(ms, pq_kernel, g, dev):
                                     ("scores", "bf16"), ("exact", "int8")) + searches),
             (8, PM8, pq_kernel.K, gather8 + searches)):
         lut, codes_t = pq_operands(m, kc, pnpad, PN)
-        # Q = 256, then the gather body's routes at Q = 32 and 4.
-        small = searches if bits == 4 else gather8 + searches
+        # Q = 256, then the gather body's routes and the 4-bit int8 searches
+        # at Q = 32 and 4.
+        small = (("approx", "int8"), ("exact", "int8")) + searches if bits == 4 else \
+            gather8 + searches
         for q, tag, todo in ((Q, "", rows), (QS, f"_q{QS}", small), (4, "_q4", small)):
             ql = lut[:q].contiguous()
             for mode, prec in todo:

@@ -823,6 +823,87 @@ def test_onehot_launch_counters(dev):
                                   "pq_search_approx": 3, "pq_search_indexed": 2}
 
 
+# The one-hot kernels with A built in registers (csrc/pq4_mma_kernels.cu:
+# pq4_approx_ws_kernel for K7a / K11, pq4_queue_kernel for K7b up to
+# ktile.QUEUE_K_MAX, the radix select on NibbleRows above it): query counts
+# around the 64-query tile and the main path's 256, ragged n_valid, LUTs of
+# four values (many tied scores), with and without the residual pair.
+I8FRAG_QS = [4, 33, 100, 256]
+
+
+def _pq4_case(dev, m, n_valid, q, ties, seed):
+    lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed)
+    if ties:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 2)
+        lut = torch.randint(-2, 2, lut.shape, generator=g, device=dev).float()
+    return lut, codes_t
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("q", I8FRAG_QS)
+@pytest.mark.parametrize("m,n_valid", [(31, 9000), (192, 70_001)])
+def test_onehot_i8frag_k7a_equal_plain(dev, m, n_valid, q, residual, ties):
+    lut, codes_t = _pq4_case(dev, m, n_valid, q, ties, seed=m + q)
+    npad = codes_t.shape[1]
+    rowadd, corr = (_pq_residual(dev, q, npad, npad // 512, False, seed=q) if residual
+                    else (None, None))
+    kw = dict(n_valid=n_valid, k=40, mode="approx", precision="int8")
+    before = pq_kernel.ONEHOT_LAUNCHES["pq_search_approx"]
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    assert pq_kernel.ONEHOT_LAUNCHES["pq_search_approx"] == before + 1
+    pv, pi = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("q", I8FRAG_QS)
+@pytest.mark.parametrize("k", [10, 40, 64, 65])
+def test_onehot_i8frag_k7b_equal_plain(dev, k, q, residual, ties):
+    """Values equal the plain top-k's to the bit, ids up to ties; k = 65
+    takes the radix select."""
+    from quantization_tpu_torch.ops.kernels import ktile
+
+    m, n_valid = 24, 20_001
+    lut, codes_t = _pq4_case(dev, m, n_valid, q, ties, seed=k + q)
+    npad = codes_t.shape[1]
+    rowadd, corr = (_pq_residual(dev, q, npad, npad // 512, False, seed=k) if residual
+                    else (None, None))
+    kw = dict(n_valid=n_valid, k=k, precision="int8")
+    before = dict(ktile.SELECT_LAUNCHES)
+    v, i = pq_kernel.pq_search(lut, codes_t, rowadd, corr, **kw)
+    route = "queue" if k <= ktile.QUEUE_K_MAX else "radix"
+    assert ktile.SELECT_LAUNCHES[route] == before[route] + 1
+    pv, _ = pq_kernel.pq_search_plain(lut, codes_t, rowadd, corr, **kw)
+    scores = pq_kernel.lut_scores_plain(lut, codes_t, n_valid=npad, precision="int8")
+    if residual:
+        scores = (scores + rowadd[None]) + torch.repeat_interleave(corr, 512, dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    _check_topk(v, i, pv, scores[:, :n_valid], n_valid)
+
+
+@pytest.mark.parametrize("q", I8FRAG_QS)
+@pytest.mark.parametrize("tile_n,t,residual", [(384, 5, False), (1024, 9, False),
+                                                (512, 7, True), (1024, 9, True)])
+def test_onehot_i8frag_k11_equal_plain(dev, q, tile_n, t, residual):
+    """Over permuted tiles, 384-row ones leaving the last item a partial unit
+    of segments: values and ids equal the plain K11."""
+    n_valid = 24 * 1024 + (-(24 * 1024)) % tile_n
+    lut, codes_t = _pq4_case(dev, 40, n_valid, q, False, seed=q + tile_n)
+    sel = _selection(dev, n_valid // tile_n, t, seed=tile_n + t)
+    rowadd, corr = (_pq_residual(dev, q, codes_t.shape[1], t * tile_n // 512, True, seed=q)
+                    if residual else (None, None))
+    kw = dict(k=40, precision="int8", tile_n=tile_n)
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, rowadd, corr, **kw)
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 def test_pq_kernels_refuse_bad_layouts(dev):
     lut, codes_t = _pq_operands(dev, 256, 16, 1000, 4, seed=1)
     with pytest.raises(qt.ArgumentsError):
