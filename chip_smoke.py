@@ -198,7 +198,7 @@ for _sfx in ("", "_4bit"):  # one kernel per name; the 4-bit rows time KC = 16
                                     "quantization_tpu/ops/pallas/pq_kernel.py:791"),
     })
 # The 4-bit rows time the int8 LUT, which runs K8a, K7b and K7a on the
-# one-hot route (the int8 scan body of dot_scan.cuh).
+# one-hot route (K8a: pq4_scores_ws_kernel).
 KERNELS["pq_scores_4bit"] = ("pq4_mma_kernels.cu",
                              "quantization_tpu/ops/pallas/pq_kernel.py:943")
 KERNELS["pq_search_exact_4bit"] = ("pq4_mma_kernels.cu",
@@ -530,15 +530,19 @@ def sign_composite(qpm, cpm, sign, k):
 
 PROBE = "quantization_tpu_torch/csrc/probe/select_split.cu"
 APPROX_PROBE = "quantization_tpu_torch/csrc/probe/approx_split.cu"
+SCORES_PROBE = "quantization_tpu_torch/csrc/probe/scores_split.cu"
 _probe = {}
 _aprobe = {}
+_sprobe = {}
 
 
 def start_select_probe(nvcc):
-    """Starts building the scan / select probe (csrc/probe/select_split.cu)
-    and the approx split probe (csrc/probe/approx_split.cu, with the
-    library's -fmad=false), beside the library's build."""
-    for state, src, flags in ((_probe, PROBE, []), (_aprobe, APPROX_PROBE, ["-fmad=false"])):
+    """Starts building the scan / select probe (csrc/probe/select_split.cu),
+    the approx split probe (csrc/probe/approx_split.cu) and the K8 probe
+    (csrc/probe/scores_split.cu; the last two with the library's
+    -fmad=false), beside the library's build."""
+    for state, src, flags in ((_probe, PROBE, []), (_aprobe, APPROX_PROBE, ["-fmad=false"]),
+                              (_sprobe, SCORES_PROBE, ["-fmad=false"])):
         exe = os.path.join("quantization_tpu_torch", "_build",
                            os.path.splitext(os.path.basename(src))[0])
         os.makedirs(os.path.dirname(exe), exist_ok=True)
@@ -561,14 +565,39 @@ def approx_split(smi):
     pq4_approx_ws_kernel (at Q = 256, and at Q = 32 in both its geometries)
     against approx_parts_kernel<NibbleRows>, whose scan it splits into the
     one-hot expansion and the products; requires every
-    warp-specialized candidate set equal to its reference. {(kernel,
-    design, part): line}."""
-    proc = _aprobe["proc"]
-    out, _ = proc.communicate(timeout=600)
-    require(proc.returncode == 0, f"the approx probe builds: {out[-2000:]}")
-    run = subprocess.run([_aprobe["exe"]], capture_output=True, text=True, timeout=300)
-    require(run.returncode == 0, f"the approx probe runs: {run.stderr[-2000:]}")
-    lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+    warp-specialized candidate set equal to its reference. Then the K8
+    probe's [K8] lines: 4-bit int8 K8 at 1M x 192 chunks, Q = 256, 100 and
+    32, the replaced scores_kernel<NibbleRows> (at Q = 256 split into its
+    scan, the products alone, the expansion alone and its stores alone)
+    against pq4_scores_ws_kernel (the kernel, its products alone and its
+    products and epilogue without the stores), whose scores must equal the
+    replaced kernel's to the bit. {(kernel, design, part): line} of the
+    searches."""
+
+    def run_probe(state, what):
+        proc = state["proc"]
+        out, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"the {what} probe builds: {out[-2000:]}")
+        run = subprocess.run([state["exe"]], capture_output=True, text=True, timeout=300)
+        require(run.returncode == 0, f"the {what} probe runs: {run.stderr[-2000:]}")
+        return [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+
+    lines = run_probe(_aprobe, "approx")
+    k8 = run_probe(_sprobe, "K8")
+    for ln in k8:
+        if ln["design"] == "scores_parent":
+            parts = "".join(f", {x} {ln[x + '_ms']:.4f}" for x in
+                            ("scan", "products", "expand", "stores") if x + "_ms" in ln)
+            say("K8", f"4-bit int8 Q={ln['q']}: scores_kernel<NibbleRows> (replaced) "
+                f"{ln['ms']:.4f} ms{parts} (csrc/probe/scores_split.cu) on {smi}")
+        else:
+            require(ln["equal"], f"K8 Q={ln['q']} {ln['design']}: pq4_scores_ws_kernel's "
+                    "scores equal the replaced kernel's to the bit")
+            say("K8", f"4-bit int8 Q={ln['q']}: pq4_scores_ws_kernel<{ln['tq']}, {ln['nb']}> "
+                f"({ln['stages']} stages, {ln['smem']} bytes) {ln['ms']:.4f} ms, products "
+                f"alone {ln['scan_ms']:.4f}, products and epilogue {ln['tile_ms']:.4f}, equal "
+                f"(csrc/probe/scores_split.cu) on {smi}")
+    require(len(k8) == 7, f"the K8 probe's 7 lines ({len(k8)})")
     split = {}
     for ln in lines:
         if "equal" in ln:
@@ -1528,6 +1557,45 @@ def pq_recalls(dev, n, dim, seed):
     return rec, st
 
 
+def hold_k8_onehot(lut, ct, dev):
+    """K8 with 4-bit codes and the int8 LUT (pq4_scores_ws_kernel) held to
+    its plain version to the bit in both geometries and both store branches:
+    path 3's LUT and codes (m = 192) at Q = 1, 33, 100 and 256 (the first
+    queries), n_valid the corpus (a multiple of 4, not of 128: the tensor
+    stores of a partial segment), odd (the warps' stores) and a multiple of
+    4 but not of 128 over the first 100,100 rows; then m = 8 and 13 on
+    random LUTs and codes with their high nibble set, 51,200 rows, the same
+    Q and n_valid kinds."""
+    from quantization_tpu_torch.ops.kernels import pq_kernel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    cases = 0
+    for m in (8, 13, 192):
+        if m == 192:
+            lm, cm, ns = lut, ct, (PN, 100_003, 100_100)
+        else:
+            npad = 51_200
+            lm = (torch.randn(Q, m, 16, generator=g, device=dev) * 2
+                  + torch.randn(Q, m, 1, generator=g, device=dev))
+            cm = torch.zeros((m + (-m) % pq_kernel.M_BLK, npad), dtype=torch.uint8, device=dev)
+            cm[:m] = torch.randint(0, 256, (m, npad), generator=g, device=dev, dtype=torch.uint8)
+            ns = (npad, npad - 1197, npad - 1100)
+        for q in (1, 33, 100, 256):
+            ql = lm[:q].contiguous()
+            for n in ns:
+                got = pq_kernel.pq_scores(ql, cm, n_valid=n, precision="int8")
+                want = pq_kernel.pq_scores_plain(ql, cm, n_valid=n, precision="int8")
+                torch.cuda.synchronize()
+                require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                        f"K8 4bit int8 m={m} Q={q} n_valid={n} equals plain to the bit")
+                cases += 1
+                del got, want
+    say("K8", f"4bit int8 on pq4_scores_ws_kernel at Q = 1, 33, 100 and 256, m = 8, 13 and "
+        f"192, n_valid whole, odd and a multiple of 4 not of 128: {cases} cases equal plain "
+        "to the bit")
+
+
 def pq_path(dev, smi, do_profile):
     """Path 3: PQ encode -> LUT -> fused search at 1M x 768 on the card,
     8-bit (m = 96) and 4-bit (m = 192), then OPQ -> f32 two-stage; every new
@@ -1662,6 +1730,8 @@ def pq_path(dev, smi, do_profile):
         err["pq_scores" + sfx] = 0.0
         say("K8", f"{label} pq_scores [{Q}, {PN}] x m={m}, int8 and bf16 LUT: equal to "
             "plain to the bit")
+        if label == "4bit":
+            hold_k8_onehot(lut, ct, dev)
         ids_all = torch.arange(PN, device=dev, dtype=torch.int32).expand(Q, PN)
         err["pq_search_exact" + sfx] = 0.0
         for p in ("int8", "bf16", "bf16x2"):
@@ -4580,9 +4650,10 @@ def sass_functions(build):
 SIGN_WS_ENTRIES = {f"bq_sign_approx_ws_kernel<TQ {tq}, n {n}>"
                    for tq in (64, 128) for n in (1, 2, 3, 4, 6, 8)}
 # The 4-bit int8 one-hot kernels with A in registers (pq4_mma_kernels.cu):
-# the approx kernel in both geometries (queries a block, m64 blocks a
-# warpgroup) and the exact queue kernel.
-ONEHOT_ENTRIES = {"pq4_approx_ws_kernel<128, 2>", "pq4_approx_ws_kernel<64, 4>",
+# the score matrix's and the approx kernel in both geometries (queries a
+# block, m64 blocks a warpgroup) and the exact queue kernel.
+ONEHOT_ENTRIES = {"pq4_scores_ws_kernel<128, 2>", "pq4_scores_ws_kernel<64, 4>",
+                  "pq4_approx_ws_kernel<128, 2>", "pq4_approx_ws_kernel<64, 4>",
                   "pq4_queue_kernel"}
 
 
@@ -4591,10 +4662,10 @@ def tensor_core_bodies(funcs):
     shared scan body (the scores_kernel, approx_ws_kernel, approx_parts_kernel,
     search_queue_kernel and search_exact_kernel
     instantiations: K3, the SQ
-    and BQ searches on both exact selects, and 4-bit int8-LUT PQ's K8 and
-    radix K7b on NibbleRows), in the one-hot kernels with A in registers
-    (pq4_approx_ws_kernel for K7a / K11, pq4_queue_kernel for K7b with the
-    queue select), in the bf16 one-hot K8
+    and BQ searches on both exact selects, and 4-bit int8-LUT PQ's radix K7b
+    on NibbleRows), in the one-hot kernels with A in registers
+    (pq4_scores_ws_kernel for K8, pq4_approx_ws_kernel for K7a / K11,
+    pq4_queue_kernel for K7b with the queue select), in the bf16 one-hot K8
     (pq4_bf16_scores_kernel, bf16 HGMMA) and in the BQ sign-query kernels
     (K6's bq_sign_scores_kernel, K5c's bq_sign_queue_kernel and
     bq_sign_exact_kernel, K5a / K10's bq_sign_approx_ws_kernel at both query
@@ -4614,6 +4685,8 @@ def tensor_core_bodies(funcs):
             found["pq4_bf16_scores_kernel"] = part.count("HGMMA")
         elif m := re.search(r"\dpq4_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", name):
             found[f"pq4_approx_ws_kernel<{m.group(1)}, {m.group(2)}>"] = part.count("GMMA")
+        elif m := re.search(r"\dpq4_scores_ws_kernelILi0ELi(\d+)ELi(\d+)E", name):
+            found[f"pq4_scores_ws_kernel<{m.group(1)}, {m.group(2)}>"] = part.count("GMMA")
         elif re.search(r"\dpq4_queue_kernelILb0E", name):
             found["pq4_queue_kernel"] = part.count("GMMA")
         elif m := re.search(r"\dbq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", name):
@@ -4622,7 +4695,7 @@ def tensor_core_bodies(funcs):
         elif m := re.search(r"\d(bq_sign_exact_kernel|bq_sign_queue_kernel|"
                             r"bq_sign_approx_kernel|bq_sign_scores_kernel)", name):
             found[m.group(1)] = part.count("BGMMA")
-    require(set(found) == {"scores_kernel<CodeRows>", "scores_kernel<NibbleRows>",
+    require(set(found) == {"scores_kernel<CodeRows>",
                            "approx_parts_kernel<CodeRows>", "approx_parts_kernel<PlaneRows>",
                            "approx_ws_kernel<CodeRows>",
                            "approx_ws_kernel<PlaneRows>", "search_exact_kernel<CodeRows>",
@@ -4760,7 +4833,8 @@ def approx_usage(log):
     """[(instantiation, registers, stack, spill stores, spill loads)] of the
     approx bodies' entry functions (approx_ws_kernel, approx_parts_kernel,
     the sign-query bq_sign_approx_ws_kernel and bq_sign_approx_kernel, the
-    one-hot pq4_approx_ws_kernel) and of the one-hot K7b's pq4_queue_kernel,
+    one-hot pq4_approx_ws_kernel) and of the one-hot K8's
+    pq4_scores_ws_kernel and K7b's pq4_queue_kernel,
     from the build's ptxas -v lines. The int8 and sign-query warp-specialized
     bodies' count is the launch's (168 a thread at 384 threads); at 128
     queries their consumers run on 224 and their producer on 56
@@ -4774,12 +4848,13 @@ def approx_usage(log):
             w = re.search(r"approx_parts_kernelINS_\d+(\w+?)ELb(\d)E", m.group(1))
             x = re.search(r"approx_ws_kernelINS_\d+(\w+?)ELb(\d)ELb(\d)ELi(\d+)E", m.group(1))
             y = re.search(r"bq_sign_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", m.group(1))
-            z = re.search(r"\dpq4_approx_ws_kernelILb0ELi(\d+)ELi(\d+)E", m.group(1))
+            z = re.search(r"\dpq4_(approx|scores)_ws_kernelIL[ib]0ELi(\d+)ELi(\d+)E",
+                          m.group(1))
             cur = (w and f"approx_parts_kernel<{w.group(1)}, kOnce {w.group(2)}>") or \
                   (x and f"approx_ws_kernel<{x.group(1)}, kOnce {x.group(2)}, TQ {x.group(4)}>") or \
                   (y and f"bq_sign_approx_ws_kernel<TQ {y.group(1)}, n {y.group(2)}>") or \
                   ("bq_sign_approx_kernel" if "bq_sign_approx_kernel" in m.group(1) else None) or \
-                  (z and f"pq4_approx_ws_kernel<{z.group(1)}, {z.group(2)}>") or \
+                  (z and f"pq4_{z.group(1)}_ws_kernel<{z.group(2)}, {z.group(3)}>") or \
                   ("pq4_queue_kernel" if re.search(r"\dpq4_queue_kernelILb0E", m.group(1))
                    else None)
             frame = (0, 0, 0)
@@ -4856,7 +4931,7 @@ def main():
                                 for k, (r, st, a, b) in sorted(usage.items()))
                       or "no ptxas log: the library was already built"))
     approx = approx_usage(info["log"])
-    say("build", "the approx bodies and the one-hot K7b (ptxas: registers, stack, spill "
+    say("build", "the approx bodies, the one-hot K8 and K7b (ptxas: registers, stack, spill "
         "stores / loads in bytes): " + (
             ", ".join(f"{k} {r}, {st}, {a} / {b}" for k, r, st, a, b in approx)
             or "no ptxas log: the library was already built"))

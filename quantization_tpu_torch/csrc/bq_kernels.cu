@@ -638,25 +638,6 @@ __global__ void __launch_bounds__(kWsThreads, 1) bq_sign_approx_ws_kernel(
 
 // ---------------------------------------------------------------- K6 scores
 
-// Bulk stores of shared memory to device memory (the async proxy): one
-// group a thread, committed and waited on by the thread that issued it.
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Returns once this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// Returns once this thread's bulk stores are done.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 // K6, the [Q, n_valid] score matrix, persistent: grid bpt * ceil(Q / 128),
 // block b holding query tile b % nqt (its qo taken once) and walking
 // segments b / nqt, + bpt, ..., two blocks a SM. Each 128-row segment's b1

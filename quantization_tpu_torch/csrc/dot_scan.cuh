@@ -1,10 +1,11 @@
 // The int8 scan body shared by sq_kernels.cu (K1-K3, K9a / K9b),
 // bq_kernels.cu (K5b and the value-query forms of K5a / K10) and
-// pq4_mma_kernels.cu (K8, and K7b above the queue select, with 4-bit codes
-// and the int8 LUT, as one-hot products; K7a / K11 and the queue K7b run
-// that file's kernels with the one-hot A operand built in registers, on
-// this file's walk, barriers and tensor maps), on the tensor cores: wgmma.mma_async m64n64k32
-// s32.s8.s8, both operands K-major in shared memory (mma_segment). The BQ
+// pq4_mma_kernels.cu (K7b above the queue select, with 4-bit codes and the
+// int8 LUT, as one-hot products; K8, K7a / K11 and the queue K7b run that
+// file's kernels with the one-hot A operand built in registers, on this
+// file's walk, barriers, tensor maps and bulk stores), on the tensor cores:
+// wgmma.mma_async m64n64k32 s32.s8.s8, both operands K-major in shared
+// memory (mma_segment). The BQ
 // sign-query kernels of bq_kernels.cu (K6, K5c, and K5a / K10 past their
 // warp-specialized body's fit) run the same body with the single-bit
 // product m64nNk256 b1.b1.and.popc (N = 64, or 32 for K5c's 32-query tile)
@@ -69,8 +70,9 @@
 // Tiles (Tile<TQ, S, blocks per SM>; H100: 227 KB of shared memory and 64K
 // registers a SM), with ptxas's counts (-Xptxas -v, printed by
 // chip_smoke.py):
-//   * scores_kernel, K3 (CodeRows) and K8 4-bit int8 (NibbleRows): TQ =
-//     128, a 96 KB ring, two blocks per SM; 108 / 94 registers, no spills.
+//   * scores_kernel, K3 (CodeRows; K8 4-bit int8 ran it on NibbleRows
+//     until pq4_mma_kernels.cu's pq4_scores_ws_kernel): TQ = 128, a 96 KB
+//     ring, two blocks per SM; 108 registers, no spills.
 //     The [128 query][128 row] int32 tile goes through the ring's memory
 //     after the scan, so whole output rows leave as coalesced (16-byte
 //     where n_valid % 4 == 0) stores (store_tile), with the epilogue
@@ -271,6 +273,26 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
       : "memory");
+}
+
+// Bulk stores of shared memory to device memory (the async proxy): one
+// group a thread, committed and waited on by the thread that issued it
+// (bq_kernels.cu's K6, pq4_mma_kernels.cu's K8 with the int8 LUT).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Returns once this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Returns once this thread's bulk stores are done.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators across
@@ -898,10 +920,12 @@ __device__ __forceinline__ void store_tile(const int* tile, ScoreOf score_of,
   }
 }
 
-// K3 (CodeRows, kOnce false: (mult * acc + qoff) + voff, step by step) and
-// K8 with the int8 LUT and 4-bit codes (NibbleRows, kOnce true: mult * acc
-// + qoff in f64 rounded once, with no row additive: voff is not read and may
-// be null, since x + 0.0 would turn a -0.0 into +0.0). grid ceil(n_valid /
+// K3 (CodeRows, kOnce false: (mult * acc + qoff) + voff, step by step);
+// kOnce true (mult * acc + qoff in f64 rounded once, with no row additive:
+// voff is not read and may be null, since x + 0.0 would turn a -0.0 into
+// +0.0) is K8's form on NibbleRows, which the library no longer launches
+// (pq4_mma_kernels.cu pq4_scores_ws_kernel) and the probe
+// csrc/probe/approx_split.cu times as the replaced kernel. grid ceil(n_valid /
 // 128) * ceil(Q / 128), the query tiles of a segment neighbours; out f32
 // [Q, n_valid]. The [128 query][128 row] int tile goes through the ring's
 // memory once the products are done, and leaves by store_tile.

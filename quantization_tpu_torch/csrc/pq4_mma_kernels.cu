@@ -1,9 +1,10 @@
 // 4-bit PQ on the tensor cores (sm_90a): with the int8 LUT, K8, K7a, K7b
-// and K11 as one-hot products, K8 and K7b past kk = 64 on the int8 scan body
-// of dot_scan.cuh, K7a / K11 and K7b up to kk = 64 on kernels of this file
-// that build the one-hot A operand in registers (pq4_approx_ws_kernel,
-// pq4_queue_kernel); with the bf16 LUT, K8 as one-hot bf16 products summed
-// on the CUDA cores in the plain version's order (qtt_pq4_mma_scores_bf16).
+// and K11 as one-hot products, K7b past kk = 64 on the int8 scan body of
+// dot_scan.cuh, K8, K7a / K11 and K7b up to kk = 64 on kernels of this file
+// that build the one-hot A operand in registers (pq4_scores_ws_kernel,
+// pq4_approx_ws_kernel, pq4_queue_kernel); with the bf16 LUT, K8 as one-hot
+// bf16 products summed on the CUDA cores in the plain version's order
+// (qtt_pq4_mma_scores_bf16).
 //
 // Replaces, for 4-bit codes (KC = 16) and the int8 LUT, the Pallas kernels of
 // quantization_tpu/ops/pallas/pq_kernel.py:
@@ -26,7 +27,7 @@
 // c]) on the MXU (pq_kernel.py:1-37), and so does this one, on wgmma:
 //   * A (corpus rows, the M side): the one-hot bytes of the transposed codes
 //     u8 [mpad, npad], 16 per chunk, expanded into shared memory by
-//     NibbleRows (K8, the radix K7b) or built in registers by OneHotI8Frag;
+//     NibbleRows (the radix K7b) or built in registers by OneHotI8Frag;
 //   * B (queries, the N side): the int8 LUT flattened to [Q, mpad * 16], zero
 //     past m (quantize_lut's entries, no transposition: the JAX package's
 //     lut_flat, pq_kernel.py:932-933). The depth D = mpad * 16 is a multiple
@@ -43,9 +44,9 @@
 //
 // What bounds them on the H100, at 1M rows, m = 192 and Q = 256: the
 // one-hot product is 2 * 256 * 1M * 3,072 = 1.57e12 int8 operations, 0.79 ms
-// at 1,979 TOPS; K8 also writes a 1 GB score matrix (0.30 ms at 3.35 TB/s).
-// K8 runs the K3 tile of dot_scan.cuh (128 queries a block, the int32 tile
-// staged through shared memory for coalesced row stores); K7a and K11
+// at 1,979 TOPS; K8 also writes a 1 GB score matrix (0.31 ms at 3.35 TB/s).
+// K8 runs pq4_scores_ws_kernel (persistent, its stores drained under the
+// products); K7a and K11
 // pq4_approx_ws_kernel over parts of SPAN * tile_n rows (SPAN * TILE_N =
 // 4096 dense: 32 segments), so that each part is one span block of the JAX
 // geometry and no combine pass follows; K7b the exact selects by kk
@@ -528,6 +529,113 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[TQ / 2], const uint32_t (&a)[4
   }
 }
 
+// The one-hot ring's barriers: stage s full on the producer's arrival with
+// the stage's bytes, empty on each consumer warpgroup's first thread.
+template <class G>
+__device__ __forceinline__ void onehot_init(const WsBars& bars) {
+  for (int s = 0; s < G::S; ++s) {
+    mbar_init(bars.full(0, s), 1);
+    mbar_init(bars.empty(0, s), 2);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// n stages a consumer warpgroup reads without products (warpgroup 1's first
+// lag, warpgroup 0's last lag), so that both release every stage.
+template <class G>
+__device__ __forceinline__ void onehot_idle(const WsBars& bars, bool lead, int n, int& s,
+                                            uint32_t& ph) {
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(bars.full(0, s), ph);
+    ws_bar_arrive_if(bars.empty(0, s), lead);
+    if (++s == G::S) s = 0, ph ^= 1u;
+  }
+}
+
+// The one-hot kernels' producer thread: fills the ring of G::S stages
+// (full / empty mbarriers of WsBars' ring 0) with the LUT block of depth
+// slice j (two boxes of [TQ queries][128 B] in the 128-byte swizzle, zero
+// past Q; the slices cycle 0 .. nk - 1) and, for each consumer warpgroup, a
+// box of codes [16 chunks][64 rows] at slice j of each segment of its unit
+// (rows through map); warpgroup 1 walks the same units lag stages behind.
+template <class G, class Walk>
+__device__ __forceinline__ void onehot_produce(const WsBars& bars, uint32_t s0,
+                                               const CUtensorMap* lmap, const CUtensorMap* cmap,
+                                               Walk w0, int nk, int lag, int q0,
+                                               const ScanMap& map) {
+  constexpr int TQ = G::TQ, NB = G::NB;
+  Walk w1 = w0;  // warpgroup 1's units
+  int s = 0, j = 0;
+  uint32_t ph = 0;
+  for (int p = 0;; ++p) {
+    const bool a0 = !w0.done(), a1 = p >= lag && !w1.done();
+    if (!a0 && !a1) break;
+    mbar_wait(bars.empty(0, s), ph ^ 1u);
+    int boxes = 0;
+#pragma unroll
+    for (int h = 0; h < NB; ++h) boxes += (a0 && w0.seg(h) < w0.ns) + (a1 && w1.seg(h) < w1.ns);
+    const uint32_t st = s0 + s * G::kStage, full = bars.full(0, s);
+    mbar_expect_tx(full, G::kLut + boxes * kOhBox);
+    tma_load_2d(st, lmap, j * kOhKS, q0, full);
+    tma_load_2d(st + TQ * kDK, lmap, j * kOhKS + kDK, q0, full);
+    // Warpgroup g's code boxes: segment h's rows 64g .. 64g + 63, chunks
+    // 16 j .. 16 j + 15, at st + kLut + (NB g + h) kOhBox.
+    auto codes = [&](Walk& w, int g, int js) {
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+        if (w.seg(h) < w.ns)
+          tma_load_2d(st + G::kLut + (NB * g + h) * kOhBox, cmap,
+                      (int)map.row(w.comp() + kSeg * h) + 64 * g, 16 * j, full);
+      if (js == nk - 1) w.next();
+    };
+    if (a0) codes(w0, 0, j);
+    if (a1) codes(w1, 1, j >= lag ? j - lag : j - lag + nk);
+    if (++s == G::S) s = 0, ph ^= 1u;
+    if (++j == nk) j = 0;
+  }
+}
+
+// A consumer warpgroup's products of one unit: nk ring stages from (s, ph)
+// on, against each stage's LUT block NB m64 blocks (the warpgroup's 64 rows
+// of each of the unit's segments) with A built in registers. Each block's
+// product is a commit group of its own, so a block's fragment is rebuilt
+// for the next step while the other blocks' products run (one fragment
+// set); every stage's products are waited for before the stage is
+// released and the next one waited on (ptxas serializes every product,
+// C7513, where products stay in flight across the barrier's wait loop).
+template <class G>
+__device__ __forceinline__ void onehot_unit(int (&acc)[G::NB][G::TQ / 2],
+                                            uint32_t (&af)[G::NB][4], const OneHotI8Frag& frag,
+                                            const WsBars& bars, uint32_t s0,
+                                            const uint8_t* smem, int g, bool lead, int nk,
+                                            int& s, uint32_t& ph) {
+  constexpr int TQ = G::TQ, NB = G::NB;
+  for (int js = 0; js < nk; ++js) {
+    mbar_wait(bars.full(0, s), ph);
+    const uint64_t db = wgmma_desc(s0 + s * G::kStage);
+    const uint8_t* codes = smem + s * G::kStage + G::kLut + NB * g * kOhBox;
+#pragma unroll
+    for (int k = 0; k < kOhSteps; ++k) {
+      const uint64_t b = db + (uint64_t)((k >> 2) * (TQ * kDK) >> 4) + 2 * (k & 3);
+#pragma unroll
+      for (int h = 0; h < NB; ++h) {
+        // Block h's product of the step before is done (NB - 1 later
+        // groups may be pending): its fragment is free.
+        wgmma_wait<NB - 1>();
+        frag.build(frag.load(codes + h * kOhBox, 2 * k, 64), af[h]);
+        wgmma_fence();  // the fragment's register writes come first
+        wgmma_rs<TQ>(acc[h], af[h], b, js + k);  // scale-d 0: the unit's first step
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();  // the stage's products are done: it is free
+    ws_bar_arrive_if(bars.empty(0, s), lead);
+    if (++s == G::S) s = 0, ph ^= 1u;
+  }
+#pragma unroll
+  for (int h = 0; h < NB; ++h) fence_acc(acc[h]);
+}
+
 // pq4_approx_ws_kernel: pass 1 of K7a (dense) and K11 (a tile selection)
 // with 4-bit codes and the int8 LUT, approx_parts_kernel<NibbleRows>'s output
 // to the bit: per (query, stride class) of each item of part rows (a whole
@@ -585,49 +693,14 @@ __global__ void __launch_bounds__(kWsThreads, 1) pq4_approx_ws_kernel(
   const int nk = D / kOhKS;  // stages a unit
   const int lag = min(min(nk / 2, G::S - 2), kOhLag);
   const int q0 = (int)(blockIdx.x % ((Q + TQ - 1) / TQ)) * TQ;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < G::S; ++s) {
-      mbar_init(bars.full(0, s), 1);   // the producer's arrival, with the stage's bytes
-      mbar_init(bars.empty(0, s), 2);  // each consumer warpgroup's first thread
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) onehot_init<G>(bars);
   __syncthreads();
 
   if (threadIdx.x >= kThreads) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x != kThreads) return;
-    const CUtensorMap *lmap = &lut_map, *cmap = &codes_map;
-    Walk w0(Q, ncomp, part), w1 = w0;  // warpgroup 0's and 1's units
-    int s = 0, j = 0;
-    uint32_t ph = 0;
-    for (int p = 0;; ++p) {
-      const bool a0 = !w0.done(), a1 = p >= lag && !w1.done();
-      if (!a0 && !a1) break;
-      mbar_wait(bars.empty(0, s), ph ^ 1u);
-      int boxes = 0;
-#pragma unroll
-      for (int h = 0; h < NB; ++h) boxes += (a0 && w0.seg(h) < w0.ns) + (a1 && w1.seg(h) < w1.ns);
-      const uint32_t st = s0 + s * G::kStage, full = bars.full(0, s);
-      mbar_expect_tx(full, G::kLut + boxes * kOhBox);
-      tma_load_2d(st, lmap, j * kOhKS, q0, full);
-      tma_load_2d(st + TQ * kDK, lmap, j * kOhKS + kDK, q0, full);
-      // Warpgroup g's code boxes: segment h's rows 64g .. 64g + 63, chunks
-      // 16 j .. 16 j + 15, at st + kLut + (NB g + h) kOhBox.
-      auto codes = [&](Walk& w, int g, int js) {
-#pragma unroll
-        for (int h = 0; h < NB; ++h)
-          if (w.seg(h) < w.ns)
-            tma_load_2d(st + G::kLut + (NB * g + h) * kOhBox, cmap,
-                        (int)map.row(w.comp() + kSeg * h) + 64 * g, 16 * j, full);
-        if (js == nk - 1) w.next();
-      };
-      if (a0) codes(w0, 0, j);
-      if (a1) codes(w1, 1, j >= lag ? j - lag : j - lag + nk);
-      if (++s == G::S) s = 0, ph ^= 1u;
-      if (++j == nk) j = 0;
-    }
+    onehot_produce<G>(bars, s0, &lut_map, &codes_map, Walk(Q, ncomp, part), nk, lag, q0, map);
     return;
   }
 
@@ -659,16 +732,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) pq4_approx_ws_kernel(
   reset();
   int s = 0;
   uint32_t ph = 0;
-  // Stages this warpgroup reads without products (warpgroup 1's first lag,
-  // warpgroup 0's last lag), so that both release every stage.
-  auto idle = [&](int n) {
-    for (int i = 0; i < n; ++i) {
-      mbar_wait(bars.full(0, s), ph);
-      ws_bar_arrive_if(bars.empty(0, s), lead);
-      if (++s == G::S) s = 0, ph ^= 1u;
-    }
-  };
-  if (g == 1) idle(lag);
+  if (g == 1) onehot_idle<G>(bars, lead, lag, s, ph);  // warpgroup 1 starts lag behind
   int acc[NB][kAcc];
   uint32_t af[NB][4];
 #pragma unroll
@@ -677,30 +741,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) pq4_approx_ws_kernel(
     for (int e = 0; e < kAcc; ++e) acc[h][e] = 0;
   }
   for (Walk w(Q, ncomp, part); !w.done(); w.next()) {
-    for (int js = 0; js < nk; ++js) {
-      mbar_wait(bars.full(0, s), ph);
-      const uint64_t db = wgmma_desc(s0 + s * G::kStage);
-      const uint8_t* codes = smem + s * G::kStage + G::kLut + NB * g * kOhBox;
-#pragma unroll
-      for (int k = 0; k < kOhSteps; ++k) {
-        const uint64_t b = db + (uint64_t)((k >> 2) * (TQ * kDK) >> 4) + 2 * (k & 3);
-#pragma unroll
-        for (int h = 0; h < NB; ++h) {
-          // Block h's product of the step before is done (NB - 1 later
-          // groups may be pending): its fragment is free.
-          wgmma_wait<NB - 1>();
-          frag.build(frag.load(codes + h * kOhBox, 2 * k, 64), af[h]);
-          wgmma_fence();  // the fragment's register writes come first
-          wgmma_rs<TQ>(acc[h], af[h], b, js + k);  // scale-d 0: the unit's first step
-          wgmma_commit();
-        }
-      }
-      wgmma_wait<0>();  // the stage's products are done: it is free
-      ws_bar_arrive_if(bars.empty(0, s), lead);
-      if (++s == G::S) s = 0, ph ^= 1u;
-    }
-#pragma unroll
-    for (int h = 0; h < NB; ++h) fence_acc(acc[h]);
+    onehot_unit<G>(acc, af, frag, bars, s0, smem, g, lead, nk, s, ph);
     if constexpr (kScan) {
 #pragma unroll
       for (int h = 0; h < NB; ++h)
@@ -769,28 +810,37 @@ __global__ void __launch_bounds__(kWsThreads, 1) pq4_approx_ws_kernel(
       reset();
     }
   }
-  if (g == 0) idle(lag);
+  if (g == 0) onehot_idle<G>(bars, lead, lag, s, ph);  // warpgroup 0 ends lag ahead
+}
+
+// The tensor maps of the warp-specialized one-hot kernels, made per launch:
+// the int8 LUT [Q, D] in boxes of [TQ queries][128 B] in the 128-byte
+// swizzle (zero past Q), the codes u8 [D / 16, npad] in boxes of [16
+// chunks][64 rows].
+cudaError_t onehot_maps(CUtensorMap* lut_map, CUtensorMap* codes_map, const void* lutq,
+                        const void* codes_t, long long npad, int Q, int D, int TQ) {
+  if (D % kOhKS || npad > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = tensor_map_2d(lut_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, lutq,
+                                        (unsigned long long)D, (unsigned long long)Q,
+                                        (unsigned long long)D, kDK, TQ, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  return tensor_map_2d(codes_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes_t, (unsigned long long)npad,
+                       (unsigned long long)(D / 16), (unsigned long long)npad, 64, kOhKS / 16,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // pq4_approx_ws_kernel's launch (ws_grid): part rows an item, a whole span
 // block (its maxima are the candidates), whole units whose segment numbers
-// fit a byte; the LUT's and the codes' tensor maps made per launch.
+// fit a byte.
 template <bool kScan, int TQ, int NB>
 cudaError_t launch_onehot_approx_g(const void* codes_t, long long npad, const void* lutq,
                                    const void* bias, const void* scale, const void* voff,
                                    void* part_v, void* part_i, int Q, int ncomp, int n_valid,
                                    int D, int part, ScanMap map, cudaStream_t s) {
   using G = OhGeom<TQ, NB>;
-  if (part % (NB * kSeg) || part / kSeg > 255 || D % kOhKS || npad > INT_MAX)
-    return cudaErrorInvalidValue;
+  if (part % (NB * kSeg) || part / kSeg > 255) return cudaErrorInvalidValue;
   CUtensorMap lut_map, codes_map;
-  cudaError_t err = tensor_map_2d(&lut_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, lutq,
-                                  (unsigned long long)D, (unsigned long long)Q,
-                                  (unsigned long long)D, kDK, TQ, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess)
-    err = tensor_map_2d(&codes_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes_t,
-                        (unsigned long long)npad, (unsigned long long)(D / 16),
-                        (unsigned long long)npad, 64, kOhKS / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
+  cudaError_t err = onehot_maps(&lut_map, &codes_map, lutq, codes_t, npad, Q, D, TQ);
   auto* kernel = pq4_approx_ws_kernel<kScan, TQ, NB>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
@@ -821,6 +871,272 @@ cudaError_t launch_onehot_approx(const void* codes_t, long long npad, const void
                 : launch_onehot_approx_g<kScan, 64, 4>(codes_t, npad, lutq, bias, scale, voff,
                                                        part_v, part_i, Q, ncomp, n_valid, D, part,
                                                        map, s);
+}
+
+// ------------------------------------------------ K8 with the int8 LUT
+// pq4_scores_ws_kernel: the [Q, n_valid] score matrix of 4-bit codes with
+// the int8 LUT, score[q, n] = f32(f64(scale[q]) * sum_c lutq[q, c, code(n,
+// c)] + f64(bias[q])) rounded once (ROADMAP F14), no row additive: the
+// plain version's (pq_kernel.py pq_scores_plain) to the bit, as the sum is
+// exact. It replaced scores_kernel<NibbleRows> (the K3 tile of dot_scan.cuh:
+// a block a 128-row segment and 128 queries, the one-hot rows expanded into
+// shared memory once a query tile, every block reading its queries' whole
+// LUT from L2, its int tile stored only after the products), which ran
+// 2.03-2.05 ms at 1M rows x 192 chunks, Q = 256 (its products alone 1.09,
+// the expansion alone 0.71, its epilogue and stores alone 0.95), against
+// the one-hot product's bound of 0.79 ms (NVIDIA H100 80GB HBM3, 700 W;
+// csrc/probe/scores_split.cu, PERF.md).
+//
+// The walk, the ring and the products are pq4_approx_ws_kernel's: 384
+// threads, one block a SM, persistent over units of NB segments of its
+// query tile (OhWalk with part = NB segments: an item is one unit); a
+// producer thread fills the ring of G::S stages by TMA (the LUT block of a
+// depth slice, TQ queries x 256 bytes in the 128-byte swizzle, and each
+// consumer warpgroup's NB code boxes); consumer warpgroup g takes rows 64g
+// .. 64g + 63 of each of the unit's segments, NB m64 blocks with A built
+// in registers (OneHotI8Frag: no one-hot byte is written to shared memory),
+// so 128 NB rows share each LUT stage; warpgroup 1 runs up to kOhLag stages
+// behind warpgroup 0, so one's epilogue runs under the other's products;
+// every stage's products are waited for before the next stage's barrier
+// (C7513: products in flight across the wait loop are serialized).
+//
+// The epilogue: with no maxima a consumer holds only its accumulators and
+// fragments. Each block's scores go, 64 queries at a time, into one of the
+// warpgroup's two staging tiles, which are the boxes of a tensor map over
+// out ([64 queries][32 rows] f32, two a tile, in the 128-byte swizzle: a
+// thread's float2 of its two rows, and a half-warp's 16 of them, fall on
+// distinct banks). One thread of the warpgroup stores a tile with two TMA
+// tensor stores (cp.async.bulk.tensor, which write no element past Q or
+// n_valid) and, before the tile is rewritten two tiles later, waits for
+// them to have read it. The stores drain while the warpgroup writes its
+// other tile and while both warpgroups run the next unit's products. A tile
+// covers one warpgroup's 64 rows, not a whole segment: the warpgroups run
+// apart, and a shared tile would make each wait for the other. Where
+// n_valid % 4 != 0 (the rows of out are not 16-byte strided, as a tensor
+// map needs) the warpgroup's warps store the tile, a query row a warp at a
+// time, up to n_valid. Measured against the other stores, at Q = 256 (the
+// same card and call): one 256-byte bulk store a query row and thread,
+// 1.4509 ms (1.4407 without waiting for the reads); each thread's float2
+// stores from its registers, 1.3107; the tensor stores 1.2806.
+//
+// What bounds it on the H100, at 1M rows, m = 192, Q = 256: the one-hot
+// product, 2 * 256 * 1M * 3,072 = 1.57e12 int8 operations, 0.79 ms at
+// 1,979 TOPS; the 1 GB score matrix, 0.31 ms at 3.35 TB/s, drains under the
+// products. The LUT's L2 reads fall with the rows a stage: N Q 3,072 / (128
+// NB) = 3.1 GB at 256 rows a stage (TQ = 128), against 6.3 GB for the
+// replaced kernel.
+//
+// Forms (kForm): the kernel (kOsFull); the products alone, each accumulator
+// folded into a register (kOsScan); the products and the epilogue into the
+// staging tiles with no store (kOsTile). The last two are timing probes
+// (csrc/probe/scores_split.cu) whose results are wrong.
+constexpr int kOsFull = 0, kOsScan = 1, kOsTile = 2;
+constexpr int kOsBox = 64 * 128;        // a box: [64 queries][32 rows] f32, 128-byte swizzled
+constexpr int kOsTileBytes = 2 * kOsBox;  // a staging tile: 64 queries x 64 rows
+
+// A tensor store of the box at src (tensor_map_2d's layout) to element (x,
+// y) of the map, in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+// Returns once at most one of this thread's bulk groups has not read its
+// shared memory.
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// Byte offset of (query i, row r) in a staging tile: box r / 32, 16-byte
+// piece (r % 32) / 4 of row i at piece ^ (i % 8).
+__device__ __forceinline__ int os_at(int i, int r) {
+  return (r >> 5) * kOsBox + i * 128 + ((((r & 31) >> 2) ^ (i & 7)) << 4) + (r & 3) * 4;
+}
+
+// pq4_scores_ws_kernel's geometry: TQ queries a block, NB m64 blocks a
+// consumer warpgroup, and the shared memory from the 1024-aligned base: S
+// ring stages (OhGeom's stage), the four staging tiles (warpgroup g's tile b at
+// (2g + b) kOsTileBytes, 1024-aligned as the swizzle needs), qm / qo f64
+// [TQ], the barriers; S as many as fit, at most kWsMaxStages.
+template <int TQ_, int NB_>
+struct OsGeom {
+  static constexpr int TQ = TQ_, NB = NB_, kAcc = TQ / 2;
+  static constexpr int kLut = OhGeom<TQ, NB>::kLut, kStage = OhGeom<TQ, NB>::kStage;
+  static constexpr int kFixed = 4 * kOsTileBytes + 2 * TQ * 8 + kWsBarBytes;
+  static constexpr int kRoom = (kWsSmem - kAlign - kFixed) / kStage;
+  static constexpr int S = kRoom < kWsMaxStages ? kRoom : kWsMaxStages;
+  static constexpr int kTileOff = S * kStage;
+  static constexpr int kQpOff = kTileOff + 4 * kOsTileBytes;
+  static constexpr int kBarOff = kQpOff + 2 * TQ * 8;
+  static constexpr int kSmem = kAlign + kBarOff + kWsBarBytes;
+  static_assert(S >= 3 && kSmem <= kWsSmem && kTileOff % 1024 == 0,
+                "three stages beside the staging tiles");
+};
+
+// grid: ws_grid over units of NB segments; out f32 [Q, n_valid], 16-byte
+// aligned, and out_map its tensor map where n_valid % 4 == 0 (kOsScan: out
+// [grid][256] words).
+template <int kForm, int TQ, int NB>
+__global__ void __launch_bounds__(kWsThreads, 1) pq4_scores_ws_kernel(
+    const __grid_constant__ CUtensorMap lut_map, const __grid_constant__ CUtensorMap codes_map,
+    const __grid_constant__ CUtensorMap out_map, const float* __restrict__ bias,
+    const float* __restrict__ scale, float* __restrict__ out, int Q, int n_valid, int D) {
+  using G = OsGeom<TQ, NB>;
+  using Walk = OhWalk<TQ, NB>;
+  constexpr int kAcc = G::kAcc, kPart = NB * kSeg;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t s0 = smem_addr(smem);
+  const WsBars bars{s0 + G::kBarOff};  // full(0, s) and empty(0, s): the ring's stage s
+  double* qm = reinterpret_cast<double*>(smem + G::kQpOff);
+  double* qo = qm + TQ;
+  const int nk = D / kOhKS;  // stages a unit
+  const int lag = min(min(nk / 2, G::S - 2), kOhLag);
+  const int q0 = (int)(blockIdx.x % ((Q + TQ - 1) / TQ)) * TQ;
+  if (threadIdx.x == 0) onehot_init<G>(bars);
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != kThreads) return;
+    onehot_produce<G>(bars, s0, &lut_map, &codes_map, Walk(Q, n_valid, kPart), nk, lag, q0,
+                      ScanMap{});
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const bool lead = wt == 0;  // arrives on the ring's barriers, issues the tensor stores
+  for (int i = threadIdx.x; i < TQ; i += kThreads) {
+    const int q = min(q0 + i, Q - 1);
+    qm[i] = scale[q];
+    qo[i] = bias[q];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers' qm / qo
+  const OneHotI8Frag frag;
+  const int r0 = (int)frag.src;  // its rows of the warpgroup's 64: r0 (e & 2 == 0), r0 + 1
+  uint8_t* tiles = smem + G::kTileOff + 2 * g * kOsTileBytes;
+  const bool tma = (n_valid & 3) == 0;
+  int tb = 0;  // the tile the next 64 queries go to
+  unsigned fold = 0;
+  int s = 0;
+  uint32_t ph = 0;
+  if (g == 1) onehot_idle<G>(bars, lead, lag, s, ph);  // warpgroup 1 starts lag behind
+  int acc[NB][kAcc];
+  uint32_t af[NB][4];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[h][e] = 0;
+  }
+  for (Walk w(Q, n_valid, kPart); !w.done(); w.next()) {
+    onehot_unit<G>(acc, af, frag, bars, s0, smem, g, lead, nk, s, ph);
+    if constexpr (kForm == kOsScan) {
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+#pragma unroll
+        for (int e = 0; e < kAcc; ++e) fold ^= (unsigned)acc[h][e];
+    } else {
+      // Block h's rows r0 and r0 + 1 (e & 2) of the warpgroup's 64, 64
+      // queries at a time: elements 32x .. 32x + 31 are queries 64x + j, j =
+      // 8i + 2 (lane % 4) + (e & 1), i < 8.
+#pragma unroll
+      for (int h = 0; h < NB; ++h) {
+        const long long row = w.comp() + kSeg * h + 64 * g;  // the block's first row
+        if (w.seg(h) >= w.ns || row >= n_valid) break;
+#pragma unroll
+        for (int x = 0; x < TQ / 64; ++x) {
+          const int hq0 = q0 + 64 * x;
+          if (hq0 >= Q) break;
+          uint8_t* tile = tiles + tb * kOsTileBytes;
+          // The tile's stores of two tiles ago have read it.
+          if (kForm == kOsFull && tma && lead) bulk_wait_read1();
+          asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");  // the tile is free
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int e = 32 * x + 4 * i, j = frag_col(e), jj = j - 64 * x;
+            const double m0 = qm[j], m1 = qm[j + 1], o0 = qo[j], o1 = qo[j + 1];
+            *reinterpret_cast<float2*>(tile + os_at(jj, r0)) = make_float2(
+                affine_once(m0, acc[h][e], o0), affine_once(m0, acc[h][e + 2], o0));
+            *reinterpret_cast<float2*>(tile + os_at(jj + 1, r0)) = make_float2(
+                affine_once(m1, acc[h][e + 1], o1), affine_once(m1, acc[h][e + 3], o1));
+          }
+          if (kForm == kOsFull && tma) fence_proxy_async();  // seen by the tensor stores
+          asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
+          if constexpr (kForm == kOsFull) {
+            if (tma) {
+              if (lead) {
+                tma_store_2d(&out_map, smem_addr(tile), (int)row, hq0);
+                if (row + 32 < n_valid)
+                  tma_store_2d(&out_map, smem_addr(tile + kOsBox), (int)row + 32, hq0);
+                bulk_commit();
+              }
+            } else {
+              const int cnt = (int)min(64LL, (long long)n_valid - row);  // its valid rows
+              const int lane = wt & 31;
+              for (int i = wt >> 5; i < 64 && hq0 + i < Q; i += 4) {
+                float* o = out + (long long)(hq0 + i) * n_valid + row;
+                for (int c = lane; c < cnt; c += 32)
+                  o[c] = *reinterpret_cast<const float*>(tile + os_at(i, c));
+              }
+            }
+          }
+          tb ^= 1;
+        }
+      }
+    }
+  }
+  if (g == 0) onehot_idle<G>(bars, lead, lag, s, ph);  // warpgroup 0 ends lag ahead
+  if constexpr (kForm == kOsFull) {
+    if (tma && lead) bulk_wait();  // the stores are done before the block's memory goes
+  } else if constexpr (kForm == kOsScan) {
+    out[(long long)blockIdx.x * kThreads + threadIdx.x] = __uint_as_float(fold);
+  }
+}
+
+// pq4_scores_ws_kernel's launch (ws_grid over units of NB segments); out's
+// tensor map (boxes of [64 queries][32 rows]) where n_valid % 4 == 0.
+template <int kForm, int TQ, int NB>
+cudaError_t launch_onehot_scores_g(const void* codes_t, long long npad, const void* lutq,
+                                   const void* bias, const void* scale, void* out, int Q,
+                                   int n_valid, int D, cudaStream_t s) {
+  using G = OsGeom<TQ, NB>;
+  CUtensorMap lut_map, codes_map, out_map{};
+  cudaError_t err = onehot_maps(&lut_map, &codes_map, lutq, codes_t, npad, Q, D, TQ);
+  if (err == cudaSuccess && kForm == kOsFull && n_valid % 4 == 0)
+    err = tensor_map_2d(&out_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out,
+                        (unsigned long long)n_valid, (unsigned long long)Q,
+                        (unsigned long long)n_valid * 4, 32, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  auto* kernel = pq4_scores_ws_kernel<kForm, TQ, NB>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = ws_grid(Q, TQ, n_valid, NB * kSeg, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWsThreads, G::kSmem, s>>>(lut_map, codes_map, out_map,
+                                            static_cast<const float*>(bias),
+                                            static_cast<const float*>(scale),
+                                            static_cast<float*>(out), Q, n_valid, D);
+  return cudaGetLastError();
+}
+
+// The geometry by Q, as launch_onehot_approx picks it: 128 queries and two
+// m64 blocks a warpgroup (256 rows a LUT stage), or where Q <= 64 64 queries
+// and four blocks (512 rows a stage). At 1M rows x 192 chunks, Q = 32, the
+// kernel ran 0.4671 ms at 64 x 4 against 0.5779 at 128 x 2 (NVIDIA H100
+// 80GB HBM3, 700 W; csrc/probe/scores_split.cu).
+template <int kForm>
+cudaError_t launch_onehot_scores(const void* codes_t, long long npad, const void* lutq,
+                                 const void* bias, const void* scale, void* out, int Q,
+                                 int n_valid, int D, cudaStream_t s) {
+  return Q > 64 ? launch_onehot_scores_g<kForm, 128, 2>(codes_t, npad, lutq, bias, scale, out, Q,
+                                                        n_valid, D, s)
+                : launch_onehot_scores_g<kForm, 64, 4>(codes_t, npad, lutq, bias, scale, out, Q,
+                                                       n_valid, D, s);
 }
 
 // pq4_queue_kernel: K7b with 4-bit codes and the int8 LUT on the queue
@@ -1002,9 +1318,9 @@ extern "C" {
 int qtt_pq4_mma_scores(const void* lutq, const void* scale, const void* bias,
                        const void* codes_t, void* out, int Q, int mpad, long long npad,
                        int n_valid, void* stream) {
-  return static_cast<int>(launch_mma_scores<NibbleRows, true>(
-      codes_t, npad, lutq, bias, scale, nullptr, out, Q, n_valid, mpad * 16, 1,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_onehot_scores<kOsFull>(codes_t, npad, lutq, bias, scale, out, Q,
+                                                        n_valid, mpad * 16,
+                                                        static_cast<cudaStream_t>(stream)));
 }
 
 int qtt_pq4_mma_search_approx(const void* lutq, const void* scale, const void* bias,

@@ -9,7 +9,8 @@
 // way, against bq_sign_approx_kernel (2048-row parts and the combine, the
 // reference); and for 4-bit int8 K7a, pq4_mma_kernels.cu's
 // pq4_approx_ws_kernel against approx_parts_kernel<NibbleRows>, whose scan
-// it also splits into the one-hot expansion and the products. Seven
+// it also splits into the one-hot expansion and the products (the 4-bit
+// int8 score matrix K8 has a probe of its own, scores_split.cu). Seven
 // searches:
 //   * K9a: 256 of 1,152 tiles of 1024 rows of 768-byte SQ codes, Q = 256
 //     (CodeRows, the step-by-step epilogue; scan_ab.py's shape);
@@ -45,32 +46,9 @@
 
 #include "../bq_kernels.cu"       // the sign-query kernels, and dot_scan.cuh
 #include "../pq4_mma_kernels.cu"  // the 4-bit int8 one-hot PQ searches
+#include "probe_common.cuh"       // operands, timing, the one-hot split's pieces
 
 namespace {
-
-// Fills n bytes with a hash of their index, masked.
-__global__ void fill_kernel(uint8_t* p, long long n, unsigned mask, unsigned seed) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    unsigned h = (unsigned)i * 2654435761u ^ seed;
-    h ^= h >> 15;
-    h *= 2246822519u;
-    h ^= h >> 13;
-    p[i] = (uint8_t)(h & mask);
-  }
-}
-
-// f32 values in [lo, lo + span) from a hash of their index.
-__global__ void fill_f32(float* p, long long n, float lo, float span, unsigned seed) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    unsigned h = (unsigned)i * 2654435761u ^ seed;
-    h ^= h >> 15;
-    h *= 2246822519u;
-    h ^= h >> 13;
-    p[i] = lo + span * (float)(h >> 8) * (1.0f / 16777216.0f);
-  }
-}
 
 // approx_parts_kernel's scan alone: its loop over its part's segments
 // (mma_segment), each accumulator folded into a register.
@@ -119,90 +97,6 @@ __global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) sign_parts_scan
     for (int e = 0; e < 32; ++e) fold ^= (unsigned)acc[0][e];
   }
   out[(long long)blockIdx.x * kThreads + threadIdx.x] = fold;
-}
-
-// The one-hot split of approx_parts_kernel<NibbleRows> (4-bit int8 K7a's
-// body before its warp-specialized one): NibbleRows with its loads and
-// one-hot stores taken out, so the products read the A tiles as they stand
-// (the products alone; wrong results).
-struct NibbleProducts {
-  static constexpr bool kBits = false;
-  using Elem = uint8_t;
-  struct Pending {};
-  const uint8_t* codes_t;
-  long long npad;
-  __device__ __forceinline__ void prefetch(Pending&, long long, int) const {}
-  __device__ __forceinline__ void issue(uint32_t, long long, int) const {}
-  __device__ __forceinline__ void put(uint32_t, const Pending&) const {}
-};
-
-// The expansion alone: mma_segment's walk over a part's segments with the
-// codes' loads and one-hot stores (NibbleRows) and its barriers, no LUT
-// copies and no products.
-__global__ void __launch_bounds__(kThreads, ApproxTile::kBlocks) onehot_expand_kernel(
-    const uint8_t* __restrict__ codes_t, long long npad, unsigned* __restrict__ out, int Q,
-    int ncomp, int D, int part) {
-  using T = ApproxTile;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t ring = smem_addr(smem);
-  const NibbleRows rows{codes_t, npad};
-  const int nqt = (Q + T::TQ - 1) / T::TQ, nk = D / kDK;
-  const long long start = (long long)(blockIdx.x / nqt) * part;
-  for (int off = 0; off < part && start + off < ncomp; off += kSeg) {
-    const long long row0 = start + off;
-    __syncthreads();
-    NibbleRows::Pending p;
-#pragma unroll
-    for (int s = 0; s < T::S - 1; ++s) {
-      if (s < nk) {
-        rows.prefetch(p, row0, s * kDK);
-        rows.put(ring + s * T::kStage, p);
-      }
-    }
-    if (T::S - 1 < nk) rows.prefetch(p, row0, (T::S - 1) * kDK);
-    for (int c = 0; c < nk; ++c) {
-      fence_proxy_async();
-      __syncthreads();
-      const int nc = c + T::S - 1;
-      if (nc < nk) rows.put(ring + (nc % T::S) * T::kStage, p);
-      if (nc + 1 < nk) rows.prefetch(p, row0, (nc + 1) * kDK);
-    }
-  }
-  __syncthreads();
-  out[(long long)blockIdx.x * kThreads + threadIdx.x] =
-      reinterpret_cast<const unsigned*>(smem)[threadIdx.x];
-}
-
-template <class Launch>
-float time_ms(Launch launch) {
-  for (int i = 0; i < 3; ++i) launch();
-  cudaEvent_t e0, e1;
-  cudaEventCreate(&e0);
-  cudaEventCreate(&e1);
-  std::vector<float> runs;
-  for (int run = 0; run < 7; ++run) {
-    cudaEventRecord(e0);
-    for (int i = 0; i < 10; ++i) launch();
-    cudaEventRecord(e1);
-    cudaEventSynchronize(e1);
-    float ms = 0.f;
-    cudaEventElapsedTime(&ms, e0, e1);
-    runs.push_back(ms / 10);
-  }
-  cudaEventDestroy(e0);
-  cudaEventDestroy(e1);
-  std::sort(runs.begin(), runs.end());
-  return runs[runs.size() / 2];
-}
-
-bool ok(const char* what) {
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) {
-    fprintf(stderr, "approx_split: %s: %s\n", what, cudaGetErrorString(err));
-    return false;
-  }
-  return true;
 }
 
 // Pass 1 of one search on approx_parts_kernel at part rows an item, its
@@ -484,8 +378,8 @@ bool split_onehot() {
                        (int)ssmem);
   cudaFuncSetAttribute(parts_scan_kernel<NibbleProducts>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ssmem);
-  cudaFuncSetAttribute(onehot_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)ssmem);
+  cudaFuncSetAttribute(onehot_expand_kernel<ApproxTile>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ssmem);
   const unsigned grid = (unsigned)(nparts * nqt);
   const float sc = time_ms([&] {
     parts_scan_kernel<NibbleRows><<<grid, kThreads, ssmem>>>(codes, npad, lut, fold, Q, (int)npad,
@@ -496,7 +390,8 @@ bool split_onehot() {
                                                                  (int)npad, D, part, dense);
   });
   const float ex = time_ms([&] {
-    onehot_expand_kernel<<<grid, kThreads, ssmem>>>(codes, npad, fold, Q, (int)npad, D, part);
+    onehot_expand_kernel<ApproxTile><<<grid, kThreads, ssmem>>>(codes, npad, fold, Q, (int)npad,
+                                                                D, part);
   });
   good &= ok("one-hot scan splits") && cudaDeviceSynchronize() == cudaSuccess;
   printf("{\"probe\": \"approx_split\", \"kernel\": \"pq_search_approx_4bit\", "

@@ -41,10 +41,12 @@ package does before its ``pallas_call``:
 
 4-bit codes with the int8 LUT take another route for every kernel
 (``onehot_route``): ``wgmma`` products of the LUT flattened to [Q, Mpad *
-16] (``onehot_operands``) and the codes' one-hot bytes, K8 on the int8
-scan body of ``csrc/dot_scan.cuh`` (the bytes expanded in shared memory),
-K7a / K11 and K7b up to ``ktile.QUEUE_K_MAX`` on kernels of their own in
-``csrc/pq4_mma_kernels.cu`` that build the one-hot A operand in registers.
+16] (``onehot_operands``) and the codes' one-hot bytes: K8, K7a / K11 and
+K7b up to ``ktile.QUEUE_K_MAX`` on kernels of their own in
+``csrc/pq4_mma_kernels.cu`` that build the one-hot A operand in registers
+(K8's ``pq4_scores_ws_kernel`` drains its score rows by bulk stores under
+the next products), K7b past it on the int8 scan body of
+``csrc/dot_scan.cuh`` (the bytes expanded in shared memory).
 Their int32 sum and f64 epilogue are the gather body's, so both routes
 equal the same plain version to the bit. K8 with 4-bit codes and the bf16 LUT (``pq_scores``
 rounds bf16x2 to bf16) takes a route of its own (``bf16_onehot_route``):

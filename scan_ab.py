@@ -23,8 +23,8 @@ the same searches on the +-1 int8 route (the residual forms), K10 over
 chip_smoke.py's path 3 shape (1,000,000 rows of 768 dims, Q = 256, k = 10)
 on random codes and a LUT
 made on the card: K8a, K7a and K7b with 4-bit codes and the int8 LUT (the
-one-hot route on the scan body), K8b 4-bit (bf16 LUT: the bf16 one-hot
-route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
+one-hot route; K8a also at Q = 100 and 32), K8b 4-bit (bf16 LUT: the bf16
+one-hot route), at 8 bits K8a, K8b, K7b and K7a (int8 LUT, the LUT-gather body's
 ring), and K7b / K7a at both widths with the bf16 and bf16x2 LUTs (the
 gather body), every gather-body route and the 4-bit int8 searches again at
 Q = 32 and Q = 4 (the first queries of the same LUT); then path 4's PQ scans
@@ -58,7 +58,11 @@ warp-specialized bodies at span-block items and 2048-row items, their other
 query tile, and the two-block bodies' 2048-row items; and of 4-bit int8 K7a
 at 1M x 192 chunks on pq4_approx_ws_kernel against approx_parts_kernel
 <NibbleRows>, whose scan it splits into the one-hot expansion and the
-products; with the warp-specialized bodies' ptxas registers and spills);
+products; and csrc/probe/scores_split.cu, 4-bit int8 K8 at Q = 256, 100
+and 32 on pq4_scores_ws_kernel (its products alone, its products and
+epilogue) against the replaced scores_kernel<NibbleRows> (its scan,
+products, expansion and stores alone); with the warp-specialized bodies'
+ptxas registers and spills);
 ssplit runs its
 sign-query searches alone. Prints one JSON object:
 the card (nvidia-smi name and power limit), the package's directory, the
@@ -309,22 +313,30 @@ def run_probe(nvcc, probe):
 
 
 def approx_probe(nvcc, *args):
-    """Builds and runs csrc/probe/approx_split.cu of this checkout with the
-    library's flags (-fmad=false) and ptxas -v: its JSON lines, and the
-    warp-specialized bodies' and bq_sign_approx_kernel's ptxas lines
-    ({"ptxas": [...]})."""
+    """Builds (in parallel) and runs csrc/probe/approx_split.cu and, unless
+    args name one of its modes, scores_split.cu (4-bit int8 K8) of this
+    checkout with the library's flags (-fmad=false) and ptxas -v: their JSON
+    lines, and the warp-specialized bodies', bq_sign_approx_kernel's and
+    the K8 kernel's ptxas lines ({"ptxas": [...]})."""
     pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quantization_tpu_torch")
     os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
-    exe = os.path.join(pkg, "_build", "approx_split")
-    built = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                            "-O3", "-fmad=false", "-Xptxas", "-v", "-o", exe,
-                            os.path.join(pkg, "csrc", "probe", "approx_split.cu")],
-                           capture_output=True, text=True, check=True, timeout=600)
-    out = subprocess.run([exe, *args], capture_output=True, text=True, check=True,
-                         timeout=600).stdout
-    log = built.stdout + built.stderr
-    return [json.loads(line) for line in out.splitlines() if line.startswith("{")] + [
-        {"ptxas": ptxas_lines(log, "approx_ws_kernel") + ptxas_lines(log, "approx_kernel")}]
+    probes = [("approx_split", args)] + ([] if args else [("scores_split", ())])
+    builds = [subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+         "-Xptxas", "-v", "-o", os.path.join(pkg, "_build", name),
+         os.path.join(pkg, "csrc", "probe", name + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, _ in probes]
+    lines, log = [], ""
+    for (name, margs), proc in zip(probes, builds):
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"{name} does not build: {out[-2000:]}")
+        log += out
+        run = subprocess.run([os.path.join(pkg, "_build", name), *margs], capture_output=True,
+                             text=True, check=True, timeout=600).stdout
+        lines += [json.loads(line) for line in run.splitlines() if line.startswith("{")]
+    return lines + [{"ptxas": ptxas_lines(log, "approx_ws_kernel")
+                     + ptxas_lines(log, "approx_kernel") + ptxas_lines(log, "scores_ws_kernel")}]
 
 
 def ptxas_lines(log, kernel):
@@ -452,10 +464,13 @@ def pq_rows(ms, pq_kernel, g, dev):
             (8, PM8, pq_kernel.K, gather8 + searches)):
         lut, codes_t = pq_operands(m, kc, pnpad, PN)
         # Q = 256, then the gather body's routes and the 4-bit int8 searches
-        # at Q = 32 and 4.
+        # at Q = 32 and 4; the 4-bit int8 K8 also at Q = 100 (the CLI's
+        # batch) and 32.
         small = (("approx", "int8"), ("exact", "int8")) + searches if bits == 4 else \
             gather8 + searches
-        for q, tag, todo in ((Q, "", rows), (QS, f"_q{QS}", small), (4, "_q4", small)):
+        k8 = (("scores", "int8"),) if bits == 4 else ()
+        for q, tag, todo in ((Q, "", rows), (100, "_q100", k8), (QS, f"_q{QS}", k8 + small),
+                             (4, "_q4", small)):
             ql = lut[:q].contiguous()
             for mode, prec in todo:
                 if mode == "scores":

@@ -9,11 +9,13 @@ rows on both sides:
     (ROADMAP F16: the two argmins meet centroids at equal distance);
   * the streamed exact top-K equals an f64 oracle: values within 1e-5
     (f32 scores), ids where the oracle's scores stand apart;
-  * on well-separated clusters (ROADMAP F21: elsewhere a row near two
-    centres may be assigned differently) the assignment, the buckets, the
-    bucket means over rows made again by id (rtol 1e-6: the sums run in
-    another order) and the permuted encodes equal the JAX package's
-    ``ivf_ops``;
+  * on well-separated clusters the assignment equals the JAX package's
+    ``assign_clusters`` wherever the two nearest centres' f64 distances
+    stand apart by more than the f32 expansion's error bound (ROADMAP F21,
+    F36: a row nearer a tie may go to either centre, by each host's
+    summation order); the buckets, the bucket means over rows made again by
+    id (rtol 1e-6: the sums run in another order) of one shared assignment,
+    and the permuted encodes equal the JAX package's ``ivf_ops``;
   * without a card and without ``--device`` the harness raises
     ``NoDeviceError``, and a failing leg makes ``main`` return 1."""
 
@@ -142,13 +144,41 @@ def separated():
     return h, x, centers
 
 
+def assert_assignment_equal_but_near_ties(got, want, x, centers):
+    """F21's contract: the two nearest centres' f64 distances |c|^2 - 2 x.c
+    stand apart by more than the f32 expansion's error bound -> the ids are
+    equal; elsewhere each side's centre lies within that bound of the
+    nearest. The bound of one centre's f32 value, any summation order:
+    gamma_D (|c|^2 + 2 sum_i |x_i c_i|) for the two D-term sums, plus u
+    (|c|^2 + 2 |x.c|) for the subtraction's rounding. Returns the rows
+    where the two sides differ."""
+    x64, c64 = x.astype(np.float64), centers.astype(np.float64)
+    cc = (c64 * c64).sum(axis=1)
+    d = cc[None, :] - 2.0 * (x64 @ c64.T)
+    u = 2.0 ** -24
+    gamma = x.shape[1] * u / (1 - x.shape[1] * u)
+    err = (gamma * (cc[None, :] + 2.0 * (np.abs(x64) @ np.abs(c64).T))
+           + u * (cc[None, :] + 2.0 * np.abs(x64 @ c64.T)))
+    rows = np.arange(x.shape[0])
+    near = np.argmin(d, axis=1)
+    second = np.where(np.arange(d.shape[1])[None, :] == near[:, None], np.inf, d).min(axis=1)
+    second_err = np.where(np.arange(d.shape[1])[None, :] == near[:, None], 0.0, err).max(axis=1)
+    apart = second - d[rows, near] > err[rows, near] + second_err
+    assert np.array_equal(got[apart], want[apart])
+    for ids in (got, want):
+        assert (d[rows, ids] - d[rows, near] <= err[rows, ids] + err[rows, near]).all()
+    return np.nonzero(got != want)[0]
+
+
 def test_ivf_assignment_buckets_and_means_equal_jax(separated):
     h, x, centers = separated
     assign = bench_10m.assign_rows(h, centers)
     j_assign = j_ivf.assign_clusters(x, centers)
-    assert np.array_equal(assign, j_assign)
+    differ = assert_assignment_equal_but_near_ties(assign, j_assign, x, centers)
+    assert differ.size <= x.shape[0] // 1000
+    # The buckets and means of one shared assignment, held exactly.
     perm, bucket_ids = t_ivf.build_buckets(assign, 64)
-    jperm, jids = j_ivf.build_buckets(j_assign, 64)
+    jperm, jids = j_ivf.build_buckets(assign, 64)
     assert np.array_equal(perm, jperm) and np.array_equal(bucket_ids, jids)
     assert (bucket_ids < 0).any()  # pad slots are masked out of the means
     means = bench_10m.bucket_means_by_id(h.rows, perm, bucket_ids, block_rows=640)

@@ -693,9 +693,17 @@ def _pq4_operands(dev, m, n_valid, q, seed):
     return lut, codes_t
 
 
-@pytest.mark.parametrize("m", ONEHOT_MS)
-@pytest.mark.parametrize("n_valid", ONEHOT_NS)
-@pytest.mark.parametrize("q", ONEHOT_QS)
+# K8 (pq4_scores_ws_kernel): both geometries (Q <= 64: 64 queries and four
+# m64 blocks a warpgroup, else 128 and two), the CLI's Q = 100, n_valid odd
+# (the warps' stores) and a multiple of 4 but not of 128 (the bulk stores
+# of a partial segment), blocks that walk several units (70,004 rows).
+K8_QS = sorted({*ONEHOT_QS, 33, 100, 256})
+K8_NS = [*ONEHOT_NS, 5003, 70_004]
+
+
+@pytest.mark.parametrize("m", [*ONEHOT_MS, 13])
+@pytest.mark.parametrize("n_valid", K8_NS)
+@pytest.mark.parametrize("q", K8_QS)
 def test_onehot_k8_equal_plain_to_the_bit(dev, q, n_valid, m):
     lut, codes_t = _pq4_operands(dev, m, n_valid, q, seed=q * 31 + n_valid + m)
     before = pq_kernel.ONEHOT_LAUNCHES["pq_scores"]

@@ -6,10 +6,14 @@ interpret mode on the CPU, for the int8, bf16 and bf16x2 LUTs and 8-bit and
 Tolerances, with their causes:
   * bf16 and bf16x2 scores, 8-bit codes: none. Both packages sum the same
     bf16 entries in f32 in chunk order, with the same lo-word folds.
-  * the same, 4-bit codes: 1 ulp. The JAX kernel sums each group of 8 chunks
-    in one matmul, whose order is XLA's CPU dot's; the port sums the group in
-    pairs, which matched every score probed on this CPU, but the order is not
-    the algorithm's (ROADMAP Queue 3, F19).
+  * the same, 4-bit codes: the JAX kernel sums each group of 8 chunks in one
+    matmul, whose order is the host's XLA CPU dot's; the port sums the group
+    in pairs (ROADMAP Queue 3, F19). The score matrix: each within the f32
+    error bound of an m-term sum of the f64 oracle of the bf16-rounded LUT
+    (0 where the sum is exact in f32 in every order), and 1 ulp apart
+    wherever that bound allows no more (tests/torch_bf16_sums.py; F36: on a
+    host with AVX-512 bf16, 1 entry of 40,300 lay 2 ulp apart). The searches'
+    values: 1 ulp.
   * int8 scores: 2 ulp of |score| + |bias|. Both take the same int8 LUT, the
     same integer sums and the epilogue rounded once (JAX's compiled code
     fuses scale * acc + bias into a multiply-add; the port computes it in f64
@@ -30,6 +34,8 @@ import torch
 
 import quantization_tpu.ops.pallas.pq_kernel as j_kernel
 from quantization_tpu_torch.ops.kernels import ktile, pq_kernel
+
+from torch_bf16_sums import assert_bf16_scores
 
 torch.set_num_threads(1)
 
@@ -57,9 +63,14 @@ def _int8_tol(want, lut):
     return 2 * np.spacing(np.abs(want) + np.abs(bias.numpy())[:, None])
 
 
-def _assert_scores(got, want, lut, precision):
+def _assert_scores(got, want, lut, precision, codes_t=None):
+    """``got`` (the port) against ``want`` (the JAX package); with
+    ``codes_t``, the 4-bit bf16 score matrix of rows [0, n) against the f64
+    oracle as well (F36)."""
     if precision == "int8":
         assert (np.abs(got - want) <= _int8_tol(want, lut)).all()
+    elif lut.shape[2] == pq_kernel.K4 and codes_t is not None:
+        assert_bf16_scores(got, want, lut, codes_t, np.arange(got.shape[1]))
     elif lut.shape[2] == pq_kernel.K4:
         assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
     else:
@@ -92,7 +103,7 @@ def test_scores_plain_equal_pallas(rng, precision, kc, m, n_valid, q):
     got = pq_kernel.pq_scores(torch.from_numpy(lut), torch.from_numpy(codes_t),
                               n_valid=n_valid, precision=precision)
     assert got.dtype == torch.float32 and tuple(got.shape) == (q, n_valid)
-    _assert_scores(got.numpy(), want, lut, precision)
+    _assert_scores(got.numpy(), want, lut, precision, codes_t)
 
 
 @pytest.mark.parametrize("kc,m,n_valid,q", SHAPES, ids=SHAPE_IDS)

@@ -332,7 +332,7 @@ def test_indexed_walk_equals_plain(rng, tile_n, t, residual):
 
 def test_fragment_rows_are_the_nibble_rows(rng):
     """The fragments' bytes of every row equal NibbleRows' one-hot bytes, the
-    A operand K8 (scores_kernel<NibbleRows>) and the radix K7b still read."""
+    A operand the radix K7b still reads."""
     from test_torch_pq_onehot import nibble_rows
     _, codes_t = _setup(rng, 40, 3000, 1)
     np.testing.assert_array_equal(fragment_rows(codes_t), nibble_rows(codes_t).numpy())
