@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 7 minutes
+    python3 chip_smoke.py             # the checks and times, about 16 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
     python3 chip_smoke.py --rehearse ann  # path 6's recall on the CPU, 20k rows
@@ -23,7 +23,7 @@ the combine on the warp-specialized bodies and the two-block ones, span
 items and 2048-row items: the [approx] lines; every approx body's ptxas
 registers and spills are printed from the build, the sign-query ones
 required), and drives the
-port's nine main paths through the public API, each with the kernel launch
+port's ten main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -138,6 +138,18 @@ both corpora, since the clustered one ties far more.
      last launch (the full scans in row blocks), a breakdown of its deepest
      IVF-SQ search, and the same flags at 30,000 rows held to the CPU
      rehearsal (``--rehearse 10m``). Its wall is held to 240 s.
+
+ 10. The capacity configuration: the same harness's main() at 100,000,000
+     x 768 with the JAX package's capacity flags (--batch 250000 --dist
+     realistic --normalize --only none --ivf --ivf-base bq; Q = 256, k =
+     10), on one card: the automatic geometry (nlist 32,552, S = 1024),
+     every row in exactly one slot, 96 B of planes a slot, the resident
+     serving state and the serving peak (at most 16 GiB), each leg's
+     recall@10 within 0.03 of the TPU run's (BASELINE.md:585-594, legs
+     matched by the scanned fraction), rescored legs at least their coarse
+     leg and not falling as R grows, and K10 held against plain on its
+     last launch. The row kernel is held at the 100M corpus's last batch
+     and its query ids in path 9. Its wall is held to 360 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path (each exact search on both of its selects: the queue at
@@ -4145,11 +4157,11 @@ BENCH10M_RECALL_REHEARSAL = {
     "2s IVF-OPQr->f32 R=160 p=64 nscan=256": 0.984,
 }
 BENCH10M_REHEARSAL_SLACK = 0.02
-# The row kernel is held against plain threefry on the harness's batch of
-# this many ids from each of these first ids (the corpus's last batch, and
-# one across 2^24), and timed on the first.
-BENCH10M_ROWGEN_IDS = 250_000
-BENCH10M_ROWGEN_FROM = (10_000_000 - 250_000, 2**24 - 125_000)
+# The row kernel is held against plain threefry on these (first id, ids):
+# the 10M corpus's last batch (timed), a batch across 2^24, path 10's 100M
+# corpus's last batch and its 256 queries (ids from 100,000,000).
+BENCH10M_ROWGEN_FROM = ((10_000_000 - 250_000, 250_000), (2**24 - 125_000, 250_000),
+                        (100_000_000 - 250_000, 250_000), (100_000_000, 256))
 BENCH10M_ROWGEN_MAX_ULPS = 2.0
 # Its bound: one Threefry-2x32 hash a value, ~75 32-bit integer operations
 # (20 add-rotate-xor rounds, the key injections, the words' xor and the
@@ -4343,18 +4355,18 @@ def hold_at_scale(calls, launches, what):
 
 
 def rowgen_check(dev, smi):
-    """The row kernel against plain threefry on the anchor's corpus at the
-    harness's batch (250,000 x 768): clusters equal, rows within
-    BENCH10M_ROWGEN_MAX_ULPS, both distributions, on the corpus's last
-    batch and on one across 2^24; then timed on the first of them beside
-    its plain version and its bound. Returns its kernels-line-shaped
-    record."""
+    """The row kernel against plain threefry on the anchor's corpus (the
+    same rows at 10M and 100M: a row is drawn from its id alone): clusters
+    equal, rows within BENCH10M_ROWGEN_MAX_ULPS, both distributions, on
+    each of BENCH10M_ROWGEN_FROM's id ranges; then timed on the first of
+    them (250,000 x 768, the harness's batch) beside its plain version and
+    its bound. Returns its kernels-line-shaped record."""
     from quantization_tpu_torch.bench import bench_10m, threefry
 
     rows = bench_10m.RowSource(bench_10m.parser().parse_args(BENCH10M_ARGV), dev)
     worst = 0.0
-    for first in BENCH10M_ROWGEN_FROM:
-        ids = torch.arange(first, first + BENCH10M_ROWGEN_IDS, device=dev)
+    for first, count in BENCH10M_ROWGEN_FROM:
+        ids = torch.arange(first, first + count, device=dev)
         for spectrum in (rows.spectrum, None):
             got, gc = threefry.latent_rows(ids, rows.centers, spectrum, rows.sigma, rows.base,
                                            return_clusters=True)
@@ -4367,11 +4379,12 @@ def rowgen_check(dev, smi):
             require(ulps <= BENCH10M_ROWGEN_MAX_ULPS, f"row kernel: rows of ids {first}.. "
                     f"({dist}) within {BENCH10M_ROWGEN_MAX_ULPS} ulp of plain ({ulps})")
             worst = max(worst, float((got - want).abs().max()))
-            say("bench10m", f"row kernel, {BENCH10M_ROWGEN_IDS:,} ids from {first:,} "
+            say("bench10m", f"row kernel, {count:,} ids from {first:,} "
                 f"({dist}): clusters equal, max {ulps:g} ulp from plain threefry, "
                 f"{100 * float((got == want).float().mean()):.4f} % equal to the bit")
-    n, d = BENCH10M_ROWGEN_IDS, rows.centers.shape[1]
-    ids = torch.arange(BENCH10M_ROWGEN_FROM[0], BENCH10M_ROWGEN_FROM[0] + n, device=dev)
+    first, n = BENCH10M_ROWGEN_FROM[0]
+    d = rows.centers.shape[1]
+    ids = torch.arange(first, first + n, device=dev)
 
     def kernel():
         return threefry.latent_rows(ids, rows.centers, rows.spectrum, rows.sigma, rows.base)
@@ -4571,6 +4584,183 @@ def bench10m_path(dev, smi):
         f"{info['main_s']:.1f}, holds {info['hold_s']:.1f}, 30,000 rows "
         f"{info['rehearsal_s']:.1f}) on {smi}")
     require(wall <= BENCH10M_WALL_LIMIT_S, f"path 9 within {BENCH10M_WALL_LIMIT_S:.0f} s")
+    return info
+
+
+# Path 10 (the capacity configuration): bench_10m.main at 100,000,000 x 768
+# with the JAX run's flags (BASELINE.md:520-521, tools/bench_10m.py --n
+# 100000000 --batch 250000 --dist realistic --normalize --only none --ivf
+# --ivf-base bq), Q = 256, k = 10, the automatic geometry, on one card.
+CAPACITY_N = 100_000_000
+CAPACITY_ARGV = ["--n", str(CAPACITY_N), "--batch", "250000", "--d", "768", "--dist",
+                 "realistic", "--normalize", "--only", "none", "--ivf", "--ivf-base", "bq"]
+CAPACITY_GEOMETRY = (32_552, 1024)  # (nlist, S) of auto_geometry at 100M, the JAX run's
+CAPACITY_PLANE_BYTES_PER_SLOT = 96  # 768 sign bits in 24 int32 words
+# The serving peak's limit: the 16 GB TPU v5e chip the JAX package served
+# the same index from (BASELINE.md:528).
+CAPACITY_PEAK_LIMIT_B = 16 * 2**30
+CAPACITY_WALL_LIMIT_S = 360.0
+CAPACITY_RECALL_SLACK = 0.03
+# The JAX run on one TPU v5e chip (BASELINE.md:585-594): recall@10, q/s and
+# ms a batch by (R, None for a coarse leg; ladder fraction). Legs are
+# matched by fraction: at another bucket count the nscans may differ by
+# 256. R = 160 over the widest scan has no figure there.
+CAPACITY_FRACTIONS = (0.0475, 0.1186, 0.2372)
+CAPACITY_TPU = {
+    (None, 0.0475): (0.207, 13264, 19.3), (None, 0.1186): (0.207, 8252, 31.0),
+    (None, 0.2372): (0.206, 5086, 50.3), (160, 0.1186): (0.676, 5502, 46.5),
+    (320, 0.1186): (0.783, 3920, 65.3), (320, 0.2372): (0.783, 2627, 97.4),
+    (640, 0.2372): (0.856, 1508, 169.7), (1280, 0.2372): (0.895, 804, 318.5),
+}
+
+
+def capacity_leg(leg, nbk):
+    """(R or None, ladder fraction) of an IVF-BQ leg's name at ``nbk``
+    buckets."""
+    import re
+
+    m = re.match(r"(?:2s IVF-BQ->f32 R=(\d+)|IVF-BQ) p=\d+ nscan=(\d+)$", leg)
+    require(m, f"an IVF-BQ leg ({leg})")
+    frac = min(CAPACITY_FRACTIONS, key=lambda f: abs(f - int(m.group(2)) / nbk))
+    return (int(m.group(1)) if m.group(1) else None), frac
+
+
+def capacity_path(dev, smi):
+    """Path 10: the capacity configuration, bench_10m.main at CAPACITY_ARGV
+    in process. Checks the geometry (CAPACITY_GEOMETRY), that every row
+    sits in exactly one slot, the planes' 96 B a slot, the serving peak
+    (reset after the build) against CAPACITY_PEAK_LIMIT_B, each leg's
+    recall@10 within CAPACITY_RECALL_SLACK of the TPU's, each rescored leg
+    at least its coarse leg and recall not falling as R grows (0.01 slack),
+    no FAILED leg, K10 held against plain on its last launch (a chunk of the
+    widest leg's scan), and the path's wall against CAPACITY_WALL_LIMIT_S. Prints
+    the build phases, the resident bytes and each leg's q/s and device ms
+    beside the TPU's."""
+    import re
+
+    from quantization_tpu_torch.bench import bench_10m, threefry
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    t_path = time.perf_counter()
+    served = {}
+    report_serve = bench_10m.Harness.report_serve
+
+    def keep_index(self, name, index, eq, gt, iters=10, **knobs):
+        served.setdefault("index", index)
+        report_serve(self, name, index, eq, gt, iters, **knobs)
+
+    torch.cuda.empty_cache()
+    reset_all(*mods, threefry)
+    bench_10m.Harness.report_serve = keep_index
+    try:
+        with recorded(bq_kernel) as calls:
+            rc, printed = captured(bench_10m.main, CAPACITY_ARGV)
+    finally:
+        bench_10m.Harness.report_serve = report_serve
+    info = {"main_s": time.perf_counter() - t_path}
+    launches = {k_: v for k_, v in counts(*mods).items() if v}
+    info["launches"] = launches
+    info["rowgen_launches"] = threefry.LAUNCHES["latent_rows"]
+    say("capacity", f"main() at 100,000,000 x 768 in {info['main_s']:.1f} s, exit {rc}; "
+        f"launches {launches}, row kernel {info['rowgen_launches']}; on {smi}")
+    require(rc == 0, "bench_10m.main at 100M exits 0")
+    rec, failed = leg_recalls(printed)
+    require(not failed, f"no FAILED leg at 100M ({failed})")
+    require(set(launches) == {"bq_search_indexed"}, f"path 10 launches K10 alone ({launches})")
+    require_sign_ws("100M capacity", launches, ("bq_search_indexed",))
+
+    geo = re.search(r"^IVF geometry: nlist=(\d+) S=(\d+)", printed, re.M)
+    nlist, s = int(geo.group(1)), int(geo.group(2))
+    nbk = int(re.search(r"\((\d+) buckets x (\d+)", printed).group(1))
+    info.update(nlist=nlist, bucket_size=s, nbuckets=nbk)
+    say("capacity", f"geometry nlist {nlist}, S {s}, {nbk:,} buckets ({nbk * s:,} slots) on {smi}")
+    require((nlist, s) == CAPACITY_GEOMETRY, f"the automatic geometry {CAPACITY_GEOMETRY}")
+
+    index = served.pop("index")
+    ids = index.bucket_ids[index.bucket_ids >= 0]
+    require(ids.size == CAPACITY_N and bool((np.bincount(ids, minlength=CAPACITY_N) == 1).all()),
+            "every row in exactly one slot: the slot ids >= 0 are a permutation of 0..N-1")
+    planes = index.quantizer.planes
+    npad_i = nbk * s + (-(nbk * s)) % 2048
+    plane_b = planes.numel() * planes.element_size()
+    require(tuple(planes.shape) == (24, npad_i)
+            and plane_b == CAPACITY_PLANE_BYTES_PER_SLOT * npad_i,
+            f"the planes hold {CAPACITY_PLANE_BYTES_PER_SLOT} B a slot ({list(planes.shape)})")
+    del index, planes, ids
+
+    res = re.search(r"^IVF-BQ resident: planes ([\d,]+) B, bucket means ([\d,]+) B, slot ids "
+                    r"([\d,]+) B .*bucket tables ([\d,]+) B on the host", printed, re.M)
+    info["resident_b"] = {k_: int(res.group(i).replace(",", "")) for i, k_ in enumerate(
+        ("planes", "bucket_means", "slot_ids", "host_bucket_tables"), 1)}
+    peak = int(re.search(r"^IVF-BQ serving peak: ([\d,]+) B", printed, re.M).group(1)
+               .replace(",", ""))
+    info["serving_peak_b"] = peak
+    dev_b = sum(v for k_, v in info["resident_b"].items() if k_ != "host_bucket_tables")
+    say("capacity", "resident serving state: " + ", ".join(
+        f"{k_} {v:,} B" for k_, v in info["resident_b"].items())
+        + f" ({dev_b / 1e9:.3f} GB on the card); serving peak {peak:,} B allocated "
+        f"({peak / 2**30:.3f} GiB, limit {CAPACITY_PEAK_LIMIT_B / 2**30:.0f} GiB) on {smi}")
+    require(peak <= CAPACITY_PEAK_LIMIT_B, "the serving peak within 16 GiB")
+
+    info["build_s"] = {m.group(1): int(m.group(2)) for m in (
+        re.match(r"(.*?):? (\d+)s\b", line) for line in printed.splitlines()
+        if "recall@" not in line and not line.startswith("IVF geometry")) if m}
+    say("capacity", "build phases (s): " + ", ".join(
+        f"{k_} {v}" for k_, v in info["build_s"].items()) + f" on {smi}")
+
+    coarse, rescored = bench_10m.ivf_bq_legs(CAPACITY_N, nbk)
+    want = [f"IVF-BQ p=64 nscan={u}" for u in coarse]
+    want += [f"2s IVF-BQ->f32 R={rr} p={p} nscan={u}" for rr, p, u in rescored]
+    require(list(rec) == want, f"the IVF-BQ legs of the JAX harness at 100M ({list(rec)})")
+    times = {m.group(1): (float(m.group(2)), float(m.group(3)), float(m.group(4))) for m in
+             re.finditer(r"^(\S.*?)\s*:\s+(\d+) qps\s+\(\s*([0-9.]+) ms/batch\).*"
+                         r"\[device ([0-9.]+) ms/batch\]", printed, re.M)}
+    info["legs"] = {}
+    for leg, r in rec.items():
+        rr, frac = capacity_leg(leg, nbk)
+        qps, host_ms, dev_ms = times[leg]
+        tpu = CAPACITY_TPU.get((rr, frac))
+        info["legs"][leg] = {"recall_at_10": r, "qps": qps, "ms_batch": host_ms,
+                             "device_ms_batch": dev_ms, "fraction": frac,
+                             "tpu": None if tpu is None else dict(zip(
+                                 ("recall_at_10", "qps", "ms_batch"), tpu))}
+        say("capacity", f"{leg} ({100 * frac:.2f} % of the buckets): recall@10 {r:.3f}, "
+            f"{qps:.0f} q/s, {host_ms:.2f} ms a batch, device {dev_ms:.3f} ms on {smi}"
+            + (f"; TPU v5e (BASELINE.md) {tpu[0]:.3f}, {tpu[1]} q/s, {tpu[2]} ms"
+               if tpu else "; no TPU figure"))
+        if tpu:
+            require(abs(r - tpu[0]) <= CAPACITY_RECALL_SLACK,
+                    f"{leg}: recall@10 {r:.3f} within {CAPACITY_RECALL_SLACK} of the TPU's "
+                    f"{tpu[0]:.3f}")
+    by = {capacity_leg(leg, nbk): r for leg, r in rec.items()}
+    for (rr, frac), r in by.items():
+        if rr is not None:
+            require(r >= by[(None, frac)] - 0.01, f"R={rr} at {frac}: {r:.3f} >= coarse "
+                    f"{by[(None, frac)]:.3f} - 0.01")
+            deeper = [(r2, v) for (r2, f2), v in by.items() if f2 == frac and r2 and r2 > rr]
+            require(all(v >= r - 0.01 for _, v in deeper),
+                    f"recall not falling as R grows at {frac} ({r:.3f} at R={rr}, {deeper})")
+
+    t0 = time.perf_counter()
+    held = hold_searches(calls, {"bq_search_indexed": launches["bq_search_indexed"]},
+                         "100M capacity")
+    m, name, a, kw, _ = calls["bq_search_indexed"]
+    tiles = bound_args(m, name, a, kw)["tile_sel"]
+    info["k10_held"] = {"tiles": int(tiles.shape[0]), "tile_n": kw["tile_n"],
+                        "rows": int(tiles.shape[0]) * kw["tile_n"],
+                        "hold_s": time.perf_counter() - t0}
+    say("capacity", f"K10's last launch (a chunk of the widest leg's scan: {tiles.shape[0]:,} "
+        f"tiles of {kw['tile_n']} rows, {info['k10_held']['rows']:,} rows) against plain: values "
+        f"and ids equal ({info['k10_held']['hold_s']:.1f} s); {held}")
+    del calls, m, a, kw, tiles
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("capacity", f"path 10 wall {wall:.1f} s (limit {CAPACITY_WALL_LIMIT_S:.0f} s; main "
+        f"{info['main_s']:.1f}) on {smi}")
+    require(wall <= CAPACITY_WALL_LIMIT_S, f"path 10 within {CAPACITY_WALL_LIMIT_S:.0f} s")
     return info
 
 
@@ -4970,6 +5160,8 @@ def main():
     del ivf_keep, rbq_keep
     torch.cuda.empty_cache()
     bench10m_info = bench10m_path(dev, smi)
+    torch.cuda.empty_cache()
+    capacity_info = capacity_path(dev, smi)
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -5007,6 +5199,7 @@ def main():
         "sharded": sharded_info,
         "sharded_ivf": sharded_ivf_info,
         "bench_10m": bench10m_info,
+        "capacity_100m": capacity_info,
         "approx_split": {f"{k}/{d}/{p}": {x: v[x] for x in ("pass1_ms", "scan_ms", "combine_ms")}
                          for (k, d, p), v in asplit.items()},
     }))

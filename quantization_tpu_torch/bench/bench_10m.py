@@ -329,6 +329,29 @@ class Harness:
         self.sync()
         self.say(f"{label} {time.perf_counter() - t0:.0f}s{tail}")
 
+    def resident(self, tag: str, index: IVFIndex) -> None:
+        """An IVF-BQ index's serving state in bytes (the planes, bucket means
+        and slot ids on the device, the bucket tables on the host), then, on
+        a card, the start of the serving-peak window (``serving_peak``)."""
+        planes = index.quantizer.planes
+        dev = {"planes": planes, "bucket means": index._means_dev,
+               "slot ids": index._slot_ids_dev}
+        nbytes = {k: t.numel() * t.element_size() for k, t in dev.items()}
+        host = index.bucket_ids.nbytes + index.bucket_means.nbytes
+        self.say(f"{tag} resident: " + ", ".join(f"{k} {v:,} B" for k, v in nbytes.items())
+                 + f" ({sum(nbytes.values()):,} B on the device; planes "
+                 f"{nbytes['planes'] // planes.shape[1]} B a slot x {planes.shape[1]:,} slots); "
+                 f"bucket tables {host:,} B on the host")
+        if self.cuda:
+            self.sync()
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def serving_peak(self, tag: str) -> None:
+        """torch.cuda.max_memory_allocated since ``resident`` (a card only)."""
+        if self.cuda:
+            self.say(f"{tag} serving peak: {torch.cuda.max_memory_allocated(self.device):,} B "
+                     "allocated")
+
 
 # ------------------------------------------------------------ the passes
 def calibrate(h: Harness):
@@ -561,6 +584,20 @@ def ladder(fracs, nbk):
     return sorted({max(64, 256 * max(1, round(f * nbk / 256))) for f in fracs})
 
 
+def ivf_bq_legs(n: int, nbk: int):
+    """The JAX harness's IVF-BQ legs (tools/bench_10m.py:926-941) at ``n``
+    rows in ``nbk`` buckets: the coarse nscans (nprobe 64) at 4.75 / 11.86
+    / 23.72 % of the buckets, and the rescored (R, nprobe, nscan) at R 160
+    and 320 over the two wider scans, plus R 640 and 1280 over the widest
+    at capacity scale (n >= 50M), where the 1-bit coarse stage leaves most
+    of the work to the rescore."""
+    coarse = ladder((0.0475, 0.1186, 0.2372), nbk)
+    rows = [(rr, 64, u) for u in ladder((0.1186, 0.2372), nbk) for rr in (160, 320)]
+    if n >= 50_000_000:
+        rows += [(rr, 64, ladder((0.2372,), nbk)[0]) for rr in (640, 1280)]
+    return coarse, rows
+
+
 def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, quantize_sq):
     """The IVF build over the corpus made again by id, then the IVF-SQ,
     IVF-BQ and IVF-OPQ ladders and, with --ivf-residual, the residual legs."""
@@ -578,18 +615,27 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
           f"{' (auto)' if not (args.nlist and args.ivf_bucket) else ''}")
     t0 = time.perf_counter()
     smp = h.rows.batch(0)[: min(B, IVF_SAMPLE_BATCH)]
-    sample_n = min(N, max(nlist, ivf_ops.IVF_SAMPLE_PER_CENTER * nlist),
-                   ivf_ops.sample_cap(nlist))
+    sample_n = ivf_ops.training_rows(N, nlist)
     if sample_n <= min(B, IVF_SAMPLE_BATCH):
         train_smp = smp
     else:
         train_smp = torch.cat([h.rows.batch(i) for i in range(-(-sample_n // B))])[:sample_n]
     ivf_centers = ivf_ops.train_centers(train_smp, nlist)
     del train_smp
+    # The residual calibration sample goes to the host: on the card its
+    # view would pin all of batch 0 (768 MB at 250,000 x 768) through the
+    # legs.
+    smp = smp.cpu().numpy() if args.ivf_residual else None
+    h.timed(f"IVF coarse training ({nlist} centres, {sample_n} rows):", t0)
+    t1 = time.perf_counter()
     assign = assign_rows(h, ivf_centers)
+    h.timed("IVF assignment:", t1)
+    t1 = time.perf_counter()
     perm, bucket_ids = ivf_ops.build_buckets(assign, S)
+    del assign
     nbk = bucket_ids.shape[0]
     total_rows = nbk * S
+    h.timed("IVF buckets:", t1)
     h.timed("IVF build: centers+assign+buckets", t0,
             f" ({nbk} buckets x {S}, pad {total_rows - N} rows)")
 
@@ -658,17 +704,16 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
         h.timed("IVF-BQ permuted encode:", t0)
         h.hbm_probe("after bq encode")
         ivf = IVFIndex(inner, bucket_ids, means, meta("bq"))
+        h.resident("IVF-BQ", ivf)
         eq = ivf.encode_query(queries)
-        for u in ladder((0.0475, 0.1186, 0.2372), nbk):
+        coarse, rows = ivf_bq_legs(N, nbk)
+        for u in coarse:
             h.report_serve(f"IVF-BQ p=64 nscan={u}", ivf, eq, gt, method="approx", nprobe=64,
                            nscan=u)
-        rows = [(rr, 64, u) for u in ladder((0.1186, 0.2372), nbk) for rr in (160, 320)]
-        if N >= 50_000_000:
-            # Capacity scale: how far a deeper R pushes the 1-bit coarse stage.
-            rows += [(rr, 64, ladder((0.2372,), nbk)[0]) for rr in (640, 1280)]
         for rr, p, u in rows:
             h.report_serve(f"2s IVF-BQ->f32 R={rr} p={p} nscan={u}",
                            serve_rescored(ivf, rr, u), (eq, qd), gt)
+        h.serving_peak("IVF-BQ")
         del ivf, inner, eq, planes
         h.free()
 
@@ -712,9 +757,8 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
         return
 
     # Residual calibration sample: each sample row less its cluster's centre.
-    smp_h = smp.cpu().numpy()
-    smp_assign = ivf_ops.assign_clusters(smp_h, ivf_centers, device=dev)
-    r_smp = smp_h - ivf_centers[smp_assign]
+    smp_assign = ivf_ops.assign_clusters(smp, ivf_centers, device=dev)
+    r_smp = smp - ivf_centers[smp_assign]
     mtab = torch.from_numpy(means).to(dev)
 
     def residual(x, slot0):
@@ -806,17 +850,20 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
 
 def assign_rows(h: Harness, centers: np.ndarray) -> np.ndarray:
     """Nearest-centre ids i32 [N] of every corpus row, batch by batch, in
-    row sub-blocks that bound the [rows, nlist] score transient."""
+    row sub-blocks that bound the [rows, nlist] score transient. The ids
+    gather on the device and come to the host once: a copy per sub-block
+    would wait for the card 6,400 times at 100M rows."""
     cblk, ccblk = ivf_ops._pad_centers(torch.from_numpy(centers).to(h.device),
                                        centers.shape[0])
     rb = h.B // (-(-h.B // 16_384))
-    parts = []
+    out = torch.empty((h.N,), dtype=torch.int32, device=h.device)
     for i in range(h.nb):
         x = h.rows.batch(i)
-        parts += [ivf_ops._assign_blocked(x[r0 : r0 + rb], cblk, ccblk).to(torch.int32).cpu()
-                  for r0 in range(0, h.B, rb)]
+        for r0 in range(0, h.B, rb):
+            r1 = min(r0 + rb, h.B)  # the last sub-block may be short
+            out[i * h.B + r0 : i * h.B + r1] = ivf_ops._assign_blocked(x[r0:r1], cblk, ccblk)
         del x
-    return torch.cat(parts).numpy()[: h.N]
+    return out.cpu().numpy()
 
 
 def bucket_means_by_id(rows: RowSource, perm: np.ndarray, bucket_ids: np.ndarray,

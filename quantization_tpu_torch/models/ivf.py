@@ -792,8 +792,7 @@ class IVFIndex:
 
         n = params.count
         rng = np.random.default_rng(seed)
-        sample_n = min(n, max(nlist, ivf_ops.IVF_SAMPLE_PER_CENTER * nlist),
-                       ivf_ops.sample_cap(nlist))
+        sample_n = ivf_ops.training_rows(n, nlist)
         sample_idx = rng.choice(n, size=sample_n, replace=False) if sample_n < n else np.arange(n)
         centers = ivf_ops.train_centers(data[sample_idx], nlist, seed=seed,
                                         stop_condition=stop_condition, device=device)

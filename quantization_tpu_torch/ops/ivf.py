@@ -48,6 +48,13 @@ def sample_cap(nlist: int) -> int:
     return IVF_SAMPLE_CAP_BIG
 
 
+def training_rows(n: int, nlist: int) -> int:
+    """Rows of the coarse trainer's sample for ``nlist`` centres over ``n``
+    rows: IVF_SAMPLE_PER_CENTER a centre (at least one), within
+    ``sample_cap``."""
+    return min(n, max(nlist, IVF_SAMPLE_PER_CENTER * nlist), sample_cap(nlist))
+
+
 def train_centers(
     sample,
     nlist: int,
@@ -113,7 +120,11 @@ def _assign_blocked(x: torch.Tensor, cblk: torch.Tensor, ccblk: torch.Tensor) ->
     arg = torch.zeros((x.shape[0],), dtype=torch.int64, device=x.device)
     for i in range(cblk.shape[0]):
         with full_f32():
-            s = ccblk[i][None, :] - 2.0 * (x @ cblk[i].T)
+            s = x @ cblk[i].T
+        # |c|^2 + (-2) x.c in one pass, in place: -2 p is exact, so each
+        # value is the rounding of |c|^2 - 2 x.c, with no [rows, cb]
+        # transient beside the product.
+        torch.add(ccblk[i], s, alpha=-2.0, out=s)
         m, a = torch.min(s, dim=1)
         take = m < best
         best = torch.where(take, m, best)
@@ -134,40 +145,35 @@ def assign_clusters(data, centers, *, stop_condition=None, device=None) -> np.nd
     return out
 
 
-def add_onehot_sums(sums, x, idx, counts=None) -> None:
-    """sums[j] += the rows of x [n, D] whose ``idx`` is j (and counts[j] +=
-    their number), for j over sums' rows: one-hot products in full f32, in
-    row blocks of ASSIGN_BLOCK / 8 and target blocks of ``_center_blocks``
-    (a [rows, cb] transient of <= 256 MB). Deterministic on the card, where
-    ``index_add_`` would sum in atomic order."""
-    nt = sums.shape[0]
-    cb = _center_blocks(nt)[1]
-    rb = ASSIGN_BLOCK // 8
-    for r0 in range(0, x.shape[0], rb):
-        xr, ir = x[r0 : r0 + rb], idx[r0 : r0 + rb]
-        for j0 in range(0, nt, cb):
-            j1 = min(j0 + cb, nt)
-            onehot = (ir[:, None] == torch.arange(j0, j1, device=x.device)).to(torch.float32)
-            with full_f32():
-                sums[j0:j1] += onehot.T @ xr
-            if counts is not None:
-                counts[j0:j1] += onehot.sum(dim=0)
+def segment_sums(x: torch.Tensor, idx: torch.Tensor, nseg: int):
+    """(sums f32 [nseg, D], counts i64 [nseg]) of the rows of x [n, D] by
+    their segment ``idx`` [n]: a stable sort, then ``torch.segment_reduce``,
+    which adds each segment's rows one after another in row order. So the
+    sums repeat to the bit on every device (``index_add_`` adds in atomic
+    order), for a sort and one pass over x: one-hot products, the other
+    deterministic way, would cost as many f32 operations as an assignment
+    against every segment."""
+    sidx, order = torch.sort(idx, stable=True)
+    bounds = torch.searchsorted(sidx, torch.arange(nseg + 1, device=idx.device))
+    counts = bounds[1:] - bounds[:-1]
+    return torch.segment_reduce(x[order], "sum", lengths=counts, unsafe=True), counts
 
 
 def _lloyd_streamed_iter(sample, centers, reseed, *, rb: int, nlist: int):
     """One Lloyd iteration over the sample in row blocks of ``rb`` (the last
     one partial): assign against the center blocks, accumulate per-center
-    sums and counts (``add_onehot_sums``). Empty centers reseed from the
-    sample rows ``reseed``. Returns (new_centers, diff)."""
+    sums and counts (``segment_sums``, block after block). Empty centers
+    reseed from the sample rows ``reseed``. Returns (new_centers, diff)."""
     n, d = sample.shape
     cblk, ccblk = _pad_centers(centers, nlist)
-    ncb, cb = ccblk.shape
-    sums = torch.zeros((ncb * cb, d), device=sample.device)
-    counts = torch.zeros((ncb * cb,), device=sample.device)
+    sums = torch.zeros((nlist, d), device=sample.device)
+    counts = torch.zeros((nlist,), dtype=torch.int64, device=sample.device)
     for r0 in range(0, n, rb):
         x = sample[r0 : r0 + rb]
-        add_onehot_sums(sums, x, _assign_blocked(x, cblk, ccblk), counts)
-    sums, counts = sums[:nlist], counts[:nlist]
+        part, c = segment_sums(x, _assign_blocked(x, cblk, ccblk), nlist)
+        sums += part
+        counts += c
+    counts = counts.to(torch.float32)
     mean = sums / torch.clamp(counts, min=1.0)[:, None]
     new_c = torch.where((counts == 0)[:, None], sample[reseed], mean)
     diff = torch.sum(torch.abs(new_c - centers))
@@ -220,7 +226,12 @@ def build_buckets(assignments: np.ndarray, bucket_size: int) -> Tuple[np.ndarray
     assignments = np.asarray(assignments)
     n = assignments.shape[0]
     s = int(bucket_size)
-    order = np.argsort(assignments, kind="stable")
+    keys = assignments
+    if n and 0 <= assignments.min() and assignments.max() < 2**16:
+        # The same stable order; numpy's radix sort takes 16-bit keys, ~8x
+        # faster than its merge sort of 32-bit ones at 100M rows.
+        keys = assignments.astype(np.uint16)
+    order = np.argsort(keys, kind="stable")
     sorted_assign = assignments[order]
     starts = (
         np.flatnonzero(np.diff(sorted_assign, prepend=sorted_assign[0] - 1))

@@ -382,8 +382,7 @@ class ShardedIVF:
 
         # 1. sample + coarse centers (the sampling caps of IVFIndex.encode).
         check_stop(stop_condition)
-        sample_n = min(n, max(nlist, ivf_ops.IVF_SAMPLE_PER_CENTER * nlist),
-                       ivf_ops.sample_cap(nlist))
+        sample_n = ivf_ops.training_rows(n, nlist)
         sample = sample_rows(batches, n, sample_n, seed)
         if sample.shape[0] and sample.shape[1] != dim:
             raise ArgumentsError(
@@ -427,14 +426,15 @@ class ShardedIVF:
             return sh * width + (slots - sh * nsl)
 
         # Bucket-mean sums on the first device, ORIGINAL bucket order, by
-        # one-hot products (deterministic, unlike index_add_ on the card);
-        # the counts are the bucket layout's.
+        # segment sums (deterministic, unlike index_add_ on the card); the
+        # counts are the bucket layout's.
         msum = torch.zeros((b, dim), dtype=torch.float32, device=dev)
 
         def acc_means(batch, r0):
             bidx = bucket_of_row[r0:r0 + batch.shape[0]]
-            ivf_ops.add_onehot_sums(msum, torch.from_numpy(np.ascontiguousarray(batch)).to(dev),
-                                    torch.from_numpy(bidx).to(dev))
+            msum.add_(ivf_ops.segment_sums(
+                torch.from_numpy(np.ascontiguousarray(batch)).to(dev),
+                torch.from_numpy(bidx).to(dev), b)[0])
 
         def finalize_means():
             cnts = np.maximum((bucket_ids >= 0).sum(axis=1), 1).astype(np.float32)

@@ -134,7 +134,7 @@ class DeviceScatter:
     (``index_copy_`` / ``index_add_``), and no tensor of the whole buffer
     is built. ``add`` accumulates instead of setting; on the card its float
     sums come in atomic order, so the IVF build sums its bucket means by
-    one-hot products instead (``ops/ivf.add_onehot_sums``). ``fill_from``
+    segment sums instead (``ops/ivf.segment_sums``). ``fill_from``
     copies committed rows into duplicate positions, across shards where a
     source and its destination lie on different ones."""
 

@@ -2044,3 +2044,23 @@ def test_sign_ws_both_bodies_give_the_same_candidates(dev, monkeypatch, dim, ind
     torch.cuda.synchronize()
     for v, i in got[1:]:
         assert torch.equal(v, got[0][0]) and torch.equal(i, got[0][1])
+
+
+@pytest.mark.parametrize("n", [8_192, 65_536])
+def test_segment_sums_equal_the_cpu_to_the_bit_and_repeat(dev, n):
+    """ops/ivf.segment_sums at the streamed trainer's block (8,192 rows x 768
+    into 32,552 centres) and at 65,536 rows, the last 100 segments empty: the
+    card's sums and counts equal the CPU's to the bit, and a second run on
+    the card gives the same bits."""
+    from quantization_tpu_torch.ops import ivf as ivf_ops
+
+    nseg = 32_552
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, nseg - 100, size=n))
+    want, wc = ivf_ops.segment_sums(x, idx, nseg)
+    got = [ivf_ops.segment_sums(x.to(dev), idx.to(dev), nseg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for s, c in got:
+        assert torch.equal(s.cpu(), want) and torch.equal(c.cpu(), wc)
+    assert bool((wc[-100:] == 0).all()) and bool((want[-100:] == 0).all())
