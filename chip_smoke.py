@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py             # the checks and times, about 16 minutes
+    python3 chip_smoke.py             # the checks and times, about 17 minutes
     python3 chip_smoke.py --profile   # also a torch.profiler breakdown per path
     python3 chip_smoke.py --rehearse [pq] [ivf] [rbq]  # paths 3-5's recall on the CPU, 30k rows
     python3 chip_smoke.py --rehearse ann  # path 6's recall on the CPU, 20k rows
@@ -23,7 +23,7 @@ the combine on the warp-specialized bodies and the two-block ones, span
 items and 2048-row items: the [approx] lines; every approx body's ptxas
 registers and spills are printed from the build, the sign-query ones
 required), and drives the
-port's ten main paths through the public API, each with the kernel launch
+port's eleven main paths through the public API, each with the kernel launch
 counts set to 0 just before it and read just after:
 
   1. SQ-u8: DOT over 100,000 x 1024 random vectors, a 256-query batch,
@@ -128,9 +128,10 @@ both corpora, since the clustered one ties far more.
      time sharded against single-device. Its wall is held to 120 s.
 
   9. The 10M anchor harness (bench/bench_10m.py, the twin of the JAX
-     package's tools/bench_10m.py) through its main() at 10,000,000 x 768
-     of the JAX harness's realistic corpus (--dist realistic --normalize
-     --opq --ivf --ivf-residual; Q = 256, k = 10, S = 1024, nlist 3,255),
+     package's tools/bench_10m.py) through its main() at 5,000,000 x 768
+     (the anchor's 10M cut for the smoke's time) of the JAX harness's
+     realistic corpus (--dist realistic --normalize --opq --ivf
+     --ivf-residual; Q = 256, k = 10, S = 1024, nlist 1,627),
      its rows made on the card by id (the row kernel, held against plain
      threefry first): every leg present, none FAILED, recall figures in
      [0, 1], each rescored leg at least its coarse leg, the IVF-SQ ladder
@@ -149,7 +150,23 @@ both corpora, since the clustered one ties far more.
      matched by the scanned fraction), rescored legs at least their coarse
      leg and not falling as R grows, and K10 held against plain on its
      last launch. The row kernel is held at the 100M corpus's last batch
-     and its query ids in path 9. Its wall is held to 360 s.
+     and its query ids in path 9. Its wall is held to 360 s. Path 10 keeps
+     its build (pass 0, the ground truth, the IVF build) on the host.
+
+ 11. The quality-first capacity point: the same main() with path 10's
+     flags and --ivf-base opq --ivf-residual (BASELINE.md:612-622), on the
+     build path 10 kept: IVF-OPQ and residual IVF-OPQ (m = 96) over 4.75 /
+     11.86 % of the buckets, rescored to f32 at R = 40-640. Exactly the JAX
+     harness's legs in its order (plain OPQ's R = 160 leg twice), each
+     index's codes [96, slots] u8 at 96 B a slot held as appended, each
+     index's serving peak at most 16 GiB, each leg with a TPU figure
+     (BASELINE.md:624-635) within 0.03 of it (plain IVF-OPQ's on a second
+     run of that index with the TPU's f32 products, one bf16 pass, which
+     its f32 legs must match or beat: ROADMAP F40), rescored legs at least
+     their coarse leg and not falling as R grows, every K11 launch on the
+     LUT-gather ring, and K11 held against plain on the last launch of each
+     LUT word (int8 for plain OPQ, bf16x2 with the additives for OPQr) and
+     timed there. Its wall is held to 240 s.
 
 It holds every kernel against its plain PyTorch version on the card at the
 shapes of its path (each exact search on both of its selects: the queue at
@@ -4118,18 +4135,22 @@ def sharded_ivf_path(dev, smi, ivf_keep, rbq_keep):
     return info
 
 
-# Path 9 (the 10M anchor harness): bench_10m.main at BASELINE.md's anchor,
-# 10,000,000 x 768 of the JAX harness's realistic corpus (tools/bench_10m.py
-# --dist realistic --normalize; BASELINE.md:261-300), Q = 256, k = 10, the
-# automatic IVF geometry (S = 1024, nlist = 3,255), on one card.
-BENCH10M_ARGV = ["--n", "10000000", "--d", "768", "--dist", "realistic", "--normalize",
+# Path 9 (the 10M anchor harness): bench_10m.main with the flags of
+# BASELINE.md's anchor (tools/bench_10m.py --dist realistic --normalize;
+# BASELINE.md:261-300) on the JAX harness's realistic corpus, Q = 256, k =
+# 10, the automatic IVF geometry (S = 1024), on one card: at 5,000,000 x 768
+# since paths 10-11 need the smoke's time (nlist 1,627; PERF.md §4), the
+# anchor's 10,000,000 by `python -m quantization_tpu_torch.bench.bench_10m`.
+BENCH10M_ARGV = ["--n", "5000000", "--d", "768", "--dist", "realistic", "--normalize",
                  "--opq", "--ivf", "--ivf-residual"]
-# The legs those flags define, by family (a ladder's nscans at 10M are 4
-# or 3 distinct values): 21 full-scan legs and 40 IVF legs.
+# The legs those flags define, by family (at 5M the IVF-SQ ladder's
+# fractions 1.19 and 4.75 % both round to 256 buckets, so its nscans are 3
+# distinct values, as every other ladder's): 21 full-scan legs and 39 IVF
+# legs.
 BENCH10M_LEGS = {
     "BQ fused ": 2, "PQ fused ": 2, "PQ4 fused ": 2, "OPQ fused ": 2, "2s OPQ->f32 ": 3,
     "SQ fused ": 2, "2s SQ->f32 ": 3, "two-stage ": 3, "2s BQ->f32 ": 2,
-    "IVF-SQ p=": 4, "2s IVF-SQ->f32 ": 5, "IVF-BQ p=": 3, "2s IVF-BQ->f32 ": 4,
+    "IVF-SQ p=": 3, "2s IVF-SQ->f32 ": 5, "IVF-BQ p=": 3, "2s IVF-BQ->f32 ": 4,
     "IVF-OPQ p=": 3, "2s IVF-OPQ->f32 ": 3, "IVF-BQr p=": 3, "2s IVF-BQr->f32 ": 4,
     "IVF-SQr p=": 3, "2s IVF-SQr->f32 ": 2, "IVF-OPQr p=": 3, "2s IVF-OPQr->f32 ": 3,
 }
@@ -4448,7 +4469,7 @@ def ivf_breakdown(ivf, eq, nprobe, nscan, smi):
     kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
                       if e.device_type.name == "CUDA"), key=lambda kv: -kv[1])
     parts["profiler_kernel_ms"] = sum(t for _, t in kernels)
-    say("breakdown", f"10M IVF-SQ approx top_k, nprobe {nprobe}, nscan {nscan} "
+    say("breakdown", f"path 9 IVF-SQ approx top_k, nprobe {nprobe}, nscan {nscan} "
         f"({tiles.shape[0]} tiles of {itile} rows, {tiles.shape[0] * itile:,} rows): "
         + ", ".join(f"{k_} {v:.4f}" for k_, v in parts.items()) + f", on {smi}")
     say("breakdown", "  profiler, by kernel: " + ", ".join(
@@ -4499,7 +4520,7 @@ def bench10m_path(dev, smi):
     launches = {k_: v for k_, v in counts(*mods).items() if v}
     info["rowgen"]["launches"] = threefry.LAUNCHES["latent_rows"]
     info["launches"] = launches
-    say("bench10m", f"main() at 10,000,000 x 768 in {info['main_s']:.1f} s (peak "
+    say("bench10m", f"main() at {BENCH10M_ARGV[1]} x 768 in {info['main_s']:.1f} s (peak "
         f"{info['peak_gb']:.1f} GB allocated), exit {rc}; launches {launches}, row kernel "
         f"{info['rowgen']['launches']}; on {smi}")
     require(rc == 0, "bench_10m.main exits 0")
@@ -4625,9 +4646,9 @@ def capacity_leg(leg, nbk):
     return (int(m.group(1)) if m.group(1) else None), frac
 
 
-def capacity_path(dev, smi):
+def capacity_path(dev, smi, keep):
     """Path 10: the capacity configuration, bench_10m.main at CAPACITY_ARGV
-    in process. Checks the geometry (CAPACITY_GEOMETRY), that every row
+    in process, its build left in ``keep`` (main's holder) for path 11. Checks the geometry (CAPACITY_GEOMETRY), that every row
     sits in exactly one slot, the planes' 96 B a slot, the serving peak
     (reset after the build) against CAPACITY_PEAK_LIMIT_B, each leg's
     recall@10 within CAPACITY_RECALL_SLACK of the TPU's, each rescored leg
@@ -4655,7 +4676,7 @@ def capacity_path(dev, smi):
     bench_10m.Harness.report_serve = keep_index
     try:
         with recorded(bq_kernel) as calls:
-            rc, printed = captured(bench_10m.main, CAPACITY_ARGV)
+            rc, printed = captured(bench_10m.main, CAPACITY_ARGV, keep)
     finally:
         bench_10m.Harness.report_serve = report_serve
     info = {"main_s": time.perf_counter() - t_path}
@@ -4676,6 +4697,8 @@ def capacity_path(dev, smi):
     info.update(nlist=nlist, bucket_size=s, nbuckets=nbk)
     say("capacity", f"geometry nlist {nlist}, S {s}, {nbk:,} buckets ({nbk * s:,} slots) on {smi}")
     require((nlist, s) == CAPACITY_GEOMETRY, f"the automatic geometry {CAPACITY_GEOMETRY}")
+    require("kept build" not in printed and "build" in keep, "path 10 builds afresh and keeps "
+            "its build")
 
     index = served.pop("index")
     ids = index.bucket_ids[index.bucket_ids >= 0]
@@ -4761,6 +4784,268 @@ def capacity_path(dev, smi):
     say("capacity", f"path 10 wall {wall:.1f} s (limit {CAPACITY_WALL_LIMIT_S:.0f} s; main "
         f"{info['main_s']:.1f}) on {smi}")
     require(wall <= CAPACITY_WALL_LIMIT_S, f"path 10 within {CAPACITY_WALL_LIMIT_S:.0f} s")
+    return info
+
+
+# Path 11 (the quality-first capacity point): path 10's flags with the
+# IVF-OPQ(r) inner codes (BASELINE.md:612-622), on the build path 10 kept.
+CAPACITY_OPQ_ARGV = CAPACITY_ARGV[:-1] + ["opq", "--ivf-residual"]
+CAPACITY_CODE_BYTES_PER_SLOT = 96  # m = 96 chunks of 8 dims, one byte each
+CAPACITY_OPQ_WALL_LIMIT_S = 240.0
+# The JAX run on one TPU v5e chip (BASELINE.md:624-635): recall@10, q/s and
+# ms a batch by (index, R or None for a coarse leg, ladder fraction). The
+# legs without a figure there are printed without a bound.
+CAPACITY_OPQ_TPU = {
+    ("IVF-OPQ", None, 0.0475): (0.105, 1253, 204),
+    ("IVF-OPQ", 640, 0.1186): (0.554, 445, 575),
+    ("IVF-OPQr", None, 0.0475): (0.514, 340, 753),
+    ("IVF-OPQr", None, 0.1186): (0.514, 140, 1829),
+    ("IVF-OPQr", 40, 0.0475): (0.827, 339, 756),
+    ("IVF-OPQr", 160, 0.0475): (0.923, 333, 768),
+    ("IVF-OPQr", 320, 0.0475): (0.929, 326, 785),
+    ("IVF-OPQr", 160, 0.1186): (0.949, 139, 1845),
+    ("IVF-OPQr", 320, 0.1186): (0.957, 137, 1863),
+}
+
+
+# F40: the TPU's plain IVF-OPQ figures come from the JAX harness's f32
+# products at XLA's default precision on a TPU, one bf16 pass
+# (bench/precision_ab.py); the port keeps f32 and reads above them. Those two
+# legs are held to beat the TPU's figure by at least a margin, which the
+# port's own one-bf16-pass runs fail (coarse 0.100 / 0.116 against 0.105,
+# R = 640 0.536 / 0.582 against 0.554) and its f32 meets (0.154, 0.737).
+CAPACITY_OPQ_F32_MARGIN = {
+    ("IVF-OPQ", None, 0.0475): 0.02,
+    ("IVF-OPQ", 640, 0.1186): 0.10,
+}
+
+
+def harness_legs(printed):
+    """[(leg, recall@10)] of the harness's lines, in order."""
+    import re
+
+    return [(m.group(1), float(m.group(2))) for m in re.finditer(
+        r"^(\S.*?)\s*: .* recall@\d+ vs exact = ([0-9.naif]+)", printed, re.M)]
+
+
+def opq_leg_names(tag, legs_fn, nbk):
+    """The leg names of ``legs_fn`` (ivf_opq_legs / ivf_opqr_legs) at 100M."""
+    coarse, rescored = legs_fn(CAPACITY_N, nbk)
+    return ([f"{tag} p=64 nscan={u}" for u in coarse]
+            + [f"2s {tag}->f32 R={rr} p={p} nscan={u}" for rr, p, u in rescored])
+
+
+def capacity_opq_leg(leg, nbk):
+    """(index, R or None, ladder fraction) of an IVF-OPQ(r) leg's name at
+    ``nbk`` buckets."""
+    import re
+
+    m = re.match(r"(?:2s (IVF-OPQr?)->f32 R=(\d+)|(IVF-OPQr?)) p=\d+ nscan=(\d+)$", leg)
+    require(m, f"an IVF-OPQ(r) leg ({leg})")
+    frac = min(CAPACITY_FRACTIONS, key=lambda f: abs(f - int(m.group(4)) / nbk))
+    return m.group(1) or m.group(3), (int(m.group(2)) if m.group(2) else None), frac
+
+
+def capacity_opq_path(dev, smi, keep, nbk10):
+    """Path 11: bench_10m.main at CAPACITY_OPQ_ARGV in process, on the
+    build path 10 left in ``keep`` (``nbk10`` buckets). Checks that the
+    build was taken, the geometry, exactly the legs of ``ivf_opq_legs``
+    then ``ivf_opqr_legs`` in order (the duplicate leg kept), each index's
+    codes [96, slots] u8 at 96 B a slot and the appender's own buffer, each
+    serving peak against CAPACITY_PEAK_LIMIT_B, each leg with a TPU figure
+    within CAPACITY_RECALL_SLACK of it (plain IVF-OPQ's above it by
+    CAPACITY_OPQ_F32_MARGIN, F40), rescored legs at least their coarse
+    leg and not falling as R grows (0.01), no FAILED leg, every K11 launch
+    on the LUT-gather ring, K11 held against plain on the last launch of
+    each LUT word (at the end of its index's legs, where its codes are
+    still resident; the held launch is then timed against its bound, and
+    none of these launches is counted), and the path's wall against
+    CAPACITY_OPQ_WALL_LIMIT_S. Prints the phases (the two OPQ trainings
+    apart from their encodes), the resident bytes, the peaks and each leg's
+    q/s and device ms beside the TPU's."""
+    import re
+
+    from quantization_tpu_torch.bench import bench_10m, threefry
+    from quantization_tpu_torch.models.pq import ProductQuantizer
+    from quantization_tpu_torch.ops.kernels import bq_kernel, gather, pq_kernel, sq_kernel
+
+    mods = (sq_kernel, bq_kernel, pq_kernel, gather)
+    props = torch.cuda.get_device_properties(0)
+    clock = max_sm_clock_hz()
+    t_path = time.perf_counter()
+    made, trains, words = [], [], {}
+    saved = (bench_10m.Harness.serving_peak, bench_10m.train_opq,
+             ProductQuantizer.__dict__["from_transposed"])
+
+    def from_transposed(cls, codes_t, metadata):
+        q = saved[2].__func__(cls, codes_t, metadata)
+        made.append((tuple(q.codes_t.shape), q.codes_t.dtype, q.codes_t.data_ptr()
+                     == codes_t.data_ptr()))
+        return q
+
+    def train_opq(*a, **kw):
+        t0 = time.perf_counter()
+        out = saved[1](*a, **kw)
+        trains.append(time.perf_counter() - t0)
+        return out
+
+    def lut_word(m, name, a, kw):
+        if m is not pq_kernel or name != "pq_search_indexed":
+            return None
+        return bound_args(m, name, a, kw)["precision"] or pq_kernel.lut_precision()
+
+    def hold_index(self, tag):
+        """After ``tag``'s serving peak: its K11 launches, all of one LUT
+        word, held and timed on the last."""
+        saved[0](self, tag)
+        keys = [c for c in calls if c.startswith("pq_search_indexed")]
+        require(len(keys) == 1, f"{tag}: one LUT word since the last index ({keys})")
+        c = keys[0]
+        word = c[c.index("(") + 1 : -1]
+        n = pq_kernel.LAUNCHES["pq_search_indexed"] - sum(w["launches"] for w in words.values())
+        before = {m_: dict(m_.LAUNCHES) for m_ in mods}
+        t0 = time.perf_counter()
+        held = hold_searches(calls, {c: n}, f"100M {tag}")
+        m, name, a, kw, _ = calls[c]
+        b = bound_args(m, name, a, kw)
+        rows = int(b["tile_sel"].shape[0]) * b["tile_n"]
+        require(tuple(b["codes_t"].shape)[0] == CAPACITY_CODE_BYTES_PER_SLOT,
+                f"{tag}: K11 reads [96, slots] codes ({list(b['codes_t'].shape)})")
+        ms = timed_ms(lambda: m.pq_search_indexed(*a, **kw), warmup=1, iters=3, reps=3)
+        bnd, by = pq_bound("search", b["lut"].shape[0], rows, b["codes_t"].shape[0],
+                           b["lut"].shape[2], b["k"], word, props, clock)
+        for m_ in mods:
+            m_.LAUNCHES.update(before[m_])
+        del calls[c], m, a, kw, b
+        words[word] = {"index": tag, "launches": n, "held_rows": rows, "ms": ms,
+                       "bound_ms": bnd, "bound_by": by, "hold_s": time.perf_counter() - t0}
+        say("capacity-opq", f"{tag}: {n} K11 launches, {word} LUT; the last ({rows:,} rows, "
+            f"top {held[c][0][1]} of {held[c][0][0]} queries) against plain: values and ids "
+            f"equal; {ms:.4f} ms against a bound of {bnd:.4f} ms ({by}), "
+            f"{100 * bnd / ms:.1f} % of it, on {smi}")
+
+    torch.cuda.empty_cache()
+    reset_all(*mods, threefry)
+    bench_10m.Harness.serving_peak = hold_index
+    bench_10m.train_opq = train_opq
+    ProductQuantizer.from_transposed = classmethod(from_transposed)
+    try:
+        with recorded(pq_kernel, body=lut_word) as calls:
+            rc, printed = captured(bench_10m.main, CAPACITY_OPQ_ARGV, keep)
+    finally:
+        bench_10m.Harness.serving_peak, bench_10m.train_opq = saved[:2]
+        ProductQuantizer.from_transposed = saved[2]
+    info = {"main_s": time.perf_counter() - t_path}
+    launches = {k_: v for k_, v in counts(*mods).items() if v}
+    info["launches"] = launches
+    info["rowgen_launches"] = threefry.LAUNCHES["latent_rows"]
+    info["k11"] = words
+    say("capacity-opq", f"main() at 100,000,000 x 768, IVF-OPQ and IVF-OPQr, in "
+        f"{info['main_s']:.1f} s, exit {rc}; launches {launches}, row kernel "
+        f"{info['rowgen_launches']}; on {smi}")
+    require(rc == 0, "bench_10m.main at the OPQ capacity flags exits 0")
+    _, failed = leg_recalls(printed)
+    require(not failed, f"no FAILED leg ({failed})")
+    require(set(launches) == {"pq_search_indexed"}, f"path 11 launches K11 alone ({launches})")
+    require(pq_kernel.ONEHOT_LAUNCHES["pq_search_indexed"] == 0,
+            "every K11 launch on the LUT-gather ring body")
+    require(set(words) == {"int8", "bf16x2"}
+            and sum(w["launches"] for w in words.values()) == launches["pq_search_indexed"],
+            f"K11 held on the last launch of each LUT word ({sorted(words)})")
+
+    require(re.search(r"^kept build: ", printed, re.M), "path 11 takes path 10's build")
+    geo = re.search(r"^IVF geometry: nlist=(\d+) S=(\d+)", printed, re.M)
+    nlist, s = int(geo.group(1)), int(geo.group(2))
+    nbk = int(re.search(r"\((\d+) buckets x (\d+)", printed).group(1))
+    info.update(nlist=nlist, bucket_size=s, nbuckets=nbk)
+    require((nlist, s) == CAPACITY_GEOMETRY and nbk == nbk10,
+            f"path 10's geometry and buckets ({nlist}, {s}, {nbk})")
+    npad_i = nbk * s + (-(nbk * s)) % 2048
+
+    require(len(made) == 2 and all(
+        m_ == ((CAPACITY_CODE_BYTES_PER_SLOT, npad_i), torch.uint8, True) for m_ in made),
+        f"each index's codes [{CAPACITY_CODE_BYTES_PER_SLOT}, {npad_i:,}] u8, the appender's "
+        f"buffer itself ({made})")
+    info["resident_b"], info["serving_peak_b"] = {}, {}
+    for tag in ("IVF-OPQ", "IVF-OPQr"):
+        res = re.search(rf"^{tag} resident: (.*) \(([\d,]+) B on the device; codes (\d+) B a "
+                        r"slot x ([\d,]+) slots\); bucket tables ([\d,]+) B on the host",
+                        printed, re.M)
+        parts = {k_.replace(" ", "_"): int(v.replace(",", "")) for k_, v in
+                 re.findall(r"(?:^|, )([a-z ]+) ([\d,]+) B", res.group(1))}
+        parts["host_bucket_tables"] = int(res.group(5).replace(",", ""))
+        require(int(res.group(3)) == CAPACITY_CODE_BYTES_PER_SLOT
+                and parts["codes"] == CAPACITY_CODE_BYTES_PER_SLOT * npad_i,
+                f"{tag}: codes at 96 B a slot ({res.group(0)})")
+        peak = int(re.search(rf"^{tag} serving peak: ([\d,]+) B", printed, re.M).group(1)
+                   .replace(",", ""))
+        info["resident_b"][tag], info["serving_peak_b"][tag] = parts, peak
+        on_card = int(res.group(2).replace(",", ""))
+        say("capacity-opq", f"{tag} resident: " + ", ".join(
+            f"{k_} {v:,} B" for k_, v in parts.items()) + f" ({on_card / 1e9:.3f} GB on the "
+            f"card); serving peak {peak:,} B allocated ({peak / 2**30:.3f} GiB, limit "
+            f"{CAPACITY_PEAK_LIMIT_B / 2**30:.0f} GiB) on {smi}")
+        require(peak <= CAPACITY_PEAK_LIMIT_B, f"{tag}: the serving peak within 16 GiB")
+
+    info["build_s"] = {m_.group(1): int(m_.group(2)) for m_ in (
+        re.match(r"(.*?):? (\d+)s\b", line) for line in printed.splitlines()
+        if "recall@" not in line and not line.startswith(("IVF geometry", "["))) if m_}
+    require(len(trains) == 2, f"two OPQ trainings ({trains})")
+    info["opq_train_s"] = trains
+    say("capacity-opq", "phases (s): " + ", ".join(
+        f"{k_} {v}" for k_, v in info["build_s"].items()) + "; of these the OPQ trainings "
+        f"{trains[0]:.1f} and {trains[1]:.1f} (the residual one on r_smp[:20,000]), the 100M "
+        f"encodes the rest, on {smi}")
+
+    legs = harness_legs(printed)
+    want = (opq_leg_names("IVF-OPQ", bench_10m.ivf_opq_legs, nbk)
+            + opq_leg_names("IVF-OPQr", bench_10m.ivf_opqr_legs, nbk))
+    require([leg for leg, _ in legs] == want,
+            f"the IVF-OPQ and IVF-OPQr legs of the JAX harness at 100M ({[x for x, _ in legs]})")
+    times = [(float(m_.group(1)), float(m_.group(2)), float(m_.group(3))) for m_ in
+             re.finditer(r"^\S.*?\s*:\s+(\d+) qps\s+\(\s*([0-9.]+) ms/batch\).*"
+                         r"\[device ([0-9.]+) ms/batch\]", printed, re.M)]
+    require(len(times) == len(legs), "a device time for every leg")
+    info["legs"] = []
+    pts = []  # (index, R or None, fraction, recall) in leg order
+    for (leg, r), (qps, host_ms, dev_ms) in zip(legs, times):
+        key = capacity_opq_leg(leg, nbk)
+        pts.append((*key, r))
+        tpu = CAPACITY_OPQ_TPU.get(key)
+        info["legs"].append({"leg": leg, "recall_at_10": r, "qps": qps, "ms_batch": host_ms,
+                             "device_ms_batch": dev_ms, "fraction": key[2],
+                             "tpu": None if tpu is None else dict(zip(
+                                 ("recall_at_10", "qps", "ms_batch"), tpu))})
+        say("capacity-opq", f"{leg} ({100 * key[2]:.2f} % of the buckets): recall@10 {r:.3f}, "
+            f"{qps:.0f} q/s, {host_ms:.2f} ms a batch, device {dev_ms:.3f} ms on {smi}"
+            + (f"; TPU v5e (BASELINE.md) {tpu[0]:.3f}, {tpu[1]} q/s, {tpu[2]} ms"
+               if tpu else "; no TPU figure"))
+        if key in CAPACITY_OPQ_F32_MARGIN:
+            margin = CAPACITY_OPQ_F32_MARGIN[key]
+            require(r >= tpu[0] + margin,
+                    f"{leg}: recall@10 {r:.3f} >= the TPU's {tpu[0]:.3f} + {margin} (F40: f32, "
+                    f"not one bf16 pass)")
+        elif tpu:
+            require(abs(r - tpu[0]) <= CAPACITY_RECALL_SLACK,
+                    f"{leg}: recall@10 {r:.3f} within {CAPACITY_RECALL_SLACK} of the TPU's "
+                    f"{tpu[0]:.3f}")
+    for tag, rr, frac, r in pts:
+        if rr is None:
+            continue
+        coarse_r = [v for t2, r2, f2, v in pts if (t2, r2, f2) == (tag, None, frac)]
+        require(len(coarse_r) == 1 and r >= coarse_r[0] - 0.01,
+                f"{tag} R={rr} at {frac}: {r:.3f} >= coarse {coarse_r} - 0.01")
+        deeper = [(r2, v) for t2, r2, f2, v in pts
+                  if t2 == tag and f2 == frac and r2 and r2 > rr]
+        require(all(v >= r - 0.01 for _, v in deeper),
+                f"{tag}: recall not falling as R grows at {frac} ({r:.3f} at R={rr}, {deeper})")
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_path
+    info["wall_s"] = wall
+    say("capacity-opq", f"path 11 wall {wall:.1f} s (limit {CAPACITY_OPQ_WALL_LIMIT_S:.0f} s; "
+        f"main {info['main_s']:.1f}) on {smi}")
+    require(wall <= CAPACITY_OPQ_WALL_LIMIT_S, f"path 11 within {CAPACITY_OPQ_WALL_LIMIT_S:.0f} s")
     return info
 
 
@@ -5161,7 +5446,11 @@ def main():
     torch.cuda.empty_cache()
     bench10m_info = bench10m_path(dev, smi)
     torch.cuda.empty_cache()
-    capacity_info = capacity_path(dev, smi)
+    keep = {}  # path 10's build on the host, for path 11
+    capacity_info = capacity_path(dev, smi, keep)
+    torch.cuda.empty_cache()
+    capacity_opq_info = capacity_opq_path(dev, smi, keep, capacity_info["nbuckets"])
+    del keep
 
     kernels = []
     for r in sq_recs + bq_recs + pq_recs + ivf_recs + rbq_recs:
@@ -5200,6 +5489,7 @@ def main():
         "sharded_ivf": sharded_ivf_info,
         "bench_10m": bench10m_info,
         "capacity_100m": capacity_info,
+        "capacity_opq_100m": capacity_opq_info,
         "approx_split": {f"{k}/{d}/{p}": {x: v[x] for x in ("pass1_ms", "scan_ms", "combine_ms")}
                          for (k, d, p), v in asplit.items()},
     }))

@@ -29,6 +29,11 @@ after it; a leg that raises prints its ``FAILED`` line and ``main`` returns
 Runs on the CUDA card unless ``--device`` names another (without a card
 ``main`` raises ``NoDeviceError``). ``QTPU_HBM_PROBE=1`` prints
 ``torch.cuda.mem_get_info()`` at the JAX harness's probe points.
+
+``main(argv, keep)`` with a dict ``keep`` stores what the run builds
+before its legs (``Build``: pass 0, the ground truth and the IVF build, all
+on the host) there, and a later run whose ``build_key`` is equal takes it
+instead of building it again: two runs over one 100M corpus build it once.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import argparse
 import os
 import sys
 import time
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -330,17 +337,24 @@ class Harness:
         self.say(f"{label} {time.perf_counter() - t0:.0f}s{tail}")
 
     def resident(self, tag: str, index: IVFIndex) -> None:
-        """An IVF-BQ index's serving state in bytes (the planes, bucket means
-        and slot ids on the device, the bucket tables on the host), then, on
-        a card, the start of the serving-peak window (``serving_peak``)."""
-        planes = index.quantizer.planes
-        dev = {"planes": planes, "bucket means": index._means_dev,
+        """An IVF-BQ or IVF-PQ index's serving state in bytes (the planes or
+        the transposed PQ codes, the bucket means, the slot ids and any
+        per-slot row additive on the device; the bucket tables on the host),
+        then, on a card, the start of the serving-peak window
+        (``serving_peak``)."""
+        qz = index.quantizer
+        name, codes = ("planes", qz.planes) if index.metadata.kind == "bq" else ("codes",
+                                                                                qz.codes_t)
+        dev = {name: codes, "bucket means": index._means_dev,
                "slot ids": index._slot_ids_dev}
+        rowadd = index._resid_bq if index.metadata.kind == "bq" else index._resid_pq
+        if rowadd is not None:
+            dev["rowadd"] = rowadd
         nbytes = {k: t.numel() * t.element_size() for k, t in dev.items()}
         host = index.bucket_ids.nbytes + index.bucket_means.nbytes
         self.say(f"{tag} resident: " + ", ".join(f"{k} {v:,} B" for k, v in nbytes.items())
-                 + f" ({sum(nbytes.values()):,} B on the device; planes "
-                 f"{nbytes['planes'] // planes.shape[1]} B a slot x {planes.shape[1]:,} slots); "
+                 + f" ({sum(nbytes.values()):,} B on the device; {name} "
+                 f"{nbytes[name] // codes.shape[1]} B a slot x {codes.shape[1]:,} slots); "
                  f"bucket tables {host:,} B on the host")
         if self.cuda:
             self.sync()
@@ -351,6 +365,49 @@ class Harness:
         if self.cuda:
             self.say(f"{tag} serving peak: {torch.cuda.max_memory_allocated(self.device):,} B "
                      "allocated")
+
+
+@dataclass
+class IVFBuild:
+    """The IVF build over the corpus, on the host: the coarse centres f32
+    [nlist, D], the residual calibration sample (batch 0's first rows, f32),
+    the permutation (bucket b's slot s holds row ``perm[b * S + s]``), the
+    bucket tables and the bucket means f32 [buckets, D]."""
+
+    centers: np.ndarray
+    smp: np.ndarray
+    perm: np.ndarray
+    bucket_ids: np.ndarray
+    means: np.ndarray
+
+
+@dataclass
+class Build:
+    """What a run makes before its legs, all on the host, so that a kept one
+    pins nothing on the card: pass 0's range and training sample, pass A's
+    exact top-K ids and, with --ivf, the IVF build."""
+
+    mn: float
+    mx: float
+    sample: np.ndarray
+    gt: np.ndarray
+    ivf: Optional[IVFBuild] = None
+
+
+def ivf_geometry(args):
+    """(nlist, S): the flags', else ``auto_geometry``'s bucket size and
+    nlist * S ~ N / 3."""
+    s = args.ivf_bucket or auto_geometry(args.n, args.ivf_residual)[1]
+    return args.nlist or max(1, args.n // (3 * s)), s
+
+
+def build_key(args, device) -> tuple:
+    """Every input of a run's ``Build``: the corpus (rows, width, batch,
+    distribution, normalization, clusters, noise), the queries and K of the
+    ground truth, the device it is computed on and the resolved IVF
+    geometry."""
+    return (args.n, args.d, args.batch, args.dist, args.normalize, args.clusters, args.sigma,
+            args.queries, args.k, str(device), ivf_geometry(args) if args.ivf else None)
 
 
 # ------------------------------------------------------------ the passes
@@ -407,8 +464,8 @@ def stream_codes(h: Harness, appenders, enc) -> None:
             app.append(o)
 
 
-def run(args) -> int:
-    """The harness; 1 if any leg failed, else 0."""
+def run(args, keep=None) -> int:
+    """The harness; 1 if any leg failed, else 0. ``keep``: see ``main``."""
     dev = resolve_device(args.device)
     h = Harness(args, dev)
     N, D, B, Q, K = h.N, h.D, h.B, h.Q, h.K
@@ -416,7 +473,19 @@ def run(args) -> int:
     m = D // cs
     dot = DistanceType.DOT
 
-    mn, mx, sample = calibrate(h)
+    key = build_key(args, dev)
+    kept = (keep or {}).get("build")
+    build = kept[1] if kept is not None and kept[0] == key else None
+    if build is None:
+        mn, mx, sample = calibrate(h)
+    else:
+        mn, mx, sample = build.mn, build.mx, build.sample
+        tail = ""
+        if build.ivf is not None:
+            nbk, s = build.ivf.bucket_ids.shape
+            tail = f" ({nbk} buckets x {s}, pad {nbk * s - N} rows)"
+        h.say("kept build: pass 0, the ground truth and the IVF build of an earlier run "
+              f"with the same key{tail}")
     division = pq_ops.get_vector_division(D, cs)
     want_bq = args.only in ("all", "bq")
     want_pq = args.only in ("all", "pq")
@@ -448,18 +517,26 @@ def run(args) -> int:
     pq_codes = DeviceAppender((m, npad), torch.uint8, dev, axis=1) if want_pq else None
     cents_dev = (torch.from_numpy(pq_ops.centroids_to_chunks(centroids, division)).to(dev)
                  if want_pq else None)
-    t0 = time.perf_counter()
-    for i in range(h.nb):
-        x = h.rows.batch(i)
-        best = gt_update(best, h.queries_dev, x, i * B)
-        if want_bq:
-            bq_planes.append(pack_bq(x, w8).T)
-        if want_pq:
-            pq_codes.append(chunk_codes(x, division, cents_dev))
-        del x
-    gt = best[1].cpu().numpy()
-    h.timed("pass A (GT + BQ + PQ encode):", t0)
-    h.hbm_probe("after passA")
+    gt = None if build is None else build.gt
+    if gt is None or want_bq or want_pq:
+        t0 = time.perf_counter()
+        for i in range(h.nb):
+            x = h.rows.batch(i)
+            if gt is None:
+                best = gt_update(best, h.queries_dev, x, i * B)
+            if want_bq:
+                bq_planes.append(pack_bq(x, w8).T)
+            if want_pq:
+                pq_codes.append(chunk_codes(x, division, cents_dev))
+            del x
+        if gt is None:
+            gt = best[1].cpu().numpy()
+        h.timed("pass A (GT + BQ + PQ encode):", t0)
+        h.hbm_probe("after passA")
+    if build is None:
+        build = Build(mn, mx, sample, gt)
+        if keep is not None:
+            keep["build"] = (key, build)
 
     bq = eq_bq = None
     if want_bq:
@@ -525,7 +602,7 @@ def run(args) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     if args.ivf:
-        ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, quantize_sq)
+        ivf_legs(h, build, division, params_dot, queries, alpha, offset, mult, quantize_sq)
     return finish(h)
 
 
@@ -598,21 +675,43 @@ def ivf_bq_legs(n: int, nbk: int):
     return coarse, rows
 
 
-def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, quantize_sq):
-    """The IVF build over the corpus made again by id, then the IVF-SQ,
-    IVF-BQ and IVF-OPQ ladders and, with --ivf-residual, the residual legs."""
-    args, dev = h.args, h.device
-    N, D, B, K = h.N, h.D, h.B, h.K
-    dot = DistanceType.DOT
-    m = len(division)
-    actual, lane = sq_ops.actual_dim(D), sq_ops.lane_dim(D)
-    w = -(-D // 32)
-    w8 = w + (-w) % 8
+def ivf_opq_legs(n: int, nbk: int):
+    """The JAX harness's IVF-OPQ legs (tools/bench_10m.py:988-1010) at ``n``
+    rows in ``nbk`` buckets: the coarse nscans (nprobe 64) at 4.75 / 11.86
+    / 23.72 % of the buckets, and the rescored (R, nprobe, nscan) at R 80
+    and 160 over 11.86 % and R 160 over the deepest scan. At capacity scale
+    (n >= 50M) the scans stop at 11.86 %, so the deepest is that one and R
+    160 over it appears twice, and R 320 and 640 follow over it."""
+    cap = n >= 50_000_000
+    coarse = ladder((0.0475, 0.1186) if cap else (0.0475, 0.1186, 0.2372), nbk)
+    mid = ladder((0.1186,), nbk)[0]
+    deep = ladder((0.1186,) if cap else (0.2372,), nbk)[0]
+    rows = [(80, 64, mid), (160, 64, mid), (160, 64, deep)]
+    if cap:
+        rows += [(320, 64, deep), (640, 64, deep)]
+    return coarse, rows
 
-    S = args.ivf_bucket or auto_geometry(N, args.ivf_residual)[1]
-    nlist = args.nlist or max(1, N // (3 * S))
-    h.say(f"IVF geometry: nlist={nlist} S={S}"
-          f"{' (auto)' if not (args.nlist and args.ivf_bucket) else ''}")
+
+def ivf_opqr_legs(n: int, nbk: int):
+    """The JAX harness's residual IVF-OPQ legs (tools/bench_10m.py:1203-1232):
+    the coarse nscans as ``ivf_opq_legs``', and the rescored (R, nprobe,
+    nscan) at R 40 over 11.86 % and R 40 and 160 over the deepest scan; at
+    capacity scale, where coarse recall saturates by the 4.75 % scan, R 40,
+    160 and 320 over 4.75 % and R 160 and 320 over 11.86 %."""
+    coarse, _ = ivf_opq_legs(n, nbk)
+    mid = ladder((0.1186,), nbk)[0]
+    if n >= 50_000_000:
+        lo = ladder((0.0475,), nbk)[0]
+        return coarse, [(40, 64, lo), (160, 64, lo), (320, 64, lo), (160, 64, mid),
+                        (320, 64, mid)]
+    deep = ladder((0.2372,), nbk)[0]
+    return coarse, [(40, 64, mid), (40, 64, deep), (160, 64, deep)]
+
+
+def ivf_build(h: Harness, nlist: int, S: int) -> IVFBuild:
+    """The IVF build over the corpus made again by id: the coarse centres,
+    the assignment, the buckets and their means."""
+    N, B = h.N, h.B
     t0 = time.perf_counter()
     smp = h.rows.batch(0)[: min(B, IVF_SAMPLE_BATCH)]
     sample_n = ivf_ops.training_rows(N, nlist)
@@ -625,7 +724,7 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
     # The residual calibration sample goes to the host: on the card its
     # view would pin all of batch 0 (768 MB at 250,000 x 768) through the
     # legs.
-    smp = smp.cpu().numpy() if args.ivf_residual else None
+    smp = smp.cpu().numpy()
     h.timed(f"IVF coarse training ({nlist} centres, {sample_n} rows):", t0)
     t1 = time.perf_counter()
     assign = assign_rows(h, ivf_centers)
@@ -634,15 +733,41 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
     perm, bucket_ids = ivf_ops.build_buckets(assign, S)
     del assign
     nbk = bucket_ids.shape[0]
-    total_rows = nbk * S
     h.timed("IVF buckets:", t1)
     h.timed("IVF build: centers+assign+buckets", t0,
-            f" ({nbk} buckets x {S}, pad {total_rows - N} rows)")
+            f" ({nbk} buckets x {S}, pad {nbk * S - N} rows)")
 
     t0 = time.perf_counter()
     means = bucket_means_by_id(h.rows, perm, bucket_ids)
     h.timed("IVF bucket means:", t0)
     h.hbm_probe("after means")
+    return IVFBuild(ivf_centers, smp, perm, bucket_ids, means)
+
+
+def ivf_legs(h, build: Build, division, params_dot, queries, alpha, offset, mult,
+             quantize_sq):
+    """The IVF build (``build.ivf``, made here unless kept), then the
+    IVF-SQ, IVF-BQ and IVF-OPQ ladders and, with --ivf-residual, the
+    residual legs."""
+    args, dev = h.args, h.device
+    N, D, K = h.N, h.D, h.K
+    dot = DistanceType.DOT
+    m = len(division)
+    actual, lane = sq_ops.actual_dim(D), sq_ops.lane_dim(D)
+    w = -(-D // 32)
+    w8 = w + (-w) % 8
+    sample, gt = build.sample, build.gt
+
+    nlist, S = ivf_geometry(args)
+    h.say(f"IVF geometry: nlist={nlist} S={S}"
+          f"{' (auto)' if not (args.nlist and args.ivf_bucket) else ''}")
+    if build.ivf is None:
+        build.ivf = ivf_build(h, nlist, S)
+    ivf_centers, smp, perm, bucket_ids, means = (
+        build.ivf.centers, build.ivf.smp, build.ivf.perm, build.ivf.bucket_ids,
+        build.ivf.means)
+    nbk = bucket_ids.shape[0]
+    total_rows = nbk * S
 
     params_inner = VectorParameters(D, total_rows, dot, False)
     # The permuted corpus axis padded to every family's tile (SQ 512, PQ
@@ -717,10 +842,6 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
         del ivf, inner, eq, planes
         h.free()
 
-    cap = N >= 50_000_000  # capacity scale: the OPQ scans stop at ~12 %
-    fracs = (0.0475, 0.1186) if cap else (0.0475, 0.1186, 0.2372)
-    deep = ladder((0.1186,) if cap else (0.2372,), nbk)[0]
-    mid = ladder((0.1186,), nbk)[0]
     if args.ivf_base in ("all", "opq"):
         t0 = time.perf_counter()
         rot, cents = train_opq(sample, division, pq_ops.CENTROIDS_COUNT, device=dev)
@@ -738,15 +859,15 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
             codes.finish(), PQMetadata(cents, division, params_inner, rotation=rot))
         h.timed("IVF-OPQ train+permuted encode:", t0)
         ivf = IVFIndex(inner, bucket_ids, means, meta("pq"))
+        h.resident("IVF-OPQ", ivf)
         eq = ivf.encode_query(queries)
-        for u in ladder(fracs, nbk):
+        coarse, rows = ivf_opq_legs(N, nbk)
+        for u in coarse:
             h.report(f"IVF-OPQ p=64 nscan={u}", lambda u=u: ivf.top_k_device(
                 eq, K, method="approx", nprobe=64, nscan=u), gt)
-        rows = [(80, 64, mid), (160, 64, mid), (160, 64, deep)]
-        if cap:
-            rows += [(320, 64, deep), (640, 64, deep)]
         for rr, p, u in rows:
             h.report(f"2s IVF-OPQ->f32 R={rr} p={p} nscan={u}", ivf_f32(ivf, eq, rr, p, u), gt)
+        h.serving_peak("IVF-OPQ")
         del ivf, inner, eq, codes
         h.free()
 
@@ -831,19 +952,16 @@ def ivf_legs(h, sample, division, params_dot, gt, queries, alpha, offset, mult, 
             codes.finish(), PQMetadata(cents, division, params_inner, rotation=rot))
         h.timed("IVF-OPQ residual train+encode:", t0)
         ivf = IVFIndex(inner, bucket_ids, means, meta("pq", residual=True))
+        h.resident("IVF-OPQr", ivf)
         eq = ivf.encode_query(queries)
-        for u in ladder(fracs, nbk):
+        coarse, rows = ivf_opqr_legs(N, nbk)
+        for u in coarse:
             h.report(f"IVF-OPQr p=64 nscan={u}", lambda u=u: ivf.top_k_device(
                 eq, K, method="approx", nprobe=64, nscan=u), gt)
-        rescue = [(40, 64, mid), (40, 64, deep), (160, 64, deep)]
-        if cap:
-            # Coarse saturates by the ~5 % scan at capacity: both widths.
-            lo = ladder((0.0475,), nbk)[0]
-            rescue = [(40, 64, lo), (160, 64, lo), (320, 64, lo), (160, 64, deep),
-                      (320, 64, deep)]
-        for rr, p, u in rescue:
+        for rr, p, u in rows:
             h.report(f"2s IVF-OPQr->f32 R={rr} p={p} nscan={u}", ivf_f32(ivf, eq, rr, p, u),
                      gt)
+        h.serving_peak("IVF-OPQr")
         del ivf, inner, eq, codes
         h.free()
 
@@ -903,7 +1021,11 @@ def finish(h: Harness) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, keep=None) -> int:
+    """The harness at the flags ``argv``; 1 if any leg failed, else 0.
+    ``keep``, a dict, holds a run's ``Build`` under its ``build_key``: a run
+    with an equal key takes it and prints one line saying so, any other run
+    builds afresh and leaves its own there."""
     args = parser().parse_args(argv)
     args.ivf = args.ivf or args.ivf_residual
     if args.n % args.batch:
@@ -911,7 +1033,7 @@ def main(argv=None) -> int:
     if args.d % args.chunk_size:
         parser().error("--chunk-size must divide --d")
     resolve_device(args.device)  # NoDeviceError before any work
-    return run(args)
+    return run(args, keep)
 
 
 if __name__ == "__main__":

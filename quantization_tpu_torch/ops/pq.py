@@ -99,7 +99,9 @@ def sq_distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     c2 = torch.sum(c * c, dim=2)
     with full_f32():
         xc = torch.bmm(x, c.transpose(1, 2))
-    return x2 + c2[:, None, :] - 2.0 * xc
+    # The doubling is exact, so subtracting 2 x.c in place rounds as the
+    # expression does, without a [g, B, k] temporary for 2 x.c.
+    return (x2 + c2[:, None, :]).sub_(xc, alpha=2.0)
 
 
 def encode_batch(x_chunks: torch.Tensor, c_chunks: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,6 @@ to the JAX package where it has the rule, without building 100M rows:
     once, and print exactly the IVF-BQ legs."""
 
 import ast
-import pathlib
 import re
 import types
 
@@ -31,34 +30,10 @@ from quantization_tpu.ops import ivf as j_ivf
 from quantization_tpu_torch.bench import bench_10m
 from quantization_tpu_torch.models import ivf as t_ivf_model
 from quantization_tpu_torch.ops import ivf as t_ivf
+from torch_capacity_cases import (CAPACITY_ARGV, JAX_HARNESS, N_CAP, NBK_CAP, NLIST_CAP, S_CAP,
+                                  jax_ladder, jax_main, run_stmts)
 
 torch.set_num_threads(1)
-
-N_CAP = 100_000_000
-NLIST_CAP, S_CAP = 32_552, 1024
-NBK_CAP = 114_026  # the JAX run's bucket count (BASELINE.md:578-579)
-JAX_HARNESS = pathlib.Path(__file__).resolve().parent.parent / "tools" / "bench_10m.py"
-# chip_smoke.py's path 10 (its CAPACITY_ARGV); a later flag wins.
-CAPACITY_ARGV = ["--n", "100000000", "--batch", "250000", "--d", "768", "--dist", "realistic",
-                 "--normalize", "--only", "none", "--ivf", "--ivf-base", "bq"]
-
-
-def jax_main():
-    tree = ast.parse(JAX_HARNESS.read_text(), str(JAX_HARNESS))
-    return next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
-
-
-def run_stmts(stmts, ns):
-    exec(compile(ast.Module(body=list(stmts), type_ignores=[]), str(JAX_HARNESS), "exec"), ns)
-    return ns
-
-
-def jax_ladder(nbk):
-    """The JAX harness's ``ladder`` (a closure over its bucket count),
-    compiled from its source with ``nbk`` buckets."""
-    fn = next(n for n in ast.walk(jax_main())
-              if isinstance(n, ast.FunctionDef) and n.name == "ladder")
-    return run_stmts([fn], {"nbk": nbk})["ladder"]
 
 
 def jax_ivf_bq_legs(n, nbk):

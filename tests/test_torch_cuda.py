@@ -1062,6 +1062,35 @@ def test_k11_pq_indexed_equal_plain(dev, kc, m, tile_n, residual, precision):
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+@pytest.mark.parametrize("precision, residual", [("int8", False), ("bf16x2", True)])
+def test_k11_pq_indexed_past_2_31_code_bytes(dev, precision, residual):
+    """K11 over [96, npad] u8 codes with 96 * npad past 2^31 (2.4 GB: the
+    100M index's layout at a quarter of its slots), so the offsets c * npad
+    + row of the chunks from 86 on pass 2^31. A few tiles, the last among
+    them, so most rows are never read; values and ids equal plain with the
+    int8 LUT of IVF-OPQ, and with the bf16x2 LUT and the additives of
+    residual IVF-OPQ."""
+    m, tile_n, q = 96, 1024, 64
+    npad = 24 << 20
+    assert m * npad > 2**31 and 86 * npad > 2**31
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    codes_t = torch.randint(0, 256, (m, npad), generator=g, device=dev, dtype=torch.uint8)
+    lut = torch.randn(q, m, 256, generator=g, device=dev) * 2 + torch.randn(
+        q, m, 1, generator=g, device=dev)
+    nt = npad // tile_n
+    sel = torch.tensor([nt - 1, 0, 5, nt // 2, nt - 7], dtype=torch.int32, device=dev)
+    rowadd, corr = (_pq_residual(dev, q, npad, sel.shape[0] * tile_n // 512, True, seed=11)
+                    if residual else (None, None))
+    kw = dict(k=40, precision=precision, tile_n=tile_n)
+    before = pq_kernel.LAUNCHES["pq_search_indexed"]
+    v, i = pq_kernel.pq_search_indexed(lut, codes_t, sel, rowadd, corr, **kw)
+    assert pq_kernel.LAUNCHES["pq_search_indexed"] == before + 1
+    pv, pi = pq_kernel.pq_search_indexed_plain(lut, codes_t, sel, rowadd, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 @pytest.mark.parametrize("precision", PQ_PRECISIONS)
 @pytest.mark.parametrize("kc,m", [(256, 32), (16, 48), (256, 2), (256, 18), (256, 96)])
